@@ -1,0 +1,32 @@
+"""Parameter interchange with the JAX package.
+
+Both packages hold parameters as the same nested tree of dicts and lists
+(groups ``embed`` / ``rnn`` / ``mult``, weights ``[in, out]``).  The JAX
+side hands its tree over as numpy arrays (``jax.tree.map(np.asarray, p)``),
+so the conversion is a plain copy leaf by leaf and nothing here imports jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def map_tree(fn, tree):
+    """Apply ``fn`` to every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_jax(tree, device="cpu"):
+    """Nested dicts/lists of numpy arrays -> the same tree of tensors."""
+    return map_tree(
+        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device), tree)
+
+
+def params_to_jax(params):
+    """Tree of tensors -> the same tree of numpy arrays (host copies)."""
+    return map_tree(lambda t: t.detach().cpu().numpy(), params)

@@ -3,11 +3,18 @@
 The JAX package ``rau_vqa_tpu`` is the reference; this package imports none
 of it and no JAX.  Layout mirrors the JAX package:
 
-- ``config``   — model configuration and presets
+- ``config``   — model and training configuration, presets
 - ``convert``  — parameter interchange with the JAX package's tree
-- ``models``   — LSTM cells, the RAU eval forward, hop aggregation
+- ``models``   — LSTM cells, the RAU forward (eval and fused training), hop
+  aggregation
 - ``ops``      — hand-written CUDA kernels (``csrc/``) with plain versions
 - ``eval``     — prediction and the serving step
+- ``train``    — losses, optimizers and the train step
 """
 
-from rau_vqa_tpu_torch.config import ModelConfig, get_preset  # noqa: F401
+from rau_vqa_tpu_torch.config import (  # noqa: F401
+    ModelConfig,
+    TrainConfig,
+    get_preset,
+    get_train_preset,
+)

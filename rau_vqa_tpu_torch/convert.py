@@ -12,13 +12,25 @@ import numpy as np
 import torch
 
 
-def map_tree(fn, tree):
-    """Apply ``fn`` to every leaf of a tree of dicts and lists."""
+def map_tree(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of a tree of dicts and lists; with more
+    trees of the same structure, ``fn`` takes their leaves side by side."""
     if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [map_tree(fn, v) for v in tree]
-    return fn(tree)
+        return [map_tree(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in ``map_tree`` order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 def params_from_jax(tree, device="cpu"):

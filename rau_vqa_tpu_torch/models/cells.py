@@ -1,16 +1,18 @@
-"""LSTM cells of the RAU model, eval mode, as plain functions on tensors.
+"""LSTM cells of the RAU model as plain functions on tensors.
 
 Two cells with the reference's two gate conventions:
 
 - ``deep_lstm_cell``: the question LSTM (reference model/DeepLSTM.lua).
   Packed state ``[B, 2*n*R]`` of per-layer ``(c, h)`` pairs; gate layout
-  ``[in, forget, out | in_transform]`` (DeepLSTM.lua:47-54).
+  ``[in, forget, out | in_transform]`` (DeepLSTM.lua:47-54).  In training,
+  dropout hits the input of layers >= 2 only (DeepLSTM.lua:39).
 - ``att_lstm_cell``: the answering-unit LSTM (reference model/ATTLSTM.lua).
   Separate ``c`` / ``h`` tensors; gate layout ``[in, in_transform, forget,
-  out]`` (ATTLSTM.lua:16-19).
+  out]`` (ATTLSTM.lua:16-19).  In training, dropout hits every layer's input
+  (ATTLSTM.lua:52).
 
-Weights are ``[in, out]`` (``x @ W``), as in the JAX package.  Dropout is a
-training-time feature and lives in the training slice.
+Weights are ``[in, out]`` (``x @ W``), as in the JAX package.  Dropout masks
+come from an explicit ``torch.Generator`` on the tensors' device.
 """
 
 from __future__ import annotations
@@ -20,6 +22,15 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 Params = Dict
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            train: bool) -> torch.Tensor:
+    """Inverted dropout (scale at train time), torch nn.Dropout semantics."""
+    if not train or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _uniform(gen: torch.Generator, shape, scale: float, device) -> torch.Tensor:
@@ -49,18 +60,23 @@ def lstm_init(gen: torch.Generator, input_size: int, rnn_size: int,
 
 
 def deep_lstm_cell(params: Params, x: torch.Tensor, state: torch.Tensor, *,
-                   rnn_size: int,
+                   rnn_size: int, dropout_rate: float = 0.0,
+                   train: bool = False,
+                   generator: Optional[torch.Generator] = None,
                    l1_in_gates: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One timestep of the packed-state question LSTM.
 
     ``l1_in_gates``: optional precomputed ``x @ wi + bi`` for layer 1, which
-    the encoder hoists out of the time loop as one batched product."""
+    the encoder hoists out of the time loop as one batched product (layer
+    1's input is never dropped)."""
     R = rnn_size
     inp = x
     outs: List[torch.Tensor] = []
     for L, lp in enumerate(params["layers"]):
         c = state[:, 2 * L * R:(2 * L + 1) * R]
         h = state[:, (2 * L + 1) * R:(2 * L + 2) * R]
+        if L > 0:
+            inp = dropout(inp, dropout_rate, generator, train)
         if L == 0 and l1_in_gates is not None:
             gates = l1_in_gates + (h @ lp["wh"] + lp["bh"])
         else:
@@ -76,7 +92,9 @@ def deep_lstm_cell(params: Params, x: torch.Tensor, state: torch.Tensor, *,
 
 
 def att_lstm_cell(params: Params, x: torch.Tensor, prev_c: torch.Tensor,
-                  prev_h: torch.Tensor, *, rnn_size: int
+                  prev_h: torch.Tensor, *, rnn_size: int,
+                  dropout_rate: float = 0.0, train: bool = False,
+                  generator: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One step of the answering-unit LSTM with separate (c, h) state."""
     R = rnn_size
@@ -86,6 +104,7 @@ def att_lstm_cell(params: Params, x: torch.Tensor, prev_c: torch.Tensor,
     for L, lp in enumerate(params["layers"]):
         c = prev_c[:, L * R:(L + 1) * R]
         h = prev_h[:, L * R:(L + 1) * R]
+        inp = dropout(inp, dropout_rate, generator, train)
         gates = (inp @ lp["wi"] + lp["bi"]) + (h @ lp["wh"] + lp["bh"])
         i_g = torch.sigmoid(gates[:, :R])
         g_t = torch.tanh(gates[:, R:2 * R])

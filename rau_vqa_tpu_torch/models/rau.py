@@ -1,12 +1,14 @@
-"""The RAU (Recurrent Answering Units) VQA model, eval forward, in PyTorch.
+"""The RAU (Recurrent Answering Units) VQA model in PyTorch.
 
 Counterpart of ``rau_vqa_tpu/models/rau.py``: the same parameter tree
 (groups ``embed`` / ``rnn`` / ``mult``, weights ``[in, out]``), the same
 layer-1 input hoist in the question encoder, the same vectorized last-token
 gather, and the same eval hoists of the image embedding and the question
-projection out of the hop loop.  This is the plain float32 path; the serving
+projection out of the hop loop.  Eval is the plain float32 path; the serving
 step runs the question LSTM and the hop loop in CUDA kernels
-(``rau_vqa_tpu_torch/ops``).
+(``rau_vqa_tpu_torch/ops``).  Training runs the fused configuration
+(``fused_train=True``): the encoder in PyTorch under autograd, the hop loop
+through ``ops.rau_train_hops.rau_train_hops``.
 """
 
 from __future__ import annotations
@@ -20,9 +22,11 @@ from rau_vqa_tpu_torch.models.cells import (
     _uniform,
     att_lstm_cell,
     deep_lstm_cell,
+    dropout,
     linear_init,
     lstm_init,
 )
+from rau_vqa_tpu_torch.ops.rau_train_hops import rau_train_hops
 
 Params = Dict
 
@@ -82,11 +86,23 @@ def embed_question(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def encode_question(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
+                    lengths: torch.Tensor, *, train: bool = False,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
     """tokens [B, T] (0 = ZEROPAD), lengths [B] in [1, T] -> the packed
-    (c, h) LSTM state at each question's last token, [B, rnnout_dim]."""
+    (c, h) LSTM state at each question's last token, [B, rnnout_dim].
+
+    In training, the word embedding is dropped before its tanh with one mask
+    per timestep (so a mask does not depend on T), and the LSTM drops the
+    input of layers >= 2; masks come from ``generator``."""
     B, T = tokens.shape
-    emb = embed_question(params, tokens)
+    if train and cfg.embed_dropout > 0.0:
+        raw = params["embed"]["lookup"][tokens.long()]
+        emb = torch.tanh(torch.stack(
+            [dropout(raw[:, t], cfg.embed_dropout, generator, True)
+             for t in range(T)], dim=1))
+    else:
+        emb = embed_question(params, tokens)
     l1 = params["rnn"]["layers"][0]
     # layer 1's input projection has no serial dependency: one batched product
     l1_gates = (emb.reshape(B * T, -1) @ l1["wi"] + l1["bi"]).reshape(B, T, -1)
@@ -95,6 +111,8 @@ def encode_question(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for t in range(T):
         state = deep_lstm_cell(params["rnn"], emb[:, t], state,
                                rnn_size=cfg.rnn_size,
+                               dropout_rate=cfg.rnn_dropout, train=train,
+                               generator=generator,
                                l1_in_gates=l1_gates[:, t])
         states.append(state)
     states = torch.stack(states)                                # [T, B, D]
@@ -143,12 +161,19 @@ def answering_unit(mp: Params, cfg: ModelConfig, q: torch.Tensor,
 
 def rau_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 lengths: torch.Tensor, feats: torch.Tensor, *,
-                train: bool = False) -> RAUOutput:
-    """End-to-end eval forward: tokens [B, T], lengths [B], feats [B, S, Dc]."""
+                train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                hop_seed=None) -> RAUOutput:
+    """End-to-end forward: tokens [B, T], lengths [B], feats [B, S, Dc].
+
+    ``train=True`` needs ``cfg.fused_train``: the hop loop runs through
+    ``rau_train_hops`` with counter-hash dropout masks seeded by
+    ``hop_seed`` (an int32 in [0, 2^31 - 1); drawn from ``generator`` when
+    None).  ``do_pred``, ``attprob`` and the final state carry no gradient
+    (the reference zeroes d_do_pred, :565-567)."""
     if train:
-        raise NotImplementedError(
-            "rau_forward(train=True) belongs to the training slice of the "
-            "port (dropout, losses, optimizers); only eval is ported")
+        return _train_forward(params, cfg, tokens, lengths, feats,
+                              generator, hop_seed)
     B = tokens.shape[0]
     mp = params["mult"]
     q = encode_question(params, cfg, tokens, lengths)
@@ -166,3 +191,30 @@ def rau_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         attprobs.append(a)
     return RAUOutput(torch.stack(scores), torch.stack(do_preds),
                      torch.stack(attprobs), c, h)
+
+
+UNFUSED_TRAINING = (
+    "training runs the fused configuration (fused_train=True); the unfused "
+    "path (per-hop random dropout, att_rnn_dropout, remat_hops) is still to "
+    "port (ROADMAP.md, queue 1, 'unfused training path')")
+
+
+def _train_forward(params: Params, cfg: ModelConfig, tokens, lengths, feats,
+                   generator: Optional[torch.Generator], hop_seed) -> RAUOutput:
+    if not cfg.fused_train:
+        raise NotImplementedError(UNFUSED_TRAINING)
+    needs_gen = (cfg.embed_dropout > 0.0 or cfg.rnn_dropout > 0.0
+                 or (cfg.mult_dropout > 0.0 and hop_seed is None))
+    if generator is None and needs_gen:
+        raise ValueError("rau_forward(train=True) with dropout enabled "
+                         "requires a generator")
+    q = encode_question(params, cfg, tokens, lengths, train=True,
+                        generator=generator)
+    if hop_seed is None:
+        hop_seed = (torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                  device=generator.device, dtype=torch.int32)
+                    if generator is not None else 0)
+    scores, do_pred, attprob, fc, fh = rau_train_hops(
+        params["mult"], cfg, q, feats, hop_seed)
+    return RAUOutput(scores, do_pred.detach(), attprob.detach(), fc.detach(),
+                     fh.detach())

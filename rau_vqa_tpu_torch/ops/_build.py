@@ -48,9 +48,15 @@ def report_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing, or older than its source or any shared
+    header in ``csrc/``."""
     lib = library_path(name)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(source_path(name)))
+    if not os.path.exists(lib):
+        return True
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+               if f.endswith(".cuh")]
+    newest = max(os.path.getmtime(p) for p in [source_path(name)] + headers)
+    return os.path.getmtime(lib) < newest
 
 
 def build_all(names: Iterable[str], force: bool = False) -> Dict[str, str]:

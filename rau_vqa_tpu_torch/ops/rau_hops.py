@@ -19,6 +19,7 @@ from rau_vqa_tpu_torch.config import ModelConfig
 from rau_vqa_tpu_torch.convert import map_tree
 from rau_vqa_tpu_torch.ops._build import Kernel
 from rau_vqa_tpu_torch.ops.lstm_encoder import dot
+from rau_vqa_tpu_torch.ops.treeflat import mult_shapes, pluck
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,12 +41,6 @@ WEIGHT_ORDER: Sequence[Tuple] = (
 
 # the groups of the ``mult`` tree that the hop loop reads
 _GROUPS = tuple(dict.fromkeys(path[0] for path in WEIGHT_ORDER))
-
-
-def _pluck(tree, path):
-    for p in path:
-        tree = tree[p]
-    return tree
 
 
 def pack_hop_weights(mp: Dict) -> Dict:
@@ -120,7 +115,7 @@ def rau_hops(hw: Dict, cfg: ModelConfig, q: torch.Tensor, ifeat: torch.Tensor,
                                   dot_dtype=torch.bfloat16)
     if q.device.type != "cuda":
         raise ValueError(f"rau_hops: unsupported device {q.device}")
-    B, Q = q.shape
+    B, Q = q.shape[0], cfg.rnnout_dim
     S, M, F = cfg.cnn_spat, cfg.multfeat_dim, cfg.attfeat_dim
     R, A, H = cfg.att_rnn_size, cfg.answer_size, cfg.n_hops
     if cfg.att_rnn_layers != 1:
@@ -131,20 +126,8 @@ def rau_hops(hw: Dict, cfg: ModelConfig, q: torch.Tensor, ifeat: torch.Tensor,
     checks = [("q", q, torch.float32, (B, Q)),
               ("ifeat", ifeat, torch.bfloat16, (B, S, M)),
               ("iatt", iatt, torch.bfloat16, (B, S, F))]
-    shapes = {("q_proj", "w"): (Q, M), ("q_proj", "b"): (M,),
-              ("h_proj", "w"): (R, M), ("h_proj", "b"): (M,),
-              ("att_q", "w"): (M, F), ("att_q", "b"): (F,),
-              ("att_score", "w"): (F, 1), ("att_score", "b"): (1,),
-              ("att_mem", "w"): (R, S), ("att_mem", "b"): (S,),
-              ("attprob_proj", "w"): (S, M), ("attprob_proj", "b"): (M,),
-              ("attlstm", "layers", 0, "wi"): (M, 4 * R),
-              ("attlstm", "layers", 0, "bi"): (4 * R,),
-              ("attlstm", "layers", 0, "wh"): (R, 4 * R),
-              ("attlstm", "layers", 0, "bh"): (4 * R,),
-              ("merge", "w"): (R, M), ("merge", "b"): (M,),
-              ("cls", "w"): (M, A), ("cls", "b"): (A,),
-              ("do_pred", "w"): (M, 1), ("do_pred", "b"): (1,)}
-    weights = [_pluck(hw, path) for path in WEIGHT_ORDER]
+    shapes = mult_shapes(cfg)
+    weights = [pluck(hw, path) for path in WEIGHT_ORDER]
     checks += [("/".join(map(str, path)), w, torch.bfloat16, shapes[path])
                for path, w in zip(WEIGHT_ORDER, weights)]
     for name, t, dtype, shape in checks:

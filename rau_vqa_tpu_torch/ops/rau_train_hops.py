@@ -1,0 +1,513 @@
+"""The training hop loop: two CUDA kernels, their plain versions, and the
+``torch.autograd.Function`` that joins them.
+
+Counterpart of ``rau_vqa_tpu/ops/rau_train_hops.py``.  In training each hop
+re-embeds the image features under its own dropout masks, so the hop loop is
+where a train step spends its work.  ``rau_train_hops`` runs it fused:
+
+- forward: ``csrc/rau_train_hops_fwd.cu`` runs all hops in one launch and
+  saves only the LSTM carries entering each hop, ``c_all`` / ``h_all``
+  ``[H+1, B, R]``; masks come from the counter hash of ``ops/maskgen.py``;
+- backward (``fused_train_bwd="kernel"``): ``csrc/rau_train_hops_bwd.cu``
+  rematerializes each hop from the carries and the same masks, runs the
+  cotangent chain in reverse, sums the feats-path weight grads per block and
+  emits the small per-hop cotangents; the remaining weight grads and ``dq``
+  are batched products over ``[H*B, *]`` in PyTorch (``_outside_grads``), as
+  the JAX package leaves them to XLA.  ``fused_train_bwd="xla"`` instead runs
+  autograd through ``rau_train_hops_reference``.
+
+CPU tensors run the kernels' plain versions (``train_hops_fwd_reference``,
+``train_hops_bwd_reference``); CUDA tensors launch the kernels or raise.
+``do_pred``, ``attprob`` and the final state are monitors: only the score
+cotangent propagates, ``do_pred``'s weights get exactly zero and ``feats``
+gets no gradient.  Everything is float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from rau_vqa_tpu_torch.config import ModelConfig
+from rau_vqa_tpu_torch.ops._build import Kernel
+from rau_vqa_tpu_torch.ops.maskgen import (
+    dropout_scale_mask,
+    mask_scale,
+    mask_threshold,
+    site_salt,
+)
+from rau_vqa_tpu_torch.ops.treeflat import mult_shapes, pluck, rebuild
+
+# weights the loss differentiates (rau_train_hops.py:53-63)
+_DIFF_WEIGHTS = [
+    ("q_proj", "w"), ("q_proj", "b"), ("h_proj", "w"), ("h_proj", "b"),
+    ("i_embed", "w"), ("i_embed", "b"),
+    ("att_q", "w"), ("att_q", "b"), ("att_i", "w"), ("att_i", "b"),
+    ("att_score", "w"), ("att_score", "b"),
+    ("att_mem", "w"), ("att_mem", "b"),
+    ("attprob_proj", "w"), ("attprob_proj", "b"),
+    ("attlstm", "layers", 0, "wi"), ("attlstm", "layers", 0, "bi"),
+    ("attlstm", "layers", 0, "wh"), ("attlstm", "layers", 0, "bh"),
+    ("merge", "w"), ("merge", "b"), ("cls", "w"), ("cls", "b"),
+]
+# do_pred is forward-only (zero gradient: the "DontSelect" rule); this is
+# also the kernels' weight-pointer order
+_FWD_WEIGHTS = _DIFF_WEIGHTS + [("do_pred", "w"), ("do_pred", "b")]
+# grads summed inside the backward kernel: those of the feats path
+_INKERNEL_GRADS = [("i_embed", "w"), ("i_embed", "b"),
+                   ("att_i", "w"), ("att_i", "b"), ("att_score", "w")]
+# per-hop tensors the backward emits for the outside products: (name, width)
+_EMITS = [("dpre_q", "M"), ("dqatt", "F"), ("dscore_att", "S"),
+          ("djoin", "M"), ("dgates", "G"), ("dmerge_pre", "M"),
+          ("qfeat", "M"), ("join", "M"), ("merge_d", "M")]
+
+_SITE_FEATS, _SITE_Q, _SITE_MERGE = 0, 1, 2
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_DROPOUT_ARGS = [ctypes.c_uint32, ctypes.c_float, _I, _P]
+FWD_KERNEL = Kernel("rau_train_hops_fwd", "train_hops_fwd_launch",
+                    [_P, _P, _P, ctypes.POINTER(_P)] + [_P] * 6 + [_I] * 9
+                    + _DROPOUT_ARGS)
+BWD_KERNEL = Kernel("rau_train_hops_bwd", "train_hops_bwd_launch",
+                    [_P] * 6 + [ctypes.POINTER(_P), _P, ctypes.POINTER(_P),
+                                ctypes.POINTER(_P)] + [_I] * 8 + _DROPOUT_ARGS)
+
+
+def check_fused_config(cfg: ModelConfig) -> None:
+    """The fused path (kernels and plain versions) supports the reference
+    configuration in float32: a 1-layer ATTLSTM, no att_rnn_dropout."""
+    if cfg.att_rnn_layers != 1 or cfg.att_rnn_dropout > 0.0:
+        raise NotImplementedError(
+            "fused training path supports the reference configuration "
+            "(1-layer ATTLSTM, no att_rnn_dropout)")
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"fused training path computes in float32; compute_dtype "
+            f"{cfg.compute_dtype!r} belongs to the from-pixels slice of the "
+            f"port (ROADMAP.md, queue 1)")
+    if cfg.fused_train_bwd not in ("kernel", "xla"):
+        raise ValueError(f"fused_train_bwd must be 'kernel' or 'xla', got "
+                         f"{cfg.fused_train_bwd!r}")
+
+
+def _seed_tensor(seed, device) -> torch.Tensor:
+    return torch.as_tensor(seed, dtype=torch.int32, device=device).reshape(1)
+
+
+def _masks(cfg: ModelConfig, shapes, seed, hop: int):
+    """The three per-hop dropout scale masks (feats, q, merge) of the whole
+    batch; ``None`` without dropout."""
+    rate = cfg.mult_dropout
+    if rate <= 0.0:
+        return None, None, None
+    (B, S, Dc), (_, Q), (_, M) = shapes
+    fm = dropout_scale_mask((B, S, Dc), 0, site_salt(seed, hop, _SITE_FEATS), rate)
+    qm = dropout_scale_mask((B, Q), 0, site_salt(seed, hop, _SITE_Q), rate)
+    mm = dropout_scale_mask((B, M), 0, site_salt(seed, hop, _SITE_MERGE), rate)
+    return fm, qm, mm
+
+
+def _hop_fwd_core(mp, q, feats, c, hprev, fm, qm, mm) -> Dict:
+    """One training hop (``_hop_fwd_core``, :104-167) with explicit masks."""
+    B, S, Dc = feats.shape
+    t: Dict = {}
+    x = feats * fm if fm is not None else feats
+    t["feats_d"] = x
+    prei = (x.reshape(B * S, Dc) @ mp["i_embed"]["w"]).reshape(B, S, -1) \
+        + mp["i_embed"]["b"]
+    t["ifeat"] = torch.tanh(prei)                                 # [B, S, M]
+    M = t["ifeat"].shape[-1]
+    t["iatt"] = (t["ifeat"].reshape(B * S, M) @ mp["att_i"]["w"]
+                 ).reshape(B, S, -1) + mp["att_i"]["b"]           # [B, S, F]
+    F = t["iatt"].shape[-1]
+    t["q_d"] = q * qm if qm is not None else q
+    t["qfeat"] = torch.tanh(t["q_d"] @ mp["q_proj"]["w"] + mp["q_proj"]["b"]
+                            + hprev @ mp["h_proj"]["w"] + mp["h_proj"]["b"])
+    t["qatt"] = t["qfeat"] @ mp["att_q"]["w"] + mp["att_q"]["b"]  # [B, F]
+    t["addfeat"] = torch.tanh(t["iatt"] + t["qatt"][:, None, :])  # [B, S, F]
+    score_c = (t["addfeat"].reshape(B * S, F) @ mp["att_score"]["w"]).reshape(B, S)
+    attscore = (score_c + mp["att_score"]["b"][0]
+                + hprev @ mp["att_mem"]["w"] + mp["att_mem"]["b"])
+    t["attprob"] = torch.softmax(attscore, dim=-1)                # [B, S]
+    t["attfeat"] = torch.sum(t["ifeat"] * t["attprob"][:, :, None], dim=1)
+    t["join"] = (t["qfeat"] + t["attfeat"]
+                 + t["attprob"] @ mp["attprob_proj"]["w"] + mp["attprob_proj"]["b"])
+    lp = mp["attlstm"]["layers"][0]
+    R = c.shape[-1]
+    gates = t["join"] @ lp["wi"] + lp["bi"] + hprev @ lp["wh"] + lp["bh"]
+    # ATTLSTM gate order [i, g, f, o] (ATTLSTM.lua:16-19)
+    t["i_g"] = torch.sigmoid(gates[:, :R])
+    t["g_t"] = torch.tanh(gates[:, R:2 * R])
+    t["f_g"] = torch.sigmoid(gates[:, 2 * R:3 * R])
+    t["o_g"] = torch.sigmoid(gates[:, 3 * R:])
+    t["c_prev"] = c
+    t["c_new"] = t["f_g"] * c + t["i_g"] * t["g_t"]
+    t["tanh_c"] = torch.tanh(t["c_new"])
+    t["h_new"] = t["o_g"] * t["tanh_c"]
+    t["merge_pre"] = t["join"] + t["h_new"] @ mp["merge"]["w"] + mp["merge"]["b"]
+    t["merge_d"] = t["merge_pre"] * mm if mm is not None else t["merge_pre"]
+    if "cls" in mp:
+        t["score"] = t["merge_d"] @ mp["cls"]["w"] + mp["cls"]["b"]  # [B, A]
+    return t
+
+
+def _hop_bwd_core(mp, t, dmerge_d, dc_in, dh_in, mm):
+    """Backward of one hop (``_hop_bwd_core``, :170-276): the cotangent chain,
+    the feats-path weight grads (biases 1-D here) and the emissions.
+    Returns (emissions, grads, dc_prev, dh_prev)."""
+    B, S, Dc = t["feats_d"].shape
+    M = t["join"].shape[-1]
+    F = t["qatt"].shape[-1]
+    em: Dict[str, torch.Tensor] = {}
+    gw: Dict[Tuple, torch.Tensor] = {}
+
+    dmerge_pre = dmerge_d * mm if mm is not None else dmerge_d
+    em["dmerge_pre"] = dmerge_pre
+    em["merge_d"] = t["merge_d"]
+    djoin = dmerge_pre
+    dh_new = dmerge_pre @ mp["merge"]["w"].T + dh_in
+    # ATTLSTM cell backward
+    do_g = dh_new * t["tanh_c"]
+    dc_new = dh_new * t["o_g"] * (1.0 - t["tanh_c"] ** 2) + dc_in
+    df_g = dc_new * t["c_prev"]
+    dc_prev = dc_new * t["f_g"]
+    di_g = dc_new * t["g_t"]
+    dg_t = dc_new * t["i_g"]
+    dgates = torch.cat([
+        di_g * t["i_g"] * (1.0 - t["i_g"]),
+        dg_t * (1.0 - t["g_t"] ** 2),
+        df_g * t["f_g"] * (1.0 - t["f_g"]),
+        do_g * t["o_g"] * (1.0 - t["o_g"]),
+    ], dim=1)                                                     # [B, 4R]
+    em["dgates"] = dgates
+    em["join"] = t["join"]
+    lp = mp["attlstm"]["layers"][0]
+    djoin = djoin + dgates @ lp["wi"].T
+    dh_prev = dgates @ lp["wh"].T
+    # join = qfeat + attfeat + attprob @ Wp + bp
+    em["djoin"] = djoin
+    dattprob = djoin @ mp["attprob_proj"]["w"].T                  # [B, S]
+    # attfeat = sum_s ifeat * attprob
+    dattprob = dattprob + torch.sum(t["ifeat"] * djoin[:, None, :], dim=2)
+    difeat = t["attprob"][:, :, None] * djoin[:, None, :]         # [B, S, M]
+    dattscore = t["attprob"] * (
+        dattprob - torch.sum(dattprob * t["attprob"], dim=1, keepdim=True))
+    em["dscore_att"] = dattscore
+    dh_prev = dh_prev + dattscore @ mp["att_mem"]["w"].T
+    gw[("att_score", "w")] = (t["addfeat"].reshape(B * S, F).T
+                              @ dattscore.reshape(B * S, 1))     # [F, 1]
+    daddfeat = dattscore[:, :, None] * mp["att_score"]["w"].reshape(1, 1, F)
+    # addfeat = tanh(iatt + qatt)
+    dpre_add = daddfeat * (1.0 - t["addfeat"] ** 2)               # [B, S, F]
+    dqatt = torch.sum(dpre_add, dim=1)                            # [B, F]
+    em["dqatt"] = dqatt
+    em["qfeat"] = t["qfeat"]
+    dqfeat = djoin + dqatt @ mp["att_q"]["w"].T
+    dpre_q = dqfeat * (1.0 - t["qfeat"] ** 2)                     # [B, M]
+    em["dpre_q"] = dpre_q
+    dh_prev = dh_prev + dpre_q @ mp["h_proj"]["w"].T
+    # iatt = ifeat @ Wa + ba
+    difeat = difeat + (dpre_add.reshape(B * S, F)
+                       @ mp["att_i"]["w"].T).reshape(B, S, M)
+    gw[("att_i", "w")] = t["ifeat"].reshape(B * S, M).T @ dpre_add.reshape(B * S, F)
+    gw[("att_i", "b")] = dpre_add.reshape(B * S, F).sum(0)
+    # ifeat = tanh(feats_d @ Wi + bi)
+    dpre_i = difeat * (1.0 - t["ifeat"] ** 2)                     # [B, S, M]
+    gw[("i_embed", "w")] = (t["feats_d"].reshape(B * S, Dc).T
+                            @ dpre_i.reshape(B * S, M))
+    gw[("i_embed", "b")] = dpre_i.reshape(B * S, M).sum(0)
+    return em, gw, dc_prev, dh_prev
+
+
+def _shapes(cfg: ModelConfig, q, feats):
+    B, S, Dc = feats.shape
+    return (B, S, Dc), (B, q.shape[1]), (B, cfg.multfeat_dim)
+
+
+def train_hops_fwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed):
+    """Plain version of the forward kernel: (scores [H, B, A], do_pred
+    [H, B], attprob [H, B, S], c_all [H+1, B, R], h_all [H+1, B, R])."""
+    B = q.shape[0]
+    c = q.new_zeros(B, cfg.att_state_dim)
+    h = q.new_zeros(B, cfg.att_state_dim)
+    scores, dopreds, attprobs, cs, hs = [], [], [], [c], [h]
+    for hop in range(cfg.n_hops):
+        fm, qm, mm = _masks(cfg, _shapes(cfg, q, feats), seed, hop)
+        t = _hop_fwd_core(mp, q, feats, c, h, fm, qm, mm)
+        dopreds.append(torch.sigmoid((t["merge_d"] @ mp["do_pred"]["w"])[:, 0]
+                                     + mp["do_pred"]["b"][0]))
+        scores.append(t["score"])
+        attprobs.append(t["attprob"])
+        c, h = t["c_new"], t["h_new"]
+        cs.append(c)
+        hs.append(h)
+    return (torch.stack(scores), torch.stack(dopreds), torch.stack(attprobs),
+            torch.stack(cs), torch.stack(hs))
+
+
+def rau_train_hops_reference(mp: Dict, cfg: ModelConfig, q, feats, seed):
+    """The training hop loop with the fused path's exact masks, in plain
+    PyTorch and differentiable by autograd: (scores, do_pred, attprob,
+    final_c, final_h)."""
+    check_fused_config(cfg)
+    seed = _seed_tensor(seed, q.device)
+    scores, do_pred, attprob, c_all, h_all = train_hops_fwd_reference(
+        mp, cfg, q, feats, seed)
+    return scores, do_pred, attprob, c_all[-1], h_all[-1]
+
+
+def train_hops_bwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed,
+                             c_all, h_all, gmerge):
+    """Plain version of the backward kernel: the hops in reverse from the
+    saved carries.  Returns (emissions {name: [H, B, width]}, the feats-path
+    grads {path: tensor})."""
+    H = cfg.n_hops
+    shapes = _shapes(cfg, q, feats)
+    dc = torch.zeros_like(c_all[0])
+    dh = torch.zeros_like(h_all[0])
+    ems = [None] * H
+    gw_in: Dict[Tuple, torch.Tensor] = {}
+    for hop in reversed(range(H)):
+        fm, qm, mm = _masks(cfg, shapes, seed, hop)
+        t = _hop_fwd_core(mp, q, feats, c_all[hop], h_all[hop], fm, qm, mm)
+        ems[hop], gw, dc, dh = _hop_bwd_core(mp, t, gmerge[hop], dc, dh, mm)
+        for path, g in gw.items():
+            gw_in[path] = gw_in[path] + g if path in gw_in else g
+    em = {name: torch.stack([e[name] for e in ems]) for name, _ in _EMITS}
+    return em, gw_in
+
+
+def _outside_grads(cfg: ModelConfig, mp, q, seed, h_all, attprob, g_scores, em):
+    """The weight grads of the non-feats path, and dq, as products over the
+    emissions stacked ``[H*B, *]`` (``_outside_grads``, :539-595)."""
+    H = cfg.n_hops
+    B, Q = q.shape
+    rate = cfg.mult_dropout
+
+    def gemm(act, cot):
+        # act [H, B, in], cot [H, B, out] -> [in, out]
+        return act.reshape(-1, act.shape[-1]).T @ cot.reshape(-1, cot.shape[-1])
+
+    h_in = h_all[:H]                       # state entering each hop
+    h_out = h_all[1:]                      # state leaving each hop
+    if rate > 0.0:
+        qmask = torch.stack([
+            dropout_scale_mask((B, Q), 0, site_salt(seed, h, _SITE_Q), rate)
+            for h in range(H)])            # [H, B, Q]
+        q_d = q[None] * qmask
+    else:
+        qmask = None
+        q_d = q[None].expand(H, B, Q)
+
+    def rowsum(x):
+        return x.sum(dim=(0, 1))
+
+    gw = {}
+    gw[("q_proj", "w")] = gemm(q_d, em["dpre_q"])
+    gw[("q_proj", "b")] = rowsum(em["dpre_q"])
+    gw[("h_proj", "w")] = gemm(h_in, em["dpre_q"])
+    gw[("h_proj", "b")] = gw[("q_proj", "b")]
+    gw[("att_q", "w")] = gemm(em["qfeat"], em["dqatt"])
+    gw[("att_q", "b")] = rowsum(em["dqatt"])
+    gw[("att_score", "b")] = em["dscore_att"].sum().reshape(1)
+    gw[("att_mem", "w")] = gemm(h_in, em["dscore_att"])
+    gw[("att_mem", "b")] = rowsum(em["dscore_att"])
+    gw[("attprob_proj", "w")] = gemm(attprob, em["djoin"])
+    gw[("attprob_proj", "b")] = rowsum(em["djoin"])
+    gw[("attlstm", "layers", 0, "wi")] = gemm(em["join"], em["dgates"])
+    gw[("attlstm", "layers", 0, "bi")] = rowsum(em["dgates"])
+    gw[("attlstm", "layers", 0, "wh")] = gemm(h_in, em["dgates"])
+    gw[("attlstm", "layers", 0, "bh")] = gw[("attlstm", "layers", 0, "bi")]
+    gw[("merge", "w")] = gemm(h_out, em["dmerge_pre"])
+    gw[("merge", "b")] = rowsum(em["dmerge_pre"])
+    gw[("cls", "w")] = gemm(em["merge_d"], g_scores)
+    gw[("cls", "b")] = rowsum(g_scores)
+    # dq: (dpre_q @ Wq^T) masked per hop, summed over hops
+    p = (em["dpre_q"].reshape(H * B, -1) @ mp["q_proj"]["w"].T).reshape(H, B, Q)
+    dq = torch.sum(p * qmask, dim=0) if qmask is not None else torch.sum(p, dim=0)
+    return gw, dq
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_cuda(name: str, cfg: ModelConfig, mp, q, feats, seed, extra=()):
+    """Raise unless every input is what the kernels take; returns the
+    dimensions."""
+    d = dict(B=q.shape[0], Q=cfg.rnnout_dim, S=cfg.cnn_spat, Dc=cfg.cnn_dim,
+             M=cfg.multfeat_dim, F=cfg.attfeat_dim, R=cfg.att_state_dim,
+             A=cfg.answer_size, H=cfg.n_hops)
+    B, Q, S, Dc, M, F = (d[k] for k in ("B", "Q", "S", "Dc", "M", "F"))
+    shapes = mult_shapes(cfg)
+    checks = [("q", q, torch.float32, (B, Q)),
+              ("feats", feats, torch.float32, (B, S, Dc)),
+              ("seed", seed, torch.int32, (1,))]
+    checks += [("/".join(map(str, p)), pluck(mp, p), torch.float32, shapes[p])
+               for p in _FWD_WEIGHTS]
+    checks += list(extra)
+    for what, t, dtype, shape in checks:
+        if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name}: {what} must be contiguous {dtype} "
+                             f"{tuple(shape)} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if B * S * Dc >= 2 ** 31 or B * S * (M + F) >= 2 ** 31:
+        raise ValueError(f"{name}: batch {B} too large for 32-bit offsets")
+    return d
+
+
+def _dropout_args(cfg: ModelConfig):
+    rate = cfg.mult_dropout
+    if rate <= 0.0:
+        return (0, 1.0, 0)
+    return (mask_threshold(rate), mask_scale(rate), 1)
+
+
+def _weight_ptrs(mp):
+    ws = [pluck(mp, p) for p in _FWD_WEIGHTS]
+    return (_P * len(ws))(*[w.data_ptr() for w in ws])
+
+
+def _on_cuda(name: str, q) -> bool:
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return True
+
+
+def train_hops_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed):
+    """The forward kernel: (scores [H, B, A], do_pred [H, B], attprob
+    [H, B, S], c_all [H+1, B, R], h_all [H+1, B, R]).  ``seed`` is one int32
+    on ``q``'s device.  CPU tensors run ``train_hops_fwd_reference``."""
+    if not _on_cuda("train_hops_fwd", q):
+        return train_hops_fwd_reference(mp, cfg, q, feats, seed)
+    d = _check_cuda("train_hops_fwd", cfg, mp, q, feats, seed)
+    B, S, M, F, R, A, H = (d[k] for k in "BSMFRAH")
+    dev = q.device
+    work = torch.empty(B * S * (M + F), device=dev, dtype=torch.float32)
+    scores = torch.empty(H, B, A, device=dev, dtype=torch.float32)
+    do_pred = torch.empty(H, B, device=dev, dtype=torch.float32)
+    attprob = torch.empty(H, B, S, device=dev, dtype=torch.float32)
+    c_all = torch.empty(H + 1, B, R, device=dev, dtype=torch.float32)
+    h_all = torch.empty(H + 1, B, R, device=dev, dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    FWD_KERNEL.launch(q.data_ptr(), feats.data_ptr(), seed.data_ptr(),
+                      _weight_ptrs(mp), work.data_ptr(), scores.data_ptr(),
+                      do_pred.data_ptr(), attprob.data_ptr(), c_all.data_ptr(),
+                      h_all.data_ptr(), B, d["Q"], S, d["Dc"], M, F, R, A, H,
+                      *_dropout_args(cfg), stream)
+    return scores, do_pred, attprob, c_all, h_all
+
+
+def train_hops_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all,
+                   gmerge):
+    """The backward kernel: (emissions {name: [H, B, width]}, the feats-path
+    grads {path: tensor}, its per-block partials summed).  ``gmerge`` is the
+    score cotangent times ``cls_w^T``, [H, B, M].  CPU tensors run
+    ``train_hops_bwd_reference``."""
+    if not _on_cuda("train_hops_bwd", q):
+        return train_hops_bwd_reference(mp, cfg, q, feats, seed, c_all, h_all,
+                                        gmerge)
+    B, S = feats.shape[:2]
+    H, R, M = cfg.n_hops, cfg.att_state_dim, cfg.multfeat_dim
+    d = _check_cuda("train_hops_bwd", cfg, mp, q, feats, seed, extra=[
+        ("c_all", c_all, torch.float32, (H + 1, B, R)),
+        ("h_all", h_all, torch.float32, (H + 1, B, R)),
+        ("gmerge", gmerge, torch.float32, (H, B, M))])
+    Dc, F = d["Dc"], d["F"]
+    dev = q.device
+    widths = {"M": M, "F": F, "S": S, "G": 4 * R}
+    em = {name: torch.empty(H, B, widths[w], device=dev, dtype=torch.float32)
+          for name, w in _EMITS}
+    part_shapes = {("i_embed", "w"): (Dc, M), ("i_embed", "b"): (M,),
+                   ("att_i", "w"): (M, F), ("att_i", "b"): (F,),
+                   ("att_score", "w"): (F, 1)}
+    parts = {p: torch.empty((B,) + part_shapes[p], device=dev,
+                            dtype=torch.float32) for p in _INKERNEL_GRADS}
+    work = torch.empty(B * S * (M + F), device=dev, dtype=torch.float32)
+    em_ptrs = (_P * len(_EMITS))(*[em[n].data_ptr() for n, _ in _EMITS])
+    part_ptrs = (_P * len(parts))(*[parts[p].data_ptr() for p in _INKERNEL_GRADS])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    BWD_KERNEL.launch(q.data_ptr(), feats.data_ptr(), seed.data_ptr(),
+                      c_all.data_ptr(), h_all.data_ptr(), gmerge.data_ptr(),
+                      _weight_ptrs(mp), work.data_ptr(), em_ptrs, part_ptrs,
+                      B, d["Q"], S, Dc, M, F, R, H, *_dropout_args(cfg), stream)
+    # sum the per-block partials (outside the kernel, as JAX does: :533-535)
+    gw_in = {p: parts[p].sum(dim=0) for p in _INKERNEL_GRADS}
+    return em, gw_in
+
+
+# ---------------------------------------------------------------------------
+# The autograd Function
+# ---------------------------------------------------------------------------
+
+def _bwd_kernel(cfg, mp, q, feats, seed, c_all, h_all, attprob, g_scores):
+    """The hand-derived backward: the backward kernel (or its plain version)
+    plus the outside products.  Returns ({path: grad} for _DIFF_WEIGHTS, dq)."""
+    H, B = g_scores.shape[:2]
+    gmerge = (g_scores.reshape(H * B, -1) @ mp["cls"]["w"].T).reshape(H, B, -1)
+    em, gw_in = train_hops_bwd(mp, cfg, q, feats, seed, c_all, h_all,
+                               gmerge.contiguous())
+    gw_out, dq = _outside_grads(cfg, mp, q, seed, h_all, attprob, g_scores, em)
+    return {p: (gw_in[p] if p in gw_in else gw_out[p]) for p in _DIFF_WEIGHTS}, dq
+
+
+def _bwd_autograd(cfg, mp, q, feats, seed, g_scores):
+    """The ``"xla"`` backward: autograd through the plain version, which
+    regenerates the same masks."""
+    with torch.enable_grad():
+        leaves = [pluck(mp, p).detach().requires_grad_() for p in _DIFF_WEIGHTS]
+        mp_ = rebuild(_DIFF_WEIGHTS, leaves)
+        mp_["do_pred"] = mp["do_pred"]
+        q_ = q.detach().requires_grad_()
+        scores = rau_train_hops_reference(mp_, cfg, q_, feats, seed)[0]
+        grads = torch.autograd.grad(scores, leaves + [q_], g_scores)
+    return dict(zip(_DIFF_WEIGHTS, grads[:-1])), grads[-1]
+
+
+class _FusedTrainHops(torch.autograd.Function):
+    """(cfg, seed, q, feats, *weights in _FWD_WEIGHTS order) -> (scores,
+    do_pred, attprob, final_c, final_h); only ``scores`` is differentiable."""
+
+    @staticmethod
+    def forward(ctx, cfg, seed, q, feats, *weights):
+        mp = rebuild(_FWD_WEIGHTS, weights)
+        scores, do_pred, attprob, c_all, h_all = train_hops_fwd(
+            mp, cfg, q, feats, seed)
+        ctx.cfg = cfg
+        ctx.save_for_backward(seed, q, feats, c_all, h_all, attprob, *weights)
+        fc, fh = c_all[-1].clone(), h_all[-1].clone()
+        ctx.mark_non_differentiable(do_pred, attprob, fc, fh)
+        return scores, do_pred, attprob, fc, fh
+
+    @staticmethod
+    def backward(ctx, g_scores, *unused):
+        cfg = ctx.cfg
+        seed, q, feats, c_all, h_all, attprob, *weights = ctx.saved_tensors
+        mp = rebuild(_FWD_WEIGHTS, weights)
+        g_scores = g_scores.contiguous()
+        if cfg.fused_train_bwd == "xla":
+            grads, dq = _bwd_autograd(cfg, mp, q, feats, seed, g_scores)
+        else:
+            grads, dq = _bwd_kernel(cfg, mp, q, feats, seed, c_all, h_all,
+                                    attprob, g_scores)
+        dw = [grads[p] if p in grads else torch.zeros_like(w)
+              for p, w in zip(_FWD_WEIGHTS, weights)]
+        return (None, None, dq, None, *dw)
+
+
+def rau_train_hops(mp: Dict, cfg: ModelConfig, q, feats, seed):
+    """The fused training hop loop: (scores [H, B, A], do_pred [H, B],
+    attprob [H, B, S], final_c, final_h).  Differentiable in ``mp`` and ``q``
+    through ``scores`` only; ``feats`` gets no gradient.  ``seed``: an int or
+    an int32 tensor; the masks of hop h are those of
+    ``site_salt(seed, h, site)``."""
+    check_fused_config(cfg)
+    seed = _seed_tensor(seed, q.device)
+    weights = [pluck(mp, p) for p in _FWD_WEIGHTS]
+    return _FusedTrainHops.apply(cfg, seed, q, feats.detach(), *weights)

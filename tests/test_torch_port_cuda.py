@@ -6,22 +6,30 @@ is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Shapes are the ``ours_ms`` widths; bars are those of tests/test_pallas_rau.py
-for the Pallas kernels against their XLA paths.
+Shapes are the ``ours_ms`` widths.  Serving kernels: the bars of
+tests/test_pallas_rau.py for the Pallas kernels against their XLA paths.
+Training kernels (float32): the mask hash bit for bit; the forward at rtol
+1e-4 / atol 1e-4 over 8 recurrent hops of float32 sums taken in another
+order; the backward's grads at a norm-relative error of 1e-3 per leaf.
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
 import torch
 
-from rau_vqa_tpu_torch.config import get_preset
+from rau_vqa_tpu_torch.config import get_preset, get_train_preset
+from rau_vqa_tpu_torch.convert import map_tree
 from rau_vqa_tpu_torch.eval.predict import (
     compute_answers,
     make_predict_step,
     predict,
 )
 from rau_vqa_tpu_torch.models.rau import embed_image, embed_question, init_params
-from rau_vqa_tpu_torch.ops import lstm_encoder, rau_hops
+from rau_vqa_tpu_torch.ops import lstm_encoder, maskgen, rau_hops, rau_train_hops
+from rau_vqa_tpu_torch.train.trainer import init_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +124,94 @@ def test_wrappers_reject_wrong_inputs(cuda_device):
     q = torch.zeros(4, CFG.rnnout_dim, device=cuda_device)
     with pytest.raises(ValueError):   # features must come in as bf16
         rau_hops.rau_hops(hw, CFG, q, ifeat, iatt)
+
+
+# ---------------------------------------------------------------------------
+# training kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_CFG = dataclasses.replace(CFG, fused_train=True)
+
+
+def _train_inputs(B, dev, seed=0):
+    params, *_, feats = _inputs(B, dev, seed)
+    q = 0.5 * torch.randn(B, CFG.rnnout_dim, device=dev,
+                          generator=torch.Generator(dev).manual_seed(seed))
+    return params["mult"], q, feats
+
+
+@pytest.mark.parametrize("seed", [0, 12345, 2 ** 31 - 2])
+def test_mask_hash_matches_plain_bit_for_bit(cuda_device, seed):
+    B, row0 = 19, 37
+    seed_t = torch.tensor([seed], dtype=torch.int32, device=cuda_device)
+    widths = {0: (CFG.cnn_spat, CFG.cnn_dim), 1: (CFG.rnnout_dim,),
+              2: (CFG.multfeat_dim,)}
+    for hop in (0, 7):
+        for site, rest in widths.items():
+            got = maskgen.dropout_mask(seed_t, hop, site, (B,) + rest, row0, 0.5)
+            want = maskgen.dropout_scale_mask(
+                (B,) + rest, row0, maskgen.site_salt(seed, hop, site), 0.5)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("B", [19, 100])
+def test_train_hops_fwd_matches_plain(cuda_device, B):
+    mp, q, feats = _train_inputs(B, cuda_device)
+    seed = torch.tensor([4242], dtype=torch.int32, device=cuda_device)
+    got = rau_train_hops.train_hops_fwd(mp, TRAIN_CFG, q, feats, seed)
+    want = rau_train_hops.train_hops_fwd_reference(mp, TRAIN_CFG, q, feats, seed)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_train_hops_bwd_matches_autograd(cuda_device):
+    B = 19
+    mp, q, feats = _train_inputs(B, cuda_device, seed=1)
+    labels = torch.randint(0, CFG.answer_size, (B,), device=cuda_device)
+    hop_w = torch.tensor([1.0 + 0.5 * h for h in range(CFG.n_hops)],
+                         device=cuda_device)
+
+    def grads(bwd):
+        cfg = dataclasses.replace(TRAIN_CFG, fused_train_bwd=bwd)
+        mp_ = map_tree(lambda w: w.detach().clone().requires_grad_(), mp)
+        q_ = q.clone().requires_grad_()
+        s = rau_train_hops.rau_train_hops(mp_, cfg, q_, feats, 99)[0]
+        ce = torch.nn.functional.cross_entropy(
+            s.reshape(-1, s.shape[-1]), labels.repeat(CFG.n_hops),
+            reduction="none").reshape(CFG.n_hops, B).mean(1)
+        (hop_w * ce).sum().backward()
+        return mp_, q_.grad
+
+    before = rau_train_hops.BWD_KERNEL.launches
+    got, dq = grads("kernel")
+    assert rau_train_hops.BWD_KERNEL.launches == before + 1
+    want, dq_ref = grads("xla")
+    torch.cuda.synchronize()
+    for path in rau_train_hops._DIFF_WEIGHTS:
+        g = rau_train_hops.pluck(got, path).grad
+        w = rau_train_hops.pluck(want, path).grad
+        if path == ("att_score", "b"):   # zero in exact arithmetic
+            assert g.abs().max() < 1e-5 and w.abs().max() < 1e-5
+            continue
+        assert ((g - w).norm() / w.norm()).item() <= 1e-3, path
+    assert ((dq - dq_ref).norm() / dq_ref.norm()).item() <= 1e-3
+    assert torch.all(got["do_pred"]["w"].grad == 0)
+
+
+def test_train_step_runs_both_kernels(cuda_device):
+    mcfg, tcfg = get_train_preset("ours_ms")
+    mcfg = dataclasses.replace(mcfg, fused_train=True)
+    step = make_train_step(mcfg, tcfg)
+    state = init_train_state(mcfg, 0)
+    _, tokens, lengths, feats = _inputs(16, cuda_device)
+    labels = torch.randint(0, CFG.answer_size, (16,), device=cuda_device)
+    before = (rau_train_hops.FWD_KERNEL.launches, rau_train_hops.BWD_KERNEL.launches)
+    state, metrics = step(state, tokens, lengths, feats, labels,
+                          torch.ones(CFG.n_hops), 3e-3, 3e-4)
+    torch.cuda.synchronize()
+    assert (rau_train_hops.FWD_KERNEL.launches,
+            rau_train_hops.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    assert state.step == 1
+    assert all(torch.isfinite(v).all() for v in metrics.values())

@@ -27,7 +27,9 @@ def imported_modules(path):
 
 def test_sources_found():
     names = {p.name for p in SOURCES}
-    assert {"predict.py", "lstm_encoder.py", "rau_hops.py", "chip_smoke.py"} <= names
+    assert {"predict.py", "lstm_encoder.py", "rau_hops.py", "chip_smoke.py",
+            "maskgen.py", "rau_train_hops.py", "treeflat.py", "losses.py",
+            "optim.py", "trainer.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

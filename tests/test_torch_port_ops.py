@@ -20,6 +20,7 @@ from rau_vqa_tpu_torch import config as tconfig
 from rau_vqa_tpu_torch.convert import params_from_jax
 from rau_vqa_tpu_torch.models.rau import embed_question
 from rau_vqa_tpu_torch.ops import lstm_encoder, rau_hops
+from rau_vqa_tpu_torch.ops.treeflat import pluck
 
 # the small configuration of tests/test_pallas_rau.py
 JCFG = JaxModelConfig(
@@ -128,5 +129,5 @@ def test_packed_weights_are_contiguous_bf16(tree):
             else rau_hops.pack_hop_weights)
     packed = pack(p[tree])
     leaves = ([w for lp in packed["layers"] for w in lp.values()] if tree == "rnn"
-              else [rau_hops._pluck(packed, path) for path in rau_hops.WEIGHT_ORDER])
+              else [pluck(packed, path) for path in rau_hops.WEIGHT_ORDER])
     assert leaves and all(w.dtype == BF16 and w.is_contiguous() for w in leaves)

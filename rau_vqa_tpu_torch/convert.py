@@ -33,12 +33,54 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+class MemoRecent:
+    """``fn(tree)`` kept for the last two tree objects passed, compared by
+    identity: the per-parameter-set preparation of weights (layout, type,
+    stacking) runs once while the same trees come back, two of them in turn
+    included (a bf16 serving tree and its float32 reference).  It assumes
+    parameters are not changed in place between calls, as at eval."""
+
+    KEEP = 2
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.entries = []   # [(tree, fn(tree))], the most recent last
+
+    def __call__(self, tree):
+        for i, (t, value) in enumerate(self.entries):
+            if t is tree:
+                self.entries.append(self.entries.pop(i))
+                return value
+        value = self.fn(tree)
+        self.entries.append((tree, value))
+        del self.entries[:-self.KEEP]
+        return value
+
+
+def _tensor_from_numpy(a) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes.bfloat16, as JAX hands bf16 leaves over: torch.from_numpy
+        # does not know the type, so carry the bits over as int16
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _numpy_from_tensor(t: torch.Tensor):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes   # only for bf16 leaves; the card's machine may lack it
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def params_from_jax(tree, device="cpu"):
-    """Nested dicts/lists of numpy arrays -> the same tree of tensors."""
-    return map_tree(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device), tree)
+    """Nested dicts/lists of numpy arrays -> the same tree of tensors, each
+    leaf's type and bits kept (bfloat16 included)."""
+    return map_tree(lambda a: _tensor_from_numpy(a).to(device), tree)
 
 
 def params_to_jax(params):
-    """Tree of tensors -> the same tree of numpy arrays (host copies)."""
-    return map_tree(lambda t: t.detach().cpu().numpy(), params)
+    """Tree of tensors -> the same tree of numpy arrays (host copies);
+    bfloat16 leaves become ``ml_dtypes.bfloat16`` arrays, as JAX's are."""
+    return map_tree(_numpy_from_tensor, params)

@@ -13,12 +13,14 @@ exactly 0, which can beat negative candidate logits.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from rau_vqa_tpu_torch.config import ModelConfig
+from rau_vqa_tpu_torch.convert import MemoRecent
+from rau_vqa_tpu_torch.devices import pick_device
 from rau_vqa_tpu_torch.models.aggregate import select_aggregate
 from rau_vqa_tpu_torch.models.rau import embed_image, rau_forward
 from rau_vqa_tpu_torch.ops.lstm_encoder import (
@@ -98,14 +100,7 @@ class PredictStep:
         self.cfg = cfg
         self.device = device
         self.ladder = bucket_ladder(cfg.seq_len, buckets) if buckets else None
-        self._params = None
-        self._kernel_weights: Optional[Dict] = None
-
-    def _weights_for(self, params) -> Dict:
-        if params is not self._params:
-            self._kernel_weights = pack_kernel_weights(params)
-            self._params = params
-        return self._kernel_weights
+        self._weights_for = MemoRecent(pack_kernel_weights)
 
     def __call__(self, params, tokens, lengths, feats):
         lengths_np = np.asarray(lengths.cpu() if torch.is_tensor(lengths)
@@ -126,11 +121,7 @@ def make_predict_step(cfg: ModelConfig, *, buckets: Tuple[int, ...] = (),
     """The serving step on ``device``: ``cuda`` when None, and then it raises
     without a card.  Only an explicit ``device="cpu"`` runs on the CPU, where
     the kernels' wrappers run their plain versions."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_predict_step: no CUDA device is available; "
-                           "pass device='cpu' to run the plain versions")
-    return PredictStep(cfg, tuple(buckets), device)
+    return PredictStep(cfg, tuple(buckets), pick_device(device, "make_predict_step"))
 
 
 def mc_mask(mc_answers: torch.Tensor, answer_size: int) -> torch.Tensor:

@@ -18,6 +18,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from rau_vqa_tpu_torch.config import ModelConfig
+from rau_vqa_tpu_torch.devices import pick_device
 from rau_vqa_tpu_torch.models.cells import (
     _uniform,
     att_lstm_cell,
@@ -45,12 +46,14 @@ class RAUOutput(NamedTuple):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cpu") -> Params:
-    """uniform(-0.08, 0.08) over every weight and bias (reference :349-355).
+                device=None) -> Params:
+    """uniform(-0.08, 0.08) over every weight and bias (reference :349-355),
+    on ``device``: ``cuda`` when None, raising without a card.
 
     Draws come from ``generator`` in a fixed order; they differ from the JAX
     package's ``init_params`` for the same seed (carry weights over with
     ``convert.params_from_jax`` where the two must agree)."""
+    device = pick_device(device, "init_params")
     scale = 0.08
     g = generator
     S, M = cfg.cnn_spat, cfg.multfeat_dim

@@ -22,6 +22,7 @@ import torch
 
 from rau_vqa_tpu_torch.config import ModelConfig, TrainConfig
 from rau_vqa_tpu_torch.convert import map_tree, tree_leaves
+from rau_vqa_tpu_torch.devices import pick_device
 from rau_vqa_tpu_torch.models.rau import (
     UNFUSED_TRAINING,
     init_params,
@@ -53,14 +54,6 @@ class TrainState(NamedTuple):
     seed: int      # step k's generators derive from (seed, k)
 
 
-def _device(device, who: str) -> torch.device:
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{who}: no CUDA device is available; pass "
-                           f"device='cpu' to run the plain versions")
-    return device
-
-
 def _generator(device: torch.device, seed: int, step: int,
                stream: int) -> torch.Generator:
     g = torch.Generator(device=device)
@@ -74,7 +67,7 @@ def init_train_state(mcfg: ModelConfig, seed: int, *, device=None,
     (``cuda`` when None, as ``make_train_step``)."""
     if bb_params is not None:
         raise NotImplementedError(f"a backbone parameter group {_FROM_PIXELS}")
-    device = _device(device, "init_train_state")
+    device = pick_device(device, "init_train_state")
     params = init_params(mcfg, torch.Generator().manual_seed(seed), device)
     return TrainState(params=params,
                       opt={g: adam_init(params[g]) for g in PARAM_GROUPS},
@@ -110,7 +103,7 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
     backward passes (microbatch i = rows [i*B/k, (i+1)*B/k)) and one update
     on the averaged gradients: exact, since every loss term is a batch mean.
     """
-    device = _device(device, "make_train_step")
+    device = pick_device(device, "make_train_step")
     if tcfg.train_backbone or backbone is not None or img_repeat != 1:
         raise NotImplementedError(f"train_backbone / img_repeat {_FROM_PIXELS}")
     if not mcfg.fused_train:

@@ -11,24 +11,43 @@ tests/test_pallas_rau.py for the Pallas kernels against their XLA paths.
 Training kernels (float32): the mask hash bit for bit; the forward at rtol
 1e-4 / atol 1e-4 over 8 recurrent hops of float32 sums taken in another
 order; the backward's grads at a norm-relative error of 1e-3 per leaf.
+From pixels: the identity-stage kernel at scale-normalised bars, and
+``answer_pixels`` (``ours_resnet`` head, bf16 ResNet-101 at 448 px) against
+``pixels_forward`` at the bars of chip_smoke.py's pixels phase; the stage
+checks take their bars and random stacks from chip_smoke.py.
 """
 
 import dataclasses
-
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import scaled_err, stage_bar, stage_faults, stage_stack
 from rau_vqa_tpu_torch.config import get_preset, get_train_preset
 from rau_vqa_tpu_torch.convert import map_tree
 from rau_vqa_tpu_torch.eval.predict import (
+    _aggregate,
     compute_answers,
     make_predict_step,
+    pack_kernel_weights,
     predict,
+    predict_fused,
+)
+from rau_vqa_tpu_torch.models.backbones.resnet import fold_batchnorm, resnet101_init
+from rau_vqa_tpu_torch.models.pipeline import (
+    answer_pixels,
+    extract_features,
+    pixels_forward,
 )
 from rau_vqa_tpu_torch.models.rau import embed_image, embed_question, init_params
-from rau_vqa_tpu_torch.ops import lstm_encoder, maskgen, rau_hops, rau_train_hops
+from rau_vqa_tpu_torch.ops import (
+    fused_resnet,
+    lstm_encoder,
+    maskgen,
+    rau_hops,
+    rau_train_hops,
+)
 from rau_vqa_tpu_torch.train.trainer import init_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
@@ -198,6 +217,92 @@ def test_train_hops_bwd_matches_autograd(cuda_device):
         assert ((g - w).norm() / w.norm()).item() <= 1e-3, path
     assert ((dq - dq_ref).norm() / dq_ref.norm()).item() <= 1e-3
     assert torch.all(got["do_pred"]["w"].grad == 0)
+
+
+# ---------------------------------------------------------------------------
+# from-pixels: the identity-stage kernel and answer_pixels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,dtype,bar", [
+    ((3, 9, 11, 128, 64, 2), torch.bfloat16, stage_bar(2)),      # narrow, ragged tiles
+    ((2, 28, 28, 1024, 256, 22), torch.bfloat16, stage_bar(22)),  # stage 2 at 448 px
+    ((2, 16, 16, 256, 128, 2), torch.float32, 2e-5),
+])
+def test_fused_stage_matches_plain(cuda_device, shape, dtype, bar):
+    """Scale-normalised errors (activations grow across the residual blocks
+    at random init): bf16 at chip_smoke.py's ``stage_bar``, ~3x the sound
+    kernel's readings; float32 at tests/test_fused_resnet.py's 2e-5."""
+    B, H, W, C, Cw, N = shape
+    gen = torch.Generator(cuda_device).manual_seed(B + H)
+    stack = stage_stack(N, C, Cw, dtype, gen, cuda_device)
+    x = torch.randn(B, H, W, C, generator=gen, device=cuda_device).abs().to(dtype)
+    before = fused_resnet.KERNEL.launches
+    got = fused_resnet.fused_identity_stage(x, stack, block_b=1)
+    want = fused_resnet.fused_identity_stage_reference(x, stack)
+    torch.cuda.synchronize()
+    assert fused_resnet.KERNEL.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert scaled_err(got, want) <= bar
+
+
+@pytest.mark.parametrize("W,C,Cw", [(21, 512, 128), (28, 256, 64)])   # 8x8, 4x14 tiles
+def test_fused_stage_bar_sees_halo_and_bias_faults(cuda_device, W, C, Cw):
+    """On tiles cut by the image's edge, with biases around +1, the kernel
+    sits within the bar and a relu(b1) halo, a dropped b2 or a dropped b3
+    lands beyond twice the bar."""
+    gen = torch.Generator(cuda_device).manual_seed(W)
+    stack = stage_stack(2, C, Cw, torch.bfloat16, gen, cuda_device, bias_mean=1.0)
+    x = torch.randn(3, 13, W, C, generator=gen, device=cuda_device).abs().to(torch.bfloat16)
+    got = fused_resnet.fused_identity_stage(x, stack, block_b=1)
+    plain = fused_resnet.fused_identity_stage_reference
+    want = plain(x, stack)
+    assert scaled_err(got, want) <= stage_bar(2)
+    for fault, wrong in stage_faults(plain, x, stack).items():
+        assert scaled_err(wrong, want) > 2 * stage_bar(2), fault
+
+
+def test_answer_pixels_runs_every_kernel(cuda_device):
+    """One B=7 call at 448 px, held as chip_smoke.py holds it, against
+    pixels_forward with bf16's own effect measured as pixels_forward on the
+    bf16 tree against the float32 tree: answers > 0.95 counting bf16 ties;
+    attention within twice bf16's own change plus 5e-4; the kernels' head to
+    the float32 head on the same features at the serving bars; the fused
+    backbone no farther from the float32 features than cuDNN's bf16 one."""
+    cfg = get_preset("ours_resnet")
+    B = 7
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda_device)
+    bb = fold_batchnorm(resnet101_init(torch.Generator().manual_seed(1), torch.bfloat16,
+                                       cuda_device))
+    rs = np.random.RandomState(2)
+    images = torch.as_tensor(rs.randint(0, 256, (B, 448, 448, 3)).astype(np.uint8),
+                             device=cuda_device)
+    _, tokens, lengths, _ = _inputs(B, cuda_device, seed=2)
+    before = (fused_resnet.KERNEL.launches, lstm_encoder.KERNEL.launches,
+              rau_hops.KERNEL.launches)
+    ids, att = answer_pixels(params, bb, cfg, "resnet101", images, tokens, lengths)
+    torch.cuda.synchronize()
+    assert (fused_resnet.KERNEL.launches, lstm_encoder.KERNEL.launches,
+            rau_hops.KERNEL.launches) == (before[0] + 4, before[1] + 1, before[2] + 1)
+    assert ids.shape == (cfg.n_hops + 2, B) and att.shape == (cfg.n_hops + 2, B, 196)
+    assert torch.isfinite(att).all()
+    with torch.no_grad():
+        out = pixels_forward(params, bb, cfg, "resnet101", images, tokens, lengths)
+        ref_pred, ref_att = _aggregate(out.scores, out.do_pred, out.attprob)
+        f_ref = extract_features("resnet101", bb, images).float()
+        f_fused = extract_features("resnet101", bb, images, fused_stages=(0, 1, 2, 3)).float()
+        f32 = extract_features("resnet101", map_tree(lambda t: t.float(), bb), images)
+        head_pred, head_att = predict_fused(params, pack_kernel_weights(params), cfg,
+                                            tokens, lengths, f_ref)
+        f32_pred, f32_att = predict(params, cfg, tokens, lengths, f32)
+    ref_ids = ref_pred.argmax(-1)
+    assert (head_pred.argmax(-1) == ref_ids).float().mean().item() > 0.95
+    torch.testing.assert_close(head_att, ref_att, rtol=0.05, atol=5e-4)
+    assert scaled_err(f_fused, f32) <= 1.5 * scaled_err(f_ref, f32) + 1e-3
+    att_bf16 = (ref_att - f32_att).abs().max().item()
+    assert (att - ref_att).abs().max().item() <= 2 * att_bf16 + 5e-4
+    slack = 2 * (ref_pred - f32_pred).abs().amax(-1)
+    gap = ref_pred.amax(-1) - ref_pred.gather(-1, ids[..., None])[..., 0]
+    assert (gap <= slack).float().mean().item() > 0.95
 
 
 def test_train_step_runs_both_kernels(cuda_device):

@@ -29,7 +29,9 @@ def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"predict.py", "lstm_encoder.py", "rau_hops.py", "chip_smoke.py",
             "maskgen.py", "rau_train_hops.py", "treeflat.py", "losses.py",
-            "optim.py", "trainer.py"} <= names
+            "optim.py", "trainer.py", "fused_resnet.py", "transforms.py",
+            "resnet.py", "pipeline.py", "devices.py"} <= names
+    assert (ROOT / "rau_vqa_tpu_torch" / "models" / "backbones" / "__init__.py") in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -69,7 +69,8 @@ def test_params_roundtrip_bit_exact():
 
 
 def test_init_params_matches_jax_tree():
-    tp = params_to_jax(trau.init_params(CFG, torch.Generator().manual_seed(0)))
+    tp = params_to_jax(trau.init_params(CFG, torch.Generator().manual_seed(0),
+                                        device="cpu"))
     jp = jax_params(0)
     shapes = jax.tree.map(lambda a: a.shape, jp)
     assert jax.tree.map(lambda a: a.shape, tp) == shapes

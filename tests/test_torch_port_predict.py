@@ -121,12 +121,14 @@ def test_step_reuses_packed_weights_per_parameter_set():
     p, tokens, lengths, feats, _ = setup(3)
     tp = params_from_jax(p)
     step = tpred.make_predict_step(CFG, device="cpu")
+    packs, pack = [], step._weights_for.fn
+    step._weights_for.fn = lambda params: packs.append(params) or pack(params)
     step(tp, tokens, lengths, feats)
-    packed = step._kernel_weights
     step(tp, tokens, lengths, feats)
-    assert step._kernel_weights is packed
-    step(params_from_jax(p), tokens, lengths, feats)
-    assert step._kernel_weights is not packed
+    assert len(packs) == 1 and packs[0] is tp
+    tp2 = params_from_jax(p)
+    step(tp2, tokens, lengths, feats)
+    assert len(packs) == 2 and packs[1] is tp2
 
 
 def test_make_predict_step_defaults_to_cuda_and_raises_without_a_card(monkeypatch):

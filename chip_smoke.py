@@ -7,9 +7,13 @@ Phases, in order; any failure exits non-zero:
 1. device   — a Hopper card (capability 9.0); its name and power limit;
 2. build    — every CUDA source of rau_vqa_tpu_torch/csrc with nvcc for
               sm_90a, one nvcc each, all at once, with the ptxas register /
-              shared-memory report;
+              shared-memory report (the encoder's per instantiation) and the
+              encoder's grid plan (CTAs, units a CTA, shared memory) at each
+              batch size the run uses;
 3. kernels  — each kernel against its plain version at ``ours_ms`` widths:
-              the serving kernels at B in {19, 512} at the bars of
+              the encoder at B in {1, 19, 512} (rows of length 0 and T + 1
+              give zeros; a second call gives the same bits) and the hop
+              kernel at B in {19, 512}, at the bars of
               tests/test_pallas_rau.py; the device mask hash bit for bit; the
               training hop loop's forward (rtol / atol 1e-4) and backward
               (grads norm-relative 1e-3 per leaf) at B in {19, 100}; the
@@ -43,8 +47,10 @@ Phases, in order; any failure exits non-zero:
               stage kernel ran 4 times a call, the encoder and hop kernels
               once; and the stage kernel agrees with its plain version at
               the B=120 call's own stage inputs;
-7. timing   — CUDA-event times of each kernel and its plain version (for
-              the encoder also torch.nn.LSTM), the predict step at B=512,
+7. timing   — CUDA-event times of each kernel and its plain version; the
+              encoder at B in {1, 16, 83, 512}, T=26, beside torch.nn.LSTM
+              in float32 (TF32 off; the ``library_ms`` yardstick) and, logged
+              only, in bf16; the predict step at B in {1, 4, 16, 83, 512},
               the train step and its parts at B=100, and ``answer_pixels``
               at B=120 with its parts: each stage kernel beside its plain
               version, the unfused cuDNN stage and its bound; the mask hash
@@ -145,10 +151,12 @@ def bound(n_bytes: float, n_ops: float, peak_flops: float):
 
 
 def lstm_bound(cfg, enc, lengths, T):
-    """Least time for the encoder: inputs read once, output written once;
-    bf16 dots for each row's real tokens only."""
+    """Least time for the encoder: inputs (emb, lengths, the kernel's weight
+    slabs and biases) read once, output written once; bf16 dots for each
+    row's real tokens only."""
     B, E, R, L = lengths.shape[0], cfg.embed_dim, cfg.rnn_size, cfg.rnn_layers
-    n_bytes = B * T * E * 4 + B * 4 + nbytes(enc) + B * 2 * L * R * 4
+    n_bytes = (B * T * E * 4 + B * 4 + nbytes(enc["slabs"]) + nbytes(enc["bias"])
+               + B * 2 * L * R * 4)
     per_step = 2 * 4 * R * (E + R) + (L - 1) * 2 * 4 * R * (R + R)
     n_ops = per_step * int(lengths.long().sum())
     return bound(n_bytes, n_ops, H100_BF16_FLOPS)
@@ -328,11 +336,21 @@ def main() -> int:
                                 "fused_resnet"], force=True)
     log(f"build_s={time.perf_counter() - t0:.3f} [{card}]")
     for name, rep in reports.items():
+        what = ""
         for line in rep.splitlines():
+            if name == "lstm_encoder" and "Compiling entry" in line:
+                # the encoder's one instantiation per units a CTA
+                what = " U=" + line.split("lstm_encode_kernelILi")[1].split("E")[0]
             if "registers" in line or "spill" in line or "smem" in line:
-                log(f"ptxas {name}: {line.strip()}")
+                log(f"ptxas {name}{what}: {line.strip()}")
 
     cfg = get_preset("ours_ms")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for B in (1, 4, 16, 19, 83, 512):
+        plan = lstm_encoder.lstm_plan(B, cfg.embed_dim, cfg.rnn_size, cfg.rnn_layers, n_sm)
+        log(f"lstm_encode plan B={B}: grid {plan.ctas} CTAs on {n_sm} SMs, {plan.units} units "
+            f"a CTA, {plan.row_groups} row group(s) of {plan.rows} rows, {plan.splits} K "
+            f"split(s), {plan.passes} pass(es), {plan.smem} bytes of shared memory a CTA")
     params = init_params(cfg, torch.Generator().manual_seed(args.seed), dev)
     enc = lstm_encoder.pack_encoder_weights(params["rnn"])
     hw = rau_hops.pack_hop_weights(params["mult"])
@@ -340,16 +358,26 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     err = {"lstm_encode": 0.0, "rau_hops": 0.0}
-    for B in (19, 512):
+    for B in (1, 19, 512):
         tokens, lengths, feats = make_batch(cfg, B, cfg.seq_len, rs, dev)
+        if B > 1:   # lengths outside [1, T] give zero rows
+            lengths[1], lengths[2] = 0, cfg.seq_len + 1
         emb = embed_question(params, tokens).contiguous()
         got = lstm_encoder.lstm_encode(enc, cfg, emb, lengths)
+        again = lstm_encoder.lstm_encode(enc, cfg, emb, lengths)
         want = lstm_encoder.lstm_encode_reference(enc, cfg, emb, lengths, dot_dtype=bf16)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=0.05, atol=5e-3)
+        if not torch.equal(got, again):
+            raise SystemExit(f"lstm_encode B={B}: two calls on the same inputs differ")
+        if B > 1 and not bool((got[1:3] == 0).all()):
+            raise SystemExit(f"lstm_encode B={B}: rows of length 0 and T + 1 are not zero")
         e = (got - want).abs().max().item()
         err["lstm_encode"] = max(err["lstm_encode"], e)
-        log(f"lstm_encode B={B} max_abs_err={e:.3e} (bar rtol 0.05 atol 5e-3)")
+        log(f"lstm_encode B={B} max_abs_err={e:.3e} (bar rtol 0.05 atol 5e-3), "
+            f"two calls bit-equal{', lengths 0 and T+1 zero' if B > 1 else ''}")
+        if B == 1:
+            continue
 
         q = want
         ifeat, iatt = embed_image(params["mult"], feats)
@@ -490,8 +518,8 @@ def main() -> int:
 
     # 4. serving through the user's entry point
     step = make_predict_step(cfg, buckets=(8, 16))
-    batches = [(1, 8), (4, 16), (16, 26), (83, 12), (512, 26)]
-    data = [make_batch(cfg, B, max_len, rs, dev) for B, max_len in batches]
+    serve_batches = [(1, 8), (4, 16), (16, 26), (83, 12), (512, 26)]
+    data = [make_batch(cfg, B, max_len, rs, dev) for B, max_len in serve_batches]
     lstm_encoder.KERNEL.launches = 0
     rau_hops.KERNEL.launches = 0
     outs = [step(params, *batch) for batch in data]
@@ -505,7 +533,7 @@ def main() -> int:
     if hit != [8, 16, 26]:
         raise SystemExit(f"buckets hit {hit}, expected [8, 16, 26]")
     H, A, S = cfg.n_hops, cfg.answer_size, cfg.cnn_spat
-    for (B, _), (tokens, lengths, feats), (tab_pred, tab_att) in zip(batches, data, outs):
+    for (B, _), (tokens, lengths, feats), (tab_pred, tab_att) in zip(serve_batches, data, outs):
         if tab_pred.shape != (H + 2, B, A) or tab_att.shape != (H + 2, B, S):
             raise SystemExit(f"B={B}: shapes {tuple(tab_pred.shape)} {tuple(tab_att.shape)}")
         if not (torch.isfinite(tab_pred).all() and torch.isfinite(tab_att).all()):
@@ -782,11 +810,42 @@ def main() -> int:
     for k, v in ms.items():
         log(f"{k}_ms={v:.4f} B=512 T=26 [{card}]")
     log(f"predict_step_ms={step_ms:.4f} B=512 [{card}]")
-    for (B_s, _), batch in zip(batches[:-1], data[:-1]):
+    for (B_s, _), batch in zip(serve_batches[:-1], data[:-1]):
         with torch.no_grad():
             t_s = time_ms(lambda: step(params, *batch), iters=10)
         log(f"predict_step_ms={t_s:.4f} B={B_s} T={int(batch[1].max())} [{card}]")
     log(f"predict_step_questions_per_s={B / step_ms * 1e3:.1f} B=512 [{card}]")
+
+    # the encoder at the service's batch sizes, T=26, beside torch.nn.LSTM in
+    # float32 (the yardstick) and, logged only, in bf16: the same precision
+    # as the kernel's operands.  Neither library call is on the port's path.
+    lstm_bf16 = torch_lstm_from(cfg, params["rnn"], dev).to(bf16)
+    lstm_bf16.flatten_parameters()
+    for B_e in (1, 16, 83, 512):
+        tok_e, len_e, _ = make_batch(cfg, B_e, cfg.seq_len, rs, dev)
+        with torch.no_grad():
+            emb_e = embed_question(params, tok_e).contiguous()
+            pk, pk16 = (torch.nn.utils.rnn.pack_padded_sequence(
+                x, len_e.cpu().long(), batch_first=True, enforce_sorted=False)
+                for x in (emb_e, emb_e.to(bf16)))
+            k_ms = time_ms(lambda: lstm_encoder.lstm_encode(enc, cfg, emb_e, len_e), iters=50)
+            f_ms = time_ms(lambda: lstm(pk))
+            try:
+                b_ms = f"{time_ms(lambda: lstm_bf16(pk16)):.4f}"
+            except RuntimeError as e:
+                b_ms = f"not measured ({str(e).splitlines()[0][:80]})"
+        log(f"lstm_encode_ms={k_ms:.4f} torch_lstm_f32_ms={f_ms:.4f} "
+            f"torch_lstm_bf16_ms={b_ms} B={B_e} T=26 [{card}]")
+        if B_e > 1:   # the plan's row-group choice (ROW_GROUP_MIN_B), both ways
+            rg_ms = {}
+            for rg in (1, 2):
+                plan = lstm_encoder.lstm_plan(B_e, cfg.embed_dim, cfg.rnn_size, cfg.rnn_layers,
+                                              n_sm, row_groups=rg)
+                with torch.no_grad():
+                    rg_ms[rg] = time_ms(lambda: lstm_encoder.lstm_encode(
+                        enc, cfg, emb_e, len_e, plan=plan), iters=50)
+            log(f"lstm_encode_ms by row groups: 1: {rg_ms[1]:.4f} 2: {rg_ms[2]:.4f} "
+                f"B={B_e} T=26 [{card}]")
 
     lb_ms, lb_by = lstm_bound(cfg, enc, lengths, cfg.seq_len)
     hb_ms, hb_by = hops_bound(cfg, hw, B)

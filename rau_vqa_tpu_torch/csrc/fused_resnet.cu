@@ -64,8 +64,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
+using namespace mma;
 typedef __nv_bfloat16 bf16;
 
 constexpr int NTHREADS = 256;            // 8 warps
@@ -75,47 +78,6 @@ constexpr int PAD = 8;                   // bf16 of row padding (ldmatrix banks)
 constexpr int LDA = KS + PAD;            // reduce input slab row
 constexpr int NC3 = 128;                 // expand column chunk
 constexpr int LDB = NC3 + PAD;           // weight slab row (chunks <= 128)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled when !valid (src must stay mapped)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 operands, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // One warp's share of one K slab: acc[MT][NT] += A[16 MT rows, KS] B[KS, 8 NT].
 // a_addr[i]: this lane's ldmatrix row address of m-tile i at the slab's first

@@ -7,7 +7,9 @@ is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Shapes are the ``ours_ms`` widths.  Serving kernels: the bars of
-tests/test_pallas_rau.py for the Pallas kernels against their XLA paths.
+tests/test_pallas_rau.py for the Pallas kernels against their XLA paths;
+the encoder also at lengths 0, T and T + 1, on two calls (the same bits),
+at 1 layer of 256, and with a grid that cannot be co-resident (it raises).
 Training kernels (float32): the mask hash bit for bit; the forward at rtol
 1e-4 / atol 1e-4 over 8 recurrent hops of float32 sums taken in another
 order; the backward's grads at a norm-relative error of 1e-3 per leaf.
@@ -77,17 +79,79 @@ def _inputs(B, dev, seed=0):
             torch.as_tensor(feats, device=dev))
 
 
-@pytest.mark.parametrize("B", [19, 512])
-def test_lstm_encode_matches_plain(cuda_device, B):
-    params, tokens, lengths, _ = _inputs(B, cuda_device)
-    enc = lstm_encoder.pack_encoder_weights(params["rnn"])
+def _encoder_inputs(cfg, B, T, dev, seed=0, lengths=None):
+    """(packed weights, emb [B, T, E], lengths) for ``cfg``'s encoder; lengths
+    random in [1, T] unless given."""
+    params = init_params(cfg, torch.Generator().manual_seed(seed), dev)
+    rs = np.random.RandomState(seed)
+    if lengths is None:
+        lengths = rs.randint(1, T + 1, B)
+    tokens = torch.as_tensor(rs.randint(1, cfg.vocab_size, (B, T)), device=dev)
     emb = embed_question(params, tokens).contiguous()
-    got = lstm_encoder.lstm_encode(enc, CFG, emb, lengths)
-    want = lstm_encoder.lstm_encode_reference(enc, CFG, emb, lengths,
+    return (lstm_encoder.pack_encoder_weights(params["rnn"]), emb,
+            torch.as_tensor(np.asarray(lengths, np.int32), device=dev))
+
+
+def _encode_and_check(cfg, enc, emb, lengths):
+    got = lstm_encoder.lstm_encode(enc, cfg, emb, lengths)
+    want = lstm_encoder.lstm_encode_reference(enc, cfg, emb, lengths,
                                               dot_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    assert got.shape == (B, CFG.rnnout_dim)
+    assert got.shape == (emb.shape[0], cfg.rnnout_dim)
     torch.testing.assert_close(got, want, rtol=0.05, atol=5e-3)
+    return got
+
+
+@pytest.mark.parametrize("T", [8, 26])
+@pytest.mark.parametrize("B", [1, 3, 19, 83, 512])
+def test_lstm_encode_matches_plain(cuda_device, B, T):
+    enc, emb, lengths = _encoder_inputs(CFG, B, T, cuda_device)
+    before = lstm_encoder.KERNEL.launches
+    _encode_and_check(CFG, enc, emb, lengths)
+    assert lstm_encoder.KERNEL.launches == before + 1
+
+
+def test_lstm_encode_zero_rows_and_full_lengths(cuda_device):
+    """Rows of length 0 and T + 1 stay zero; a batch where every length is T."""
+    T = 26
+    enc, emb, lengths = _encoder_inputs(CFG, 5, T, cuda_device, lengths=[3, 0, T, T + 1, 1])
+    got = _encode_and_check(CFG, enc, emb, lengths)
+    assert torch.all(got[1] == 0) and torch.all(got[3] == 0)
+    assert torch.all(got[[0, 2, 4]].abs().amax(1) > 0)
+    enc, emb, lengths = _encoder_inputs(CFG, 40, T, cuda_device, lengths=[T] * 40)
+    _encode_and_check(CFG, enc, emb, lengths)
+
+
+@pytest.mark.parametrize("B", [1, 512])
+def test_lstm_encode_is_deterministic(cuda_device, B):
+    enc, emb, lengths = _encoder_inputs(CFG, B, 26, cuda_device, seed=3)
+    first = lstm_encoder.lstm_encode(enc, CFG, emb, lengths)
+    second = lstm_encoder.lstm_encode(enc, CFG, emb, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_lstm_encode_one_layer_r256(cuda_device):
+    cfg = dataclasses.replace(CFG, rnn_size=256, rnn_layers=1)
+    for B in (2, 200):
+        enc, emb, lengths = _encoder_inputs(cfg, B, 12, cuda_device, seed=B)
+        _encode_and_check(cfg, enc, emb, lengths)
+
+
+def test_lstm_encode_raises_when_the_grid_cannot_be_co_resident(cuda_device):
+    """A plan with more CTAs than the card holds at once is refused at
+    launch: the wrapper raises and runs nothing in its place."""
+    enc, emb, lengths = _encoder_inputs(CFG, 4, 8, cuda_device)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    # 5 row groups of 256 CTAs: more than 4 a SM, the most 512-thread CTAs
+    # a SM can hold
+    plan = lstm_encoder.lstm_plan(4, CFG.embed_dim, CFG.rnn_size, CFG.rnn_layers,
+                                  n_sm=10 ** 4, row_groups=5)
+    assert plan.ctas > 4 * n_sm
+    before = lstm_encoder.KERNEL.launches
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        lstm_encoder.lstm_encode(enc, CFG, emb, lengths, plan=plan)
+    assert lstm_encoder.KERNEL.launches == before
 
 
 @pytest.mark.parametrize("B", [19, 512])

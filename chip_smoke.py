@@ -5,11 +5,13 @@
 Phases, in order; any failure exits non-zero:
 
 1. device   — a Hopper card (capability 9.0); its name and power limit;
-2. build    — every CUDA source of rau_vqa_tpu_torch/csrc with nvcc for
-              sm_90a, one nvcc each, all at once, with the ptxas register /
-              shared-memory report (the encoder's per instantiation) and the
-              encoder's grid plan (CTAs, units a CTA, shared memory) at each
-              batch size the run uses;
+2. build    — every CUDA source of rau_vqa_tpu_torch/csrc that a path runs
+              (not the stage kernel's probe build, fused_resnet_probe.cu)
+              with nvcc for sm_90a, one nvcc each, all at once, with the
+              ptxas register / shared-memory report (the encoder's and the
+              stage kernel's per instantiation) and the encoder's grid plan
+              (CTAs, units a CTA,
+              shared memory) at each batch size the run uses;
 3. kernels  — each kernel against its plain version at ``ours_ms`` widths:
               the encoder at B in {1, 19, 512} (rows of length 0 and T + 1
               give zeros; a second call gives the same bits) and the hop
@@ -18,11 +20,14 @@ Phases, in order; any failure exits non-zero:
               training hop loop's forward (rtol / atol 1e-4) and backward
               (grads norm-relative 1e-3 per leaf) at B in {19, 100}; the
               ResNet identity-stage kernel at the four 448-px stage shapes
-              (real N, B=2, bf16), in float32 at stage 3's, and at B=3 on
-              tiles cut by the image's edge (bars scale-normalised, as in
-              tests/test_fused_resnet.py, set from readings), where with
-              biases around +1 a relu(b1) halo or a dropped bias must land
-              beyond twice the bar;
+              (real N, B=2, bf16; each plan's shared memory as the built
+              launcher reckons it), in float32 at stage 3's, and at B=3 on
+              tiles cut by the image's edge (bars
+              scale-normalised, as in tests/test_fused_resnet.py, set from
+              readings), where with biases around +1 a relu(b1) halo or a
+              dropped bias must land beyond twice the bar; a host watchdog
+              ends the run with a message if the stage checks hang, and the
+              kernel's own mbarrier watchdog traps a wait that never ends;
 4. serving  — ``make_predict_step`` on cuda answers batches of 1, 4, 16, 83
               and 512 with length buckets 8, 16 and 26 each hit; outputs are
               finite and agree with the plain float32 path; both serving
@@ -53,8 +58,12 @@ Phases, in order; any failure exits non-zero:
               only, in bf16; the predict step at B in {1, 4, 16, 83, 512},
               the train step and its parts at B=100, and ``answer_pixels``
               at B=120 with its parts: each stage kernel beside its plain
-              version, the unfused cuDNN stage and its bound; the mask hash
-              beside its plain version.
+              version, the unfused cuDNN stage and its bound, with its plan
+              (tile, ring, shared memory, registers) and the weight bytes its
+              CTAs read from L2; the stage kernel's levers one at a time (the
+              old 4x14 tile at stage 2, the ring's depth at stage 1); the
+              device time by kernel with the
+              op that launched it; the mask hash beside its plain version.
 
 Prints each number beside the card's name and power limit, a ``kernels``
 JSON line, and as the last line ``{"ok": true, "device": {...}}``.  Weights
@@ -64,10 +73,14 @@ are random, from the seed.  Imports nothing of JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
+import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -106,8 +119,9 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def device_profile(fn, iters: int = 3):
     """Per call of ``fn`` under torch.profiler: (the sum of the device's
-    kernel times in ms, [(kernel name, ms)] largest first).  The sum is 0
-    where the profiler records no device time."""
+    kernel times in ms, [(kernel name, ms)] largest first, {kernel name: the
+    op that launched most of its time, with two of its callers}).  The sum
+    is 0 where the profiler records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -122,7 +136,38 @@ def device_profile(fn, iters: int = 3):
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3 / iters
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    return sum(by_name.values()), top
+    # each CPU op lists the device kernels it launched
+    launched = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        chain, up = [e.name], e.cpu_parent
+        while up is not None and len(chain) < 3:
+            chain.append(up.name)
+            up = up.cpu_parent
+        for k in e.kernels:
+            per_op = launched.setdefault(k.name, {})
+            per_op[" < ".join(chain)] = per_op.get(" < ".join(chain), 0.0) + k.duration
+    ops = {k: max(v, key=v.get) for k, v in launched.items()}
+    return sum(by_name.values()), top, ops
+
+
+@contextlib.contextmanager
+def watchdog(seconds: float, what: str):
+    """Ends the process with a message if the block takes longer than
+    ``seconds``: a kernel that hangs must fail the run, never stall it."""
+    def fire():
+        print(f"chip_smoke: watchdog: {what} did not finish in {seconds:.0f} s", flush=True)
+        print(f"chip_smoke: watchdog: {what} did not finish in {seconds:.0f} s",
+              file=sys.stderr, flush=True)
+        os._exit(3)
+    timer = threading.Timer(seconds, fire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
 
 
 def make_batch(cfg, B, max_len, rs, dev):
@@ -218,6 +263,14 @@ def stage_bound(B, H, W, C, Cw, N):
     n_bytes = 2 * B * H * W * C * 2 + N * (2 * C * Cw + 9 * Cw * Cw + 2 * Cw + C) * 2
     n_ops = 2 * B * N * H * W * (2 * C * Cw + 9 * Cw * Cw)
     return bound(n_bytes, n_ops, H100_BF16_FLOPS)
+
+
+def old_stage_weight_bytes(B, H, W, C, Cw, N):
+    """L2 weight bytes a call of the mma.sync stage kernel read: each CTA of
+    its 8x8 tiling (4x14 where that divides W and 8x8 does not) read every
+    weight of a block."""
+    th, tw = (4, 14) if W % 8 and W % 14 == 0 else (8, 8)
+    return -(-H // th) * -(-W // tw) * B * N * 2 * (2 * C * Cw + 9 * Cw * Cw)
 
 
 def mask_bound(shape):
@@ -335,12 +388,21 @@ def main() -> int:
                                 "rau_train_hops_fwd", "rau_train_hops_bwd",
                                 "fused_resnet"], force=True)
     log(f"build_s={time.perf_counter() - t0:.3f} [{card}]")
+    stage_regs = {}   # (TH, TW, NB, ring) -> registers a thread
     for name, rep in reports.items():
-        what = ""
+        what, inst = "", None
         for line in rep.splitlines():
             if name == "lstm_encoder" and "Compiling entry" in line:
                 # the encoder's one instantiation per units a CTA
                 what = " U=" + line.split("lstm_encode_kernelILi")[1].split("E")[0]
+            if name == "fused_resnet" and "Compiling entry" in line:
+                # the stage kernel's instantiations: Cfg<TH, TW, NB, S>
+                m = re.search(r"CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", line)
+                inst = tuple(int(v) for v in m.groups()) if m else None
+                what = (f" tile {inst[0]}x{inst[1]} nb {inst[2]} ring {inst[3]}" if m
+                        else " float32")
+            if name == "fused_resnet" and inst and "registers" in line:
+                stage_regs[inst] = int(re.search(r"Used (\d+) registers", line).group(1))
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"ptxas {name}{what}: {line.strip()}")
 
@@ -487,31 +549,46 @@ def main() -> int:
     failed = []
     checks = ([(2, Hs, Hs, C, Cw, N, bf16, stage_bar(N), 0.0) for Hs, C, Cw, N in stages]
               + [(2, 14, 14, 2048, 512, 2, torch.float32, 2e-5, 0.0)]
-              # 8x8 and 4x14 tiles cut at the edge, biases around 0 and +1
-              + [(3, 13, Ws, C, Cw, 2, bf16, stage_bar(2), mean)
-                 for mean in (0.0, 1.0) for Ws, C, Cw in ((21, 512, 128), (28, 256, 64))])
-    for B, Hs, Ws, C, Cw, N, dt, bar, mean in checks:
-        stack = stage_stack(N, C, Cw, dt, gen_s, dev, bias_mean=mean)
-        x = torch.randn(B, Hs, Ws, C, generator=gen_s, device=dev).abs().to(dt)
-        got = fused_resnet.fused_identity_stage(x, stack, block_b=1)
-        want = plain_stage(x, stack)
-        torch.cuda.synchronize()
-        e = scaled_err(got, want)
-        what = f"fused_identity_stage B={B} H={Hs} W={Ws} C={C} Cw={Cw} N={N} {dt}"
-        if mean:
-            what += f" biases around {mean}"
-        if not e <= bar:
-            failed.append(f"{what}: scale-normalised error {e:.3e} > {bar}")
-        log(f"{what}: max_abs_err/max|want| {e:.3e} (bar {bar}), max_abs_err "
-            f"{(got.float() - want.float()).abs().max().item():.3e}, "
-            f"max|want| {want.float().abs().max().item():.3e}")
-        if B == 3:   # the edge-cut cases
-            for fault, wrong in stage_faults(plain_stage, x, stack).items():
-                fe = scaled_err(wrong, want)
-                log(f"  the plain stage with a {fault}: {fe:.3e} from the right one")
-                if mean and not fe > 2 * bar:
-                    failed.append(f"{what}: a {fault} lands {fe:.3e} from the plain "
-                                  f"stage, within twice the bar {bar}")
+              # each tile cut at the image's edge (4x28 with 128- and 64-column
+              # chunks, 4x14), biases around 0 and +1
+              + [(3, 13, Ws, C, Cw, 2, bf16, stage_bar(2), mean) for mean in (0.0, 1.0)
+                 for Ws, C, Cw in ((21, 512, 128), (28, 256, 64), (14, 512, 512))])
+    with watchdog(300, "the stage kernel's checks"):
+        for B, Hs, Ws, C, Cw, N, dt, bar, mean in checks:
+            stack = stage_stack(N, C, Cw, dt, gen_s, dev, bias_mean=mean)
+            x = torch.randn(B, Hs, Ws, C, generator=gen_s, device=dev).abs().to(dt)
+            what = f"fused_identity_stage B={B} H={Hs} W={Ws} C={C} Cw={Cw} N={N} {dt}"
+            if dt == bf16:
+                p = fused_resnet.stage_plan(B, Hs, Ws, C, Cw, n_sm)
+                what += f" (tile {p.th}x{p.tw} ring {p.ring})"
+                # the plan's shared memory is what the launcher will ask for
+                smem = fused_resnet.launcher_smem(p.th, p.tw, p.nb, p.ring, C, Cw)
+                if smem != p.smem:
+                    failed.append(f"{what}: stage_plan reckons {p.smem} B of shared memory, "
+                                  f"the launcher {smem}")
+            if mean:
+                what += f" biases around {mean}"
+            try:
+                got = fused_resnet.fused_identity_stage(x, stack, block_b=1)
+                want = plain_stage(x, stack)
+                torch.cuda.synchronize()
+            except RuntimeError as err:
+                # a fault or a trap of the kernel's mbarrier watchdog (a wait
+                # that never completes) leaves the context unusable
+                raise SystemExit(f"kernels: {what}: the stage kernel failed: {err}")
+            e = scaled_err(got, want)
+            if not e <= bar:
+                failed.append(f"{what}: scale-normalised error {e:.3e} > {bar}")
+            log(f"{what}: max_abs_err/max|want| {e:.3e} (bar {bar}), max_abs_err "
+                f"{(got.float() - want.float()).abs().max().item():.3e}, "
+                f"max|want| {want.float().abs().max().item():.3e}")
+            if B == 3:   # the edge-cut cases
+                for fault, wrong in stage_faults(plain_stage, x, stack).items():
+                    fe = scaled_err(wrong, want)
+                    log(f"  the plain stage with a {fault}: {fe:.3e} from the right one")
+                    if mean and not fe > 2 * bar:
+                        failed.append(f"{what}: a {fault} lands {fe:.3e} from the plain "
+                                      f"stage, within twice the bar {bar}")
     if failed:
         raise SystemExit("kernels: " + "; ".join(failed))
     log("phase kernels: ok")
@@ -900,8 +977,8 @@ def main() -> int:
     log(f"train_step_other_ms={train_ms - sum(v for k, v in tms.items() if 'plain' not in k):.4f} "
         f"(loss, gmerge, autograd glue) B={B} [{card}]")
     log(f"train_step_questions_per_s={B / train_ms * 1e3:.1f} B={B} [{card}]")
-    busy_ms, top = device_profile(lambda: train_step(state0, tokens, lengths, feats, labels,
-                                                     hop_scale, lr, mult_lr))
+    busy_ms, top, _ = device_profile(lambda: train_step(state0, tokens, lengths, feats, labels,
+                                                        hop_scale, lr, mult_lr))
     if busy_ms > 0:
         log(f"train_step_device_busy_ms={busy_ms:.4f} of {train_ms:.4f} "
             f"(idle share {1 - busy_ms / train_ms:.3f}) B={B} [{card}]")
@@ -952,8 +1029,28 @@ def main() -> int:
                    "plain_ms": time_ms(lambda: plain_stage(x, stack), iters=2, warmup=1),
                    "library_ms": time_ms(lambda: unfused(x, st, N + 1), iters=5)}
             row["bound_ms"], row["bound_by"] = stage_bound(Bs, Hs, Ws, C, Cw, N)
+            row["plan"] = fused_resnet.stage_plan(Bs, Hs, Ws, C, Cw, n_sm)
+            row["weight_gb"] = row["plan"].weight_bytes * N / 1e9
+            row["old_weight_gb"] = old_stage_weight_bytes(Bs, Hs, Ws, C, Cw, N) / 1e9
             stage_ms.append(row)
             pms[f"stage_kernel{st}"] = row["ms"]
+        # the stage kernel's levers one at a time, on the call's own inputs:
+        # the old 4x14 tile at stage 2, the ring's depth at stage 1 (stage 3
+        # has no other choice)
+        variants = []
+        for st, _, _, x, stack in walk[1:3]:
+            Bs, Hs, Ws, C = x.shape
+            N, _, Cw = stack["w1"].shape
+            shape = (Bs, Hs, Ws, C, Cw, n_sm)
+            alt = [("the plan", fused_resnet.stage_plan(*shape))]
+            if st == 1:
+                alt.append(("a 3-deep ring", fused_resnet.stage_plan(*shape, ring=3)))
+            if st == 2:
+                alt.append(("the old 4x14 tile", fused_resnet.stage_plan(*shape, tile=(4, 14))))
+            for name, p in alt:
+                v_ms = time_ms(lambda: fused_resnet.fused_identity_stage(x, stack, plan=p),
+                               iters=5)
+                variants.append((st, name, p, v_ms, p.weight_bytes * N / 1e9))
         x = fused_resnet.fused_identity_stage(walk[-1][3], walk[-1][4])
         feats = x.reshape(B, -1, x.shape[-1]).float()
         pms["head"] = time_ms(lambda: predict_fused(params_r, head_w, cfg_r, tokens, lengths,
@@ -964,18 +1061,26 @@ def main() -> int:
         log(f"pixels_{k}_ms={v:.4f} B={B} 448px [{card}]")
     log(f"pixels_rest_ms={ans_ms - sum(pms.values()):.4f} (feature casts, host) B={B}")
     for row in stage_ms:
+        p = row["plan"]
         log(f"stage{row['stage']} {row['shape']} (B, H, W, C, Cw, N): kernel_ms={row['ms']:.4f} "
             f"plain_ms={row['plain_ms']:.4f} unfused_cudnn_ms={row['library_ms']:.4f} "
-            f"bound_ms={row['bound_ms']:.4f} by {row['bound_by']} [{card}]")
+            f"bound_ms={row['bound_ms']:.4f} by {row['bound_by']}; plan: tile {p.th}x{p.tw}, "
+            f"ring {p.ring}, {p.smem} B shared memory, "
+            f"{stage_regs.get((p.th, p.tw, p.nb, p.ring), 'unknown')} registers, {p.ctas} CTAs; "
+            f"L2 weight reads {row['weight_gb']:.3f} GB a call "
+            f"(the mma.sync kernel's 8x8/4x14 tiling: {row['old_weight_gb']:.3f}) [{card}]")
+    for st, name, p, v_ms, gb in variants:
+        log(f"stage{st} variant {name}: tile {p.th}x{p.tw} ring {p.ring}: "
+            f"kernel_ms={v_ms:.4f}, L2 weight reads {gb:.3f} GB [{card}]")
     log(f"answer_pixels_ms={ans_ms:.4f} B={B} 448px; images_per_s={B / ans_ms * 1e3:.1f}; "
         f"questions_per_s={B / ans_ms * 1e3:.1f} (one question an image) [{card}]")
-    busy_ms, top = device_profile(lambda: pipeline.answer_pixels(
+    busy_ms, top, ops = device_profile(lambda: pipeline.answer_pixels(
         params_r, bb, cfg_r, "resnet101", images, tokens, lengths))
     if busy_ms > 0:
         log(f"answer_pixels_device_busy_ms={busy_ms:.4f} of {ans_ms:.4f} "
             f"(idle share {1 - busy_ms / ans_ms:.3f}) B={B} [{card}]")
-        for name, t in top[:8]:
-            log(f"answer_pixels_device_ms={t:.4f} {name[:70]}")
+        for name, t in top[:10]:
+            log(f"answer_pixels_device_ms={t:.4f} {name[:70]} <- {ops.get(name, 'no op')[:110]}")
     else:
         log("answer_pixels_device_busy_ms: not measured (the profiler recorded no device time)")
     s2 = stage_ms[2]

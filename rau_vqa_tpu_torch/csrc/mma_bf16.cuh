@@ -1,6 +1,6 @@
-// bf16 tensor-core building blocks for sm_90a, shared by fused_resnet.cu and
-// lstm_encoder.cu: cp.async copies, ldmatrix fragment loads and the
-// mma.sync m16n8k16 product with float32 sums.
+// bf16 tensor-core building blocks for sm_90a, used by lstm_encoder.cu:
+// cp.async copies, ldmatrix fragment loads and the mma.sync m16n8k16 product
+// with float32 sums (and smem_u32, which fused_resnet.cu uses too).
 
 #pragma once
 

@@ -26,7 +26,8 @@ import torch.nn.functional as F
 
 from rau_vqa_tpu_torch.convert import MemoRecent
 from rau_vqa_tpu_torch.devices import pick_device
-from rau_vqa_tpu_torch.ops.fused_resnet import fused_identity_stage, stack_identity_blocks
+from rau_vqa_tpu_torch.ops.fused_resnet import (
+    fused_identity_stage, pack_stage_weights, stack_identity_blocks)
 
 RESNET101_BLOCKS = (3, 4, 23, 3)
 STAGE_WIDTH = (64, 128, 256, 512)   # bottleneck inner widths; out = 4x
@@ -227,9 +228,14 @@ def _prepared_block(params: Dict, prep: Dict, stage: int, b: int) -> Dict:
 
 
 def _stage_stack(params: Dict, prep: Dict, stage: int) -> Dict:
-    """The stacked identity run of ``stage``, built on first use."""
+    """The stacked identity run of ``stage``, built on first use; on the card
+    in bf16 with the K-major copies the stage kernel reads
+    (``pack_stage_weights``) beside the stack's own keys."""
     if stage not in prep["stacks"]:
-        prep["stacks"][stage] = stack_identity_blocks(params["stages"][stage][1:])
+        stack = stack_identity_blocks(params["stages"][stage][1:])
+        if stack["w1"].is_cuda and stack["w1"].dtype == torch.bfloat16:
+            stack.update(pack_stage_weights(stack))
+        prep["stacks"][stage] = stack
     return prep["stacks"][stage]
 
 

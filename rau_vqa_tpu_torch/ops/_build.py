@@ -105,17 +105,30 @@ class Kernel:
         self.fn = fn
         self.argtypes = list(argtypes)
         self.launches = 0
+        self._lib: Optional[ctypes.CDLL] = None
         self._cfn: Optional[ctypes._CFuncPtr] = None
+
+    def _library(self) -> ctypes.CDLL:
+        if self._lib is None:
+            build_all([self.name])
+            self._lib = ctypes.CDLL(library_path(self.name))
+        return self._lib
 
     def _load(self):
         if self._cfn is None:
-            build_all([self.name])
-            lib = ctypes.CDLL(library_path(self.name))
-            cfn = getattr(lib, self.fn)
+            cfn = getattr(self._library(), self.fn)
             cfn.argtypes = self.argtypes
             cfn.restype = ctypes.c_int
             self._cfn = cfn
         return self._cfn
+
+    def query(self, fn: str, *args: int) -> int:
+        """The value of the library's ``int fn(int, ...)``: a question about
+        the launcher (no launch, so nothing is counted)."""
+        cfn = getattr(self._library(), fn)
+        cfn.argtypes = [ctypes.c_int] * len(args)
+        cfn.restype = ctypes.c_int
+        return cfn(*args)
 
     def launch(self, *args) -> None:
         err = self._load()(*args)

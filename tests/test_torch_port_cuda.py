@@ -20,6 +20,7 @@ checks take their bars and random stacks from chip_smoke.py.
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -287,15 +288,23 @@ def test_train_hops_bwd_matches_autograd(cuda_device):
 # from-pixels: the identity-stage kernel and answer_pixels
 # ---------------------------------------------------------------------------
 
+def _n_sm():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 @pytest.mark.parametrize("shape,dtype,bar", [
-    ((3, 9, 11, 128, 64, 2), torch.bfloat16, stage_bar(2)),      # narrow, ragged tiles
-    ((2, 28, 28, 1024, 256, 22), torch.bfloat16, stage_bar(22)),  # stage 2 at 448 px
+    ((3, 9, 11, 128, 64, 2), torch.bfloat16, stage_bar(2)),     # narrow, ragged tiles
+    ((2, 112, 112, 256, 64, 2), torch.bfloat16, stage_bar(2)),  # the 448-px stages
+    ((2, 56, 56, 512, 128, 3), torch.bfloat16, stage_bar(3)),
+    ((2, 28, 28, 1024, 256, 22), torch.bfloat16, stage_bar(22)),
+    ((2, 14, 14, 2048, 512, 2), torch.bfloat16, stage_bar(2)),
     ((2, 16, 16, 256, 128, 2), torch.float32, 2e-5),
 ])
 def test_fused_stage_matches_plain(cuda_device, shape, dtype, bar):
     """Scale-normalised errors (activations grow across the residual blocks
     at random init): bf16 at chip_smoke.py's ``stage_bar``, ~3x the sound
-    kernel's readings; float32 at tests/test_fused_resnet.py's 2e-5."""
+    kernel's readings; float32 at tests/test_fused_resnet.py's 2e-5.  The
+    448-px stage shapes at B=2."""
     B, H, W, C, Cw, N = shape
     gen = torch.Generator(cuda_device).manual_seed(B + H)
     stack = stage_stack(N, C, Cw, dtype, gen, cuda_device)
@@ -309,20 +318,78 @@ def test_fused_stage_matches_plain(cuda_device, shape, dtype, bar):
     assert scaled_err(got, want) <= bar
 
 
-@pytest.mark.parametrize("W,C,Cw", [(21, 512, 128), (28, 256, 64)])   # 8x8, 4x14 tiles
-def test_fused_stage_bar_sees_halo_and_bias_faults(cuda_device, W, C, Cw):
+# every instantiation of the bf16 kernel (tile, column chunk, ring): Cw = the
+# chunk
+INSTANCES = [((th, tw), nb, ring) for th, tw, nb, ring in fused_resnet.INSTANCES]
+
+
+@pytest.mark.parametrize("tile,Cw,ring", INSTANCES)
+@pytest.mark.parametrize("B", [1, 3])
+def test_fused_stage_every_tile_on_edge_cut_images(cuda_device, tile, Cw, ring, B):
+    """Each instantiation the plan can choose, on images its tiles do not
+    divide."""
+    H, W, C, N = 13, 21, 256, 2
+    plan = fused_resnet.stage_plan(B, H, W, C, Cw, _n_sm(), tile=tile, ring=ring)
+    gen = torch.Generator(cuda_device).manual_seed(Cw + B)
+    stack = stage_stack(N, C, Cw, torch.bfloat16, gen, cuda_device)
+    x = torch.randn(B, H, W, C, generator=gen, device=cuda_device).abs().to(torch.bfloat16)
+    got = fused_resnet.fused_identity_stage(x, stack, block_b=1, plan=plan)
+    want = fused_resnet.fused_identity_stage_reference(x, stack)
+    torch.cuda.synchronize()
+    assert scaled_err(got, want) <= stage_bar(N)
+
+
+@pytest.mark.parametrize("W,C,Cw,tile,ring", [(21, 512, 128, None, None), (28, 256, 64, None, None)]
+                         + [(21, 256, Cw, tile, ring) for tile, Cw, ring in INSTANCES])
+def test_fused_stage_bar_sees_halo_and_bias_faults(cuda_device, W, C, Cw, tile, ring):
     """On tiles cut by the image's edge, with biases around +1, the kernel
     sits within the bar and a relu(b1) halo, a dropped b2 or a dropped b3
-    lands beyond twice the bar."""
+    lands beyond twice the bar; for each tile instantiation."""
     gen = torch.Generator(cuda_device).manual_seed(W)
     stack = stage_stack(2, C, Cw, torch.bfloat16, gen, cuda_device, bias_mean=1.0)
     x = torch.randn(3, 13, W, C, generator=gen, device=cuda_device).abs().to(torch.bfloat16)
-    got = fused_resnet.fused_identity_stage(x, stack, block_b=1)
+    plan = tile and fused_resnet.stage_plan(3, 13, W, C, Cw, _n_sm(), tile=tile, ring=ring)
+    got = fused_resnet.fused_identity_stage(x, stack, block_b=1, plan=plan)
     plain = fused_resnet.fused_identity_stage_reference
     want = plain(x, stack)
     assert scaled_err(got, want) <= stage_bar(2)
     for fault, wrong in stage_faults(plain, x, stack).items():
         assert scaled_err(wrong, want) > 2 * stage_bar(2), fault
+
+
+@pytest.mark.parametrize("shape", [(2, 28, 28, 1024, 256, 3), (3, 14, 14, 2048, 512, 2)])
+def test_fused_stage_two_calls_give_the_same_bits(cuda_device, shape):
+    B, H, W, C, Cw, N = shape
+    gen = torch.Generator(cuda_device).manual_seed(N)
+    stack = stage_stack(N, C, Cw, torch.bfloat16, gen, cuda_device)
+    x = torch.randn(B, H, W, C, generator=gen, device=cuda_device).abs().to(torch.bfloat16)
+    first = fused_resnet.fused_identity_stage(x, stack, block_b=1)
+    assert torch.equal(first, fused_resnet.fused_identity_stage(x, stack, block_b=1))
+
+
+@pytest.mark.parametrize("change", [dict(ring=4), dict(th=4, tw=28)])
+def test_fused_stage_raises_for_a_plan_that_cannot_launch(cuda_device, change):
+    """A 4-deep ring at 4x14 (not instantiated) or a 4x28 tile at Cw=512
+    (y1 alone takes 187 KB) cannot launch: the wrapper raises."""
+    B, H, W, C, Cw = 2, 14, 14, 2048, 512
+    plan = dataclasses.replace(fused_resnet.stage_plan(B, H, W, C, Cw, _n_sm()), **change)
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    stack = stage_stack(1, C, Cw, torch.bfloat16, gen, cuda_device)
+    x = torch.randn(B, H, W, C, generator=gen, device=cuda_device).to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        fused_resnet.fused_identity_stage(x, stack, block_b=1, plan=plan)
+
+
+@pytest.mark.parametrize("C,Cw", [(256, 64), (512, 128), (1024, 256), (2048, 512)])
+def test_stage_plan_smem_is_the_launchers(cuda_device, C, Cw):
+    """``INSTANCES`` lists what the library instantiates, and ``smem_bytes``
+    is what its launcher asks for, at each 448-px stage's widths."""
+    for th, tw, nb, ring in itertools.product((4, 8), (8, 14, 28), (64, 128), (2, 3, 4, 5)):
+        got = fused_resnet.launcher_smem(th, tw, nb, ring, C, Cw)
+        if (th, tw, nb, ring) in fused_resnet.INSTANCES:
+            assert got == fused_resnet.smem_bytes(th, tw, nb, ring, C, Cw) > 0
+        else:
+            assert got == -1, (th, tw, nb, ring)
 
 
 def test_answer_pixels_runs_every_kernel(cuda_device):

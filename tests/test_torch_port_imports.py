@@ -1,5 +1,5 @@
 """The port stands alone: no module of rau_vqa_tpu_torch, and neither
-chip_smoke.py nor bench_torch_serving.py, imports JAX, Flax or anything of the JAX package (checked on
+chip_smoke.py, bench_torch_serving.py nor bench_torch_stage.py, imports JAX, Flax or anything of the JAX package (checked on
 the source, so lazy imports inside functions count too)."""
 
 import ast
@@ -9,7 +9,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "rau_vqa_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "bench_torch_serving.py"]
+    ROOT / "chip_smoke.py", ROOT / "bench_torch_serving.py", ROOT / "bench_torch_stage.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rau_vqa_tpu")
 
 
@@ -31,7 +31,8 @@ def test_sources_found():
     assert {"predict.py", "lstm_encoder.py", "rau_hops.py", "chip_smoke.py",
             "maskgen.py", "rau_train_hops.py", "treeflat.py", "losses.py",
             "optim.py", "trainer.py", "fused_resnet.py", "transforms.py",
-            "resnet.py", "pipeline.py", "devices.py", "bench_torch_serving.py"} <= names
+            "resnet.py", "pipeline.py", "devices.py", "bench_torch_serving.py",
+            "bench_torch_stage.py"} <= names
     assert (ROOT / "rau_vqa_tpu_torch" / "models" / "backbones" / "__init__.py") in SOURCES
 
 

@@ -18,7 +18,15 @@ Phases, in order; any failure exits non-zero:
               kernel at B in {19, 512}, at the bars of
               tests/test_pallas_rau.py; the device mask hash bit for bit; the
               training hop loop's forward (rtol / atol 1e-4) and backward
-              (grads norm-relative 1e-3 per leaf) at B in {19, 100}; the
+              (grads norm-relative 1e-3 per leaf) at B in {19, 100}; the same
+              kernels' bf16 instantiations against their bf16 plain versions
+              on bf16 weights, each output and grad leaf norm-relative: at
+              one hop, B in {19, 100}, within ``TRAIN_BF16_BARS``, each bar
+              under half the plain bf16-vs-float32 distance (logged); at
+              eight hops, B in {19, 100}, within twice the plain version's
+              own drift when it runs on the host CPU (bf16 rounding flips
+              compound over the hops) and under 3/4 of the float32
+              distance, which a kernel that skips the rounding reaches; the
               ResNet identity-stage kernel at the four 448-px stage shapes
               (real N, B=2, bf16; each plan's shared memory as the built
               launcher reckons it), in float32 at stage 3's, and at B=3 on
@@ -32,12 +40,20 @@ Phases, in order; any failure exits non-zero:
               and 512 with length buckets 8, 16 and 26 each hit; outputs are
               finite and agree with the plain float32 path; both serving
               kernels' launch counts rose during this phase;
-5. training — ``make_train_step`` on cuda, ``ours_ms`` with fused_train, B=100,
-              T=26: 10 steps on one batch with all dropout and gradient noise
-              on; losses and grad norms finite, the last loss below the
-              first, each training kernel launched exactly 10 times; one
-              step with the backward kernel and one with autograd through
-              the plain version agree on every grad norm;
+5. training — ``make_train_step`` on cuda, ``ours_ms``, B=100, T=26, 10 steps
+              on one batch with all dropout and gradient noise on, losses and
+              grad norms finite and the last loss below the first, in three
+              configurations: fused_train in float32 (each float32 training
+              kernel launched exactly 10 times; one step with the backward
+              kernel and one with autograd through the plain version agree on
+              every grad norm); the preset as shipped (unfused, no training
+              kernel launched; one step with remat_hops and one without give
+              the same grad norms); fused_train with compute_dtype bfloat16
+              (each bf16 kernel launched exactly 10 times, the float32 ones
+              never; the first loss within 5% of the float32 fused step's);
+              the preset unfused with compute_dtype bfloat16 (no training
+              kernel; the first loss within 5% of the unfused float32
+              step's);
 6. pixels   — ``answer_pixels`` on cuda: the ``ours_resnet`` head, a folded
               bf16 ResNet-101 from the seed, 448x448 uint8 images, B in
               {1, 7, 120} (32, 5 and 1 calls); against ``pixels_forward``
@@ -56,7 +72,10 @@ Phases, in order; any failure exits non-zero:
               encoder at B in {1, 16, 83, 512}, T=26, beside torch.nn.LSTM
               in float32 (TF32 off; the ``library_ms`` yardstick) and, logged
               only, in bf16; the predict step at B in {1, 4, 16, 83, 512},
-              the train step and its parts at B=100, and ``answer_pixels``
+              the train step and its parts at B=100 (fused float32, fused
+              bf16, the unfused preset and it in bf16, each with its idle
+              share; the bf16
+              kernels beside their plain versions), and ``answer_pixels``
               at B=120 with its parts: each stage kernel beside its plain
               version, the unfused cuDNN stage and its bound, with its plan
               (tile, ring, shared memory, registers) and the weight bytes its
@@ -120,8 +139,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def device_profile(fn, iters: int = 3):
     """Per call of ``fn`` under torch.profiler: (the sum of the device's
     kernel times in ms, [(kernel name, ms)] largest first, {kernel name: the
-    op that launched most of its time, with two of its callers}).  The sum
-    is 0 where the profiler records no device time."""
+    op that launched most of its time, with two of its callers}, the number
+    of device kernels and copies a call ran, [(host op, its own host ms,
+    calls)] largest first).  The sum is 0 where the profiler records no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -130,11 +151,14 @@ def device_profile(fn, iters: int = 3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, n_kernels, host = {}, 0, []
     for e in prof.key_averages():
         # the device's own rows (kernels, copies); CPU-op rows repeat them
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3 / iters
+            n_kernels += e.count
+        elif e.device_type == DeviceType.CPU:
+            host.append((e.key, e.self_cpu_time_total / 1e3 / iters, e.count / iters))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     # each CPU op lists the device kernels it launched
     launched = {}
@@ -149,7 +173,7 @@ def device_profile(fn, iters: int = 3):
             per_op = launched.setdefault(k.name, {})
             per_op[" < ".join(chain)] = per_op.get(" < ".join(chain), 0.0) + k.duration
     ops = {k: max(v, key=v.get) for k, v in launched.items()}
-    return sum(by_name.values()), top, ops
+    return sum(by_name.values()), top, ops, n_kernels / iters, sorted(host, key=lambda r: -r[1])
 
 
 @contextlib.contextmanager
@@ -232,28 +256,161 @@ def train_hop_flops(cfg):
     return fwd, bwd
 
 
-def train_fwd_bound(cfg, mp, B):
-    """Least time for the training hop loop's forward: q, feats and the
-    weights read once, the five outputs written once; float32 operations."""
+def _operand_size_and_peak(dtype):
+    """Bytes an operand of the training kernels takes, and the peak rate of
+    their products: float32 FMA, or bf16 on the tensor cores."""
+    if dtype == torch.bfloat16:
+        return 2, H100_BF16_FLOPS
+    return 4, H100_F32_FLOPS
+
+
+def train_fwd_bound(cfg, mp, B, dtype=torch.float32):
+    """Least time for the training hop loop's forward: q, feats (in the
+    products' type ``dtype``) and the weights ``mp`` read once, the five
+    float32 outputs written once; the products at ``dtype``'s peak."""
     Q, S, Dc, R, A, H = (cfg.rnnout_dim, cfg.cnn_spat, cfg.cnn_dim,
                          cfg.att_state_dim, cfg.answer_size, cfg.n_hops)
-    n_bytes = (B * Q + B * S * Dc + H * B * (A + 1 + S) + 2 * (H + 1) * B * R) * 4 + nbytes(mp)
-    return bound(n_bytes, B * H * train_hop_flops(cfg)[0], H100_F32_FLOPS)
+    e, peak = _operand_size_and_peak(dtype)
+    n_bytes = ((B * Q + B * S * Dc) * e + (H * B * (A + 1 + S) + 2 * (H + 1) * B * R) * 4
+               + nbytes(mp))
+    return bound(n_bytes, B * H * train_hop_flops(cfg)[0], peak)
 
 
-def train_bwd_bound(cfg, mp, B):
-    """Least time for the backward kernel's work: q, feats, the carries,
-    gmerge and the weights read once; its emissions and the summed
-    feats-path grads written once; the hop's remat (without the
-    classifier) plus its backward in float32 operations."""
+def train_bwd_bound(cfg, mp, B, dtype=torch.float32):
+    """Least time for the backward kernel's work: q, feats (in ``dtype``),
+    the carries, gmerge and the weights read once; its emissions (float32
+    cotangents, qfeat / join / merge_d in ``dtype``) and the summed
+    feats-path grads written once; the hop's remat (without the classifier)
+    plus its backward at ``dtype``'s peak."""
     Q, S, Dc, M, F, R, A, H = (cfg.rnnout_dim, cfg.cnn_spat, cfg.cnn_dim, cfg.multfeat_dim,
                                cfg.attfeat_dim, cfg.att_state_dim, cfg.answer_size, cfg.n_hops)
-    emits = 7 * M + F + S + 4 * R
-    n_bytes = ((B * Q + B * S * Dc + 2 * (H + 1) * B * R + H * B * M + H * B * emits
-                + Dc * M + M + M * F + 2 * F) * 4 + nbytes(mp))
+    e, peak = _operand_size_and_peak(dtype)
+    cotangents = 3 * M + F + S + 4 * R
+    n_bytes = ((B * Q + B * S * Dc) * e + H * B * 3 * M * e
+               + (2 * (H + 1) * B * R + H * B * M + H * B * cotangents
+                  + Dc * M + M + M * F + 2 * F) * 4 + nbytes(mp))
     fwd, bwd = train_hop_flops(cfg)
     n_ops = B * H * (fwd - 2 * (M * A + M) + bwd)
-    return bound(n_bytes, n_ops, H100_F32_FLOPS)
+    return bound(n_bytes, n_ops, peak)
+
+
+def norm_rel(got, want) -> float:
+    """|got - want| / |want|; where want is all zeros, 0 if got is too and
+    inf if not."""
+    diff, ref = (got.float() - want.float()).norm().item(), want.float().norm().item()
+    if ref == 0.0:
+        return 0.0 if diff == 0.0 else float("inf")
+    return diff / ref
+
+
+# The bf16 training kernels' bars at one hop, norm-relative against their
+# bf16 plain versions on the same inputs (train_bf16_readings): 2-3x the
+# largest reading of the sound kernels at B in {19, 100} (PERF.md, §6),
+# each under half the float32 plain version's distance (4.7e-4 for
+# do_pred, 1.7e-3 for the scores, 1.9e-3 to 4.5e-3 for the grads).  Both
+# sides round the same operands to bf16 and differ in the order of their
+# float32 sums, which now and then flips a rounding; each flip moves what
+# follows it, so the readings grow with the depth.  Backward: by leaf, then
+# the weights' grads and dq, then the biases'.
+TRAIN_BF16_BARS = {
+    "fwd": {"scores": 7.5e-4, "do_pred": 2e-4, "attprob": 2.5e-4, "c_all": 2.5e-4,
+            "h_all": 2.5e-4},
+    "bwd": {"i_embed/w": 2.5e-4, "weights": 9e-4, "biases": 2.5e-4},
+}
+
+
+def train_bf16_bar(kind: str, name: str) -> float:
+    bars = TRAIN_BF16_BARS[kind]
+    if name in bars:
+        return bars[name]
+    return bars["biases" if name.rsplit("/", 1)[-1] in ("b", "bi", "bh") else "weights"]
+
+
+def train_bf16_deep_bar(r) -> float:
+    """The bf16 training kernels' bar at eight hops for one output or grad
+    leaf's readings ``r`` (train_bf16_readings with ``host``): twice the
+    plain version's own drift on the host CPU, and under 3/4 of the float32
+    plain version's distance, where a kernel that skips the rounding lands."""
+    return min(2 * r["host"], 0.75 * r["float32"])
+
+
+def train_bf16_readings(rth, cfg, mp, B, rs, dev, host=False):
+    """The bf16 training kernels against their bf16 plain versions on one
+    batch of B rows (``cfg``: fused, bf16): {"fwd": {output: r}, "bwd":
+    {grad leaf: r}}, where r holds the norm-relative distance from the bf16
+    plain version (on the card) of the kernel, of the float32 plain version
+    on the same bf16-valued inputs and, with ``host``, of the bf16 plain
+    version run on the host CPU (the same arithmetic summed in another
+    order).  The backward's leaves are its feats-path grads and the outside
+    products over its emissions, on the kernel forward's carries, with the
+    cotangent of a per-hop cross-entropy; att_score b's grad, zero in exact
+    arithmetic, is held to an absolute 1e-5 here instead."""
+    from rau_vqa_tpu_torch.convert import map_tree
+    bf16 = torch.bfloat16
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    H, A, Q = cfg.n_hops, cfg.answer_size, cfg.rnnout_dim
+    mp16 = map_tree(lambda w: w.to(bf16), mp)
+    mp32 = map_tree(lambda w: w.float(), mp16)
+    feats = make_batch(cfg, B, cfg.seq_len, rs, dev)[2].to(bf16)
+    q = torch.as_tensor(0.5 * rs.randn(B, Q).astype(np.float32), device=dev).to(bf16)
+    seed = torch.tensor([rs.randint(0, 2 ** 31 - 1)], dtype=torch.int32, device=dev)
+    labels = torch.as_tensor(rs.randint(0, A, B), device=dev)
+    hop_w = torch.tensor([1.0 + 0.5 * h for h in range(H)], device=dev)
+    cpu = torch.device("cpu")
+
+    def on(device, *xs):
+        return [map_tree(lambda t: t.to(device), x) if isinstance(x, dict) else x.to(device)
+                for x in xs]
+
+    fwd_runs = {"kernel": (rth.train_hops_fwd, cfg, dev, mp16, q, feats),
+                "plain": (rth.train_hops_fwd_reference, cfg, dev, mp16, q, feats),
+                "float32": (rth.train_hops_fwd_reference, cfg32, dev, mp32, q.float(),
+                            feats.float())}
+    if host:
+        fwd_runs["host"] = (rth.train_hops_fwd_reference, cfg, cpu, mp16, q, feats)
+    outs = {}
+    for k, (fn, c, d, mp_, q_, feats_) in fwd_runs.items():
+        mp_, q_, feats_, seed_ = on(d, mp_, q_, feats_, seed)
+        outs[k] = on(dev, *fn(mp_, c, q_, feats_, seed_))
+    names = ("scores", "do_pred", "attprob", "c_all", "h_all")
+    fwd = {n: {k: norm_rel(v[i], outs["plain"][i]) for k, v in outs.items() if k != "plain"}
+           for i, n in enumerate(names)}
+
+    _, _, attprob, c_all, h_all = outs["kernel"]
+    s_ = outs["kernel"][0].detach().requires_grad_()
+    ce = torch.nn.functional.cross_entropy(
+        s_.reshape(-1, A), labels.repeat(H), reduction="none").reshape(H, B).mean(1)
+    g_scores, = torch.autograd.grad((hop_w * ce).sum(), s_)
+
+    def hand_grads(bwd, c, d, mp_, q_, feats_):
+        mp_, q_, feats_, seed_, c_, h_, p_, g_ = on(d, mp_, q_, feats_, seed, c_all, h_all,
+                                                    attprob, g_scores)
+        dd = rth.dot_dtype(c)
+        gmerge = (rth._rnd(g_.reshape(H * B, -1), dd)
+                  @ rth._rnd(mp_["cls"]["w"], dd).T).reshape(H, B, -1)
+        em, gw_in = bwd(mp_, c, q_, feats_, seed_, c_, h_, gmerge.contiguous())
+        gw_out, dq = rth._outside_grads(c, mp_, q_, seed_, h_, p_, g_, em)
+        grads = {p: (gw_in[p] if p in gw_in else gw_out[p]) for p in rth._DIFF_WEIGHTS}
+        return {**on(dev, grads)[0], "dq": dq.to(dev)}
+
+    grads = {"kernel": hand_grads(rth.train_hops_bwd, cfg, dev, mp16, q, feats),
+             "plain": hand_grads(rth.train_hops_bwd_reference, cfg, dev, mp16, q, feats),
+             "float32": hand_grads(rth.train_hops_bwd_reference, cfg32, dev, mp32,
+                                   q.float(), feats.float())}
+    if host:
+        grads["host"] = hand_grads(rth.train_hops_bwd_reference, cfg, cpu, mp16, q, feats)
+    torch.cuda.synchronize()
+    bwd = {}
+    for path in grads["plain"]:
+        name = path if isinstance(path, str) else "/".join(map(str, path))
+        if path == ("att_score", "b"):
+            noise = max(v[path].abs().max().item() for v in grads.values())
+            if noise > 1e-5:
+                raise SystemExit(f"train_hops_bwd_bf16: att_score b grad {noise:.3e} > 1e-5")
+            continue
+        bwd[name] = {k: norm_rel(v[path], grads["plain"][path])
+                     for k, v in grads.items() if k != "plain"}
+    return {"fwd": fwd, "bwd": bwd}
 
 
 def stage_bound(B, H, W, C, Cw, N):
@@ -401,6 +558,9 @@ def main() -> int:
                 inst = tuple(int(v) for v in m.groups()) if m else None
                 what = (f" tile {inst[0]}x{inst[1]} nb {inst[2]} ring {inst[3]}" if m
                         else " float32")
+            if name.startswith("rau_train_hops") and "Compiling entry" in line:
+                # one instantiation per product type
+                what = " bf16" if "nv_bfloat16" in line else " float32"
             if name == "fused_resnet" and inst and "registers" in line:
                 stage_regs[inst] = int(re.search(r"Used (\d+) registers", line).group(1))
             if "registers" in line or "spill" in line or "smem" in line:
@@ -534,6 +694,62 @@ def main() -> int:
         err["train_hops_bwd"] = max(err["train_hops_bwd"], rel[worst])
         log(f"train_hops_bwd B={B} worst norm-relative grad error {rel[worst]:.3e} "
             f"({worst}; bar 1e-3 per leaf), do_pred grads exactly 0")
+
+    # the training kernels' bf16 instantiations (compute_dtype "bfloat16",
+    # the --bf16 path) against their bf16 plain versions at mult_dropout 0.5
+    # on bf16-cast weights (train_bf16_readings).  One hop at B in {19, 100}:
+    # each output and grad leaf within TRAIN_BF16_BARS, each bar under half
+    # the distance from the float32 plain version.  Eight hops at B in {19,
+    # 100} (the main path's depth, and its batch), where two right
+    # implementations that sum in another order drift apart to near half of
+    # bf16's own effect: each within twice the plain version's own drift,
+    # the same plain version run on the host CPU, and under 3/4 of the
+    # float32 plain version's distance, where a kernel that leaves its
+    # products unrounded lands (the forward's readings: 0.33-0.48 of it).
+    err["train_hops_fwd_bf16"] = err["train_hops_bwd_bf16"] = 0.0
+    failed = []
+    for H_b, B in ((1, 19), (1, 100), (8, 19), (8, 100)):
+        cfg_b = dataclasses.replace(tcfg_m, compute_dtype="bfloat16", n_hops=H_b)
+        floor = H_b > 1
+        readings = train_bf16_readings(rth, cfg_b, mp, B, rs, dev, host=floor)
+        for kind, per in readings.items():
+            # a leaf that no bf16 product reaches (cls b) must come out the
+            # same; the others within the bar
+            bars = {k: (train_bf16_deep_bar(r) if floor else
+                        train_bf16_bar(kind, k) if r["float32"] > 0 else 0.0)
+                    for k, r in per.items()}
+            log(f"train_hops_{kind}_bf16 H={H_b} B={B}, norm-relative from the bf16 plain "
+                f"version: kernel / float32 plain" + (" / bf16 plain on the host" if floor
+                                                      else "") + " (bar): " + ", ".join(
+                f"{k} {r['kernel']:.3e} / {r['float32']:.3e}"
+                + (f" / {r['host']:.3e}" if floor else "") + f" ({bars[k]:.3e})"
+                for k, r in per.items()))
+            for k, r in per.items():
+                if not r["kernel"] <= bars[k]:
+                    failed.append(f"train_hops_{kind}_bf16 H={H_b} B={B}: {k} {r['kernel']:.3e} "
+                                  f"> {bars[k]:.3e}")
+                if not floor and r["float32"] > 0 and not bars[k] < 0.5 * r["float32"]:
+                    failed.append(f"train_hops_{kind}_bf16 H={H_b} B={B}: {k}'s bar {bars[k]} "
+                                  f"is not under half the float32 distance {r['float32']:.3e}")
+            if not floor:
+                err[f"train_hops_{kind}_bf16"] = max(err[f"train_hops_{kind}_bf16"],
+                                                     *(r["kernel"] for r in per.values()))
+    if failed:
+        raise SystemExit("kernels: " + "; ".join(failed))
+    # through the autograd Function: grads in the weights' type, do_pred's 0
+    cfg_b = dataclasses.replace(tcfg_m, compute_dtype="bfloat16")
+    mp_r = map_tree(lambda w: w.detach().to(bf16).requires_grad_(), mp)
+    feats_b = make_batch(cfg, 19, cfg.seq_len, rs, dev)[2].to(bf16)
+    q_b = torch.as_tensor(0.5 * rs.randn(19, Q).astype(np.float32), device=dev).to(bf16)
+    s_r = rth.rau_train_hops(mp_r, cfg_b, q_b, feats_b, 7)[0]
+    torch.nn.functional.cross_entropy(s_r.reshape(-1, A), torch.zeros(
+        H * 19, dtype=torch.long, device=dev)).backward()
+    if (mp_r["do_pred"]["w"].grad.abs().max().item() != 0.0
+            or mp_r["do_pred"]["b"].grad.abs().max().item() != 0.0):
+        raise SystemExit("train_hops_bwd_bf16: do_pred grads are not exactly 0")
+    if mp_r["i_embed"]["w"].grad.dtype != bf16:
+        raise SystemExit("train_hops_bwd_bf16: the grads are not in the weights' type")
+    log("train_hops_bwd_bf16: do_pred grads exactly 0, grads in bf16")
 
     # the identity-stage kernel at the 448-px stage shapes (H, C, Cw, N), and
     # at B=3 on tiles cut by the image's edge, against its plain version on
@@ -679,6 +895,102 @@ def main() -> int:
         if abs(norms["kernel"][g] - norms["xla"][g]) > 1e-3 * abs(norms["xla"][g]):
             raise SystemExit(f"grad_norm_{g}: kernel {norms['kernel'][g]} vs "
                              f"autograd {norms['xla'][g]} beyond rtol 1e-3")
+    # (a) the ours_ms preset as shipped: the unfused path, float32; no
+    # training kernel runs
+    mcfg_u, tcfg_u = get_train_preset("ours_ms")
+    step_u = make_train_step(mcfg_u, tcfg_u)
+    train_kernels = (rth.FWD_KERNEL, rth.BWD_KERNEL, rth.FWD_BF16_KERNEL, rth.BWD_BF16_KERNEL)
+    for k in train_kernels:
+        k.launches = 0
+    state, hist_u = state0, []
+    for _ in range(10):
+        state, metrics = step_u(state, tokens, lengths, feats, labels, hop_scale, lr, mult_lr)
+        hist_u.append(metrics)
+    torch.cuda.synchronize()
+    if any(k.launches for k in train_kernels):
+        raise SystemExit("the unfused step launched a fused training kernel")
+    for i, m in enumerate(hist_u):
+        bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
+        if bad:
+            raise SystemExit(f"unfused train step {i}: non-finite {bad}")
+    losses_u = [m["loss"].item() for m in hist_u]
+    log("unfused (ours_ms as shipped) train losses: " + " ".join(f"{x:.4f}" for x in losses_u))
+    if not losses_u[-1] < losses_u[0]:
+        raise SystemExit(f"unfused: joint loss did not fall over 10 steps: {losses_u}")
+    # remat_hops recomputes each hop under the masks it drew: the same grads
+    norms_u = {}
+    for remat in (False, True):
+        step_r = make_train_step(dataclasses.replace(mcfg_u, remat_hops=remat), quiet)
+        _, m = step_r(state0, tokens, lengths, feats, labels, hop_scale, lr, mult_lr)
+        norms_u[remat] = {g: m[f"grad_norm_{g}"].item() for g in PARAM_GROUPS}
+    log(f"unfused grad norms, remat_hops off {norms_u[False]} vs on {norms_u[True]}")
+    for g in PARAM_GROUPS:
+        if abs(norms_u[True][g] - norms_u[False][g]) > 1e-4 * abs(norms_u[False][g]):
+            raise SystemExit(f"grad_norm_{g}: remat_hops {norms_u[True][g]} vs "
+                             f"{norms_u[False][g]} beyond rtol 1e-4")
+    # (b) fused, compute_dtype bfloat16 (the --bf16 --fused-train path):
+    # the bf16 kernels once a step, the float32 ones never
+    mcfg_b = dataclasses.replace(mcfg_t, compute_dtype="bfloat16")
+    step_b16 = make_train_step(mcfg_b, tcfg_t)
+    for k in train_kernels:
+        k.launches = 0
+    state, hist_b = state0, []
+    for _ in range(10):
+        state, metrics = step_b16(state, tokens, lengths, feats, labels, hop_scale, lr, mult_lr)
+        hist_b.append(metrics)
+    torch.cuda.synchronize()
+    bf16_launches = {"train_hops_fwd_bf16": rth.FWD_BF16_KERNEL.launches,
+                     "train_hops_bwd_bf16": rth.BWD_BF16_KERNEL.launches,
+                     "train_hops_fwd": rth.FWD_KERNEL.launches,
+                     "train_hops_bwd": rth.BWD_KERNEL.launches}
+    log(f"bf16 training launches in 10 steps: {bf16_launches}")
+    if list(bf16_launches.values()) != [10, 10, 0, 0]:
+        raise SystemExit(f"bf16 training: expected 10 launches of each bf16 kernel and none "
+                         f"of the float32 ones, got {bf16_launches}")
+    for i, m in enumerate(hist_b):
+        bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
+        if bad:
+            raise SystemExit(f"bf16 train step {i}: non-finite {bad}")
+    losses_b = [m["loss"].item() for m in hist_b]
+    log("bf16 fused train losses: " + " ".join(f"{x:.4f}" for x in losses_b))
+    if not losses_b[-1] < losses_b[0]:
+        raise SystemExit(f"bf16: joint loss did not fall over 10 steps: {losses_b}")
+    # the same state, batch and masks as the float32 fused run's first step
+    # (tests/test_pallas_train.py:227-242: within 5%)
+    gap = abs(losses_b[0] - losses[0]) / abs(losses[0])
+    log(f"first-step loss: bf16 {losses_b[0]:.6f}, float32 {losses[0]:.6f}, "
+        f"relative gap {gap:.3e} (bar 0.05)")
+    if gap > 0.05:
+        raise SystemExit(f"bf16 first-step loss {losses_b[0]} is {gap:.3e} from the "
+                         f"float32 step's {losses[0]}")
+    # (c) the preset unfused with compute_dtype bfloat16 (the --bf16 path
+    # without --fused-train): every hop in PyTorch on bf16 casts
+    mcfg_ub = dataclasses.replace(mcfg_u, compute_dtype="bfloat16")
+    step_ub = make_train_step(mcfg_ub, tcfg_u)
+    for k in train_kernels:
+        k.launches = 0
+    state, hist_ub = state0, []
+    for _ in range(10):
+        state, metrics = step_ub(state, tokens, lengths, feats, labels, hop_scale, lr, mult_lr)
+        hist_ub.append(metrics)
+    torch.cuda.synchronize()
+    if any(k.launches for k in train_kernels):
+        raise SystemExit("the unfused bf16 step launched a fused training kernel")
+    for i, m in enumerate(hist_ub):
+        bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
+        if bad:
+            raise SystemExit(f"unfused bf16 train step {i}: non-finite {bad}")
+    losses_ub = [m["loss"].item() for m in hist_ub]
+    log("unfused bf16 train losses: " + " ".join(f"{x:.4f}" for x in losses_ub))
+    if not losses_ub[-1] < losses_ub[0]:
+        raise SystemExit(f"unfused bf16: joint loss did not fall over 10 steps: {losses_ub}")
+    # the same state, batch and generator as the unfused float32 run's first step
+    gap_u = abs(losses_ub[0] - losses_u[0]) / abs(losses_u[0])
+    log(f"first-step loss: unfused bf16 {losses_ub[0]:.6f}, float32 {losses_u[0]:.6f}, "
+        f"relative gap {gap_u:.3e} (bar 0.05)")
+    if gap_u > 0.05:
+        raise SystemExit(f"unfused bf16 first-step loss {losses_ub[0]} is {gap_u:.3e} from "
+                         f"the float32 step's {losses_u[0]}")
     log("phase training: ok")
 
     # 6. from pixels through the user's entry point: answer_pixels
@@ -977,17 +1289,62 @@ def main() -> int:
     log(f"train_step_other_ms={train_ms - sum(v for k, v in tms.items() if 'plain' not in k):.4f} "
         f"(loss, gmerge, autograd glue) B={B} [{card}]")
     log(f"train_step_questions_per_s={B / train_ms * 1e3:.1f} B={B} [{card}]")
-    busy_ms, top, _ = device_profile(lambda: train_step(state0, tokens, lengths, feats, labels,
-                                                        hop_scale, lr, mult_lr))
+    busy_ms, top, _, n_k, host = device_profile(lambda: train_step(
+        state0, tokens, lengths, feats, labels, hop_scale, lr, mult_lr))
     if busy_ms > 0:
         log(f"train_step_device_busy_ms={busy_ms:.4f} of {train_ms:.4f} "
-            f"(idle share {1 - busy_ms / train_ms:.3f}) B={B} [{card}]")
+            f"(idle share {1 - busy_ms / train_ms:.3f}; {n_k:.0f} device kernels a step) "
+            f"B={B} [{card}]")
         for name, t in top[:8]:
             log(f"train_step_device_ms={t:.4f} {name[:70]}")
+        for name, t, n in host[:6]:
+            log(f"train_step_host_ms={t:.4f} {name[:50]} ({n:.0f} calls)")
     else:
         log("train_step_device_busy_ms: not measured (the profiler recorded no device time)")
     fb_ms, fb_by = train_fwd_bound(mcfg_t, mp, B)
     bb_ms, bb_by = train_bwd_bound(mcfg_t, mp, B)
+
+    # the bf16 kernels and their plain versions at B=100 on the step's own
+    # bf16 casts, then the bf16 fused and the unfused steps, each with its
+    # idle share
+    mp16 = map_tree(lambda w: w.to(bf16), mp)
+    with torch.no_grad():
+        q16, feats16 = q.to(bf16), feats.to(bf16)
+        _, _, attprob16, c16, h16 = rth.train_hops_fwd(mp16, mcfg_b, q16, feats16, seed_t)
+        tms16 = {
+            "train_hops_fwd_bf16": time_ms(lambda: rth.train_hops_fwd(
+                mp16, mcfg_b, q16, feats16, seed_t), iters=10),
+            "train_fwd_bf16_plain": time_ms(lambda: rth.train_hops_fwd_reference(
+                mp16, mcfg_b, q16, feats16, seed_t), iters=5),
+            "train_hops_bwd_bf16": time_ms(lambda: rth.train_hops_bwd(
+                mp16, mcfg_b, q16, feats16, seed_t, c16, h16, gmerge), iters=10),
+            "train_bwd_bf16_plain": time_ms(lambda: rth.train_hops_bwd_reference(
+                mp16, mcfg_b, q16, feats16, seed_t, c16, h16, gmerge), iters=5),
+        }
+    for k, v in tms16.items():
+        log(f"{k}_ms={v:.4f} B={B} [{card}]")
+    fb16_ms, fb16_by = train_fwd_bound(mcfg_b, mp16, B, bf16)
+    bb16_ms, bb16_by = train_bwd_bound(mcfg_b, mp16, B, bf16)
+    log(f"train_hops_fwd_bound_ms={fb_ms:.4f} by {fb_by}, bf16 {fb16_ms:.4f} by {fb16_by}; "
+        f"train_hops_bwd_bound_ms={bb_ms:.4f} by {bb_by}, bf16 {bb16_ms:.4f} by {bb16_by}")
+    for name, step_fn in (("bf16_fused", step_b16), ("unfused", step_u),
+                          ("unfused_bf16", step_ub)):
+        st_ms = time_ms(lambda: step_fn(state0, tokens, lengths, feats, labels, hop_scale,
+                                        lr, mult_lr), iters=10)
+        log(f"train_step_{name}_ms={st_ms:.4f} B={B} T={mcfg_t.seq_len} [{card}]")
+        log(f"train_step_{name}_questions_per_s={B / st_ms * 1e3:.1f} B={B} [{card}]")
+        busy_ms, top, _, n_k, host = device_profile(lambda: step_fn(
+            state0, tokens, lengths, feats, labels, hop_scale, lr, mult_lr))
+        if busy_ms > 0:
+            log(f"train_step_{name}_device_busy_ms={busy_ms:.4f} of {st_ms:.4f} "
+                f"(idle share {1 - busy_ms / st_ms:.3f}; {n_k:.0f} device kernels a step) "
+                f"B={B} [{card}]")
+            for kname, t in top[:6]:
+                log(f"train_step_{name}_device_ms={t:.4f} {kname[:70]}")
+            for hname, t, n in host[:6]:
+                log(f"train_step_{name}_host_ms={t:.4f} {hname[:50]} ({n:.0f} calls)")
+        else:
+            log(f"train_step_{name}_device_busy_ms: not measured (no device time recorded)")
     log(f"lstm_encode_bound_ms={lb_ms:.4f} by {lb_by}; "
         f"rau_hops_bound_ms={hb_ms:.4f} by {hb_by}")
 
@@ -1074,7 +1431,7 @@ def main() -> int:
             f"kernel_ms={v_ms:.4f}, L2 weight reads {gb:.3f} GB [{card}]")
     log(f"answer_pixels_ms={ans_ms:.4f} B={B} 448px; images_per_s={B / ans_ms * 1e3:.1f}; "
         f"questions_per_s={B / ans_ms * 1e3:.1f} (one question an image) [{card}]")
-    busy_ms, top, ops = device_profile(lambda: pipeline.answer_pixels(
+    busy_ms, top, ops, _, _ = device_profile(lambda: pipeline.answer_pixels(
         params_r, bb, cfg_r, "resnet101", images, tokens, lengths))
     if busy_ms > 0:
         log(f"answer_pixels_device_busy_ms={busy_ms:.4f} of {ans_ms:.4f} "
@@ -1112,6 +1469,24 @@ def main() -> int:
          "max_abs_err": err["train_hops_bwd"],
          "ms": tms["train_hops_bwd"], "plain_ms": tms["train_bwd_plain"],
          "bound_ms": bb_ms, "bound_by": bb_by, "library_ms": None},
+        # the bf16 instantiations (compute_dtype "bfloat16"); launches: the
+        # bf16 fused step's 10; max_abs_err: the worst norm-relative error
+        # against the bf16 plain version, the forward's over its outputs,
+        # the backward's over the grad leaves
+        {"name": "train_hops_fwd_bf16", "route": "cuda",
+         "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_fwd.cu",
+         "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:358",
+         "launches": bf16_launches["train_hops_fwd_bf16"],
+         "max_abs_err": err["train_hops_fwd_bf16"],
+         "ms": tms16["train_hops_fwd_bf16"], "plain_ms": tms16["train_fwd_bf16_plain"],
+         "bound_ms": fb16_ms, "bound_by": fb16_by, "library_ms": None},
+        {"name": "train_hops_bwd_bf16", "route": "cuda",
+         "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_bwd.cu",
+         "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:471",
+         "launches": bf16_launches["train_hops_bwd_bf16"],
+         "max_abs_err": err["train_hops_bwd_bf16"],
+         "ms": tms16["train_hops_bwd_bf16"], "plain_ms": tms16["train_bwd_bf16_plain"],
+         "bound_ms": bb16_ms, "bound_by": bb16_by, "library_ms": None},
         # the check entry of the device hash; launches: its check's
         {"name": "maskgen", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/maskgen.cu",

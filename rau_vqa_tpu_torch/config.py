@@ -41,8 +41,10 @@ class ModelConfig:
 
     n_hops: int = 1                  # number of recurrent answering units
 
-    # the training hop loop's product type; the ported kernels compute in
-    # float32, as ``ours_ms`` trains (bfloat16 is the from-pixels preset's)
+    # the training forward's type: "bfloat16" (what the JAX CLI's --bf16
+    # gives any preset, and the ours_resnet_ft preset) casts every param and
+    # the features to bf16 on entry; the fused hop loop then takes bf16
+    # operands with float32 sums
     compute_dtype: str = "float32"
     # run the training hop loop through the fused kernel pair
     # (ops/rau_train_hops.py), with counter-hash dropout masks
@@ -53,6 +55,9 @@ class ModelConfig:
     # pathologically under Mosaic (rau_vqa_tpu/ops/rau_train_hops.py:619-625);
     # nvcc builds the CUDA backward in seconds, so the port defaults to it.
     fused_train_bwd: str = "kernel"
+    # unfused path: recompute each hop in the backward instead of saving its
+    # [B, S, M]-sized activations (torch.utils.checkpoint)
+    remat_hops: bool = False
 
     @property
     def rnnout_dim(self) -> int:

@@ -4,6 +4,17 @@
 // (_hop_fwd_core, rau_vqa_tpu/ops/rau_train_hops.py:104-167), which the
 // backward kernel runs again to rematerialize each hop bit for bit.
 //
+// Everything is templated on T, the products' operand type (JAX's dot_dtype,
+// :299): float, or __nv_bfloat16 for compute_dtype "bfloat16".  q, feats and
+// the weights arrive in T.  Every product reads its operands through rnd<T>
+// (round to T, back to float) or ldf (T to float) and sums them with float32
+// FMAs: a product of two bf16 values is exact in float32, so this is JAX's
+// bf16 x bf16 -> f32 dot up to the order of the sums.  Operands are rounded
+// where they are loaded for a product, never where they are stored: the
+// workspace, the carries and the shared vectors keep float32 values, which
+// the pooling, the softmax and the elementwise math read unrounded.  With
+// T = float, rnd and ldf are plain loads and the code is the float32 kernel.
+//
 // One block owns one batch row.  A row's [S, *] activations (ifeat, addfeat
 // and, in the backward, their cotangents) do not fit in shared memory (one
 // ifeat row alone is 196 x 512 x 4 = 401 KB), so they live in a per-block
@@ -13,6 +24,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "maskgen.cuh"
@@ -29,9 +41,27 @@ enum {
   NWEIGHTS
 };
 
+template <class T>
 struct Weights {
-  const float* p[NWEIGHTS];
+  const T* p[NWEIGHTS];
 };
+
+// an operand of type T as float32
+__device__ __forceinline__ float ldf(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+// a float32 value rounded to T (round to nearest even, as JAX's astype)
+template <class T>
+__device__ __forceinline__ float rnd(float x) { return x; }
+template <>
+__device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ void stf(float* p, size_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void stf(__nv_bfloat16* p, size_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
 
 struct Dims {
   int B, Q, S, Dc, M, F, R, A, H;
@@ -177,22 +207,26 @@ __device__ void block_gemm(int Mdim, int Ndim, int Kdim, LA a, LB b, EPI epi,
   __syncthreads();
 }
 
-// x[K] (shared) @ W[K, N] column n, ascending k.  (No __restrict__ on w in
-// these two: the backward also reads its workspace, which it writes, here.)
-__device__ __forceinline__ float dot_col(const float* x, int K, const float* w,
-                                         int N, int n) {
+// x[K] (shared) @ W[K, N] column n, ascending k, x rounded to T.  (No
+// __restrict__ on w in these two: the backward also reads its workspace,
+// which it writes, here.)
+template <class T>
+__device__ __forceinline__ float dot_col(const float* x, int K, const T* w, int N,
+                                         int n) {
   float acc = 0.f;
-  for (int k = 0; k < K; ++k) acc = fmaf(x[k], w[(size_t)k * N + n], acc);
+  for (int k = 0; k < K; ++k) acc = fmaf(rnd<T>(x[k]), ldf(w, (size_t)k * N + n), acc);
   return acc;
 }
 
-// x[K] (shared) @ W[N, K]^T row n, one warp (lane-strided, then a warp sum)
-__device__ __forceinline__ float dot_row_warp(const float* x, int K, const float* w,
-                                              int n) {
+// x[K] (shared) @ W[N, K]^T row n, x rounded to T, one warp (lane-strided,
+// then a warp sum).  With T = float and the float32 workspace as W, a sum
+// on unrounded values.
+template <class T>
+__device__ __forceinline__ float dot_row_warp(const float* x, int K, const T* w, int n) {
   const int lane = threadIdx.x % 32;
-  const float* wr = w + (size_t)n * K;
+  const size_t row = (size_t)n * K;
   float acc = 0.f;
-  for (int k = lane; k < K; k += 32) acc = fmaf(x[k], wr[k], acc);
+  for (int k = lane; k < K; k += 32) acc = fmaf(rnd<T>(x[k]), ldf(w, row + k), acc);
   return warp_sum(acc);
 }
 
@@ -203,9 +237,10 @@ __device__ __forceinline__ float dot_row_warp(const float* x, int K, const float
 // the workspace: ifeat [S, M] and addfeat [S, F].  Ends synchronized.
 // ---------------------------------------------------------------------------
 
-__device__ void hop_forward(const Dims& d, const Weights& W, const Dropout& dr,
-                            int b, int hop, const float* __restrict__ q_row,
-                            const float* __restrict__ feats_row, float* ifeat,
+template <class T>
+__device__ void hop_forward(const Dims& d, const Weights<T>& W, const Dropout& dr,
+                            int b, int hop, const T* __restrict__ q_row,
+                            const T* __restrict__ feats_row, float* ifeat,
                             float* addfeat, const Smem& s) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int Q = d.Q, S = d.S, Dc = d.Dc, M = d.M, F = d.F, R = d.R;
@@ -214,59 +249,59 @@ __device__ void hop_forward(const Dims& d, const Weights& W, const Dropout& dr,
   const maskgen::Site mm = dr.site(hop, maskgen::SITE_MERGE);
 
   // q_d = q * qmask
-  for (int k = tid; k < Q; k += NT) s.qd[k] = qm.apply(q_row[k], (uint32_t)b * Q + k);
+  for (int k = tid; k < Q; k += NT) s.qd[k] = qm.apply(ldf(q_row, k), (uint32_t)b * Q + k);
   __syncthreads();
   // qfeat = tanh(q_d Wq + bq + h Wh + bh)
   for (int n = tid; n < M; n += NT) {
     const float a = dot_col(s.qd, Q, W.p[Q_W], M, n);
     const float c = dot_col(s.h, R, W.p[H_W], M, n);
-    s.qfeat[n] = tanhf(((a + W.p[Q_B][n]) + c) + W.p[H_B][n]);
+    s.qfeat[n] = tanhf(((a + ldf(W.p[Q_B], n)) + c) + ldf(W.p[H_B], n));
   }
   __syncthreads();
   // qatt = qfeat Waq + baq;  memory score h Wmem (its biases come later)
   for (int n = tid; n < F; n += NT)
-    s.qatt[n] = dot_col(s.qfeat, M, W.p[AQ_W], F, n) + W.p[AQ_B][n];
+    s.qatt[n] = dot_col(s.qfeat, M, W.p[AQ_W], F, n) + ldf(W.p[AQ_B], n);
   for (int n = tid; n < S; n += NT) s.sc[n] = dot_col(s.h, R, W.p[AM_W], S, n);
   __syncthreads();
 
   // ifeat = tanh((feats * fmask) Wi + bi)            [S, Dc] x [Dc, M]
   {
-    const float* wi = W.p[I_W];
-    const float* bi = W.p[I_B];
+    const T* wi = W.p[I_W];
+    const T* bi = W.p[I_B];
     const uint32_t base = (uint32_t)b * (uint32_t)(S * Dc);
     block_gemm<true, true>(
         S, M, Dc,
         [&](int m, int k) {
           const int e = m * Dc + k;
-          return fm.apply(feats_row[e], base + (uint32_t)e);
+          return rnd<T>(fm.apply(ldf(feats_row, e), base + (uint32_t)e));
         },
-        [&](int k, int n) { return wi[(size_t)k * M + n]; },
-        [&](int m, int n, float acc) { ifeat[(size_t)m * M + n] = tanhf(acc + bi[n]); },
+        [&](int k, int n) { return ldf(wi, (size_t)k * M + n); },
+        [&](int m, int n, float acc) { ifeat[(size_t)m * M + n] = tanhf(acc + ldf(bi, n)); },
         s.As, s.Bs);
   }
   // addfeat = tanh((ifeat Wa + ba) + qatt)           [S, M] x [M, F]
   {
-    const float* wa = W.p[AI_W];
-    const float* ba = W.p[AI_B];
+    const T* wa = W.p[AI_W];
+    const T* ba = W.p[AI_B];
     const float* qatt = s.qatt;
     block_gemm<true, true>(
-        S, F, M, [&](int m, int k) { return ifeat[(size_t)m * M + k]; },
-        [&](int k, int n) { return wa[(size_t)k * F + n]; },
+        S, F, M, [&](int m, int k) { return rnd<T>(ifeat[(size_t)m * M + k]); },
+        [&](int k, int n) { return ldf(wa, (size_t)k * F + n); },
         [&](int m, int n, float acc) {
-          addfeat[(size_t)m * F + n] = tanhf((acc + ba[n]) + qatt[n]);
+          addfeat[(size_t)m * F + n] = tanhf((acc + ldf(ba, n)) + qatt[n]);
         },
         s.As, s.Bs);
   }
   // attention score: ((addfeat w_score + b_score) + h Wmem) + b_mem, warp per cell
   {
-    const float* ws = W.p[AS_W];
-    const float b_score = W.p[AS_B][0];
+    const T* ws = W.p[AS_W];
+    const float b_score = ldf(W.p[AS_B], 0);
     for (int cell = warp; cell < S; cell += NWARP) {
       const float* row = addfeat + (size_t)cell * F;
       float acc = 0.f;
-      for (int f = lane; f < F; f += 32) acc = fmaf(row[f], ws[f], acc);
+      for (int f = lane; f < F; f += 32) acc = fmaf(rnd<T>(row[f]), ldf(ws, f), acc);
       acc = warp_sum(acc);
-      if (lane == 0) s.sc[cell] = ((acc + b_score) + s.sc[cell]) + W.p[AM_B][cell];
+      if (lane == 0) s.sc[cell] = ((acc + b_score) + s.sc[cell]) + ldf(W.p[AM_B], cell);
     }
   }
   __syncthreads();
@@ -290,14 +325,14 @@ __device__ void hop_forward(const Dims& d, const Weights& W, const Dropout& dr,
     float pool = 0.f;
     for (int i = 0; i < S; ++i) pool = fmaf(ifeat[(size_t)i * M + n], s.sc[i], pool);
     const float proj = dot_col(s.sc, S, W.p[AP_W], M, n);
-    s.join[n] = ((s.qfeat[n] + pool) + proj) + W.p[AP_B][n];
+    s.join[n] = ((s.qfeat[n] + pool) + proj) + ldf(W.p[AP_B], n);
   }
   __syncthreads();
   // ATTLSTM gates = ((join Wi + bi) + h Wh) + bh
   for (int n = tid; n < 4 * R; n += NT) {
     const float a = dot_col(s.join, M, W.p[L_WI], 4 * R, n);
     const float c = dot_col(s.h, R, W.p[L_WH], 4 * R, n);
-    s.gates[n] = ((a + W.p[L_BI][n]) + c) + W.p[L_BH][n];
+    s.gates[n] = ((a + ldf(W.p[L_BI], n)) + c) + ldf(W.p[L_BH], n);
   }
   __syncthreads();
   // cell update, gate layout [i, g, f, o]; gates keep their activations
@@ -317,7 +352,7 @@ __device__ void hop_forward(const Dims& d, const Weights& W, const Dropout& dr,
   __syncthreads();
   // merge_d = ((join + h' Wmg) + bmg) * mmask
   for (int n = tid; n < M; n += NT) {
-    const float pre = (s.join[n] + dot_col(s.hn, R, W.p[MG_W], M, n)) + W.p[MG_B][n];
+    const float pre = (s.join[n] + dot_col(s.hn, R, W.p[MG_W], M, n)) + ldf(W.p[MG_B], n);
     s.merge[n] = mm.apply(pre, (uint32_t)b * M + n);
   }
   __syncthreads();

@@ -13,13 +13,19 @@
 // att_i w / b, att_score w -- summed over the block's hops into the block's
 // own slot of per-block partial buffers, which the wrapper sums in PyTorch
 // (as JAX sums its per-tile partials outside the kernel, :533-535).  No
-// atomics: the sum is deterministic.  Everything is float32.
+// atomics: the sum is deterministic.  Two instantiations by the products'
+// operand type T, as the forward's (rau_train_hops.cuh): float, and bf16,
+// where q, feats and the weights arrive in bf16, each product (the remat's,
+// the cotangent chain's x W^T, the grads' a^T b) rounds both operands to
+// bf16 and sums in float32, the emitted activations qfeat / join / merge_d
+// are bf16 and the cotangents, the carries and the grad partials float32.
 //
 // What bounds it on an H100: operations.  Per row and hop: the remat's two
 // image products (77 M FMA), difeat = dpre_add Wa^T (26 M), the att_i w grad
 // ifeat^T dpre_add (26 M) and the i_embed w grad feats_d^T dpre_i (51 M):
 // ~360 MFLOP, ~290 GFLOP a step at B=100, H=8, ~4.3 ms at the 67 TFLOP/s
-// float32 peak.
+// float32 peak (in bf16 on the tensor cores ~0.3 ms; this kernel takes the
+// bf16 products as float32 FMAs on rounded operands, as the forward does).
 //
 // Design: as the forward (rau_train_hops_fwd.cu), one block owns one row and
 // loops over the hops itself -- the loop takes the place of the TPU's
@@ -42,16 +48,17 @@ using namespace rth;
 enum { E_DPRE_Q, E_DQATT, E_DSCORE, E_DJOIN, E_DGATES, E_DMERGE, E_QFEAT, E_JOIN,
        E_MERGE, NEMITS };
 struct Emits {
-  float* p[NEMITS];
+  void* p[NEMITS];  // float32 cotangents; E_QFEAT, E_JOIN, E_MERGE in T
 };
 // per-block partial grads in _INKERNEL_GRADS order
 struct Partials {
   float *i_w, *i_b, *ai_w, *ai_b, *as_w;
 };
 
+template <class T>
 __global__ void __launch_bounds__(NT, 1)
-train_hops_bwd_kernel(Dims d, Weights W, Dropout dr, const int* __restrict__ seed,
-                      const float* __restrict__ q, const float* __restrict__ feats,
+train_hops_bwd_kernel(Dims d, Weights<T> W, Dropout dr, const int* __restrict__ seed,
+                      const T* __restrict__ q, const T* __restrict__ feats,
                       const float* __restrict__ c_all, const float* __restrict__ h_all,
                       const float* __restrict__ gmerge, float* __restrict__ work,
                       Emits em, Partials gp) {
@@ -62,8 +69,10 @@ train_hops_bwd_kernel(Dims d, Weights W, Dropout dr, const int* __restrict__ see
   const int b = blockIdx.x;
   const int B = d.B, S = d.S, Dc = d.Dc, M = d.M, F = d.F, R = d.R, H = d.H;
   dr.seed = (uint32_t)seed[0];
-  const float* q_row = q + (size_t)b * d.Q;
-  const float* feats_row = feats + (size_t)b * S * Dc;
+  const T* q_row = q + (size_t)b * d.Q;
+  const T* feats_row = feats + (size_t)b * S * Dc;
+  auto ef = [&](int i) { return static_cast<float*>(em.p[i]); };  // the cotangents
+  auto et = [&](int i) { return static_cast<T*>(em.p[i]); };      // the activations
   float* ifeat = work + (size_t)b * S * (M + F);
   float* addfeat = ifeat + (size_t)S * M;
   float* g_iw = gp.i_w + (size_t)b * Dc * M;
@@ -88,8 +97,8 @@ train_hops_bwd_kernel(Dims d, Weights W, Dropout dr, const int* __restrict__ see
     for (int n = tid; n < M; n += NT) {
       const float g = mm.apply(gmerge[hb * M + n], (uint32_t)b * M + n);
       s.dmerge[n] = g;
-      em.p[E_DMERGE][hb * M + n] = g;
-      em.p[E_MERGE][hb * M + n] = s.merge[n];
+      ef(E_DMERGE)[hb * M + n] = g;
+      stf(et(E_MERGE), hb * M + n, s.merge[n]);
     }
     __syncthreads();
     // dh_new = dmerge_pre Wmg^T + dh
@@ -116,7 +125,7 @@ train_hops_bwd_kernel(Dims d, Weights W, Dropout dr, const int* __restrict__ see
       s.dgates[3 * R + j] = dgo * og * (1.0f - og);
     }
     __syncthreads();
-    for (int j = tid; j < 4 * R; j += NT) em.p[E_DGATES][hb * 4 * R + j] = s.dgates[j];
+    for (int j = tid; j < 4 * R; j += NT) ef(E_DGATES)[hb * 4 * R + j] = s.dgates[j];
     // djoin = dmerge_pre + dgates Wi^T;  dh_prev = dgates Wh^T
     for (int n = warp; n < M; n += NWARP) {
       const float v = dot_row_warp(s.dgates, 4 * R, W.p[L_WI], n);
@@ -128,11 +137,12 @@ train_hops_bwd_kernel(Dims d, Weights W, Dropout dr, const int* __restrict__ see
     }
     __syncthreads();
     for (int n = tid; n < M; n += NT) {
-      em.p[E_DJOIN][hb * M + n] = s.djoin[n];
-      em.p[E_JOIN][hb * M + n] = s.join[n];
-      em.p[E_QFEAT][hb * M + n] = s.qfeat[n];
+      ef(E_DJOIN)[hb * M + n] = s.djoin[n];
+      stf(et(E_JOIN), hb * M + n, s.join[n]);
+      stf(et(E_QFEAT), hb * M + n, s.qfeat[n]);
     }
-    // dattprob = djoin Wp^T + sum_m ifeat djoin   (into dsc)
+    // dattprob = djoin Wp^T + sum_m ifeat djoin   (into dsc; the second on
+    // unrounded values: T = float reads the workspace as it is)
     for (int i = warp; i < S; i += NWARP) {
       const float a = dot_row_warp(s.djoin, M, W.p[AP_W], i);
       const float c = dot_row_warp(s.djoin, M, ifeat, i);
@@ -147,7 +157,7 @@ train_hops_bwd_kernel(Dims d, Weights W, Dropout dr, const int* __restrict__ see
       for (int i = lane; i < S; i += 32) s.dsc[i] = s.sc[i] * (s.dsc[i] - dot);
     }
     __syncthreads();
-    for (int i = tid; i < S; i += NT) em.p[E_DSCORE][hb * S + i] = s.dsc[i];
+    for (int i = tid; i < S; i += NT) ef(E_DSCORE)[hb * S + i] = s.dsc[i];
     // dh_prev += dattscore Wmem^T
     for (int r = warp; r < R; r += NWARP) {
       const float v = dot_row_warp(s.dsc, S, W.p[AM_W], r);
@@ -156,17 +166,18 @@ train_hops_bwd_kernel(Dims d, Weights W, Dropout dr, const int* __restrict__ see
     // att_score w grad: sum_s addfeat[s, f] dattscore[s]
     for (int f = tid; f < F; f += NT) {
       float acc = 0.f;
-      for (int i = 0; i < S; ++i) acc = fmaf(addfeat[(size_t)i * F + f], s.dsc[i], acc);
+      for (int i = 0; i < S; ++i)
+        acc = fmaf(rnd<T>(addfeat[(size_t)i * F + f]), rnd<T>(s.dsc[i]), acc);
       s.acc_as[f] += acc;
     }
     __syncthreads();
     // dpre_add = dattscore w_score (1 - addfeat^2), in place of addfeat
     {
-      const float* ws = W.p[AS_W];
+      const T* ws = W.p[AS_W];
       for (int e = tid; e < S * F; e += NT) {
         const int i = e / F, f = e - i * F;
         const float a = addfeat[e];
-        addfeat[e] = (s.dsc[i] * ws[f]) * (1.0f - a * a);
+        addfeat[e] = (s.dsc[i] * ldf(ws, f)) * (1.0f - a * a);
       }
     }
     __syncthreads();
@@ -177,7 +188,7 @@ train_hops_bwd_kernel(Dims d, Weights W, Dropout dr, const int* __restrict__ see
       for (int i = 0; i < S; ++i) acc += dpre_add[(size_t)i * F + f];
       s.dqatt[f] = acc;
       s.acc_bai[f] += acc;
-      em.p[E_DQATT][hb * F + f] = acc;
+      ef(E_DQATT)[hb * F + f] = acc;
     }
     __syncthreads();
     // dpre_q = (djoin + dqatt Waq^T) (1 - qfeat^2)
@@ -187,7 +198,7 @@ train_hops_bwd_kernel(Dims d, Weights W, Dropout dr, const int* __restrict__ see
         const float qf = s.qfeat[n];
         const float dp = (s.djoin[n] + v) * (1.0f - qf * qf);
         s.dpre_q[n] = dp;
-        em.p[E_DPRE_Q][hb * M + n] = dp;
+        ef(E_DPRE_Q)[hb * M + n] = dp;
       }
     }
     __syncthreads();
@@ -198,8 +209,8 @@ train_hops_bwd_kernel(Dims d, Weights W, Dropout dr, const int* __restrict__ see
     }
     // att_i w grad: ifeat^T dpre_add                  [M, S] x [S, F]
     block_gemm<false, true>(
-        M, F, S, [&](int m, int k) { return ifeat[(size_t)k * M + m]; },
-        [&](int k, int n) { return dpre_add[(size_t)k * F + n]; },
+        M, F, S, [&](int m, int k) { return rnd<T>(ifeat[(size_t)k * M + m]); },
+        [&](int k, int n) { return rnd<T>(dpre_add[(size_t)k * F + n]); },
         [&](int m, int n, float acc) {
           float* o = g_aiw + (size_t)m * F + n;
           *o = first ? acc : *o + acc;
@@ -207,12 +218,12 @@ train_hops_bwd_kernel(Dims d, Weights W, Dropout dr, const int* __restrict__ see
         s.As, s.Bs);
     // dpre_i = (p djoin + dpre_add Wa^T) (1 - ifeat^2), in place of ifeat
     {
-      const float* wa = W.p[AI_W];
+      const T* wa = W.p[AI_W];
       const float* p = s.sc;
       const float* djoin = s.djoin;
       block_gemm<true, false>(
-          S, M, F, [&](int m, int k) { return dpre_add[(size_t)m * F + k]; },
-          [&](int k, int n) { return wa[(size_t)n * F + k]; },
+          S, M, F, [&](int m, int k) { return rnd<T>(dpre_add[(size_t)m * F + k]); },
+          [&](int k, int n) { return ldf(wa, (size_t)n * F + k); },
           [&](int m, int n, float acc) {
             float* o = ifeat + (size_t)m * M + n;
             const float x = *o;
@@ -234,9 +245,9 @@ train_hops_bwd_kernel(Dims d, Weights W, Dropout dr, const int* __restrict__ see
           Dc, M, S,
           [&](int m, int k) {
             const int e = k * Dc + m;
-            return fm.apply(feats_row[e], base + (uint32_t)e);
+            return rnd<T>(fm.apply(ldf(feats_row, e), base + (uint32_t)e));
           },
-          [&](int k, int n) { return dpre_i[(size_t)k * M + n]; },
+          [&](int k, int n) { return rnd<T>(dpre_i[(size_t)k * M + n]); },
           [&](int m, int n, float acc) {
             float* o = g_iw + (size_t)m * M + n;
             *o = first ? acc : *o + acc;
@@ -251,39 +262,53 @@ train_hops_bwd_kernel(Dims d, Weights W, Dropout dr, const int* __restrict__ see
   }
 }
 
-}  // namespace
-
-// q [B, Q], feats [B, S, Dc], c_all / h_all [H+1, B, R], gmerge [H, B, M]
-// (the score cotangent times cls_w^T); seed: one int32 on the device;
-// weights: 26 float32 pointers in _FWD_WEIGHTS order (cls and do_pred
-// unread); work: B * S * (M + F) floats; emits: 9 pointers in _EMITS order,
-// [H, B, width]; partials: i_embed w [B, Dc, M], i_embed b [B, M], att_i w
-// [B, M, F], att_i b [B, F], att_score w [B, F].  Returns cudaGetLastError().
-extern "C" int train_hops_bwd_launch(const void* q, const void* feats, const void* seed,
-                                     const void* c_all, const void* h_all,
-                                     const void* gmerge, const void* const* weights,
-                                     void* work, void* const* emits,
-                                     void* const* partials, int B, int Q, int S, int Dc,
-                                     int M, int F, int R, int H, uint32_t thresh,
-                                     float scale, int use_mask, void* stream) {
+template <class T>
+int bwd_launch(const void* q, const void* feats, const void* seed, const void* c_all,
+               const void* h_all, const void* gmerge, const void* const* weights,
+               void* work, void* const* emits, void* const* partials, int B, int Q,
+               int S, int Dc, int M, int F, int R, int H, uint32_t thresh, float scale,
+               int use_mask, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || Dc <= 0 || M <= 0 || F <= 0 || R <= 0)
     return (int)cudaErrorInvalidValue;
   const Dims d{B, Q, S, Dc, M, F, R, 0, H};
-  Weights w;
-  for (int i = 0; i < NWEIGHTS; ++i) w.p[i] = (const float*)weights[i];
+  Weights<T> w;
+  for (int i = 0; i < NWEIGHTS; ++i) w.p[i] = (const T*)weights[i];
   Emits em;
-  for (int i = 0; i < NEMITS; ++i) em.p[i] = (float*)emits[i];
+  for (int i = 0; i < NEMITS; ++i) em.p[i] = emits[i];
   const Partials gp{(float*)partials[0], (float*)partials[1], (float*)partials[2],
                     (float*)partials[3], (float*)partials[4]};
   const Dropout dr{0u, thresh, scale, use_mask != 0};
   Smem layout;
   const size_t smem = Smem::carve(nullptr, d, true, &layout) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      train_hops_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      train_hops_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  train_hops_bwd_kernel<<<B, NT, smem, (cudaStream_t)stream>>>(
-      d, w, dr, (const int*)seed, (const float*)q, (const float*)feats,
-      (const float*)c_all, (const float*)h_all, (const float*)gmerge, (float*)work, em,
-      gp);
+  train_hops_bwd_kernel<T><<<B, NT, smem, (cudaStream_t)stream>>>(
+      d, w, dr, (const int*)seed, (const T*)q, (const T*)feats, (const float*)c_all,
+      (const float*)h_all, (const float*)gmerge, (float*)work, em, gp);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// q [B, Q], feats [B, S, Dc], c_all / h_all [H+1, B, R], gmerge [H, B, M]
+// (the score cotangent times cls_w^T, float32); seed: one int32 on the
+// device; weights: 26 pointers in _FWD_WEIGHTS order (cls and do_pred
+// unread); q, feats and the weights float32 (the first entry) or bf16 (the
+// second); work: B * S * (M + F) floats; emits: 9 pointers in _EMITS order,
+// [H, B, width], float32 but for qfeat / join / merge_d in the weights'
+// type; partials, float32: i_embed w [B, Dc, M], i_embed b [B, M], att_i w
+// [B, M, F], att_i b [B, F], att_score w [B, F].  Returns cudaGetLastError().
+#define TRAIN_HOPS_BWD_ENTRY(NAME, T)                                                  \
+  extern "C" int NAME(const void* q, const void* feats, const void* seed,             \
+                      const void* c_all, const void* h_all, const void* gmerge,       \
+                      const void* const* weights, void* work, void* const* emits,     \
+                      void* const* partials, int B, int Q, int S, int Dc, int M,      \
+                      int F, int R, int H, uint32_t thresh, float scale,              \
+                      int use_mask, void* stream) {                                   \
+    return bwd_launch<T>(q, feats, seed, c_all, h_all, gmerge, weights, work, emits,  \
+                         partials, B, Q, S, Dc, M, F, R, H, thresh, scale, use_mask,  \
+                         stream);                                                     \
+  }
+TRAIN_HOPS_BWD_ENTRY(train_hops_bwd_launch, float)
+TRAIN_HOPS_BWD_ENTRY(train_hops_bwd_bf16_launch, __nv_bfloat16)

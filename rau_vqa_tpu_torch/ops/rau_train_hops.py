@@ -20,7 +20,20 @@ CPU tensors run the kernels' plain versions (``train_hops_fwd_reference``,
 ``train_hops_bwd_reference``); CUDA tensors launch the kernels or raise.
 ``do_pred``, ``attprob`` and the final state are monitors: only the score
 cotangent propagates, ``do_pred``'s weights get exactly zero and ``feats``
-gets no gradient.  Everything is float32.
+gets no gradient.
+
+Types follow ``cfg.compute_dtype`` as the JAX package's ``dot_dtype`` does
+(:299, :364-365, :478-479).  In float32 everything is float32.  In
+bfloat16 every product takes both operands rounded to bf16 and sums in
+float32; the elementwise math, the softmax, the attention pooling, the
+bias sums, the carries, the scores and the cotangents stay float32 on
+unrounded values.  The kernels take ``q``, ``feats`` and the weights in
+bf16 (their own instantiations, ``FWD_BF16_KERNEL`` / ``BWD_BF16_KERNEL``)
+and emit ``qfeat``, ``join`` and ``merge_d`` in bf16.  The products outside
+the kernels (``gmerge``, ``_outside_grads``) are float32 ``matmul``s on
+bf16-rounded operands, so their sums are float32 as JAX's are; each grad
+is then cast to its param's type and ``dq`` to ``q``'s, as JAX casts them
+(:648, :662-664).
 """
 
 from __future__ import annotations
@@ -58,39 +71,88 @@ _FWD_WEIGHTS = _DIFF_WEIGHTS + [("do_pred", "w"), ("do_pred", "b")]
 # grads summed inside the backward kernel: those of the feats path
 _INKERNEL_GRADS = [("i_embed", "w"), ("i_embed", "b"),
                    ("att_i", "w"), ("att_i", "b"), ("att_score", "w")]
-# per-hop tensors the backward emits for the outside products: (name, width)
-_EMITS = [("dpre_q", "M"), ("dqatt", "F"), ("dscore_att", "S"),
-          ("djoin", "M"), ("dgates", "G"), ("dmerge_pre", "M"),
-          ("qfeat", "M"), ("join", "M"), ("merge_d", "M")]
+# per-hop tensors the backward emits for the outside products: (name, width,
+# a float32 cotangent, else an activation in the product type; :76-80)
+_EMITS = [("dpre_q", "M", True), ("dqatt", "F", True),
+          ("dscore_att", "S", True), ("djoin", "M", True),
+          ("dgates", "G", True), ("dmerge_pre", "M", True),
+          ("qfeat", "M", False), ("join", "M", False), ("merge_d", "M", False)]
 
 _SITE_FEATS, _SITE_Q, _SITE_MERGE = 0, 1, 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DROPOUT_ARGS = [ctypes.c_uint32, ctypes.c_float, _I, _P]
-FWD_KERNEL = Kernel("rau_train_hops_fwd", "train_hops_fwd_launch",
-                    [_P, _P, _P, ctypes.POINTER(_P)] + [_P] * 6 + [_I] * 9
-                    + _DROPOUT_ARGS)
-BWD_KERNEL = Kernel("rau_train_hops_bwd", "train_hops_bwd_launch",
-                    [_P] * 6 + [ctypes.POINTER(_P), _P, ctypes.POINTER(_P),
-                                ctypes.POINTER(_P)] + [_I] * 8 + _DROPOUT_ARGS)
+_FWD_ARGS = [_P, _P, _P, ctypes.POINTER(_P)] + [_P] * 6 + [_I] * 9 + _DROPOUT_ARGS
+_BWD_ARGS = ([_P] * 6 + [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), ctypes.POINTER(_P)]
+             + [_I] * 8 + _DROPOUT_ARGS)
+# one instantiation of each kernel per product type, each counted apart
+FWD_KERNEL = Kernel("rau_train_hops_fwd", "train_hops_fwd_launch", _FWD_ARGS)
+BWD_KERNEL = Kernel("rau_train_hops_bwd", "train_hops_bwd_launch", _BWD_ARGS)
+FWD_BF16_KERNEL = Kernel("rau_train_hops_fwd", "train_hops_fwd_bf16_launch", _FWD_ARGS)
+BWD_BF16_KERNEL = Kernel("rau_train_hops_bwd", "train_hops_bwd_bf16_launch", _BWD_ARGS)
+_KERNELS = {torch.float32: (FWD_KERNEL, BWD_KERNEL),
+            torch.bfloat16: (FWD_BF16_KERNEL, BWD_BF16_KERNEL)}
+_DOT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dot_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The products' operand type: ``cfg.compute_dtype``."""
+    try:
+        return _DOT_DTYPES[cfg.compute_dtype]
+    except KeyError:
+        raise ValueError(f"compute_dtype must be one of {sorted(_DOT_DTYPES)}, "
+                         f"got {cfg.compute_dtype!r}") from None
 
 
 def check_fused_config(cfg: ModelConfig) -> None:
     """The fused path (kernels and plain versions) supports the reference
-    configuration in float32: a 1-layer ATTLSTM, no att_rnn_dropout."""
+    configuration: a 1-layer ATTLSTM, no att_rnn_dropout, float32 or
+    bfloat16 products."""
     if cfg.att_rnn_layers != 1 or cfg.att_rnn_dropout > 0.0:
         raise NotImplementedError(
             "fused training path supports the reference configuration "
-            "(1-layer ATTLSTM, no att_rnn_dropout)")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"fused training path computes in float32; compute_dtype "
-            f"{cfg.compute_dtype!r} belongs to the from-pixels slice of the "
-            f"port (ROADMAP.md, queue 1)")
+            "(1-layer ATTLSTM, no att_rnn_dropout): use fused_train=False")
+    dot_dtype(cfg)
     if cfg.fused_train_bwd not in ("kernel", "xla"):
         raise ValueError(f"fused_train_bwd must be 'kernel' or 'xla', got "
                          f"{cfg.fused_train_bwd!r}")
+
+
+def _rnd(x, dd):
+    """``x`` rounded to the product type ``dd``, as float32."""
+    return x.float() if dd == torch.float32 else x.to(dd).float()
+
+
+class _RoundedDot(torch.autograd.Function):
+    """``x @ w`` on bf16-rounded operands, summed in float32: JAX's
+    ``dot_general(x.astype(bf16), w.astype(bf16), preferred_element_type=
+    f32)``.  The backward is JAX's transpose of it: each operand's
+    cotangent is the float32 product of the output's (unrounded) cotangent
+    with the other rounded operand, rounded to bf16, the cast operand's
+    type, and then carried to the operand's own type."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb, wb = _rnd(x, torch.bfloat16), _rnd(w, torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.types = (x.dtype, w.dtype)
+        return xb @ wb
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g @ wb.T).to(torch.bfloat16).to(ctx.types[0])
+        if ctx.needs_input_grad[1]:
+            dw = (xb.T @ g).to(torch.bfloat16).to(ctx.types[1])
+        return dx, dw
+
+
+def _dot(x, w, dd):
+    """A product of the hop with operand type ``dd``, differentiable."""
+    return x @ w if dd == torch.float32 else _RoundedDot.apply(x, w)
 
 
 def _seed_tensor(seed, device) -> torch.Tensor:
@@ -110,34 +172,40 @@ def _masks(cfg: ModelConfig, shapes, seed, hop: int):
     return fm, qm, mm
 
 
-def _hop_fwd_core(mp, q, feats, c, hprev, fm, qm, mm) -> Dict:
-    """One training hop (``_hop_fwd_core``, :104-167) with explicit masks."""
+def _hop_fwd_core(mp, q, feats, c, hprev, fm, qm, mm, dd) -> Dict:
+    """One training hop (``_hop_fwd_core``, :104-167) with explicit masks and
+    product type ``dd``."""
+    def dot(x, w):
+        return _dot(x, w, dd)
+
     B, S, Dc = feats.shape
     t: Dict = {}
-    x = feats * fm if fm is not None else feats
+    x = feats.float() * fm if fm is not None else feats.float()
     t["feats_d"] = x
-    prei = (x.reshape(B * S, Dc) @ mp["i_embed"]["w"]).reshape(B, S, -1) \
-        + mp["i_embed"]["b"]
+    prei = dot(x.reshape(B * S, Dc), mp["i_embed"]["w"]).reshape(B, S, -1) \
+        + mp["i_embed"]["b"].float()
     t["ifeat"] = torch.tanh(prei)                                 # [B, S, M]
     M = t["ifeat"].shape[-1]
-    t["iatt"] = (t["ifeat"].reshape(B * S, M) @ mp["att_i"]["w"]
-                 ).reshape(B, S, -1) + mp["att_i"]["b"]           # [B, S, F]
+    t["iatt"] = (dot(t["ifeat"].reshape(B * S, M), mp["att_i"]["w"]
+                     ).reshape(B, S, -1) + mp["att_i"]["b"].float())  # [B, S, F]
     F = t["iatt"].shape[-1]
-    t["q_d"] = q * qm if qm is not None else q
-    t["qfeat"] = torch.tanh(t["q_d"] @ mp["q_proj"]["w"] + mp["q_proj"]["b"]
-                            + hprev @ mp["h_proj"]["w"] + mp["h_proj"]["b"])
-    t["qatt"] = t["qfeat"] @ mp["att_q"]["w"] + mp["att_q"]["b"]  # [B, F]
+    t["q_d"] = q.float() * qm if qm is not None else q.float()
+    t["qfeat"] = torch.tanh(dot(t["q_d"], mp["q_proj"]["w"]) + mp["q_proj"]["b"].float()
+                            + dot(hprev, mp["h_proj"]["w"]) + mp["h_proj"]["b"].float())
+    t["qatt"] = dot(t["qfeat"], mp["att_q"]["w"]) + mp["att_q"]["b"].float()  # [B, F]
     t["addfeat"] = torch.tanh(t["iatt"] + t["qatt"][:, None, :])  # [B, S, F]
-    score_c = (t["addfeat"].reshape(B * S, F) @ mp["att_score"]["w"]).reshape(B, S)
-    attscore = (score_c + mp["att_score"]["b"][0]
-                + hprev @ mp["att_mem"]["w"] + mp["att_mem"]["b"])
+    score_c = dot(t["addfeat"].reshape(B * S, F), mp["att_score"]["w"]).reshape(B, S)
+    attscore = (score_c + mp["att_score"]["b"].float()[0]
+                + dot(hprev, mp["att_mem"]["w"]) + mp["att_mem"]["b"].float())
     t["attprob"] = torch.softmax(attscore, dim=-1)                # [B, S]
     t["attfeat"] = torch.sum(t["ifeat"] * t["attprob"][:, :, None], dim=1)
     t["join"] = (t["qfeat"] + t["attfeat"]
-                 + t["attprob"] @ mp["attprob_proj"]["w"] + mp["attprob_proj"]["b"])
+                 + dot(t["attprob"], mp["attprob_proj"]["w"])
+                 + mp["attprob_proj"]["b"].float())
     lp = mp["attlstm"]["layers"][0]
     R = c.shape[-1]
-    gates = t["join"] @ lp["wi"] + lp["bi"] + hprev @ lp["wh"] + lp["bh"]
+    gates = (dot(t["join"], lp["wi"]) + lp["bi"].float()
+             + dot(hprev, lp["wh"]) + lp["bh"].float())
     # ATTLSTM gate order [i, g, f, o] (ATTLSTM.lua:16-19)
     t["i_g"] = torch.sigmoid(gates[:, :R])
     t["g_t"] = torch.tanh(gates[:, R:2 * R])
@@ -147,17 +215,26 @@ def _hop_fwd_core(mp, q, feats, c, hprev, fm, qm, mm) -> Dict:
     t["c_new"] = t["f_g"] * c + t["i_g"] * t["g_t"]
     t["tanh_c"] = torch.tanh(t["c_new"])
     t["h_new"] = t["o_g"] * t["tanh_c"]
-    t["merge_pre"] = t["join"] + t["h_new"] @ mp["merge"]["w"] + mp["merge"]["b"]
+    t["merge_pre"] = (t["join"] + dot(t["h_new"], mp["merge"]["w"])
+                      + mp["merge"]["b"].float())
     t["merge_d"] = t["merge_pre"] * mm if mm is not None else t["merge_pre"]
     if "cls" in mp:
-        t["score"] = t["merge_d"] @ mp["cls"]["w"] + mp["cls"]["b"]  # [B, A]
+        t["score"] = dot(t["merge_d"], mp["cls"]["w"]) + mp["cls"]["b"].float()  # [B, A]
     return t
 
 
-def _hop_bwd_core(mp, t, dmerge_d, dc_in, dh_in, mm):
+def _hop_bwd_core(mp, t, dmerge_d, dc_in, dh_in, mm, dd):
     """Backward of one hop (``_hop_bwd_core``, :170-276): the cotangent chain,
-    the feats-path weight grads (biases 1-D here) and the emissions.
-    Returns (emissions, grads, dc_prev, dh_prev)."""
+    the feats-path weight grads (biases 1-D here) and the emissions, with
+    product type ``dd``.  Returns (emissions, grads, dc_prev, dh_prev)."""
+    def dotT(x, w):
+        # x @ w^T (:185-189)
+        return _rnd(x, dd) @ _rnd(w, dd).T
+
+    def gradw2(a, b):
+        # a^T @ b over [N, in] x [N, out] (:191-195)
+        return _rnd(a, dd).T @ _rnd(b, dd)
+
     B, S, Dc = t["feats_d"].shape
     M = t["join"].shape[-1]
     F = t["qatt"].shape[-1]
@@ -166,9 +243,9 @@ def _hop_bwd_core(mp, t, dmerge_d, dc_in, dh_in, mm):
 
     dmerge_pre = dmerge_d * mm if mm is not None else dmerge_d
     em["dmerge_pre"] = dmerge_pre
-    em["merge_d"] = t["merge_d"]
+    em["merge_d"] = t["merge_d"].to(dd)
     djoin = dmerge_pre
-    dh_new = dmerge_pre @ mp["merge"]["w"].T + dh_in
+    dh_new = dotT(dmerge_pre, mp["merge"]["w"]) + dh_in
     # ATTLSTM cell backward
     do_g = dh_new * t["tanh_c"]
     dc_new = dh_new * t["o_g"] * (1.0 - t["tanh_c"] ** 2) + dc_in
@@ -183,41 +260,40 @@ def _hop_bwd_core(mp, t, dmerge_d, dc_in, dh_in, mm):
         do_g * t["o_g"] * (1.0 - t["o_g"]),
     ], dim=1)                                                     # [B, 4R]
     em["dgates"] = dgates
-    em["join"] = t["join"]
+    em["join"] = t["join"].to(dd)
     lp = mp["attlstm"]["layers"][0]
-    djoin = djoin + dgates @ lp["wi"].T
-    dh_prev = dgates @ lp["wh"].T
+    djoin = djoin + dotT(dgates, lp["wi"])
+    dh_prev = dotT(dgates, lp["wh"])
     # join = qfeat + attfeat + attprob @ Wp + bp
     em["djoin"] = djoin
-    dattprob = djoin @ mp["attprob_proj"]["w"].T                  # [B, S]
-    # attfeat = sum_s ifeat * attprob
+    dattprob = dotT(djoin, mp["attprob_proj"]["w"])               # [B, S]
+    # attfeat = sum_s ifeat * attprob, on unrounded values
     dattprob = dattprob + torch.sum(t["ifeat"] * djoin[:, None, :], dim=2)
     difeat = t["attprob"][:, :, None] * djoin[:, None, :]         # [B, S, M]
     dattscore = t["attprob"] * (
         dattprob - torch.sum(dattprob * t["attprob"], dim=1, keepdim=True))
     em["dscore_att"] = dattscore
-    dh_prev = dh_prev + dattscore @ mp["att_mem"]["w"].T
-    gw[("att_score", "w")] = (t["addfeat"].reshape(B * S, F).T
-                              @ dattscore.reshape(B * S, 1))     # [F, 1]
-    daddfeat = dattscore[:, :, None] * mp["att_score"]["w"].reshape(1, 1, F)
+    dh_prev = dh_prev + dotT(dattscore, mp["att_mem"]["w"])
+    gw[("att_score", "w")] = gradw2(t["addfeat"].reshape(B * S, F),
+                                    dattscore.reshape(B * S, 1))  # [F, 1]
+    # the float32 value of the weight, unrounded (:251-252)
+    daddfeat = dattscore[:, :, None] * mp["att_score"]["w"].float().reshape(1, 1, F)
     # addfeat = tanh(iatt + qatt)
     dpre_add = daddfeat * (1.0 - t["addfeat"] ** 2)               # [B, S, F]
     dqatt = torch.sum(dpre_add, dim=1)                            # [B, F]
     em["dqatt"] = dqatt
-    em["qfeat"] = t["qfeat"]
-    dqfeat = djoin + dqatt @ mp["att_q"]["w"].T
+    em["qfeat"] = t["qfeat"].to(dd)
+    dqfeat = djoin + dotT(dqatt, mp["att_q"]["w"])
     dpre_q = dqfeat * (1.0 - t["qfeat"] ** 2)                     # [B, M]
     em["dpre_q"] = dpre_q
-    dh_prev = dh_prev + dpre_q @ mp["h_proj"]["w"].T
+    dh_prev = dh_prev + dotT(dpre_q, mp["h_proj"]["w"])
     # iatt = ifeat @ Wa + ba
-    difeat = difeat + (dpre_add.reshape(B * S, F)
-                       @ mp["att_i"]["w"].T).reshape(B, S, M)
-    gw[("att_i", "w")] = t["ifeat"].reshape(B * S, M).T @ dpre_add.reshape(B * S, F)
+    difeat = difeat + dotT(dpre_add.reshape(B * S, F), mp["att_i"]["w"]).reshape(B, S, M)
+    gw[("att_i", "w")] = gradw2(t["ifeat"].reshape(B * S, M), dpre_add.reshape(B * S, F))
     gw[("att_i", "b")] = dpre_add.reshape(B * S, F).sum(0)
     # ifeat = tanh(feats_d @ Wi + bi)
     dpre_i = difeat * (1.0 - t["ifeat"] ** 2)                     # [B, S, M]
-    gw[("i_embed", "w")] = (t["feats_d"].reshape(B * S, Dc).T
-                            @ dpre_i.reshape(B * S, M))
+    gw[("i_embed", "w")] = gradw2(t["feats_d"].reshape(B * S, Dc), dpre_i.reshape(B * S, M))
     gw[("i_embed", "b")] = dpre_i.reshape(B * S, M).sum(0)
     return em, gw, dc_prev, dh_prev
 
@@ -229,16 +305,18 @@ def _shapes(cfg: ModelConfig, q, feats):
 
 def train_hops_fwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed):
     """Plain version of the forward kernel: (scores [H, B, A], do_pred
-    [H, B], attprob [H, B, S], c_all [H+1, B, R], h_all [H+1, B, R])."""
+    [H, B], attprob [H, B, S], c_all [H+1, B, R], h_all [H+1, B, R]), all
+    float32, with the products in ``cfg.compute_dtype``."""
+    dd = dot_dtype(cfg)
     B = q.shape[0]
-    c = q.new_zeros(B, cfg.att_state_dim)
-    h = q.new_zeros(B, cfg.att_state_dim)
+    c = torch.zeros(B, cfg.att_state_dim, device=q.device)
+    h = torch.zeros(B, cfg.att_state_dim, device=q.device)
     scores, dopreds, attprobs, cs, hs = [], [], [], [c], [h]
     for hop in range(cfg.n_hops):
         fm, qm, mm = _masks(cfg, _shapes(cfg, q, feats), seed, hop)
-        t = _hop_fwd_core(mp, q, feats, c, h, fm, qm, mm)
-        dopreds.append(torch.sigmoid((t["merge_d"] @ mp["do_pred"]["w"])[:, 0]
-                                     + mp["do_pred"]["b"][0]))
+        t = _hop_fwd_core(mp, q, feats, c, h, fm, qm, mm, dd)
+        dopreds.append(torch.sigmoid(_dot(t["merge_d"], mp["do_pred"]["w"], dd)[:, 0]
+                                     + mp["do_pred"]["b"].float()[0]))
         scores.append(t["score"])
         attprobs.append(t["attprob"])
         c, h = t["c_new"], t["h_new"]
@@ -251,7 +329,8 @@ def train_hops_fwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed):
 def rau_train_hops_reference(mp: Dict, cfg: ModelConfig, q, feats, seed):
     """The training hop loop with the fused path's exact masks, in plain
     PyTorch and differentiable by autograd: (scores, do_pred, attprob,
-    final_c, final_h)."""
+    final_c, final_h).  In bfloat16 its gradient is JAX's autodiff of its
+    own reference (``_RoundedDot``)."""
     check_fused_config(cfg)
     seed = _seed_tensor(seed, q.device)
     scores, do_pred, attprob, c_all, h_all = train_hops_fwd_reference(
@@ -263,7 +342,8 @@ def train_hops_bwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed,
                              c_all, h_all, gmerge):
     """Plain version of the backward kernel: the hops in reverse from the
     saved carries.  Returns (emissions {name: [H, B, width]}, the feats-path
-    grads {path: tensor})."""
+    grads {path: tensor}, float32)."""
+    dd = dot_dtype(cfg)
     H = cfg.n_hops
     shapes = _shapes(cfg, q, feats)
     dc = torch.zeros_like(c_all[0])
@@ -272,24 +352,27 @@ def train_hops_bwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed,
     gw_in: Dict[Tuple, torch.Tensor] = {}
     for hop in reversed(range(H)):
         fm, qm, mm = _masks(cfg, shapes, seed, hop)
-        t = _hop_fwd_core(mp, q, feats, c_all[hop], h_all[hop], fm, qm, mm)
-        ems[hop], gw, dc, dh = _hop_bwd_core(mp, t, gmerge[hop], dc, dh, mm)
+        t = _hop_fwd_core(mp, q, feats, c_all[hop], h_all[hop], fm, qm, mm, dd)
+        ems[hop], gw, dc, dh = _hop_bwd_core(mp, t, gmerge[hop], dc, dh, mm, dd)
         for path, g in gw.items():
             gw_in[path] = gw_in[path] + g if path in gw_in else g
-    em = {name: torch.stack([e[name] for e in ems]) for name, _ in _EMITS}
+    em = {name: torch.stack([e[name] for e in ems]) for name, _, _ in _EMITS}
     return em, gw_in
 
 
 def _outside_grads(cfg: ModelConfig, mp, q, seed, h_all, attprob, g_scores, em):
-    """The weight grads of the non-feats path, and dq, as products over the
-    emissions stacked ``[H*B, *]`` (``_outside_grads``, :539-595)."""
+    """The weight grads of the non-feats path, and dq, float32, as products
+    over the emissions stacked ``[H*B, *]`` (``_outside_grads``, :539-595):
+    float32 ``matmul``s on operands rounded to the product type."""
+    dd = dot_dtype(cfg)
     H = cfg.n_hops
     B, Q = q.shape
     rate = cfg.mult_dropout
 
     def gemm(act, cot):
         # act [H, B, in], cot [H, B, out] -> [in, out]
-        return act.reshape(-1, act.shape[-1]).T @ cot.reshape(-1, cot.shape[-1])
+        return (_rnd(act.reshape(-1, act.shape[-1]), dd).T
+                @ _rnd(cot.reshape(-1, cot.shape[-1]), dd))
 
     h_in = h_all[:H]                       # state entering each hop
     h_out = h_all[1:]                      # state leaving each hop
@@ -297,10 +380,10 @@ def _outside_grads(cfg: ModelConfig, mp, q, seed, h_all, attprob, g_scores, em):
         qmask = torch.stack([
             dropout_scale_mask((B, Q), 0, site_salt(seed, h, _SITE_Q), rate)
             for h in range(H)])            # [H, B, Q]
-        q_d = q[None] * qmask
+        q_d = q.float()[None] * qmask
     else:
         qmask = None
-        q_d = q[None].expand(H, B, Q)
+        q_d = q.float()[None].expand(H, B, Q)
 
     def rowsum(x):
         return x.sum(dim=(0, 1))
@@ -326,7 +409,8 @@ def _outside_grads(cfg: ModelConfig, mp, q, seed, h_all, attprob, g_scores, em):
     gw[("cls", "w")] = gemm(em["merge_d"], g_scores)
     gw[("cls", "b")] = rowsum(g_scores)
     # dq: (dpre_q @ Wq^T) masked per hop, summed over hops
-    p = (em["dpre_q"].reshape(H * B, -1) @ mp["q_proj"]["w"].T).reshape(H, B, Q)
+    p = (_rnd(em["dpre_q"].reshape(H * B, -1), dd)
+         @ _rnd(mp["q_proj"]["w"], dd).T).reshape(H, B, Q)
     dq = torch.sum(p * qmask, dim=0) if qmask is not None else torch.sum(p, dim=0)
     return gw, dq
 
@@ -336,17 +420,18 @@ def _outside_grads(cfg: ModelConfig, mp, q, seed, h_all, attprob, g_scores, em):
 # ---------------------------------------------------------------------------
 
 def _check_cuda(name: str, cfg: ModelConfig, mp, q, feats, seed, extra=()):
-    """Raise unless every input is what the kernels take; returns the
-    dimensions."""
+    """Raise unless every input is what the kernels take: ``q``, ``feats``
+    and the weights in the product type; returns the dimensions."""
+    dd = dot_dtype(cfg)
     d = dict(B=q.shape[0], Q=cfg.rnnout_dim, S=cfg.cnn_spat, Dc=cfg.cnn_dim,
              M=cfg.multfeat_dim, F=cfg.attfeat_dim, R=cfg.att_state_dim,
              A=cfg.answer_size, H=cfg.n_hops)
     B, Q, S, Dc, M, F = (d[k] for k in ("B", "Q", "S", "Dc", "M", "F"))
     shapes = mult_shapes(cfg)
-    checks = [("q", q, torch.float32, (B, Q)),
-              ("feats", feats, torch.float32, (B, S, Dc)),
+    checks = [("q", q, dd, (B, Q)),
+              ("feats", feats, dd, (B, S, Dc)),
               ("seed", seed, torch.int32, (1,))]
-    checks += [("/".join(map(str, p)), pluck(mp, p), torch.float32, shapes[p])
+    checks += [("/".join(map(str, p)), pluck(mp, p), dd, shapes[p])
                for p in _FWD_WEIGHTS]
     checks += list(extra)
     for what, t, dtype, shape in checks:
@@ -382,7 +467,8 @@ def _on_cuda(name: str, q) -> bool:
 
 def train_hops_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed):
     """The forward kernel: (scores [H, B, A], do_pred [H, B], attprob
-    [H, B, S], c_all [H+1, B, R], h_all [H+1, B, R]).  ``seed`` is one int32
+    [H, B, S], c_all [H+1, B, R], h_all [H+1, B, R]), float32.  ``q``,
+    ``feats`` and the weights in ``cfg.compute_dtype``; ``seed`` one int32
     on ``q``'s device.  CPU tensors run ``train_hops_fwd_reference``."""
     if not _on_cuda("train_hops_fwd", q):
         return train_hops_fwd_reference(mp, cfg, q, feats, seed)
@@ -396,19 +482,20 @@ def train_hops_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed):
     c_all = torch.empty(H + 1, B, R, device=dev, dtype=torch.float32)
     h_all = torch.empty(H + 1, B, R, device=dev, dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    FWD_KERNEL.launch(q.data_ptr(), feats.data_ptr(), seed.data_ptr(),
-                      _weight_ptrs(mp), work.data_ptr(), scores.data_ptr(),
-                      do_pred.data_ptr(), attprob.data_ptr(), c_all.data_ptr(),
-                      h_all.data_ptr(), B, d["Q"], S, d["Dc"], M, F, R, A, H,
-                      *_dropout_args(cfg), stream)
+    _KERNELS[dot_dtype(cfg)][0].launch(
+        q.data_ptr(), feats.data_ptr(), seed.data_ptr(), _weight_ptrs(mp),
+        work.data_ptr(), scores.data_ptr(), do_pred.data_ptr(), attprob.data_ptr(),
+        c_all.data_ptr(), h_all.data_ptr(), B, d["Q"], S, d["Dc"], M, F, R, A, H,
+        *_dropout_args(cfg), stream)
     return scores, do_pred, attprob, c_all, h_all
 
 
 def train_hops_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all,
                    gmerge):
     """The backward kernel: (emissions {name: [H, B, width]}, the feats-path
-    grads {path: tensor}, its per-block partials summed).  ``gmerge`` is the
-    score cotangent times ``cls_w^T``, [H, B, M].  CPU tensors run
+    grads {path: tensor}, its per-block partials summed, float32).  ``q``,
+    ``feats`` and the weights in ``cfg.compute_dtype``; ``gmerge`` is the
+    score cotangent times ``cls_w^T``, [H, B, M] float32.  CPU tensors run
     ``train_hops_bwd_reference``."""
     if not _on_cuda("train_hops_bwd", q):
         return train_hops_bwd_reference(mp, cfg, q, feats, seed, c_all, h_all,
@@ -420,23 +507,25 @@ def train_hops_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all,
         ("h_all", h_all, torch.float32, (H + 1, B, R)),
         ("gmerge", gmerge, torch.float32, (H, B, M))])
     Dc, F = d["Dc"], d["F"]
+    dd = dot_dtype(cfg)
     dev = q.device
     widths = {"M": M, "F": F, "S": S, "G": 4 * R}
-    em = {name: torch.empty(H, B, widths[w], device=dev, dtype=torch.float32)
-          for name, w in _EMITS}
+    em = {name: torch.empty(H, B, widths[w], device=dev,
+                            dtype=torch.float32 if cot else dd)
+          for name, w, cot in _EMITS}
     part_shapes = {("i_embed", "w"): (Dc, M), ("i_embed", "b"): (M,),
                    ("att_i", "w"): (M, F), ("att_i", "b"): (F,),
                    ("att_score", "w"): (F, 1)}
     parts = {p: torch.empty((B,) + part_shapes[p], device=dev,
                             dtype=torch.float32) for p in _INKERNEL_GRADS}
     work = torch.empty(B * S * (M + F), device=dev, dtype=torch.float32)
-    em_ptrs = (_P * len(_EMITS))(*[em[n].data_ptr() for n, _ in _EMITS])
+    em_ptrs = (_P * len(_EMITS))(*[em[n].data_ptr() for n, _, _ in _EMITS])
     part_ptrs = (_P * len(parts))(*[parts[p].data_ptr() for p in _INKERNEL_GRADS])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    BWD_KERNEL.launch(q.data_ptr(), feats.data_ptr(), seed.data_ptr(),
-                      c_all.data_ptr(), h_all.data_ptr(), gmerge.data_ptr(),
-                      _weight_ptrs(mp), work.data_ptr(), em_ptrs, part_ptrs,
-                      B, d["Q"], S, Dc, M, F, R, H, *_dropout_args(cfg), stream)
+    _KERNELS[dd][1].launch(
+        q.data_ptr(), feats.data_ptr(), seed.data_ptr(), c_all.data_ptr(),
+        h_all.data_ptr(), gmerge.data_ptr(), _weight_ptrs(mp), work.data_ptr(),
+        em_ptrs, part_ptrs, B, d["Q"], S, Dc, M, F, R, H, *_dropout_args(cfg), stream)
     # sum the per-block partials (outside the kernel, as JAX does: :533-535)
     gw_in = {p: parts[p].sum(dim=0) for p in _INKERNEL_GRADS}
     return em, gw_in
@@ -446,12 +535,24 @@ def train_hops_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all,
 # The autograd Function
 # ---------------------------------------------------------------------------
 
+def _kernel_operands(cfg: ModelConfig, mp, q, feats):
+    """``mp``, ``q`` and ``feats`` in the product type, as the kernels take
+    them (JAX casts them so before its calls, :365, :404, :479, :530)."""
+    dd = dot_dtype(cfg)
+    mp_k = rebuild(_FWD_WEIGHTS, [pluck(mp, p).to(dd) for p in _FWD_WEIGHTS])
+    return mp_k, q.to(dd), feats.to(dd)
+
+
 def _bwd_kernel(cfg, mp, q, feats, seed, c_all, h_all, attprob, g_scores):
     """The hand-derived backward: the backward kernel (or its plain version)
-    plus the outside products.  Returns ({path: grad} for _DIFF_WEIGHTS, dq)."""
+    plus the outside products.  Returns ({path: grad} for _DIFF_WEIGHTS, dq),
+    float32."""
+    dd = dot_dtype(cfg)
     H, B = g_scores.shape[:2]
-    gmerge = (g_scores.reshape(H * B, -1) @ mp["cls"]["w"].T).reshape(H, B, -1)
-    em, gw_in = train_hops_bwd(mp, cfg, q, feats, seed, c_all, h_all,
+    gmerge = (_rnd(g_scores.reshape(H * B, -1), dd)
+              @ _rnd(mp["cls"]["w"], dd).T).reshape(H, B, -1)
+    mp_k, q_k, feats_k = _kernel_operands(cfg, mp, q, feats)
+    em, gw_in = train_hops_bwd(mp_k, cfg, q_k, feats_k, seed, c_all, h_all,
                                gmerge.contiguous())
     gw_out, dq = _outside_grads(cfg, mp, q, seed, h_all, attprob, g_scores, em)
     return {p: (gw_in[p] if p in gw_in else gw_out[p]) for p in _DIFF_WEIGHTS}, dq
@@ -472,13 +573,14 @@ def _bwd_autograd(cfg, mp, q, feats, seed, g_scores):
 
 class _FusedTrainHops(torch.autograd.Function):
     """(cfg, seed, q, feats, *weights in _FWD_WEIGHTS order) -> (scores,
-    do_pred, attprob, final_c, final_h); only ``scores`` is differentiable."""
+    do_pred, attprob, final_c, final_h); only ``scores`` is differentiable.
+    Each grad comes back in its input's type."""
 
     @staticmethod
     def forward(ctx, cfg, seed, q, feats, *weights):
-        mp = rebuild(_FWD_WEIGHTS, weights)
+        mp_k, q_k, feats_k = _kernel_operands(cfg, rebuild(_FWD_WEIGHTS, weights), q, feats)
         scores, do_pred, attprob, c_all, h_all = train_hops_fwd(
-            mp, cfg, q, feats, seed)
+            mp_k, cfg, q_k, feats_k, seed)
         ctx.cfg = cfg
         ctx.save_for_backward(seed, q, feats, c_all, h_all, attprob, *weights)
         fc, fh = c_all[-1].clone(), h_all[-1].clone()
@@ -496,17 +598,17 @@ class _FusedTrainHops(torch.autograd.Function):
         else:
             grads, dq = _bwd_kernel(cfg, mp, q, feats, seed, c_all, h_all,
                                     attprob, g_scores)
-        dw = [grads[p] if p in grads else torch.zeros_like(w)
+        dw = [grads[p].to(w.dtype) if p in grads else torch.zeros_like(w)
               for p, w in zip(_FWD_WEIGHTS, weights)]
-        return (None, None, dq, None, *dw)
+        return (None, None, dq.to(q.dtype), None, *dw)
 
 
 def rau_train_hops(mp: Dict, cfg: ModelConfig, q, feats, seed):
     """The fused training hop loop: (scores [H, B, A], do_pred [H, B],
-    attprob [H, B, S], final_c, final_h).  Differentiable in ``mp`` and ``q``
-    through ``scores`` only; ``feats`` gets no gradient.  ``seed``: an int or
-    an int32 tensor; the masks of hop h are those of
-    ``site_salt(seed, h, site)``."""
+    attprob [H, B, S], final_c, final_h), float32.  Differentiable in ``mp``
+    and ``q`` through ``scores`` only; ``feats`` gets no gradient.
+    ``seed``: an int or an int32 tensor; the masks of hop h are those of
+    ``site_salt(seed, h, site)``.  Products in ``cfg.compute_dtype``."""
     check_fused_config(cfg)
     seed = _seed_tensor(seed, q.device)
     weights = [pluck(mp, p) for p in _FWD_WEIGHTS]

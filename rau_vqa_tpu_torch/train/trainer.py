@@ -3,10 +3,13 @@ clip and per-group Adam with two learning rates.
 
 Counterpart of ``TrainState``, ``init_train_state`` and ``make_train_step``
 in ``rau_vqa_tpu/train/trainer.py`` (reference
-Ours_SS/LstmAttCtrlGradNoiseDontSelect.lua:478-629).  The step runs the
-fused training configuration (``ModelConfig.fused_train``): the hop loop's
-forward and backward are the CUDA kernels of ``ops/rau_train_hops.py`` on
-the card, their plain versions on the CPU.
+Ours_SS/LstmAttCtrlGradNoiseDontSelect.lua:478-629).  The step runs either
+training configuration of ``models/rau.py``: unfused (the presets'), or
+fused (``ModelConfig.fused_train``), whose hop loop forward and backward are
+the CUDA kernels of ``ops/rau_train_hops.py`` on the card and their plain
+versions on the CPU; in float32 or, with ``compute_dtype="bfloat16"``, on
+bf16 casts of the params, whose grads reach the float32 params through the
+cast.
 
 Random draws come from ``torch.Generator``s that the step derives from the
 state's seed and step count, so a step is a function of its state and its
@@ -23,11 +26,7 @@ import torch
 from rau_vqa_tpu_torch.config import ModelConfig, TrainConfig
 from rau_vqa_tpu_torch.convert import map_tree, tree_leaves
 from rau_vqa_tpu_torch.devices import pick_device
-from rau_vqa_tpu_torch.models.rau import (
-    UNFUSED_TRAINING,
-    init_params,
-    rau_forward,
-)
+from rau_vqa_tpu_torch.models.rau import init_params, rau_forward
 from rau_vqa_tpu_torch.ops.rau_train_hops import check_fused_config
 from rau_vqa_tpu_torch.train.losses import joint_loss_and_metrics
 from rau_vqa_tpu_torch.train.optim import (
@@ -106,9 +105,8 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
     device = pick_device(device, "make_train_step")
     if tcfg.train_backbone or backbone is not None or img_repeat != 1:
         raise NotImplementedError(f"train_backbone / img_repeat {_FROM_PIXELS}")
-    if not mcfg.fused_train:
-        raise NotImplementedError(UNFUSED_TRAINING)
-    check_fused_config(mcfg)
+    if mcfg.fused_train:
+        check_fused_config(mcfg)
     accum = int(tcfg.grad_accum or 1)
 
     def grads_and_metrics(params, tokens, lengths, feats, labels, hop_scale,
@@ -138,7 +136,7 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
                 lr, mult_lr):
         tokens = torch.as_tensor(tokens, device=device)
         lengths = torch.as_tensor(lengths, device=device)
-        feats = torch.as_tensor(feats, device=device, dtype=torch.float32)
+        feats = torch.as_tensor(feats, device=device)   # rau_forward casts it
         labels = torch.as_tensor(labels, device=device)
         hop_scale = torch.as_tensor(hop_scale, device=device,
                                     dtype=torch.float32)

@@ -13,6 +13,11 @@ at 1 layer of 256, and with a grid that cannot be co-resident (it raises).
 Training kernels (float32): the mask hash bit for bit; the forward at rtol
 1e-4 / atol 1e-4 over 8 recurrent hops of float32 sums taken in another
 order; the backward's grads at a norm-relative error of 1e-3 per leaf.
+Their bf16 instantiations at the bars of chip_smoke.py (one hop: each output
+and grad leaf within ``TRAIN_BF16_BARS``, each bar under half the float32
+distance; eight hops: ``train_bf16_deep_bar``, within twice the plain
+version's own drift on the host and under 3/4 of the float32 distance); the
+bf16 fused step and the unfused step, float32 and bf16, on the card.
 From pixels: the identity-stage kernel at scale-normalised bars, and
 ``answer_pixels`` (``ours_resnet`` head, bf16 ResNet-101 at 448 px) against
 ``pixels_forward`` at the bars of chip_smoke.py's pixels phase; the stage
@@ -26,7 +31,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import scaled_err, stage_bar, stage_faults, stage_stack
+from chip_smoke import (
+    scaled_err,
+    stage_bar,
+    stage_faults,
+    stage_stack,
+    train_bf16_bar,
+    train_bf16_deep_bar,
+    train_bf16_readings,
+)
 from rau_vqa_tpu_torch.config import get_preset, get_train_preset
 from rau_vqa_tpu_torch.convert import map_tree
 from rau_vqa_tpu_torch.eval.predict import (
@@ -282,6 +295,77 @@ def test_train_hops_bwd_matches_autograd(cuda_device):
         assert ((g - w).norm() / w.norm()).item() <= 1e-3, path
     assert ((dq - dq_ref).norm() / dq_ref.norm()).item() <= 1e-3
     assert torch.all(got["do_pred"]["w"].grad == 0)
+
+
+@pytest.mark.parametrize("H,B", [(1, 19), (8, 19), (8, 100)])
+def test_train_hops_bf16_match_plain(cuda_device, H, B):
+    """The bf16 kernels against their bf16 plain versions: at one hop within
+    TRAIN_BF16_BARS, each under half the float32 plain version's distance
+    (a product left unrounded lands beyond it); at eight hops within
+    train_bf16_deep_bar."""
+    cfg = dataclasses.replace(TRAIN_CFG, compute_dtype="bfloat16", n_hops=H)
+    mp, _, _ = _train_inputs(B, cuda_device, seed=2)
+    readings = train_bf16_readings(rau_train_hops, cfg, mp, B, np.random.RandomState(3),
+                                   cuda_device, host=H > 1)
+    for kind, per in readings.items():
+        for name, r in per.items():
+            if H > 1:
+                assert r["kernel"] <= train_bf16_deep_bar(r), (kind, name, r)
+            elif r["float32"] == 0:     # no bf16 product reaches it
+                assert r["kernel"] == 0, (kind, name, r)
+            else:
+                bar = train_bf16_bar(kind, name)
+                assert r["kernel"] <= bar < 0.5 * r["float32"], (kind, name, r)
+
+
+def test_train_hops_bf16_wrappers_take_bf16(cuda_device):
+    cfg = dataclasses.replace(TRAIN_CFG, compute_dtype="bfloat16")
+    mp, q, feats = _train_inputs(4, cuda_device)
+    mp16 = map_tree(lambda w: w.to(torch.bfloat16), mp)
+    seed = torch.tensor([1], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="q must be"):
+        rau_train_hops.train_hops_fwd(mp16, cfg, q, feats.to(torch.bfloat16), seed)
+    with pytest.raises(ValueError, match="q_proj/w must be"):
+        rau_train_hops.train_hops_fwd(mp, cfg, q.to(torch.bfloat16),
+                                      feats.to(torch.bfloat16), seed)
+
+
+def _train_batch(cfg, B, dev):
+    _, tokens, lengths, feats = _inputs(B, dev)
+    labels = torch.randint(0, cfg.answer_size, (B,), device=dev)
+    return tokens, lengths, feats, labels, torch.ones(cfg.n_hops)
+
+
+def test_bf16_train_step_runs_the_bf16_kernels(cuda_device):
+    mcfg, tcfg = get_train_preset("ours_ms")
+    mcfg = dataclasses.replace(mcfg, fused_train=True, compute_dtype="bfloat16")
+    kernels = (rau_train_hops.FWD_BF16_KERNEL, rau_train_hops.BWD_BF16_KERNEL,
+               rau_train_hops.FWD_KERNEL, rau_train_hops.BWD_KERNEL)
+    before = [k.launches for k in kernels]
+    state, metrics = make_train_step(mcfg, tcfg)(
+        init_train_state(mcfg, 0), *_train_batch(mcfg, 16, cuda_device), 3e-3, 3e-4)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0, 0]
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert state.params["mult"]["i_embed"]["w"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("change", [{}, dict(remat_hops=True), dict(compute_dtype="bfloat16")],
+                         ids=["as_shipped", "remat_hops", "bf16"])
+def test_unfused_train_step_runs_on_the_card(cuda_device, change):
+    """The ours_ms preset as shipped, with remat_hops, and in bf16: no fused
+    training kernel runs, the metrics are finite."""
+    mcfg, tcfg = get_train_preset("ours_ms")
+    mcfg = dataclasses.replace(mcfg, **change)
+    kernels = (rau_train_hops.FWD_KERNEL, rau_train_hops.BWD_KERNEL,
+               rau_train_hops.FWD_BF16_KERNEL, rau_train_hops.BWD_BF16_KERNEL)
+    before = [k.launches for k in kernels]
+    state, metrics = make_train_step(mcfg, tcfg)(
+        init_train_state(mcfg, 0), *_train_batch(mcfg, 16, cuda_device), 3e-3, 3e-4)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+    assert state.step == 1
+    assert all(torch.isfinite(v).all() for v in metrics.values())
 
 
 # ---------------------------------------------------------------------------

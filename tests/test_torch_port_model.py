@@ -17,7 +17,7 @@ from rau_vqa_tpu.models import aggregate as jagg
 from rau_vqa_tpu.models import cells as jcells
 from rau_vqa_tpu.models import rau as jrau
 from rau_vqa_tpu_torch import config as tconfig
-from rau_vqa_tpu_torch.convert import params_from_jax, params_to_jax
+from rau_vqa_tpu_torch.convert import map_tree, params_from_jax, params_to_jax, tree_leaves
 from rau_vqa_tpu_torch.models import aggregate as tagg
 from rau_vqa_tpu_torch.models import cells as tcells
 from rau_vqa_tpu_torch.models import rau as trau
@@ -155,14 +155,23 @@ def test_rau_forward_matches_jax(B):
 
 
 def test_rau_forward_train_names_the_training_slice():
-    """Training runs the fused configuration; the unfused one is refused
-    with the name of its ROADMAP.md entry."""
+    """Training runs the configuration as it is given, here the unfused one
+    (the default): dropout needs a generator; with one, the forward gives
+    finite outputs of the eval shapes and a gradient to every group."""
     assert not CFG.fused_train
-    p = params_from_jax(jax_params(0))
+    p = map_tree(lambda x: x.requires_grad_(), params_from_jax(jax_params(0)))
     tokens, lengths, feats = inputs(2)
-    with pytest.raises(NotImplementedError, match="unfused training path"):
-        trau.rau_forward(p, CFG, t(tokens), t(lengths), t(feats), train=True,
-                         generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="generator"):
+        trau.rau_forward(p, CFG, t(tokens), t(lengths), t(feats), train=True)
+    out = trau.rau_forward(p, CFG, t(tokens), t(lengths), t(feats), train=True,
+                           generator=torch.Generator().manual_seed(0))
+    H, A, S = CFG.n_hops, CFG.answer_size, CFG.cnn_spat
+    assert out.scores.shape == (H, 2, A) and out.attprob.shape == (H, 2, S)
+    assert all(torch.isfinite(x).all() for x in out)
+    out.scores.sum().backward()
+    for group in ("embed", "rnn", "mult"):
+        assert any(x.grad is not None and x.grad.abs().max() > 0
+                   for x in tree_leaves(p[group])), group
 
 
 @pytest.mark.parametrize("force_final", [True, False])

@@ -332,10 +332,8 @@ def test_make_train_step_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("mchange,tchange,kw", [
-    (dict(fused_train=False), {}, {}),
     ({}, dict(train_backbone=True), {}),
-    ({}, {}, dict(img_repeat=2)),
-    (dict(compute_dtype="bfloat16"), {}, {})])
+    ({}, {}, dict(img_repeat=2))])
 def test_make_train_step_refuses_unported_paths(mchange, tchange, kw):
     mcfg = port_model_cfg(JCFG, **mchange)
     tcfg = dataclasses.replace(tconfig.TrainConfig(), **tchange)

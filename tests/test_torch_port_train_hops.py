@@ -180,7 +180,6 @@ def test_dropout_is_live_and_seeded(data):
 @pytest.mark.parametrize("change,error", [
     (dict(att_rnn_dropout=0.3), NotImplementedError),
     (dict(att_rnn_layers=2), NotImplementedError),
-    (dict(compute_dtype="bfloat16"), NotImplementedError),
     (dict(fused_train_bwd="autodiff"), ValueError)])
 def test_rejects_unsupported_config(data, change, error):
     params, q, feats, *_ = data

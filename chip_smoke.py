@@ -8,17 +8,23 @@ Phases, in order; any failure exits non-zero:
 2. build    — every CUDA source of rau_vqa_tpu_torch/csrc that a path runs
               (not the stage kernel's probe build, fused_resnet_probe.cu)
               with nvcc for sm_90a, one nvcc each, all at once, with the
-              ptxas register / shared-memory report (the encoder's and the
-              stage kernel's per instantiation) and the encoder's grid plan
-              (CTAs, units a CTA,
-              shared memory) at each batch size the run uses;
+              ptxas register / shared-memory / spill report (the encoder's
+              and the stage kernel's per instantiation, the training
+              backward's per phase kernel), the encoder's grid plan (CTAs,
+              units a CTA, shared memory) at each batch size the run uses,
+              and the training backward's ``bwd_plan`` (kernels a hop, K
+              chunks, scratch, shared memory), its grids held to the
+              launches of a dry run of the built C entry at B in {1, 19,
+              37, 100};
 3. kernels  — each kernel against its plain version at ``ours_ms`` widths:
               the encoder at B in {1, 19, 512} (rows of length 0 and T + 1
               give zeros; a second call gives the same bits) and the hop
               kernel at B in {19, 512}, at the bars of
               tests/test_pallas_rau.py; the device mask hash bit for bit; the
               training hop loop's forward (rtol / atol 1e-4) and backward
-              (grads norm-relative 1e-3 per leaf) at B in {19, 100}; the same
+              (grads norm-relative 1e-3 per leaf; two calls give the same
+              bits) at B in {19, 100}, the bf16 backward's two calls at
+              B=100 likewise; the same
               kernels' bf16 instantiations against their bf16 plain versions
               on bf16 weights, each output and grad leaf norm-relative: at
               one hop, B in {19, 100}, within ``TRAIN_BF16_BARS``, each bar
@@ -82,10 +88,13 @@ Phases, in order; any failure exits non-zero:
               CTAs read from L2; the stage kernel's levers one at a time (the
               old 4x14 tile at stage 2, the ring's depth at stage 1); the
               device time by kernel with the
-              op that launched it; the mask hash beside its plain version.
+              op that launched it; the mask hash beside its plain version;
+              the training backward's device kernels a call, from the
+              profiler's records, held to its plan's phases times the hops.
 
 Prints each number beside the card's name and power limit, a ``kernels``
-JSON line, and as the last line ``{"ok": true, "device": {...}}``.  Weights
+JSON line (the training backward's entries also give its device kernels a
+call, as recorded), and as the last line ``{"ok": true, "device": {...}}``.  Weights
 are random, from the seed.  Imports nothing of JAX or the JAX package.
 """
 
@@ -174,6 +183,30 @@ def device_profile(fn, iters: int = 3):
             per_op[" < ".join(chain)] = per_op.get(" < ".join(chain), 0.0) + k.duration
     ops = {k: max(v, key=v.get) for k, v in launched.items()}
     return sum(by_name.values()), top, ops, n_kernels / iters, sorted(host, key=lambda r: -r[1])
+
+
+def device_kernels(fn) -> int:
+    """The device kernels one call of ``fn`` ran, from torch.profiler's
+    kernel records (memsets and copies not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memset", "Memcpy")))
+
+
+def bwd_bit_equal(rth, *args) -> bool:
+    """Whether two calls of the training backward on the same inputs give
+    the same bits in every emission and feats-path grad."""
+    em, gw = rth.train_hops_bwd(*args)
+    em2, gw2 = rth.train_hops_bwd(*args)
+    torch.cuda.synchronize()
+    return (all(torch.equal(em[k], em2[k]) for k in em)
+            and all(torch.equal(gw[k], gw2[k]) for k in gw))
 
 
 @contextlib.contextmanager
@@ -292,6 +325,22 @@ def train_bwd_bound(cfg, mp, B, dtype=torch.float32):
     fwd, bwd = train_hop_flops(cfg)
     n_ops = B * H * (fwd - 2 * (M * A + M) + bwd)
     return bound(n_bytes, n_ops, peak)
+
+
+def bwd_kernel_label(line: str) -> str:
+    """A short name for a phase kernel of the training backward from the
+    mangled name in ptxas's "Compiling entry" line: the tile GEMM's body,
+    tile (BM x BN x BK, ring depth) and operand layouts (k: k-contiguous,
+    r: row-contiguous), or the other kernel and its type."""
+    m = re.search(r"gemm_(fma|mma)INS_\d+(?:Fma|Mma)CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"
+                  r".*?ELb([01])ELb([01])E", line)
+    if m:
+        body, bm, bn, bk, st, a, b = m.groups()
+        return (f"gemm_{body} {bm}x{bn}x{bk} ring {st} A {'k' if a == '1' else 'r'} "
+                f"B {'k' if b == '1' else 'r'}")
+    k = re.search(r"(prep|rows_fwd|softmax_bwd|dpre_add|cell_bwd|cell|colsum|reduce)_kernel", line)
+    kind = " bf16" if "nv_bfloat16" in line else (" float32" if "IfE" in line else "")
+    return (k.group(1) if k else "kernel") + kind
 
 
 def norm_rel(got, want) -> float:
@@ -558,9 +607,11 @@ def main() -> int:
                 inst = tuple(int(v) for v in m.groups()) if m else None
                 what = (f" tile {inst[0]}x{inst[1]} nb {inst[2]} ring {inst[3]}" if m
                         else " float32")
-            if name.startswith("rau_train_hops") and "Compiling entry" in line:
+            if name == "rau_train_hops_fwd" and "Compiling entry" in line:
                 # one instantiation per product type
                 what = " bf16" if "nv_bfloat16" in line else " float32"
+            if name == "rau_train_hops_bwd" and "Compiling entry" in line:
+                what = " " + bwd_kernel_label(line)
             if name == "fused_resnet" and inst and "registers" in line:
                 stage_regs[inst] = int(re.search(r"Used (\d+) registers", line).group(1))
             if "registers" in line or "spill" in line or "smem" in line:
@@ -573,6 +624,25 @@ def main() -> int:
         log(f"lstm_encode plan B={B}: grid {plan.ctas} CTAs on {n_sm} SMs, {plan.units} units "
             f"a CTA, {plan.row_groups} row group(s) of {plan.rows} rows, {plan.splits} K "
             f"split(s), {plan.passes} pass(es), {plan.smem} bytes of shared memory a CTA")
+    # the training backward's plan against the launches the built C entry
+    # makes (a dry run of it): the same grids, shared memory within the plan's
+    bwd_widths = (cfg.cnn_spat, cfg.cnn_dim, cfg.multfeat_dim, cfg.attfeat_dim,
+                  cfg.att_state_dim, cfg.rnnout_dim)
+    for dt in (torch.float32, bf16):
+        for B in (1, 19, 37, 100):
+            plan = rth.bwd_plan(B, *bwd_widths, n_sm, dt)
+            scratch, launches = rth.launcher_plan(B, *bwd_widths, dt, plan.chunk_rows)
+            grids = [ph.grid for ph in plan.phases]
+            if scratch <= 0 or [x[:3] for x in launches] != grids or any(
+                    x[3] > ph.smem for x, ph in zip(launches, plan.phases)):
+                raise SystemExit(f"bwd_plan B={B} {dt}: the launcher runs {launches} with "
+                                 f"{scratch} scratch floats, the plan {grids}")
+        gemms = [p for p in plan.phases if p.tile]
+        log(f"train_hops_bwd plan B=100 {dt}: {len(plan.phases)} kernels a hop "
+            f"({len(gemms)} tile GEMMs), {plan.chunks} K chunks of {plan.chunk_rows} rows, "
+            f"scratch {scratch * 4 / 1e6:.1f} MB; the launcher's dry run makes the plan's "
+            f"grids at B in 1, 19, 37, 100, with shared memory up to "
+            f"{max(x[3] for x in launches)} B")
     params = init_params(cfg, torch.Generator().manual_seed(args.seed), dev)
     enc = lstm_encoder.pack_encoder_weights(params["rnn"])
     hw = rau_hops.pack_hop_weights(params["mult"])
@@ -657,6 +727,11 @@ def main() -> int:
             es.append((g - w).abs().max().item())
         err["train_hops_fwd"] = max(err["train_hops_fwd"], *es)
         log(f"train_hops_fwd B={B} max_abs_err {max(es):.3e} (bar rtol 1e-4 atol 1e-4)")
+        gmerge = 1e-3 * torch.randn(H, B, M, device=dev,
+                                    generator=torch.Generator(dev).manual_seed(B))
+        if not bwd_bit_equal(rth, mp, tcfg_m, q, feats, seed_t, got[3], got[4], gmerge):
+            raise SystemExit(f"train_hops_bwd B={B}: two calls on the same inputs differ")
+        log(f"train_hops_bwd B={B}: two calls bit-equal (9 emissions, 5 grads)")
 
         labels = torch.as_tensor(rs.randint(0, A, B), device=dev)
 
@@ -736,8 +811,19 @@ def main() -> int:
                                                      *(r["kernel"] for r in per.values()))
     if failed:
         raise SystemExit("kernels: " + "; ".join(failed))
-    # through the autograd Function: grads in the weights' type, do_pred's 0
     cfg_b = dataclasses.replace(tcfg_m, compute_dtype="bfloat16")
+    # the bf16 backward twice on the same inputs at B=100, eight hops
+    mp16 = map_tree(lambda w: w.to(bf16), mp)
+    feats_b = make_batch(cfg, 100, cfg.seq_len, rs, dev)[2].to(bf16)
+    q_b = torch.as_tensor(0.5 * rs.randn(100, Q).astype(np.float32), device=dev).to(bf16)
+    seed_t = torch.tensor([rs.randint(0, 2 ** 31 - 1)], dtype=torch.int32, device=dev)
+    _, _, _, c16, h16 = rth.train_hops_fwd(mp16, cfg_b, q_b, feats_b, seed_t)
+    gmerge = 1e-3 * torch.randn(H, 100, M, device=dev,
+                                generator=torch.Generator(dev).manual_seed(7))
+    if not bwd_bit_equal(rth, mp16, cfg_b, q_b, feats_b, seed_t, c16, h16, gmerge):
+        raise SystemExit("train_hops_bwd_bf16 B=100: two calls on the same inputs differ")
+    log("train_hops_bwd_bf16 B=100 H=8: two calls bit-equal (9 emissions, 5 grads)")
+    # through the autograd Function: grads in the weights' type, do_pred's 0
     mp_r = map_tree(lambda w: w.detach().to(bf16).requires_grad_(), mp)
     feats_b = make_batch(cfg, 19, cfg.seq_len, rs, dev)[2].to(bf16)
     q_b = torch.as_tensor(0.5 * rs.randn(19, Q).astype(np.float32), device=dev).to(bf16)
@@ -1303,6 +1389,12 @@ def main() -> int:
         log("train_step_device_busy_ms: not measured (the profiler recorded no device time)")
     fb_ms, fb_by = train_fwd_bound(mcfg_t, mp, B)
     bb_ms, bb_by = train_bwd_bound(mcfg_t, mp, B)
+    # the backward's device kernels a call, as the profiler records them:
+    # its plan's phases, every hop
+    bwd_kernels = {}
+    with torch.no_grad():
+        bwd_kernels[torch.float32] = device_kernels(lambda: rth.train_hops_bwd(
+            mp, mcfg_t, q, feats, seed_t, c_all, h_all, gmerge))
 
     # the bf16 kernels and their plain versions at B=100 on the step's own
     # bf16 casts, then the bf16 fused and the unfused steps, each with its
@@ -1321,8 +1413,16 @@ def main() -> int:
             "train_bwd_bf16_plain": time_ms(lambda: rth.train_hops_bwd_reference(
                 mp16, mcfg_b, q16, feats16, seed_t, c16, h16, gmerge), iters=5),
         }
+        bwd_kernels[bf16] = device_kernels(lambda: rth.train_hops_bwd(
+            mp16, mcfg_b, q16, feats16, seed_t, c16, h16, gmerge))
     for k, v in tms16.items():
         log(f"{k}_ms={v:.4f} B={B} [{card}]")
+    for dt, n in bwd_kernels.items():
+        want = H * len(rth.bwd_plan(B, *bwd_widths, n_sm, dt).phases)
+        log(f"train_hops_bwd {dt} device kernels a call: {n} recorded by the profiler, "
+            f"{want} in the plan (its phases x {H} hops) B={B} [{card}]")
+        if n != want:
+            raise SystemExit(f"train_hops_bwd {dt}: {n} device kernels a call, not {want}")
     fb16_ms, fb16_by = train_fwd_bound(mcfg_b, mp16, B, bf16)
     bb16_ms, bb16_by = train_bwd_bound(mcfg_b, mp16, B, bf16)
     log(f"train_hops_fwd_bound_ms={fb_ms:.4f} by {fb_by}, bf16 {fb16_ms:.4f} by {fb16_by}; "
@@ -1468,7 +1568,8 @@ def main() -> int:
          "launches": train_launches["train_hops_bwd"],
          "max_abs_err": err["train_hops_bwd"],
          "ms": tms["train_hops_bwd"], "plain_ms": tms["train_bwd_plain"],
-         "bound_ms": bb_ms, "bound_by": bb_by, "library_ms": None},
+         "bound_ms": bb_ms, "bound_by": bb_by, "library_ms": None,
+         "device_kernels_a_call": bwd_kernels[torch.float32]},
         # the bf16 instantiations (compute_dtype "bfloat16"); launches: the
         # bf16 fused step's 10; max_abs_err: the worst norm-relative error
         # against the bf16 plain version, the forward's over its outputs,
@@ -1486,7 +1587,8 @@ def main() -> int:
          "launches": bf16_launches["train_hops_bwd_bf16"],
          "max_abs_err": err["train_hops_bwd_bf16"],
          "ms": tms16["train_hops_bwd_bf16"], "plain_ms": tms16["train_bwd_bf16_plain"],
-         "bound_ms": bb16_ms, "bound_by": bb16_by, "library_ms": None},
+         "bound_ms": bb16_ms, "bound_by": bb16_by, "library_ms": None,
+         "device_kernels_a_call": bwd_kernels[bf16]},
         # the check entry of the device hash; launches: its check's
         {"name": "maskgen", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/maskgen.cu",

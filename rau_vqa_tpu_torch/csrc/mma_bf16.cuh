@@ -1,6 +1,7 @@
-// bf16 tensor-core building blocks for sm_90a, used by lstm_encoder.cu:
-// cp.async copies, ldmatrix fragment loads and the mma.sync m16n8k16 product
-// with float32 sums (and smem_u32, which fused_resnet.cu uses too).
+// bf16 tensor-core building blocks for sm_90a, used by lstm_encoder.cu and
+// tile_gemm.cuh: cp.async copies, ldmatrix fragment loads and the mma.sync
+// m16n8k16 product with float32 sums (and smem_u32, which fused_resnet.cu
+// uses too).
 
 #pragma once
 
@@ -17,6 +18,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+// 16 bytes global -> shared, of which the first `bytes` (0-16) are read from
+// src and the rest zero-filled (src must stay mapped and 16-byte aligned)
+__device__ __forceinline__ void cp_async16_n(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>

@@ -1,8 +1,10 @@
-// Shared device code of the training hop-loop kernels (rau_train_hops_fwd.cu
-// and rau_train_hops_bwd.cu): the block's float32 tile GEMM, the small
-// vector products, the shared-memory layout, and one training hop's forward
-// (_hop_fwd_core, rau_vqa_tpu/ops/rau_train_hops.py:104-167), which the
-// backward kernel runs again to rematerialize each hop bit for bit.
+// Device code of the training hop loop's forward kernel
+// (rau_train_hops_fwd.cu): the block's float32 tile GEMM, the small vector
+// products, the shared-memory layout, and one training hop's forward
+// (_hop_fwd_core, rau_vqa_tpu/ops/rau_train_hops.py:104-167).  The backward
+// (rau_train_hops_bwd.cu) takes the weight order, Dims, Dropout and the warp
+// reductions from here; it rematerializes each hop with its own batch-wide
+// phases (tile_gemm.cuh), which sum in another order than hop_forward does.
 //
 // Everything is templated on T, the products' operand type (JAX's dot_dtype,
 // :299): float, or __nv_bfloat16 for compute_dtype "bfloat16".  q, feats and
@@ -15,12 +17,11 @@
 // the pooling, the softmax and the elementwise math read unrounded.  With
 // T = float, rnd and ldf are plain loads and the code is the float32 kernel.
 //
-// One block owns one batch row.  A row's [S, *] activations (ifeat, addfeat
-// and, in the backward, their cotangents) do not fit in shared memory (one
-// ifeat row alone is 196 x 512 x 4 = 401 KB), so they live in a per-block
-// workspace in device memory, which stays in L2 while the block works on it;
-// only vectors of length Q, M, F, S, 4R and the GEMM tiles are in shared
-// memory.  Weights stream from L2.
+// One block owns one batch row.  A row's [S, *] activations (ifeat and
+// addfeat) do not fit in shared memory (one ifeat row alone is 196 x 512 x 4
+// = 401 KB), so they live in a per-block workspace in device memory, which
+// stays in L2 while the block works on it; only vectors of length Q, M, F, S,
+// 4R and the GEMM tiles are in shared memory.  Weights stream from L2.
 
 #pragma once
 
@@ -99,9 +100,6 @@ constexpr int TILE_LD = BM + 4;           // padded row of a k-slice
 
 struct Smem {
   float *qd, *qfeat, *qatt, *sc, *join, *gates, *c, *h, *cn, *hn, *merge, *As, *Bs;
-  // backward only
-  float *dc, *dh, *dmerge, *dhn, *dgates, *djoin, *dsc, *dqatt, *dpre_q, *dhp;
-  float *acc_as, *acc_bi, *acc_bai;
 
   // Lays the segments out from `base` (nullptr on the host just counts);
   // returns the float count.
@@ -110,8 +108,7 @@ struct Smem {
     off += (n + 3) & ~size_t(3);
     return p;
   }
-  __host__ __device__ static size_t carve(float* base, const Dims& d, bool bwd,
-                                          Smem* s) {
+  __host__ __device__ static size_t carve(float* base, const Dims& d, Smem* s) {
     size_t off = 0;
     s->qd = take(base, off, d.Q);
     s->qfeat = take(base, off, d.M);
@@ -126,21 +123,6 @@ struct Smem {
     s->merge = take(base, off, d.M);
     s->As = take(base, off, BK * TILE_LD);
     s->Bs = take(base, off, BK * TILE_LD);
-    if (bwd) {
-      s->dc = take(base, off, d.R);
-      s->dh = take(base, off, d.R);
-      s->dmerge = take(base, off, d.M);
-      s->dhn = take(base, off, d.R);
-      s->dgates = take(base, off, 4 * d.R);
-      s->djoin = take(base, off, d.M);
-      s->dsc = take(base, off, d.S);
-      s->dqatt = take(base, off, d.F);
-      s->dpre_q = take(base, off, d.M);
-      s->dhp = take(base, off, d.R);
-      s->acc_as = take(base, off, d.F);
-      s->acc_bi = take(base, off, d.M);
-      s->acc_bai = take(base, off, d.F);
-    }
     return off;
   }
 };
@@ -207,9 +189,7 @@ __device__ void block_gemm(int Mdim, int Ndim, int Kdim, LA a, LB b, EPI epi,
   __syncthreads();
 }
 
-// x[K] (shared) @ W[K, N] column n, ascending k, x rounded to T.  (No
-// __restrict__ on w in these two: the backward also reads its workspace,
-// which it writes, here.)
+// x[K] (shared) @ W[K, N] column n, ascending k, x rounded to T.
 template <class T>
 __device__ __forceinline__ float dot_col(const float* x, int K, const T* w, int N,
                                          int n) {
@@ -219,8 +199,7 @@ __device__ __forceinline__ float dot_col(const float* x, int K, const T* w, int 
 }
 
 // x[K] (shared) @ W[N, K]^T row n, x rounded to T, one warp (lane-strided,
-// then a warp sum).  With T = float and the float32 workspace as W, a sum
-// on unrounded values.
+// then a warp sum).
 template <class T>
 __device__ __forceinline__ float dot_row_warp(const float* x, int K, const T* w, int n) {
   const int lane = threadIdx.x % 32;

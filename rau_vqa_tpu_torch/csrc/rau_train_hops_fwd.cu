@@ -55,7 +55,7 @@ train_hops_fwd_kernel(Dims d, Weights<T> W, Dropout dr, const int* __restrict__ 
                       float* __restrict__ c_all, float* __restrict__ h_all) {
   extern __shared__ __align__(16) float smem[];
   Smem s;
-  Smem::carve(smem, d, false, &s);
+  Smem::carve(smem, d, &s);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int b = blockIdx.x;
   const int B = d.B, M = d.M, R = d.R, A = d.A, S = d.S;
@@ -104,7 +104,7 @@ int fwd_launch(const void* q, const void* feats, const void* seed,
   for (int i = 0; i < NWEIGHTS; ++i) w.p[i] = (const T*)weights[i];
   const Dropout dr{0u, thresh, scale, use_mask != 0};
   Smem layout;
-  const size_t smem = Smem::carve(nullptr, d, false, &layout) * sizeof(float);
+  const size_t smem = Smem::carve(nullptr, d, &layout) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       train_hops_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;

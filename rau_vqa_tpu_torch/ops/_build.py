@@ -122,13 +122,17 @@ class Kernel:
             self._cfn = cfn
         return self._cfn
 
-    def query(self, fn: str, *args: int) -> int:
-        """The value of the library's ``int fn(int, ...)``: a question about
-        the launcher (no launch, so nothing is counted)."""
+    def function(self, fn: str, argtypes: Sequence):
+        """The library's ``int fn(...)`` with these argument types: for a
+        question about the launcher (no launch, so nothing is counted)."""
         cfn = getattr(self._library(), fn)
-        cfn.argtypes = [ctypes.c_int] * len(args)
+        cfn.argtypes = list(argtypes)
         cfn.restype = ctypes.c_int
-        return cfn(*args)
+        return cfn
+
+    def query(self, fn: str, *args: int) -> int:
+        """The value of the library's ``int fn(int, ...)``."""
+        return self.function(fn, [ctypes.c_int] * len(args))(*args)
 
     def launch(self, *args) -> None:
         err = self._load()(*args)

@@ -10,10 +10,11 @@ where a train step spends its work.  ``rau_train_hops`` runs it fused:
   ``[H+1, B, R]``; masks come from the counter hash of ``ops/maskgen.py``;
 - backward (``fused_train_bwd="kernel"``): ``csrc/rau_train_hops_bwd.cu``
   rematerializes each hop from the carries and the same masks, runs the
-  cotangent chain in reverse, sums the feats-path weight grads per block and
-  emits the small per-hop cotangents; the remaining weight grads and ``dq``
-  are batched products over ``[H*B, *]`` in PyTorch (``_outside_grads``), as
-  the JAX package leaves them to XLA.  ``fused_train_bwd="xla"`` instead runs
+  cotangent chain in reverse, sums the feats-path weight grads over the rows
+  and hops and emits the small per-hop cotangents, as batch-wide phases
+  (``bwd_plan``) that one C entry enqueues; the remaining weight grads and
+  ``dq`` are batched products over ``[H*B, *]`` in PyTorch
+  (``_outside_grads``), as the JAX package leaves them to XLA.  ``fused_train_bwd="xla"`` instead runs
   autograd through ``rau_train_hops_reference``.
 
 CPU tensors run the kernels' plain versions (``train_hops_fwd_reference``,
@@ -39,12 +40,15 @@ is then cast to its param's type and ``dq`` to ``q``'s, as JAX casts them
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from rau_vqa_tpu_torch.config import ModelConfig
 from rau_vqa_tpu_torch.ops._build import Kernel
+from rau_vqa_tpu_torch.ops.fused_resnet import _sm_count
 from rau_vqa_tpu_torch.ops.maskgen import (
     dropout_scale_mask,
     mask_scale,
@@ -84,8 +88,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DROPOUT_ARGS = [ctypes.c_uint32, ctypes.c_float, _I, _P]
 _FWD_ARGS = [_P, _P, _P, ctypes.POINTER(_P)] + [_P] * 6 + [_I] * 9 + _DROPOUT_ARGS
-_BWD_ARGS = ([_P] * 6 + [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), ctypes.POINTER(_P)]
-             + [_I] * 8 + _DROPOUT_ARGS)
+_BWD_ARGS = ([_P] * 6 + [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), ctypes.POINTER(_P), _P]
+             + [_I] * 9 + [ctypes.c_longlong] + _DROPOUT_ARGS)
 # one instantiation of each kernel per product type, each counted apart
 FWD_KERNEL = Kernel("rau_train_hops_fwd", "train_hops_fwd_launch", _FWD_ARGS)
 BWD_KERNEL = Kernel("rau_train_hops_bwd", "train_hops_bwd_launch", _BWD_ARGS)
@@ -416,6 +420,142 @@ def _outside_grads(cfg: ModelConfig, mp, q, seed, h_all, attprob, g_scores, em):
 
 
 # ---------------------------------------------------------------------------
+# The backward kernel's plan
+# ---------------------------------------------------------------------------
+
+# the tile GEMM's tiles (BM, BN, BK) by the products' type
+# (csrc/tile_gemm.cuh): "big" for the [B*S, *] products and the split
+# weight grads, "small" for the [B, *] ones; each a ring of GEMM_STAGES
+# k-slices in shared memory
+GEMM_TILES = {torch.float32: {"big": (128, 128, 16), "small": (32, 32, 32)},
+              torch.bfloat16: {"big": (128, 128, 32), "small": (32, 64, 64)}}
+GEMM_STAGES = 3
+KSTEP = 32                   # chunk_rows is a multiple of this (the launcher's KSTEP)
+COLSUM_ROWS = 128            # rows a partial of the i_embed b grad (the launcher's)
+ROWS_SMEM_LIMIT = 48 * 1024  # the row kernels' dynamic shared memory, no opt-in
+EW_THREADS = 256             # threads a CTA of the elementwise and row kernels
+
+
+def gemm_smem(dtype: torch.dtype, size: str) -> int:
+    """The most dynamic shared memory a tile GEMM takes, in bytes: each
+    operand's k-slice kept k-contiguous ([rows][BK + V]) or row-contiguous
+    ([BK][rows + V]), V the elements of 16 bytes, whichever is larger."""
+    e = 4 if dtype == torch.float32 else 2
+    v = 16 // e
+    bm, bn, bk = GEMM_TILES[dtype][size]
+    slice_ = sum(max(r * (bk + v), bk * (r + v)) for r in (bm, bn))
+    return GEMM_STAGES * slice_ * e
+
+
+@dataclass(frozen=True)
+class BwdPhase:
+    """One launch of a hop: a tile GEMM ``out[M, N] = sum_K a b`` (``tile``
+    (BM, BN) set) over ``grid = (n tiles, m tiles, K chunks)``, or another
+    kernel (``tile`` None) over ``grid``; ``smem`` its shared memory in
+    bytes.  ``split`` marks the weight grads, whose K (the B*S rows) is cut
+    into the plan's chunks."""
+    name: str
+    M: int
+    N: int
+    K: int
+    tile: Optional[Tuple[int, int]]
+    grid: Tuple[int, int, int]
+    smem: int
+    split: bool = False
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """The backward kernel's launches for one shape: ``phases`` of one hop
+    in the order the C entry enqueues them (every hop runs the same ones),
+    the split-K chunks of the weight grads (``chunk_rows`` rows of B*S each,
+    ``chunks`` of them), and ``work_floats``, the float32 workspace the
+    wrapper allocates (ifeat and addfeat, overwritten by their cotangents).
+    The scratch buffer is the launcher's to size (``launcher_plan``), which
+    also reports the grids and shared memory that the card's checks hold
+    these phases to."""
+    phases: Tuple[BwdPhase, ...]
+    chunk_rows: int
+    chunks: int
+    work_floats: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int, n_sm: int,
+             dtype: torch.dtype = torch.float32) -> BwdPlan:
+    """The phases, tiles, split-K chunks and workspace of the backward
+    kernel at these widths, for products in ``dtype`` on a card with
+    ``n_sm`` SMs.  The weight grads' B*S rows split into chunks such that
+    the i_embed w grad fills about two CTAs a SM.  Raises ``ValueError``
+    for shapes the kernel does not take."""
+    if dtype not in GEMM_TILES:
+        raise ValueError(f"train_hops_bwd: products in float32 or bfloat16, got {dtype}")
+    dims = dict(B=B, S=S, Dc=Dc, M=M, F=F, R=R, Q=Q, n_sm=n_sm)
+    bad = [k for k, v in dims.items() if v < 1]
+    if bad:
+        raise ValueError(f"train_hops_bwd: {bad} must be at least 1, got {dims}")
+    P = B * S
+    if P * max(Dc, M, F) >= 2 ** 31 or B * max(Q, 4 * R) >= 2 ** 31:
+        raise ValueError(f"train_hops_bwd: batch {B} too large for 32-bit offsets")
+    if (M + S) * 4 > ROWS_SMEM_LIMIT:
+        raise ValueError(f"train_hops_bwd: the row kernels hold M + S = {M + S} floats "
+                         f"in shared memory, at most {ROWS_SMEM_LIMIT // 4}")
+    tiles = GEMM_TILES[dtype]
+    big_m, big_n, _ = tiles["big"]
+    target = _cdiv(2 * n_sm, _cdiv(Dc, big_m) * _cdiv(M, big_n))
+    chunk_rows = _cdiv(_cdiv(P, target), KSTEP) * KSTEP
+    chunks = _cdiv(P, chunk_rows)
+    if chunks > 65535:
+        raise ValueError(f"train_hops_bwd: {chunks} chunks exceed the grid's 65535")
+
+    def gemm(name, m, n, k, size, split=False):
+        bm, bn, _ = tiles[size]
+        z = chunks if split else 1
+        return BwdPhase(name, m, n, k, (bm, bn), (_cdiv(n, bn), _cdiv(m, bm), z),
+                        gemm_smem(dtype, size), split)
+
+    def other(name, grid, shared=0):
+        return BwdPhase(name, 0, 0, 0, None, grid, shared)
+
+    ew = EW_THREADS
+    hb = 0 if dtype == torch.float32 else B * R   # h's bf16 copy
+    phases = (
+        other("prep", (min(_cdiv(B * Q + P * Dc + hb, ew), 4096), 1, 1)),
+        gemm("q_d Wq", B, M, Q, "small"),
+        gemm("h Wmem", B, S, R, "small"),
+        gemm("qfeat", B, M, R, "small"),
+        gemm("qatt", B, F, M, "small"),
+        gemm("ifeat", P, M, Dc, "big"),
+        gemm("addfeat", P, F, M, "big"),
+        other("rows_fwd", (B, 1, 1), S * 4),
+        gemm("join", B, M, S, "small"),
+        gemm("join Wli", B, 4 * R, M, "small"),
+        gemm("gates", B, 4 * R, R, "small"),
+        other("cell", (_cdiv(B * R, ew), 1, 1)),
+        gemm("merge", B, M, R, "small"),
+        gemm("dh_new", B, R, M, "small"),
+        other("cell_bwd", (_cdiv(B * R, ew), 1, 1)),
+        gemm("djoin", B, M, 4 * R, "small"),
+        gemm("dh_prev", B, R, 4 * R, "small"),
+        gemm("djoin Wp^T", B, S, M, "small"),
+        other("softmax_bwd", (B, 1, 1), (M + S) * 4),
+        other("dpre_add", (B, _cdiv(F, 32), 1), 2 * 8 * 32 * 4),
+        gemm("dscore Wmem^T", B, R, S, "small"),
+        gemm("dpre_q", B, M, F, "small"),
+        gemm("dh", B, R, M, "small"),
+        gemm("att_i w", M, F, P, "big", split=True),
+        gemm("dpre_i", P, M, F, "big"),
+        gemm("i_embed w", Dc, M, P, "big", split=True),
+        other("colsum", (_cdiv(M, ew), _cdiv(P, COLSUM_ROWS), 1)),
+        other("reduce", (_cdiv(Dc * M + M + M * F + 2 * F, ew), 1, 1)),
+    )
+    return BwdPlan(phases, chunk_rows, chunks, P * (M + F))
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -490,10 +630,9 @@ def train_hops_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed):
     return scores, do_pred, attprob, c_all, h_all
 
 
-def train_hops_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all,
-                   gmerge):
+def train_hops_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all, gmerge):
     """The backward kernel: (emissions {name: [H, B, width]}, the feats-path
-    grads {path: tensor}, its per-block partials summed, float32).  ``q``,
+    grads {path: tensor} summed over the rows and hops, float32).  ``q``,
     ``feats`` and the weights in ``cfg.compute_dtype``; ``gmerge`` is the
     score cotangent times ``cls_w^T``, [H, B, M] float32.  CPU tensors run
     ``train_hops_bwd_reference``."""
@@ -501,34 +640,69 @@ def train_hops_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all,
         return train_hops_bwd_reference(mp, cfg, q, feats, seed, c_all, h_all,
                                         gmerge)
     B, S = feats.shape[:2]
+    dd = dot_dtype(cfg)
+    plan = bwd_plan(B, S, cfg.cnn_dim, cfg.multfeat_dim, cfg.attfeat_dim, cfg.att_state_dim,
+                    cfg.rnnout_dim, _sm_count(q.device.index or 0), dd)
+    scratch_floats, _ = launcher_plan(B, S, cfg.cnn_dim, cfg.multfeat_dim, cfg.attfeat_dim,
+                                      cfg.att_state_dim, cfg.rnnout_dim, dd, plan.chunk_rows)
+    if scratch_floats < 0:
+        raise ValueError(f"train_hops_bwd: the launcher cannot run batch {B} at these widths")
+    return _launch_bwd(mp, cfg, q, feats, seed, c_all, h_all, gmerge, plan.chunk_rows,
+                       scratch_floats)
+
+
+def _launch_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all, gmerge,
+                chunk_rows: int, scratch_floats: int):
+    """``train_hops_bwd`` on CUDA tensors with this split of the weight
+    grads' rows and this much scratch; raises where the launcher refuses
+    them."""
+    B, S = feats.shape[:2]
     H, R, M = cfg.n_hops, cfg.att_state_dim, cfg.multfeat_dim
     d = _check_cuda("train_hops_bwd", cfg, mp, q, feats, seed, extra=[
         ("c_all", c_all, torch.float32, (H + 1, B, R)),
         ("h_all", h_all, torch.float32, (H + 1, B, R)),
         ("gmerge", gmerge, torch.float32, (H, B, M))])
-    Dc, F = d["Dc"], d["F"]
+    Q, Dc, F = d["Q"], d["Dc"], d["F"]
     dd = dot_dtype(cfg)
     dev = q.device
     widths = {"M": M, "F": F, "S": S, "G": 4 * R}
     em = {name: torch.empty(H, B, widths[w], device=dev,
                             dtype=torch.float32 if cot else dd)
           for name, w, cot in _EMITS}
-    part_shapes = {("i_embed", "w"): (Dc, M), ("i_embed", "b"): (M,),
-                   ("att_i", "w"): (M, F), ("att_i", "b"): (F,),
-                   ("att_score", "w"): (F, 1)}
-    parts = {p: torch.empty((B,) + part_shapes[p], device=dev,
-                            dtype=torch.float32) for p in _INKERNEL_GRADS}
+    shapes = {("i_embed", "w"): (Dc, M), ("i_embed", "b"): (M,),
+              ("att_i", "w"): (M, F), ("att_i", "b"): (F,),
+              ("att_score", "w"): (F, 1)}
+    gw_in = {p: torch.empty(shapes[p], device=dev, dtype=torch.float32)
+             for p in _INKERNEL_GRADS}
     work = torch.empty(B * S * (M + F), device=dev, dtype=torch.float32)
+    scratch = torch.empty(max(scratch_floats, 0), device=dev, dtype=torch.float32)
     em_ptrs = (_P * len(_EMITS))(*[em[n].data_ptr() for n, _, _ in _EMITS])
-    part_ptrs = (_P * len(parts))(*[parts[p].data_ptr() for p in _INKERNEL_GRADS])
+    grad_ptrs = (_P * len(gw_in))(*[gw_in[p].data_ptr() for p in _INKERNEL_GRADS])
     stream = torch.cuda.current_stream(dev).cuda_stream
     _KERNELS[dd][1].launch(
         q.data_ptr(), feats.data_ptr(), seed.data_ptr(), c_all.data_ptr(),
         h_all.data_ptr(), gmerge.data_ptr(), _weight_ptrs(mp), work.data_ptr(),
-        em_ptrs, part_ptrs, B, d["Q"], S, Dc, M, F, R, H, *_dropout_args(cfg), stream)
-    # sum the per-block partials (outside the kernel, as JAX does: :533-535)
-    gw_in = {p: parts[p].sum(dim=0) for p in _INKERNEL_GRADS}
+        em_ptrs, grad_ptrs, scratch.data_ptr(), B, Q, S, Dc, M, F, R, H,
+        chunk_rows, scratch_floats, *_dropout_args(cfg), stream)
     return em, gw_in
+
+
+@functools.lru_cache(maxsize=64)
+def launcher_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int,
+                  dtype: torch.dtype, chunk_rows: int):
+    """The built launcher's own account of one hop at these shapes
+    (``train_hops_bwd_describe``, a dry run of its entry): (the scratch
+    floats it carves, -1 where it cannot run them; each launch's (grid x,
+    y, z, dynamic shared memory bytes), in the order it enqueues them)."""
+    cap = 64
+    out = (_I * (4 * cap))()
+    n = _I(0)
+    describe = BWD_KERNEL.function("train_hops_bwd_describe",
+                                   [_I] * 9 + [ctypes.POINTER(_I), _I, ctypes.POINTER(_I)])
+    scratch = describe(B, Q, S, Dc, M, F, R, 4 if dtype == torch.float32 else 2, chunk_rows,
+                       out, cap, ctypes.byref(n))
+    launches = tuple(tuple(out[4 * i:4 * i + 4]) for i in range(min(n.value, cap)))
+    return scratch, launches
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,10 @@ the encoder also at lengths 0, T and T + 1, on two calls (the same bits),
 at 1 layer of 256, and with a grid that cannot be co-resident (it raises).
 Training kernels (float32): the mask hash bit for bit; the forward at rtol
 1e-4 / atol 1e-4 over 8 recurrent hops of float32 sums taken in another
-order; the backward's grads at a norm-relative error of 1e-3 per leaf.
+order; the backward's grads at a norm-relative error of 1e-3 per leaf, and
+its emissions and feats-path grads against its plain version at B in {1,
+19, 37, 100} (two calls bit-equal; a plan the launcher cannot run raises;
+``bwd_plan``'s phases are the launcher's own, by a dry run of it).
 Their bf16 instantiations at the bars of chip_smoke.py (one hop: each output
 and grad leaf within ``TRAIN_BF16_BARS``, each bar under half the float32
 distance; eight hops: ``train_bf16_deep_bar``, within twice the plain
@@ -316,6 +319,111 @@ def test_train_hops_bf16_match_plain(cuda_device, H, B):
             else:
                 bar = train_bf16_bar(kind, name)
                 assert r["kernel"] <= bar < 0.5 * r["float32"], (kind, name, r)
+
+
+def _bwd_call(B, dev, dtype, seed=5):
+    """The backward's inputs at ours_ms widths: (mp, cfg, q, feats, seed,
+    c_all, h_all, gmerge) in ``dtype``, the carries from the forward kernel."""
+    cfg = dataclasses.replace(TRAIN_CFG, compute_dtype="float32" if dtype == torch.float32
+                              else "bfloat16")
+    mp, q, feats = _train_inputs(B, dev, seed=seed)
+    mp = map_tree(lambda w: w.to(dtype), mp)
+    q, feats = q.to(dtype), feats.to(dtype)
+    s = torch.tensor([seed], dtype=torch.int32, device=dev)
+    _, _, _, c_all, h_all = rau_train_hops.train_hops_fwd(mp, cfg, q, feats, s)
+    g = 1e-3 * torch.randn(CFG.n_hops, B, CFG.answer_size, device=dev,
+                           generator=torch.Generator(dev).manual_seed(seed))
+    gmerge = (rau_train_hops._rnd(g, dtype) @ rau_train_hops._rnd(mp["cls"]["w"], dtype).T)
+    return mp, cfg, q, feats, s, c_all, h_all, gmerge.contiguous()
+
+
+@pytest.mark.parametrize("B", [1, 19, 37, 100])
+def test_train_hops_bwd_matches_plain_at_each_batch(cuda_device, B):
+    """The float32 backward's emissions and feats-path grads against its
+    plain version, norm-relative 1e-3 each (the grad bar), at batches that
+    fill no tile (1, 37), a ragged one (19) and the main path's (100); one
+    launch counted a call; two calls give the same bits."""
+    args = _bwd_call(B, cuda_device, torch.float32)
+    before = rau_train_hops.BWD_KERNEL.launches
+    em, gw = rau_train_hops.train_hops_bwd(*args)
+    assert rau_train_hops.BWD_KERNEL.launches == before + 1
+    em2, gw2 = rau_train_hops.train_hops_bwd(*args)
+    want_em, want_gw = rau_train_hops.train_hops_bwd_reference(*args)
+    torch.cuda.synchronize()
+    for k in em:
+        assert ((em[k] - want_em[k]).norm() / want_em[k].norm()).item() <= 1e-3, k
+        assert torch.equal(em[k], em2[k]), k
+    for k in gw:
+        assert ((gw[k] - want_gw[k]).norm() / want_gw[k].norm()).item() <= 1e-3, k
+        assert torch.equal(gw[k], gw2[k]), k
+
+
+@pytest.mark.parametrize("H,B", [(1, 1), (1, 37), (8, 37)])
+def test_train_hops_bf16_match_plain_at_ragged_batches(cuda_device, H, B):
+    """The bf16 kernels at the bars of test_train_hops_bf16_match_plain, at
+    batches that fill no tile."""
+    cfg = dataclasses.replace(TRAIN_CFG, compute_dtype="bfloat16", n_hops=H)
+    mp, _, _ = _train_inputs(B, cuda_device, seed=4)
+    readings = train_bf16_readings(rau_train_hops, cfg, mp, B, np.random.RandomState(6),
+                                   cuda_device, host=H > 1)
+    for name, r in readings["bwd"].items():
+        if H > 1:
+            assert r["kernel"] <= train_bf16_deep_bar(r), (name, r)
+        elif r["float32"] == 0:
+            assert r["kernel"] == 0, (name, r)
+        else:
+            assert r["kernel"] <= train_bf16_bar("bwd", name), (name, r)
+
+
+def test_train_hops_bwd_bf16_is_deterministic_and_counted(cuda_device):
+    args = _bwd_call(100, cuda_device, torch.bfloat16)
+    before = rau_train_hops.BWD_BF16_KERNEL.launches
+    em, gw = rau_train_hops.train_hops_bwd(*args)
+    em2, gw2 = rau_train_hops.train_hops_bwd(*args)
+    torch.cuda.synchronize()
+    assert rau_train_hops.BWD_BF16_KERNEL.launches == before + 2
+    assert all(torch.equal(em[k], em2[k]) for k in em)
+    assert all(torch.equal(gw[k], gw2[k]) for k in gw)
+
+
+_BWD_WIDTHS = (CFG.cnn_spat, CFG.cnn_dim, CFG.multfeat_dim, CFG.attfeat_dim,
+               CFG.att_state_dim, CFG.rnnout_dim)
+
+
+@pytest.mark.parametrize("change", [dict(chunk_rows=48), dict(chunk_rows=0),
+                                    dict(scratch_floats=-64)],
+                         ids=["chunk_rows_48", "chunk_rows_0", "scratch_short"])
+def test_train_hops_bwd_raises_for_a_plan_it_cannot_run(cuda_device, change):
+    """The C entry refuses a split of the rows that is not a multiple of 32
+    and a scratch buffer shorter than it carves; nothing is counted."""
+    args = _bwd_call(19, cuda_device, torch.float32)
+    plan = rau_train_hops.bwd_plan(19, *_BWD_WIDTHS, _n_sm(), torch.float32)
+    scratch, _ = rau_train_hops.launcher_plan(19, *_BWD_WIDTHS, torch.float32,
+                                              plan.chunk_rows)
+    run = dict(chunk_rows=plan.chunk_rows, scratch_floats=scratch)
+    run.update(change)
+    if "scratch_floats" in change:
+        run["scratch_floats"] = scratch + change["scratch_floats"]
+    before = rau_train_hops.BWD_KERNEL.launches
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        rau_train_hops._launch_bwd(*args, **run)
+    assert rau_train_hops.BWD_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 19, 37, 100])
+def test_bwd_plan_is_the_launchers(cuda_device, B, dtype):
+    """bwd_plan's phases are the launches the built C entry makes (a dry
+    run of it): the same count, the same grids, shared memory within the
+    plan's; a split it cannot run gives -1."""
+    plan = rau_train_hops.bwd_plan(B, *_BWD_WIDTHS, _n_sm(), dtype)
+    scratch, launches = rau_train_hops.launcher_plan(B, *_BWD_WIDTHS, dtype, plan.chunk_rows)
+    assert scratch > 0
+    assert [l[:3] for l in launches] == [ph.grid for ph in plan.phases]
+    assert all(l[3] <= ph.smem for l, ph in zip(launches, plan.phases))
+    if B == 100:   # the old per-row partial grads alone took 157 MB
+        assert scratch * 4 < 100e6
+    assert rau_train_hops.launcher_plan(B, *_BWD_WIDTHS, dtype, 48)[0] == -1
 
 
 def test_train_hops_bf16_wrappers_take_bf16(cuda_device):

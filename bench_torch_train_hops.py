@@ -1,27 +1,39 @@
-"""Probe of the training backward kernel on one CUDA card (an H100).
+"""Probe of the training hop loop's two kernels on one CUDA card (an H100).
 
     python3 bench_torch_train_hops.py [--seed N] [--batch 100] [--check]
 
 At ``ours_ms`` widths (random weights from the seed, mult_dropout 0.5, 8
-hops), builds ``csrc/rau_train_hops_bwd.cu`` and prints, beside the card's
-name and power limit, for float32 and bf16 products:
+hops), builds ``csrc/rau_train_hops_fwd.cu`` and ``csrc/rau_train_hops_bwd.cu``
+and prints, beside the card's name and power limit, for float32 and bf16
+products:
 
 - each phase kernel's registers, shared memory and spills (ptxas);
-- ``train_hops_bwd`` at B=--batch, CUDA-event mean of 10 calls, beside its
-  bound (chip_smoke.train_bwd_bound) and its plain version;
-- each phase of ``bwd_plan`` summed over the hops, beside that phase's own
-  bound: its operands read once and its output written once over 3.35
-  TB/s, or its products over the type's peak (67 TFLOP/s float32 FMA, 989
-  TFLOP/s bf16 tensor cores), the larger.  The phase times are the device
-  times of the call's kernels under torch.profiler (mean of 3 calls), taken
-  in stream order, which is the plan's order hop after hop; their sum
-  leaves out the gaps between kernels.
+- ``train_hops_fwd`` and ``train_hops_bwd`` at B=--batch, CUDA-event mean
+  of 10 calls, beside their bounds (chip_smoke.train_fwd_bound,
+  train_bwd_bound) and their plain versions;
+- each phase of ``fwd_plan`` and of ``bwd_plan`` summed over the hops,
+  beside that phase's own bound: its operands read once and its output
+  written once over 3.35 TB/s, or its products over the type's peak (67
+  TFLOP/s float32 FMA, 989 TFLOP/s bf16 tensor cores), the larger (the
+  forward's classifier and do_pred are tile GEMMs like the others).  The
+  phase times are the device times of the call's kernels under
+  torch.profiler (mean of 3 calls), taken in stream order, which is the
+  plan's order hop after hop; their sum leaves out the gaps between
+  kernels.
 
-With ``--check``, first holds the kernel to its plain version at B in {19,
-100}: float32 emissions and grads within 1e-3 norm-relative, the bf16
-instantiation at ``chip_smoke.py``'s bars (one hop: ``TRAIN_BF16_BARS``;
-eight hops: ``train_bf16_deep_bar``), two calls bit-equal.  Exits 2 without
-a card, 1 if a check fails.  Imports nothing of JAX or the JAX package.
+With ``--check``, first holds each kernel to its plain version at B in {19,
+100}: the float32 forward at rtol / atol 1e-4, the float32 backward's
+emissions and grads within 1e-3 norm-relative, the bf16 instantiations at
+``chip_smoke.py``'s bars (one hop: ``TRAIN_BF16_BARS``; eight hops:
+``train_bf16_deep_bar``), two calls of each bit-equal.  Exits 2 without a
+card, 1 if a check fails.
+
+With ``--readings``, first prints the bf16 kernels' readings against their
+plain versions (``train_bf16_readings``) over 18 seeded cases, one or eight
+hops at B in {1, 19, 37, 100} (the card tests' cases and 12 more), each as
+a share of its bar: the worst leaf of each kernel a case, the worst share
+of each leaf over all cases, and the leaves beyond their bar.  Imports
+nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -37,15 +49,16 @@ from chip_smoke import (
     H100_BF16_FLOPS,
     H100_BYTES_PER_S,
     H100_F32_FLOPS,
-    bwd_kernel_label,
     card_line,
     make_batch,
     norm_rel,
+    phase_kernel_label,
     time_ms,
     train_bf16_bar,
     train_bf16_deep_bar,
     train_bf16_readings,
     train_bwd_bound,
+    train_fwd_bound,
 )
 
 
@@ -109,7 +122,22 @@ def check(rth, cfg, mp, rs, dev) -> list:
         feats = make_batch(cfg, B, cfg.seq_len, rs, dev)[2]
         q = torch.as_tensor(0.5 * rs.randn(B, Q).astype(np.float32), device=dev)
         seed = torch.tensor([rs.randint(0, 2 ** 31 - 1)], dtype=torch.int32, device=dev)
-        _, _, _, c_all, h_all = rth.train_hops_fwd(mp, cfg, q, feats, seed)
+        out = rth.train_hops_fwd(mp, cfg, q, feats, seed)
+        again = rth.train_hops_fwd(mp, cfg, q, feats, seed)
+        want = rth.train_hops_fwd_reference(mp, cfg, q, feats, seed)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, a) for g, a in zip(out, again))
+        names = ("scores", "do_pred", "attprob", "c_all", "h_all")
+        close = {n: torch.allclose(g, w, rtol=1e-4, atol=1e-4)
+                 for n, g, w in zip(names, out, want)}
+        print(f"train_hops_fwd float32 B={B}: max_abs_err "
+              + ", ".join(f"{n} {(g - w).abs().max().item():.2e}"
+                          for n, g, w in zip(names, out, want))
+              + f" (bar rtol / atol 1e-4); two calls bit-equal: {same}", flush=True)
+        if not all(close.values()) or not same:
+            failed.append(f"forward float32 B={B}: within rtol / atol 1e-4 {close}, "
+                          f"bit-equal {same}")
+        _, _, _, c_all, h_all = out
         gen = torch.Generator(dev).manual_seed(B)
         gmerge = (1e-3 * torch.randn(H, B, A, device=dev, generator=gen)
                   @ mp["cls"]["w"].T).contiguous()
@@ -132,15 +160,54 @@ def check(rth, cfg, mp, rs, dev) -> list:
         cfg_b = dataclasses.replace(cfg, compute_dtype="bfloat16", n_hops=H_b)
         deep = H_b > 1
         readings = train_bf16_readings(rth, cfg_b, mp, B, rs, dev, host=deep)
-        per = readings["bwd"]
-        bars = {k: (train_bf16_deep_bar(r) if deep else train_bf16_bar("bwd", k))
-                for k, r in per.items()}
-        print(f"train_hops_bwd_bf16 H={H_b} B={B}, kernel / float32 plain (bar): " + ", ".join(
-            f"{k} {r['kernel']:.2e} / {r['float32']:.2e} ({bars[k]:.2e})" for k, r in per.items()),
-            flush=True)
-        failed += [f"bf16 H={H_b} B={B}: {k} {r['kernel']:.3e} > {bars[k]:.3e}"
-                   for k, r in per.items() if r["float32"] > 0 and not r["kernel"] <= bars[k]]
+        for kind, per in readings.items():
+            bars = {k: (train_bf16_deep_bar(r) if deep else train_bf16_bar(kind, k))
+                    for k, r in per.items()}
+            print(f"train_hops_{kind}_bf16 H={H_b} B={B}, kernel / float32 plain (bar): "
+                  + ", ".join(f"{k} {r['kernel']:.2e} / {r['float32']:.2e} ({bars[k]:.2e})"
+                              for k, r in per.items()), flush=True)
+            failed += [f"{kind} bf16 H={H_b} B={B}: {k} {r['kernel']:.3e} > {bars[k]:.3e}"
+                       for k, r in per.items()
+                       if r["float32"] > 0 and not r["kernel"] <= bars[k]]
     return failed
+
+
+# (hops, batch, weight seed, input seed) of --readings: the card tests'
+# six cases, then 12 more
+READING_CASES = ([(1, 19, 2, 3), (8, 19, 2, 3), (8, 100, 2, 3), (1, 1, 4, 6), (1, 37, 4, 6),
+                  (8, 37, 4, 6)] + [(1, 19, s, s + 10) for s in range(10, 16)]
+                 + [(1, 100, s, s + 10) for s in range(10, 14)] + [(8, 19, 20, 30),
+                                                                   (8, 100, 21, 31)])
+
+
+def readings(rth, cfg, init_params, dev) -> None:
+    """The bf16 kernels' readings as shares of their bars over READING_CASES."""
+    worst = {"fwd": {}, "bwd": {}}
+    over = 0
+    for H, B, seed, rs_seed in READING_CASES:
+        cfg_b = dataclasses.replace(cfg, compute_dtype="bfloat16", n_hops=H)
+        mp = init_params(cfg, torch.Generator().manual_seed(seed), dev)["mult"]
+        r = train_bf16_readings(rth, cfg_b, mp, B, np.random.RandomState(rs_seed), dev,
+                                host=H > 1)
+        line = []
+        for kind, per in r.items():
+            share = {}
+            for name, x in per.items():
+                bar = (train_bf16_deep_bar(x) if H > 1 else
+                       train_bf16_bar(kind, name) if x["float32"] > 0 else 0.0)
+                if bar > 0:
+                    share[name] = x["kernel"] / bar
+                    worst[kind][name] = max(worst[kind].get(name, 0.0), share[name])
+            top = max(share, key=share.get)
+            over += sum(v > 1 for v in share.values())
+            line.append(f"{kind} worst {top} {share[top]:.3f}")
+        print(f"readings H={H} B={B} seeds {seed}/{rs_seed}: " + "; ".join(line), flush=True)
+    for kind, per in worst.items():
+        print(f"readings {kind}, worst share of its bar by leaf: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(per.items(), key=lambda kv: -kv[1])[:8]),
+            flush=True)
+    print(f"readings: {over} leaf readings beyond their bar in {len(READING_CASES)} cases",
+          flush=True)
 
 
 def main() -> int:
@@ -148,6 +215,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=100)
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--readings", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_torch_train_hops: no CUDA device; this script runs only on the card",
@@ -163,18 +231,21 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     reports = _build.build_all(["rau_train_hops_fwd", "rau_train_hops_bwd"], force=True)
-    entry = ""
-    for line in reports["rau_train_hops_bwd"].splitlines():
-        if "Compiling entry" in line:
-            entry = bwd_kernel_label(line)
-        if "registers" in line or "spill" in line:
-            print(f"ptxas {entry}: {line.strip()}", flush=True)
+    for name, report in reports.items():
+        entry = ""
+        for line in report.splitlines():
+            if "Compiling entry" in line:
+                entry = phase_kernel_label(line)
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name} {entry}: {line.strip()}", flush=True)
 
     dev = torch.device("cuda")
     cfg = dataclasses.replace(get_preset("ours_ms"), fused_train=True)
     params = init_params(cfg, torch.Generator().manual_seed(args.seed), dev)
     mp = params["mult"]
     rs = np.random.RandomState(args.seed)
+    if args.readings:
+        readings(rth, cfg, init_params, dev)
     if args.check:
         failed = check(rth, cfg, mp, rs, dev)
         if failed:
@@ -191,34 +262,41 @@ def main() -> int:
     seed = torch.tensor([rs.randint(0, 2 ** 31 - 1)], dtype=torch.int32, device=dev)
     gen = torch.Generator(dev).manual_seed(args.seed)
     g_scores = 1e-3 * torch.randn(H, B, A, device=dev, generator=gen)
-    runs = []
+    runs = []   # (kernel, type, call, kernel ms, plain ms, plan, bound, chunks, e, peak)
     for dt, name in ((torch.float32, "float32"), (torch.bfloat16, "bf16")):
         cfg_t = dataclasses.replace(cfg, compute_dtype="float32" if name == "float32"
                                     else "bfloat16")
         mp_t = map_tree(lambda w: w.to(dt), mp)
-        q_t, feats_t = q.to(dt), feats.to(dt)
-        with torch.no_grad():
-            _, _, _, c_all, h_all = rth.train_hops_fwd(mp_t, cfg_t, q_t, feats_t, seed)
-            gmerge = (rth._rnd(g_scores, dt) @ rth._rnd(mp_t["cls"]["w"], dt).T).contiguous()
-            call = (mp_t, cfg_t, q_t, feats_t, seed, c_all, h_all, gmerge)
-            k_ms = time_ms(lambda: rth.train_hops_bwd(*call), iters=10)
-            p_ms = time_ms(lambda: rth.train_hops_bwd_reference(*call), iters=3, warmup=1)
-        runs.append((dt, name, cfg_t, mp_t, call, k_ms, p_ms,
-                     rth.bwd_plan(B, S, Dc, M, F, R, Q, n_sm, dt)))
-    # one profiler session for both types (a second session may lose events)
-    with torch.no_grad():
-        sums = phase_times([lambda c=r[4]: rth.train_hops_bwd(*c) for r in runs], H,
-                           [len(r[7].phases) for r in runs], calls=3)
-    for (dt, name, cfg_t, mp_t, call, k_ms, p_ms, plan), ph_ms in zip(runs, sums):
-        n = len(plan.phases)
-        bb_ms, bb_by = train_bwd_bound(cfg_t, mp_t, B, dt)
-        print(f"train_hops_bwd {name} B={B}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"bound_ms={bb_ms:.4f} by {bb_by}; {plan.chunks} chunks of {plan.chunk_rows} "
-              f"rows; {n * H} kernels a call, their device time {ph_ms.sum():.4f} ms [{card}]",
-              flush=True)
         e, peak = (4, H100_F32_FLOPS) if dt == torch.float32 else (2, H100_BF16_FLOPS)
+        with torch.no_grad():
+            fcall = (mp_t, cfg_t, q.to(dt), feats.to(dt), seed)
+            _, _, _, c_all, h_all = rth.train_hops_fwd(*fcall)
+            gmerge = (rth._rnd(g_scores, dt) @ rth._rnd(mp_t["cls"]["w"], dt).T).contiguous()
+            bcall = fcall + (c_all, h_all, gmerge)
+            bplan = rth.bwd_plan(B, S, Dc, M, F, R, Q, n_sm, dt)
+            runs.append((rth.train_hops_fwd, name, fcall,
+                         time_ms(lambda: rth.train_hops_fwd(*fcall), iters=10),
+                         time_ms(lambda: rth.train_hops_fwd_reference(*fcall), iters=3,
+                                 warmup=1),
+                         rth.fwd_plan(B, S, Dc, M, F, R, Q, A, n_sm, dt),
+                         train_fwd_bound(cfg_t, mp_t, B, dt), 1, e, peak))
+            runs.append((rth.train_hops_bwd, name, bcall,
+                         time_ms(lambda: rth.train_hops_bwd(*bcall), iters=10),
+                         time_ms(lambda: rth.train_hops_bwd_reference(*bcall), iters=3,
+                                 warmup=1),
+                         bplan, train_bwd_bound(cfg_t, mp_t, B, dt), bplan.chunks, e, peak))
+    # one profiler session for all four (a second session may lose events)
+    with torch.no_grad():
+        sums = phase_times([lambda r=r: r[0](*r[2]) for r in runs], H,
+                           [len(r[5].phases) for r in runs], calls=3)
+    for (fn, name, _, k_ms, p_ms, plan, (b_ms, b_by), chunks, e, peak), ph_ms in zip(runs, sums):
+        n = len(plan.phases)
+        split = f"; {chunks} chunks of {plan.chunk_rows} rows" if fn is rth.train_hops_bwd else ""
+        print(f"{fn.__name__} {name} B={B}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"bound_ms={b_ms:.4f} by {b_by}{split}; {n * H} kernels a call, their device "
+              f"time {ph_ms.sum():.4f} ms [{card}]", flush=True)
         for ph, t in sorted(zip(plan.phases, ph_ms), key=lambda r: -r[1]):
-            pb, by = phase_bound(ph, B, S, Dc, M, F, R, Q, plan.chunks, e, peak)
+            pb, by = phase_bound(ph, B, S, Dc, M, F, R, Q, chunks, e, peak)
             shape = (f" [{ph.M} x {ph.N}, K {ph.K}, tile {ph.tile[0]}x{ph.tile[1]}, grid "
                      f"{ph.grid}]" if ph.tile else f" [grid {ph.grid}]")
             print(f"  phase {ph.name:<14} {t:8.4f} ms over {H} hops ({t / ph_ms.sum():5.1%}), "

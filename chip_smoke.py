@@ -10,21 +10,21 @@ Phases, in order; any failure exits non-zero:
               with nvcc for sm_90a, one nvcc each, all at once, with the
               ptxas register / shared-memory / spill report (the encoder's
               and the stage kernel's per instantiation, the training
-              backward's per phase kernel), the encoder's grid plan (CTAs,
-              units a CTA, shared memory) at each batch size the run uses,
-              and the training backward's ``bwd_plan`` (kernels a hop, K
-              chunks, scratch, shared memory), its grids held to the
-              launches of a dry run of the built C entry at B in {1, 19,
-              37, 100};
+              forward's and backward's per phase kernel), the encoder's
+              grid plan (CTAs, units a CTA, shared memory) at each batch
+              size the run uses, and the training kernels' ``fwd_plan`` and
+              ``bwd_plan`` (kernels a hop, K chunks, scratch, shared
+              memory), their grids held to the launches of a dry run of
+              each built C entry at B in {1, 19, 37, 100}, in both types;
 3. kernels  — each kernel against its plain version at ``ours_ms`` widths:
               the encoder at B in {1, 19, 512} (rows of length 0 and T + 1
               give zeros; a second call gives the same bits) and the hop
               kernel at B in {19, 512}, at the bars of
               tests/test_pallas_rau.py; the device mask hash bit for bit; the
               training hop loop's forward (rtol / atol 1e-4) and backward
-              (grads norm-relative 1e-3 per leaf; two calls give the same
-              bits) at B in {19, 100}, the bf16 backward's two calls at
-              B=100 likewise; the same
+              (grads norm-relative 1e-3 per leaf), each twice on the same
+              inputs for the same bits, at B in {19, 100}, the bf16
+              forward's and backward's two calls at B=100 likewise; the same
               kernels' bf16 instantiations against their bf16 plain versions
               on bf16 weights, each output and grad leaf norm-relative: at
               one hop, B in {19, 100}, within ``TRAIN_BF16_BARS``, each bar
@@ -89,11 +89,12 @@ Phases, in order; any failure exits non-zero:
               old 4x14 tile at stage 2, the ring's depth at stage 1); the
               device time by kernel with the
               op that launched it; the mask hash beside its plain version;
-              the training backward's device kernels a call, from the
-              profiler's records, held to its plan's phases times the hops.
+              each training kernel's device kernels a call, from the
+              profiler's records, held to its plan's phases times the hops,
+              in both types; the forward's peak device memory a call.
 
 Prints each number beside the card's name and power limit, a ``kernels``
-JSON line (the training backward's entries also give its device kernels a
+JSON line (the training kernels' entries also give their device kernels a
 call, as recorded), and as the last line ``{"ok": true, "device": {...}}``.  Weights
 are random, from the seed.  Imports nothing of JAX or the JAX package.
 """
@@ -197,6 +198,14 @@ def device_kernels(fn) -> int:
         torch.cuda.synchronize()
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
                and not e.name.startswith(("Memset", "Memcpy")))
+
+
+def fwd_bit_equal(rth, got, *args) -> bool:
+    """Whether a second call of the training forward on the same inputs
+    gives the bits of ``got`` in every output."""
+    again = rth.train_hops_fwd(*args)
+    torch.cuda.synchronize()
+    return all(torch.equal(g, a) for g, a in zip(got, again))
 
 
 def bwd_bit_equal(rth, *args) -> bool:
@@ -327,17 +336,18 @@ def train_bwd_bound(cfg, mp, B, dtype=torch.float32):
     return bound(n_bytes, n_ops, peak)
 
 
-def bwd_kernel_label(line: str) -> str:
-    """A short name for a phase kernel of the training backward from the
-    mangled name in ptxas's "Compiling entry" line: the tile GEMM's body,
+def phase_kernel_label(line: str) -> str:
+    """A short name for a phase kernel of the training forward or backward
+    from the mangled name in ptxas's "Compiling entry" line: the tile GEMM's body,
     tile (BM x BN x BK, ring depth) and operand layouts (k: k-contiguous,
     r: row-contiguous), or the other kernel and its type."""
     m = re.search(r"gemm_(fma|mma)INS_\d+(?:Fma|Mma)CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"
                   r".*?ELb([01])ELb([01])E", line)
     if m:
         body, bm, bn, bk, st, a, b = m.groups()
+        operands = " bf16 operands" if body == "fma" and "nv_bfloat16" in line else ""
         return (f"gemm_{body} {bm}x{bn}x{bk} ring {st} A {'k' if a == '1' else 'r'} "
-                f"B {'k' if b == '1' else 'r'}")
+                f"B {'k' if b == '1' else 'r'}{operands}")
     k = re.search(r"(prep|rows_fwd|softmax_bwd|dpre_add|cell_bwd|cell|colsum|reduce)_kernel", line)
     kind = " bf16" if "nv_bfloat16" in line else (" float32" if "IfE" in line else "")
     return (k.group(1) if k else "kernel") + kind
@@ -607,11 +617,8 @@ def main() -> int:
                 inst = tuple(int(v) for v in m.groups()) if m else None
                 what = (f" tile {inst[0]}x{inst[1]} nb {inst[2]} ring {inst[3]}" if m
                         else " float32")
-            if name == "rau_train_hops_fwd" and "Compiling entry" in line:
-                # one instantiation per product type
-                what = " bf16" if "nv_bfloat16" in line else " float32"
-            if name == "rau_train_hops_bwd" and "Compiling entry" in line:
-                what = " " + bwd_kernel_label(line)
+            if name.startswith("rau_train_hops") and "Compiling entry" in line:
+                what = " " + phase_kernel_label(line)
             if name == "fused_resnet" and inst and "registers" in line:
                 stage_regs[inst] = int(re.search(r"Used (\d+) registers", line).group(1))
             if "registers" in line or "spill" in line or "smem" in line:
@@ -624,11 +631,25 @@ def main() -> int:
         log(f"lstm_encode plan B={B}: grid {plan.ctas} CTAs on {n_sm} SMs, {plan.units} units "
             f"a CTA, {plan.row_groups} row group(s) of {plan.rows} rows, {plan.splits} K "
             f"split(s), {plan.passes} pass(es), {plan.smem} bytes of shared memory a CTA")
-    # the training backward's plan against the launches the built C entry
-    # makes (a dry run of it): the same grids, shared memory within the plan's
+    # the training kernels' plans against the launches their built C entries
+    # make (a dry run of each): the same grids, shared memory within the plan's
     bwd_widths = (cfg.cnn_spat, cfg.cnn_dim, cfg.multfeat_dim, cfg.attfeat_dim,
                   cfg.att_state_dim, cfg.rnnout_dim)
+    fwd_widths = bwd_widths + (cfg.answer_size,)
     for dt in (torch.float32, bf16):
+        for B in (1, 19, 37, 100):
+            plan = rth.fwd_plan(B, *fwd_widths, n_sm, dt)
+            scratch, launches = rth.fwd_launcher_plan(B, *fwd_widths, dt)
+            grids = [ph.grid for ph in plan.phases]
+            if scratch <= 0 or [x[:3] for x in launches] != grids or any(
+                    x[3] > ph.smem for x, ph in zip(launches, plan.phases)):
+                raise SystemExit(f"fwd_plan B={B} {dt}: the launcher runs {launches} with "
+                                 f"{scratch} scratch floats, the plan {grids}")
+        log(f"train_hops_fwd plan B=100 {dt}: {len(plan.phases)} kernels a hop "
+            f"({sum(1 for p in plan.phases if p.tile)} tile GEMMs), scratch "
+            f"{scratch * 4 / 1e6:.1f} MB beside the {plan.work_floats * 4 / 1e6:.1f} MB "
+            f"workspace; the launcher's dry run makes the plan's grids at B in 1, 19, 37, "
+            f"100, with shared memory up to {max(x[3] for x in launches)} B")
         for B in (1, 19, 37, 100):
             plan = rth.bwd_plan(B, *bwd_widths, n_sm, dt)
             scratch, launches = rth.launcher_plan(B, *bwd_widths, dt, plan.chunk_rows)
@@ -726,7 +747,10 @@ def main() -> int:
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
             es.append((g - w).abs().max().item())
         err["train_hops_fwd"] = max(err["train_hops_fwd"], *es)
-        log(f"train_hops_fwd B={B} max_abs_err {max(es):.3e} (bar rtol 1e-4 atol 1e-4)")
+        if not fwd_bit_equal(rth, got, mp, tcfg_m, q, feats, seed_t):
+            raise SystemExit(f"train_hops_fwd B={B}: two calls on the same inputs differ")
+        log(f"train_hops_fwd B={B} max_abs_err {max(es):.3e} (bar rtol 1e-4 atol 1e-4), "
+            f"two calls bit-equal")
         gmerge = 1e-3 * torch.randn(H, B, M, device=dev,
                                     generator=torch.Generator(dev).manual_seed(B))
         if not bwd_bit_equal(rth, mp, tcfg_m, q, feats, seed_t, got[3], got[4], gmerge):
@@ -817,7 +841,11 @@ def main() -> int:
     feats_b = make_batch(cfg, 100, cfg.seq_len, rs, dev)[2].to(bf16)
     q_b = torch.as_tensor(0.5 * rs.randn(100, Q).astype(np.float32), device=dev).to(bf16)
     seed_t = torch.tensor([rs.randint(0, 2 ** 31 - 1)], dtype=torch.int32, device=dev)
-    _, _, _, c16, h16 = rth.train_hops_fwd(mp16, cfg_b, q_b, feats_b, seed_t)
+    out16 = rth.train_hops_fwd(mp16, cfg_b, q_b, feats_b, seed_t)
+    if not fwd_bit_equal(rth, out16, mp16, cfg_b, q_b, feats_b, seed_t):
+        raise SystemExit("train_hops_fwd_bf16 B=100: two calls on the same inputs differ")
+    log("train_hops_fwd_bf16 B=100 H=8: two calls bit-equal (5 outputs)")
+    _, _, _, c16, h16 = out16
     gmerge = 1e-3 * torch.randn(H, 100, M, device=dev,
                                 generator=torch.Generator(dev).manual_seed(7))
     if not bwd_bit_equal(rth, mp16, cfg_b, q_b, feats_b, seed_t, c16, h16, gmerge):
@@ -1389,10 +1417,24 @@ def main() -> int:
         log("train_step_device_busy_ms: not measured (the profiler recorded no device time)")
     fb_ms, fb_by = train_fwd_bound(mcfg_t, mp, B)
     bb_ms, bb_by = train_bwd_bound(mcfg_t, mp, B)
-    # the backward's device kernels a call, as the profiler records them:
-    # its plan's phases, every hop
-    bwd_kernels = {}
+    # each training kernel's device kernels a call, as the profiler records
+    # them: its plan's phases, every hop; and the forward's peak memory
+    fwd_kernels, bwd_kernels, fwd_peak = {}, {}, {}
+
+    def peak_mb(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        del out
+        return (torch.cuda.max_memory_allocated() - base) / 1e6
+
     with torch.no_grad():
+        fwd_kernels[torch.float32] = device_kernels(lambda: rth.train_hops_fwd(
+            mp, mcfg_t, q, feats, seed_t))
+        fwd_peak[torch.float32] = peak_mb(lambda: rth.train_hops_fwd(
+            mp, mcfg_t, q, feats, seed_t))
         bwd_kernels[torch.float32] = device_kernels(lambda: rth.train_hops_bwd(
             mp, mcfg_t, q, feats, seed_t, c_all, h_all, gmerge))
 
@@ -1415,14 +1457,24 @@ def main() -> int:
         }
         bwd_kernels[bf16] = device_kernels(lambda: rth.train_hops_bwd(
             mp16, mcfg_b, q16, feats16, seed_t, c16, h16, gmerge))
+        fwd_kernels[bf16] = device_kernels(lambda: rth.train_hops_fwd(
+            mp16, mcfg_b, q16, feats16, seed_t))
+        fwd_peak[bf16] = peak_mb(lambda: rth.train_hops_fwd(mp16, mcfg_b, q16, feats16, seed_t))
     for k, v in tms16.items():
         log(f"{k}_ms={v:.4f} B={B} [{card}]")
-    for dt, n in bwd_kernels.items():
-        want = H * len(rth.bwd_plan(B, *bwd_widths, n_sm, dt).phases)
-        log(f"train_hops_bwd {dt} device kernels a call: {n} recorded by the profiler, "
-            f"{want} in the plan (its phases x {H} hops) B={B} [{card}]")
-        if n != want:
-            raise SystemExit(f"train_hops_bwd {dt}: {n} device kernels a call, not {want}")
+    for kind, counts, plan_of in (
+            ("fwd", fwd_kernels, lambda dt: rth.fwd_plan(B, *fwd_widths, n_sm, dt)),
+            ("bwd", bwd_kernels, lambda dt: rth.bwd_plan(B, *bwd_widths, n_sm, dt))):
+        for dt, n in counts.items():
+            want = H * len(plan_of(dt).phases)
+            log(f"train_hops_{kind} {dt} device kernels a call: {n} recorded by the "
+                f"profiler, {want} in the plan (its phases x {H} hops) B={B} [{card}]")
+            if n != want:
+                raise SystemExit(f"train_hops_{kind} {dt}: {n} device kernels a call, "
+                                 f"not {want}")
+    for dt, mb in fwd_peak.items():
+        log(f"train_hops_fwd {dt} peak device memory a call: {mb:.1f} MB above its inputs "
+            f"(outputs, workspace, scratch) B={B} [{card}]")
     fb16_ms, fb16_by = train_fwd_bound(mcfg_b, mp16, B, bf16)
     bb16_ms, bb16_by = train_bwd_bound(mcfg_b, mp16, B, bf16)
     log(f"train_hops_fwd_bound_ms={fb_ms:.4f} by {fb_by}, bf16 {fb16_ms:.4f} by {fb16_by}; "
@@ -1560,7 +1612,8 @@ def main() -> int:
          "launches": train_launches["train_hops_fwd"],
          "max_abs_err": err["train_hops_fwd"],
          "ms": tms["train_hops_fwd"], "plain_ms": tms["train_fwd_plain"],
-         "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None},
+         "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None,
+         "device_kernels_a_call": fwd_kernels[torch.float32]},
         # max_abs_err here: the worst norm-relative grad error over the leaves
         {"name": "train_hops_bwd", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_bwd.cu",
@@ -1580,7 +1633,8 @@ def main() -> int:
          "launches": bf16_launches["train_hops_fwd_bf16"],
          "max_abs_err": err["train_hops_fwd_bf16"],
          "ms": tms16["train_hops_fwd_bf16"], "plain_ms": tms16["train_fwd_bf16_plain"],
-         "bound_ms": fb16_ms, "bound_by": fb16_by, "library_ms": None},
+         "bound_ms": fb16_ms, "bound_by": fb16_by, "library_ms": None,
+         "device_kernels_a_call": fwd_kernels[bf16]},
         {"name": "train_hops_bwd_bf16", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_bwd.cu",
          "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:471",

@@ -41,16 +41,9 @@
 // SMs); the [B, *] products and the row kernels are latency-bound at B=100.
 //
 // Phases of one hop (h), in order; "G" is a tile GEMM, "P" the workspace's
-// [B*S, *] rows:
-//   prep      q_d = q qmask, feats_d = feats fmask, both in T
-//   G qd      q_d Wq -> tmp;  G hmem  h Wmem -> msc;  G qfeat  h Wh (+ tmp, biases)
-//   G qatt    qfeat Waq + baq
-//   G ifeat   tanh(feats_d Wi + bi)                      P x M, K = Dc
-//   G addfeat tanh((ifeat Wa + ba) + qatt[row])          P x F, K = M
-//   rows_fwd  score, softmax, pooling                    one CTA a row
-//   G join    p Wp (+ qfeat + pool, bp), emits join
-//   G gates   join Wli -> tmp;  h Wlh (+ tmp, biases);  cell: c', h'
-//   G merge   h' Wmg (+ join, bmg) masked, emits merge_d; dmerge = gmerge mmask
+// [B*S, *] rows.  First the hop's forward, prep to merge, as the forward
+// kernel runs it (rau_train_hops_phases.cuh), from the saved carries; its
+// merge also forms dmerge = gmerge mmask.  Then the cotangent chain:
 //   G dhn     dmerge Wmg^T + dh;  cell_bwd: dgates, dc
 //   G djoin   dgates Wli^T + dmerge;  G dhp  dgates Wlh^T
 //   G datt    djoin Wp^T -> tmp
@@ -64,22 +57,18 @@
 //   G i_emb w feats_d^T dpre_i, split over P             Dc x M, K = P
 //   colsum    the i_embed b partials;  reduce  the hop's grads, in order
 
-#include <algorithm>
-#include <type_traits>
-
-#include "rau_train_hops.cuh"
-#include "tile_gemm.cuh"
+#include "rau_train_hops_phases.cuh"
 
 namespace {
 
 using rth::Dims;
 using rth::Dropout;
+using rth::NT;
+using rth::NWARP;
+using rth::take;
 using tg::Epi;
 using tg::Operand;
-using tg::Problem;
 
-constexpr int NT = 256;
-constexpr int NWARP = NT / 32;
 constexpr int KSTEP = 32;  // chunk_rows must be a multiple of the bodies' k slices
 constexpr int COLSUM_ROWS = 128;  // rows a partial of the i_embed b grad
 
@@ -98,11 +87,6 @@ struct Scratch {
   float *dc, *dh, *dhn, *dhp, *aspart, *part6, *part8, *partb;
   void *hb, *scb, *hnb, *dmergeb, *dgatesb, *djoinb, *dscoreb, *dqattb, *dpreqb, *xb, *ab;
 
-  static float* take(float* base, size_t& off, size_t n) {
-    float* p = base ? base + off : nullptr;
-    off += (n + 63) & ~size_t(63);
-    return p;
-  }
   // returns the float count; base nullptr only counts
   static size_t carve(float* base, const Dims& d, int t_bytes, int chunks, Scratch* s) {
     const size_t B = d.B, P = (size_t)d.B * d.S, M = d.M, F = d.F, R = d.R, S = d.S;
@@ -144,101 +128,6 @@ struct Scratch {
     return off;
   }
 };
-
-// q_d = q qmask and feats_d = feats fmask, in T (every reader is a
-// product), and h in T where hb is set
-template <class T>
-__global__ void prep_kernel(size_t nq, size_t nf, size_t nh, const int* seed, int hop,
-                            Dropout dr, const T* __restrict__ q, const T* __restrict__ feats,
-                            const float* __restrict__ h, T* __restrict__ qd,
-                            T* __restrict__ fd, T* __restrict__ hb) {
-  dr.seed = (uint32_t)seed[0];
-  const maskgen::Site qm = dr.site(hop, maskgen::SITE_Q);
-  const maskgen::Site fm = dr.site(hop, maskgen::SITE_FEATS);
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < nq + nf + nh;
-       i += stride) {
-    if (i < nq) {
-      rth::stf(qd, i, qm.apply(rth::ldf(q, i), (uint32_t)i));
-    } else if (i < nq + nf) {
-      const size_t j = i - nq;
-      rth::stf(fd, j, fm.apply(rth::ldf(feats, j), (uint32_t)j));
-    } else {
-      rth::stf(hb, i - nq - nf, h[i - nq - nf]);
-    }
-  }
-}
-
-// One row b a CTA: the attention score ((addfeat w_score + b_score) + h
-// Wmem) + b_mem, the softmax over S into sc, and the pooling sum_s ifeat p_s
-// (unrounded) into pool.
-template <class T>
-__global__ void __launch_bounds__(NT) rows_fwd_kernel(
-    int S, int M, int F, const float* __restrict__ ifeat, const float* __restrict__ addfeat,
-    const float* __restrict__ msc, const T* __restrict__ ws, const T* __restrict__ bs,
-    const T* __restrict__ bmem, float* __restrict__ sc, T* __restrict__ scb,
-    float* __restrict__ pool) {
-  extern __shared__ __align__(16) float p[];  // [S]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, b = blockIdx.x;
-  const float* af = addfeat + (size_t)b * S * F;
-  const float* ifr = ifeat + (size_t)b * S * M;
-  const float b_score = rth::ldf(bs, 0);
-  for (int cell = warp; cell < S; cell += NWARP) {
-    const float* row = af + (size_t)cell * F;
-    float acc = 0.f;
-    for (int f = lane; f < F; f += 32) acc = fmaf(rth::rnd<T>(row[f]), rth::ldf(ws, f), acc);
-    acc = rth::warp_sum(acc);
-    if (lane == 0)
-      p[cell] = ((acc + b_score) + msc[(size_t)b * S + cell]) + rth::ldf(bmem, cell);
-  }
-  __syncthreads();
-  if (warp == 0) {
-    float mx = __int_as_float(0xff800000);  // -inf
-    for (int i = lane; i < S; i += 32) mx = fmaxf(mx, p[i]);
-    mx = rth::warp_max(mx);
-    float den = 0.f;
-    for (int i = lane; i < S; i += 32) {
-      const float e = expf(p[i] - mx);
-      p[i] = e;
-      den += e;
-    }
-    den = rth::warp_sum(den);
-    for (int i = lane; i < S; i += 32) p[i] = p[i] / den;
-  }
-  __syncthreads();
-  for (int i = tid; i < S; i += NT) {
-    sc[(size_t)b * S + i] = p[i];
-    if (scb) rth::stf(scb, (size_t)b * S + i, p[i]);
-  }
-  for (int n = tid; n < M; n += NT) {
-    float acc = 0.f;
-    for (int i = 0; i < S; ++i) acc = fmaf(ifr[(size_t)i * M + n], p[i], acc);
-    pool[(size_t)b * M + n] = acc;
-  }
-}
-
-// The ATTLSTM cell, gate layout [i, g, f, o]: gates keep their activations;
-// cn, hn the new carry (hn also in T where hnb is set).
-template <class T>
-__global__ void cell_kernel(int B, int R, const float* __restrict__ c, float* __restrict__ gates,
-                            float* __restrict__ cn, float* __restrict__ hn, T* __restrict__ hnb) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * R) return;
-  const int b = i / R, j = i - b * R;
-  float* g = gates + (size_t)b * 4 * R;
-  const float ig = rth::sigm(g[j]);
-  const float gt = tanhf(g[R + j]);
-  const float fg = rth::sigm(g[2 * R + j]);
-  const float og = rth::sigm(g[3 * R + j]);
-  const float cc = fg * c[i] + ig * gt;
-  cn[i] = cc;
-  hn[i] = og * tanhf(cc);
-  if (hnb) rth::stf(hnb, i, og * tanhf(cc));
-  g[j] = ig;
-  g[R + j] = gt;
-  g[2 * R + j] = fg;
-  g[3 * R + j] = og;
-}
 
 // The cell's backward: dgates (also in T where dgb is set) from dh_new and
 // the carried dc; dc becomes the carry into the previous hop.
@@ -390,25 +279,6 @@ __global__ void reduce_kernel(ReduceArgs a) {
 
 int chunks_for(int P, int chunk_rows) { return (P + chunk_rows - 1) / chunk_rows; }
 
-// A dry run's record of the launches: grid x, y, z and dynamic shared
-// memory bytes of each, in the order they would be enqueued (at most cap;
-// n counts them all).
-struct Rec {
-  int* out;
-  int cap;
-  int n;
-  void add(dim3 g, int smem) {
-    if (n < cap) {
-      int* o = out + 4 * n;
-      o[0] = (int)g.x;
-      o[1] = (int)g.y;
-      o[2] = (int)g.z;
-      o[3] = smem;
-    }
-    ++n;
-  }
-};
-
 // Enqueues every phase of the H hops on the stream; with rec set, enqueues
 // nothing and records each launch instead (the pointers are then unread).
 template <class T>
@@ -417,7 +287,7 @@ int bwd_launch(const void* q, const void* feats, const void* seed_p, const void*
                void* work, void* const* emits, void* const* grads, void* scratch, int B,
                int Q, int S, int Dc, int M, int F, int R, int H, int chunk_rows,
                long long scratch_floats, uint32_t thresh, float scale, int use_mask,
-               void* stream, Rec* rec = nullptr) {
+               void* stream, rth::Rec* rec = nullptr) {
   if (B <= 0 || H <= 0 || S <= 0 || Dc <= 0 || M <= 0 || F <= 0 || R <= 0 || Q <= 0)
     return (int)cudaErrorInvalidValue;
   const int P = B * S;
@@ -432,7 +302,7 @@ int bwd_launch(const void* q, const void* feats, const void* seed_p, const void*
   const cudaStream_t st = (cudaStream_t)stream;
   const int* seed = static_cast<const int*>(seed_p);
   const Dropout dr{0u, thresh, scale, use_mask != 0};
-  auto W = [&](int i) { return weights[i]; };  // in T
+  const void* const* W = weights;  // in T
   float* ifeat = static_cast<float*>(work);
   float* addfeat = ifeat + (size_t)P * M;
   float* g[NGRADS];
@@ -443,60 +313,16 @@ int bwd_launch(const void* q, const void* feats, const void* seed_p, const void*
     err = cudaMemsetAsync(g[k], 0, gsize[k] * 4, st);
   if (err == cudaSuccess && !rec) err = cudaMemsetAsync(sc.dc, 0, (size_t)B * R * 4, st);
   if (err == cudaSuccess && !rec) err = cudaMemsetAsync(sc.dh, 0, (size_t)B * R * 4, st);
-  // after each phase's launch (one a phase of bwd_plan)
-  auto check = [&](cudaError_t e) {
-    if (err == cudaSuccess && e != cudaSuccess) err = e;
-  };
-  // true in a dry run, which records the launch in place of enqueueing it
-  auto dry = [&](dim3 grid, size_t smem) {
-    if (rec) rec->add(grid, (int)smem);
-    return rec != nullptr;
-  };
-
-  // Operands, all in T: element (r, k) at p[r * ld + k] (rows of length ld,
-  // k contiguous) or at p[k * ld + r] (k-major: a weight [K, N] read as B,
-  // or a transposed workspace).  With float products a float32 operand is
-  // read as it is; with bf16 ones its copy in T (c), written by its producer.
+  // one launch a phase of bwd_plan
   constexpr bool f32 = std::is_same<T, float>::value;
-  auto op = [](const void* p, long long ld, bool kc) {
-    const bool aligned = reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % (16 / sizeof(T)) == 0;
-    return Operand{p, ld, kc ? 1 : 0, aligned ? 1 : 0};
-  };
-  auto rows = [&](const void* p, long long ld) { return op(p, ld, true); };
-  auto kmaj = [&](const void* p, long long ld) { return op(p, ld, false); };
-  auto pick = [&](const float* f, void* c) { return f32 ? static_cast<const void*>(f) : c; };
-  auto copy = [&](void* c) { return f32 ? nullptr : c; };  // where to write a copy
-  auto epi = [&](int op_, float* out) {
-    Epi e{};
-    e.op = op_;
-    e.out = out;
-    e.rdiv = 1;
-    e.seed = seed;
-    e.thresh = thresh;
-    e.scale = scale;
-    e.mask_on = use_mask;
-    return e;
-  };
-  using Big = typename std::conditional<f32, tg::FmaBig, tg::MmaBig>::type;
-  using Small = typename std::conditional<f32, tg::FmaSmall, tg::MmaSmall>::type;
-  auto gemm = [&](auto tile, const Problem& pr) {
-    using C = decltype(tile);
-    dim3 grid;
-    int smem;
-    tg::shape<T, C>(pr, &grid, &smem);
-    if (!dry(grid, smem)) check(tg::launch<T, C>(pr, st));
-  };
-  auto big = [&](Operand a, Operand b, int m, int n, int k, Epi e, int kchunk = 0) {
-    gemm(Big{}, Problem{a, b, m, n, k, kchunk ? kchunk : k, e});
-  };
-  auto small = [&](Operand a, Operand b, int m, int n, int k, Epi e) {
-    gemm(Small{}, Problem{a, b, m, n, k, k, e});
-  };
+  using E = rth::Enqueuer<T, typename std::conditional<f32, tg::FmaBig, tg::MmaBig>::type,
+                          typename std::conditional<f32, tg::FmaSmall, tg::MmaSmall>::type>;
+  E eq{st, rec, seed, thresh, scale, use_mask, err};
   auto em = [&](int i, int hop, int width) {
     return static_cast<char*>(emits[i]) +
            (size_t)hop * B * width * (i >= E_QFEAT ? sizeof(T) : sizeof(float));
   };
-  const int ew = 256;  // threads a CTA of the elementwise kernels
+  const int ew = NT;  // threads a CTA of the elementwise kernels
 
   for (int hop = H - 1; hop >= 0; --hop) {
     const float* c = static_cast<const float*>(c_all) + (size_t)hop * B * R;
@@ -507,157 +333,110 @@ int bwd_launch(const void* q, const void* feats, const void* seed_p, const void*
     float* dscore = reinterpret_cast<float*>(em(E_DSCORE, hop, S));
     float* dqatt = reinterpret_cast<float*>(em(E_DQATT, hop, F));
     float* dpre_q = reinterpret_cast<float*>(em(E_DPRE_Q, hop, M));
-    const void* qfeat_t = em(E_QFEAT, hop, M);  // the emissions in T
-    const void* join_t = em(E_JOIN, hop, M);
-    const Operand h_op = rows(pick(h, sc.hb), R);
 
-    // the remat
-    {
-      const size_t nq = (size_t)B * Q, nf = (size_t)P * Dc, nh = f32 ? 0 : (size_t)B * R;
-      const int blocks = (int)std::min<size_t>((nq + nf + nh + ew - 1) / ew, 4096);
-      if (!dry(blocks, 0)) {
-        prep_kernel<T><<<blocks, ew, 0, st>>>(nq, nf, nh, seed, hop, dr, (const T*)q,
-                                               (const T*)feats, h, (T*)sc.qd, (T*)sc.fd,
-                                               (T*)sc.hb);
-        check(cudaGetLastError());
-      }
-    }
-    small(rows(sc.qd, Q), kmaj(W(rth::Q_W), M), B, M, Q, epi(tg::STORE, sc.tmp));
-    small(h_op, kmaj(W(rth::AM_W), S), B, S, R, epi(tg::STORE, sc.msc));
-    {
-      Epi e = epi(tg::QFEAT, sc.qfeat);
-      e.v0 = sc.tmp;
-      e.bias0 = W(rth::Q_B);
-      e.bias1 = W(rth::H_B);
-      e.emit = em(E_QFEAT, hop, M);
-      small(h_op, kmaj(W(rth::H_W), M), B, M, R, e);
-    }
-    {
-      Epi e = epi(tg::BIAS, sc.qatt);
-      e.bias0 = W(rth::AQ_B);
-      small(rows(qfeat_t, M), kmaj(W(rth::AQ_W), F), B, F, M, e);
-    }
-    {
-      Epi e = epi(tg::TANH_BIAS, ifeat);
-      e.bias0 = W(rth::I_B);
-      e.emit = copy(sc.xb);
-      big(rows(sc.fd, Dc), kmaj(W(rth::I_W), M), P, M, Dc, e);
-    }
-    {
-      Epi e = epi(tg::ADDFEAT, addfeat);
-      e.bias0 = W(rth::AI_B);
-      e.v0 = sc.qatt;
-      e.rdiv = S;
-      big(rows(pick(ifeat, sc.xb), M), kmaj(W(rth::AI_W), F), P, F, M, e);
-    }
-    if (!dry(B, S * sizeof(float))) {
-      rows_fwd_kernel<T><<<B, NT, S * sizeof(float), st>>>(
-          S, M, F, ifeat, addfeat, sc.msc, (const T*)W(rth::AS_W), (const T*)W(rth::AS_B),
-          (const T*)W(rth::AM_B), sc.sc, (T*)copy(sc.scb), sc.pool);
-      check(cudaGetLastError());
-    }
-    {
-      Epi e = epi(tg::JOIN, sc.join);
-      e.v0 = sc.qfeat;
-      e.v1 = sc.pool;
-      e.bias0 = W(rth::AP_B);
-      e.emit = em(E_JOIN, hop, M);
-      small(rows(pick(sc.sc, sc.scb), S), kmaj(W(rth::AP_W), M), B, M, S, e);
-    }
-    small(rows(join_t, M), kmaj(W(rth::L_WI), 4 * R), B, 4 * R, M, epi(tg::STORE, sc.tmp));
-    {
-      Epi e = epi(tg::GATES, sc.gates);
-      e.v0 = sc.tmp;
-      e.bias0 = W(rth::L_BI);
-      e.bias1 = W(rth::L_BH);
-      small(h_op, kmaj(W(rth::L_WH), 4 * R), B, 4 * R, R, e);
-    }
-    if (!dry((B * R + ew - 1) / ew, 0)) {
-      cell_kernel<T><<<(B * R + ew - 1) / ew, ew, 0, st>>>(B, R, c, sc.gates, sc.cn, sc.hn,
-                                                           (T*)copy(sc.hnb));
-      check(cudaGetLastError());
-    }
-    {
-      Epi e = epi(tg::MERGE, dmerge);
-      e.v0 = sc.join;
-      e.v1 = static_cast<const float*>(gmerge) + (size_t)hop * B * M;
-      e.bias0 = W(rth::MG_B);
-      e.emit = copy(sc.dmergeb);
-      e.emit2 = em(E_MERGE, hop, M);
-      e.hop = hop;
-      small(rows(pick(sc.hn, sc.hnb), R), kmaj(W(rth::MG_W), M), B, M, R, e);
-    }
+    // the remat: the forward's hop, with the emissions qfeat / join / merge_d
+    // in T as its copies in T, and dmerge = gmerge mmask
+    rth::HopBufs<T> fw{};
+    fw.q = static_cast<const T*>(q);
+    fw.feats = static_cast<const T*>(feats);
+    fw.c = c;
+    fw.h = h;
+    fw.qd = static_cast<T*>(sc.qd);
+    fw.fd = static_cast<T*>(sc.fd);
+    fw.hb = static_cast<T*>(sc.hb);
+    fw.tmp = sc.tmp;
+    fw.msc = sc.msc;
+    fw.qfeat = sc.qfeat;
+    fw.qatt = sc.qatt;
+    fw.pool = sc.pool;
+    fw.join = sc.join;
+    fw.gates = sc.gates;
+    fw.ifeat = ifeat;
+    fw.addfeat = addfeat;
+    fw.xb = static_cast<T*>(sc.xb);
+    fw.sc = sc.sc;
+    fw.scb = static_cast<T*>(sc.scb);
+    fw.cn = sc.cn;
+    fw.hn = sc.hn;
+    fw.hnb = static_cast<T*>(sc.hnb);
+    fw.qfeat_t = reinterpret_cast<T*>(em(E_QFEAT, hop, M));
+    fw.join_t = reinterpret_cast<T*>(em(E_JOIN, hop, M));
+    fw.merge_d = reinterpret_cast<T*>(em(E_MERGE, hop, M));
+    fw.gmerge = static_cast<const float*>(gmerge) + (size_t)hop * B * M;
+    fw.dmerge = dmerge;
+    fw.dmergeb = static_cast<T*>(sc.dmergeb);
+    rth::hop_forward_phases(eq, d, dr, W, hop, fw);
 
     // the cotangent chain
     {
-      Epi e = epi(tg::ADD, sc.dhn);
+      Epi e = eq.epi(tg::ADD, sc.dhn);
       e.v0 = sc.dh;
-      small(rows(pick(dmerge, sc.dmergeb), M), rows(W(rth::MG_W), M), B, R, M, e);
+      eq.small(E::rows(E::pick(dmerge, sc.dmergeb), M), E::rows(W[rth::MG_W], M), B, R, M, e);
     }
-    if (!dry((B * R + ew - 1) / ew, 0)) {
-      cell_bwd_kernel<T><<<(B * R + ew - 1) / ew, ew, 0, st>>>(
-          B, R, c, sc.gates, sc.cn, sc.dhn, sc.dc, dgates, (T*)copy(sc.dgatesb));
-      check(cudaGetLastError());
+    if (!eq.dry((B * R + ew - 1) / ew, 0)) {
+      cell_bwd_kernel<T><<<(B * R + ew - 1) / ew, ew, 0, eq.st>>>(
+          B, R, c, sc.gates, sc.cn, sc.dhn, sc.dc, dgates, (T*)E::copy(sc.dgatesb));
+      eq.check(cudaGetLastError());
     }
-    const Operand dgates_op = rows(pick(dgates, sc.dgatesb), 4 * R);
+    const Operand dgates_op = E::rows(E::pick(dgates, sc.dgatesb), 4 * R);
     {
-      Epi e = epi(tg::ADD, djoin);
+      Epi e = eq.epi(tg::ADD, djoin);
       e.v0 = dmerge;
-      e.emit = copy(sc.djoinb);
-      small(dgates_op, rows(W(rth::L_WI), 4 * R), B, M, 4 * R, e);
+      e.emit = E::copy(sc.djoinb);
+      eq.small(dgates_op, E::rows(W[rth::L_WI], 4 * R), B, M, 4 * R, e);
     }
-    small(dgates_op, rows(W(rth::L_WH), 4 * R), B, R, 4 * R, epi(tg::STORE, sc.dhp));
-    small(rows(pick(djoin, sc.djoinb), M), rows(W(rth::AP_W), M), B, S, M,
-          epi(tg::STORE, sc.tmp));
-    if (!dry(B, (M + S) * sizeof(float))) {
-      softmax_bwd_kernel<T><<<B, NT, (M + S) * sizeof(float), st>>>(
-          S, M, ifeat, sc.sc, djoin, sc.tmp, dscore, (T*)copy(sc.dscoreb));
-      check(cudaGetLastError());
+    eq.small(dgates_op, E::rows(W[rth::L_WH], 4 * R), B, R, 4 * R, eq.epi(tg::STORE, sc.dhp));
+    eq.small(E::rows(E::pick(djoin, sc.djoinb), M), E::rows(W[rth::AP_W], M), B, S, M,
+             eq.epi(tg::STORE, sc.tmp));
+    if (!eq.dry(B, (M + S) * sizeof(float))) {
+      softmax_bwd_kernel<T><<<B, NT, (M + S) * sizeof(float), eq.st>>>(
+          S, M, ifeat, sc.sc, djoin, sc.tmp, dscore, (T*)E::copy(sc.dscoreb));
+      eq.check(cudaGetLastError());
     }
-    if (!dry(dim3(B, (F + DF - 1) / DF), 0)) {
-      dpre_add_kernel<T><<<dim3(B, (F + DF - 1) / DF), NT, 0, st>>>(
-          S, F, addfeat, dscore, (const T*)W(rth::AS_W), sc.aspart, dqatt,
-          (T*)copy(sc.dqattb), (T*)copy(sc.ab));
-      check(cudaGetLastError());
+    if (!eq.dry(dim3(B, (F + DF - 1) / DF), 0)) {
+      dpre_add_kernel<T><<<dim3(B, (F + DF - 1) / DF), NT, 0, eq.st>>>(
+          S, F, addfeat, dscore, (const T*)W[rth::AS_W], sc.aspart, dqatt,
+          (T*)E::copy(sc.dqattb), (T*)E::copy(sc.ab));
+      eq.check(cudaGetLastError());
     }
     const float* dpre_add = addfeat;
     {
-      Epi e = epi(tg::ADD, sc.dhp);
+      Epi e = eq.epi(tg::ADD, sc.dhp);
       e.v0 = sc.dhp;
-      small(rows(pick(dscore, sc.dscoreb), S), rows(W(rth::AM_W), S), B, R, S, e);
+      eq.small(E::rows(E::pick(dscore, sc.dscoreb), S), E::rows(W[rth::AM_W], S), B, R, S, e);
     }
     {
-      Epi e = epi(tg::DPREQ, dpre_q);
+      Epi e = eq.epi(tg::DPREQ, dpre_q);
       e.v0 = djoin;
       e.v1 = sc.qfeat;
-      e.emit = copy(sc.dpreqb);
-      small(rows(pick(dqatt, sc.dqattb), F), rows(W(rth::AQ_W), F), B, M, F, e);
+      e.emit = E::copy(sc.dpreqb);
+      eq.small(E::rows(E::pick(dqatt, sc.dqattb), F), E::rows(W[rth::AQ_W], F), B, M, F, e);
     }
     {
-      Epi e = epi(tg::ADD, sc.dh);
+      Epi e = eq.epi(tg::ADD, sc.dh);
       e.v0 = sc.dhp;
-      small(rows(pick(dpre_q, sc.dpreqb), M), rows(W(rth::H_W), M), B, R, M, e);
+      eq.small(E::rows(E::pick(dpre_q, sc.dpreqb), M), E::rows(W[rth::H_W], M), B, R, M, e);
     }
     // att_i w grad partials: ifeat^T dpre_add  [M, P] x [P, F]
-    big(kmaj(pick(ifeat, sc.xb), M), kmaj(pick(dpre_add, sc.ab), F), M, F, P,
-        epi(tg::STORE, sc.part6), chunk_rows);
+    eq.big(E::kmaj(E::pick(ifeat, sc.xb), M), E::kmaj(E::pick(dpre_add, sc.ab), F), M, F, P,
+           eq.epi(tg::STORE, sc.part6), chunk_rows);
     // dpre_i in place of ifeat
     {
-      Epi e = epi(tg::DPREI, ifeat);
+      Epi e = eq.epi(tg::DPREI, ifeat);
       e.v0 = sc.sc;
       e.v1 = djoin;
       e.rdiv = S;
-      e.emit = copy(sc.xb);
-      big(rows(pick(dpre_add, sc.ab), F), rows(W(rth::AI_W), F), P, M, F, e);
+      e.emit = E::copy(sc.xb);
+      eq.big(E::rows(E::pick(dpre_add, sc.ab), F), E::rows(W[rth::AI_W], F), P, M, F, e);
     }
     const float* dpre_i = ifeat;
     // i_embed w grad partials: feats_d^T dpre_i  [Dc, P] x [P, M]
-    big(kmaj(sc.fd, Dc), kmaj(pick(dpre_i, sc.xb), M), Dc, M, P, epi(tg::STORE, sc.part8),
-        chunk_rows);
+    eq.big(E::kmaj(sc.fd, Dc), E::kmaj(E::pick(dpre_i, sc.xb), M), Dc, M, P,
+           eq.epi(tg::STORE, sc.part8), chunk_rows);
     const int colsums = (P + COLSUM_ROWS - 1) / COLSUM_ROWS;
-    if (!dry(dim3((M + ew - 1) / ew, colsums), 0)) {
-      colsum_kernel<<<dim3((M + ew - 1) / ew, colsums), ew, 0, st>>>(P, M, dpre_i, sc.partb);
-      check(cudaGetLastError());
+    if (!eq.dry(dim3((M + ew - 1) / ew, colsums), 0)) {
+      colsum_kernel<<<dim3((M + ew - 1) / ew, colsums), ew, 0, eq.st>>>(P, M, dpre_i, sc.partb);
+      eq.check(cudaGetLastError());
     }
     ReduceArgs ra;
     const float* parts[NGRADS] = {sc.part8, sc.partb, sc.part6, dqatt, sc.aspart};
@@ -670,12 +449,12 @@ int bwd_launch(const void* q, const void* feats, const void* seed_p, const void*
       ra.parts[k] = nparts[k];
       total += gsize[k];
     }
-    if (!dry((total + ew - 1) / ew, 0)) {
-      reduce_kernel<<<(total + ew - 1) / ew, ew, 0, st>>>(ra);
-      check(cudaGetLastError());
+    if (!eq.dry((total + ew - 1) / ew, 0)) {
+      reduce_kernel<<<(total + ew - 1) / ew, ew, 0, eq.st>>>(ra);
+      eq.check(cudaGetLastError());
     }
   }
-  return (int)err;
+  return (int)eq.err;
 }
 
 }  // namespace
@@ -726,7 +505,7 @@ extern "C" int train_hops_bwd_describe(int B, int Q, int S, int Dc, int M, int F
   const void* weights[rth::NWEIGHTS] = {};
   void* emits[NEMITS] = {};
   void* grads[NGRADS] = {};
-  Rec rec{launches, cap, 0};
+  rth::Rec rec{launches, cap, 0};
   const int err =
       t_bytes == 4
           ? bwd_launch<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, weights,

@@ -1,4 +1,5 @@
-// The grid-level tile GEMM of the training backward (rau_train_hops_bwd.cu).
+// The grid-level tile GEMM of the training hop loop's two kernels
+// (rau_train_hops_fwd.cu, rau_train_hops_bwd.cu).
 //
 // out[m, n] = epi(m, n, sum_k A(m, k) B(k, n)) over a grid of output tiles,
 // one CTA a tile: blockIdx.x walks the n tiles (so neighbouring CTAs share
@@ -6,8 +7,8 @@
 // a split K (the weight grads: each chunk writes its own partial [M, N] to
 // out + z * M * N, which a later kernel sums in a fixed order; no atomics).
 //
-// Both operands are in T, the products' type (the backward writes a bf16
-// copy of each float32 operand where it produces it: rounding there is
+// Both operands are in T, the products' type (the kernels write a bf16
+// copy of each float32 operand where they produce it: rounding there is
 // JAX's astype before its dot).  Each is read with either index contiguous
 // (Operand: element (r, k) at p[r * ld + k] when kc, else p[k * ld + r]),
 // so a product with a transposed weight or a transposed workspace needs no
@@ -15,18 +16,21 @@
 // chunks along the contiguous index, in a ring of STAGES k-slices filled by
 // cp.async (zero-filled past the ragged edges); an operand whose rows are
 // not 16-byte aligned (a leading dimension of 196 bf16) is staged by plain
-// loads instead.  Two bodies, by T:
+// loads instead.  Two bodies, by the tile's configuration:
 //
-// - float: register-tiled FMAs (BM x BN a CTA, TM x TN a thread), each
-//   output summed in ascending k in one float32 chain: exact float32;
-// - __nv_bfloat16: mma.sync m16n8k16 on ldmatrix fragments (.trans for an
+// - FmaCfg: register-tiled FMAs (BM x BN a CTA, TM x TN a thread), each
+//   output summed in ascending k in one float32 chain: exact float32.  It
+//   also takes bf16 operands, staged by plain loads converted to float32:
+//   each product of two bf16 values is exact in float32, so its sums are
+//   those of a float32 product of the rounded operands;
+// - MmaCfg (bf16 operands): mma.sync m16n8k16 on ldmatrix fragments (.trans for an
 //   operand kept k-major) with float32 sums (mma_bf16.cuh), each k-slice's
 //   sums added to the running ones in float32: JAX's dot(bf16, bf16) -> f32
 //   up to the order of the sums.
 //
 // The epilogue is one of the Op codes below, a switch outside the K loop:
 // the biases, tanh, the bias order of JAX's sums, the masks and the
-// in-place scales of the backward's phases; with ``emit`` set it also
+// in-place scales of the phases; with ``emit`` set it also
 // writes the value in T (an emission, or the bf16 copy of an operand).
 
 #pragma once
@@ -34,6 +38,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "maskgen.cuh"
 #include "mma_bf16.cuh"
@@ -78,6 +84,10 @@ enum Op {
   ADD,        // out = v0 + acc
   DPREQ,      // out = (v0 + acc) (1 - v1^2)
   DPREI,      // out = (v0[m] v1[m / rdiv] + acc) (1 - out^2), in place
+  // the forward's, on a tile with fwd_ops alone: in every product's
+  // epilogue they cost the backward 4-5% (PERF.md)
+  MERGE_D,       // emit2 = mask((v0 + acc) + bias0) (MERGE without a cotangent)
+  SIGMOID_BIAS,  // out = sigmoid(acc + bias0)
 };
 
 struct Epi {
@@ -105,7 +115,13 @@ struct Problem {
   Epi e;
 };
 
-template <class T>
+__device__ __forceinline__ maskgen::Site merge_site(const Epi& e) {
+  return {maskgen::site_salt((uint32_t)e.seed[0], e.hop, maskgen::SITE_MERGE), e.thresh,
+          e.scale, e.mask_on != 0};
+}
+
+// kFwdOps: with the forward's ops
+template <class T, bool kFwdOps>
 __device__ __forceinline__ void epilogue(const Problem& pr, int m, int n, float acc) {
   const Epi& e = pr.e;
   const int N = pr.N;
@@ -113,6 +129,17 @@ __device__ __forceinline__ void epilogue(const Problem& pr, int m, int n, float 
   const size_t ov = (size_t)(m / e.rdiv) * N + n;
   const T* b0 = static_cast<const T*>(e.bias0);
   const T* b1 = static_cast<const T*>(e.bias1);
+  if constexpr (kFwdOps) {
+    if (e.op == MERGE_D) {
+      put(static_cast<T*>(e.emit2), o,
+          merge_site(e).apply((e.v0[o] + acc) + to_f(b0[n]), (uint32_t)o));
+      return;
+    }
+    if (e.op == SIGMOID_BIAS) {
+      e.out[o] = 1.0f / (1.0f + expf(-(acc + to_f(b0[n]))));
+      return;
+    }
+  }
   float v;
   switch (e.op) {
     case STORE:
@@ -137,9 +164,7 @@ __device__ __forceinline__ void epilogue(const Problem& pr, int m, int n, float 
       v = ((e.v0[o] + to_f(b0[n])) + acc) + to_f(b1[n]);
       break;
     case MERGE: {
-      const maskgen::Site mm{
-          maskgen::site_salt((uint32_t)e.seed[0], e.hop, maskgen::SITE_MERGE), e.thresh,
-          e.scale, e.mask_on != 0};
+      const maskgen::Site mm = merge_site(e);
       put(static_cast<T*>(e.emit2), o, mm.apply((e.v0[o] + acc) + to_f(b0[n]), (uint32_t)o));
       v = mm.apply(e.v1[o], (uint32_t)o);
       break;
@@ -165,10 +190,20 @@ __device__ __forceinline__ void epilogue(const Problem& pr, int m, int n, float 
 // ---------------------------------------------------------------------------
 // Staging: one operand's k-slice [ROWS x BK] into shared memory in its
 // global layout -- KC: [ROWS][BK + V], else [BK][ROWS + V] -- as 16-byte
-// chunks of V elements along the contiguous index, by the CTA's NT threads.
+// chunks of V elements of T along the contiguous index, by the CTA's NT
+// threads.  The operand is in S: T, or bf16 converted to a float T.
 // ---------------------------------------------------------------------------
 
-template <class T, int ROWS, int BK, bool KC, int NT>
+// an operand's element of S as T: as it is, or bf16 to float
+template <class T, class S>
+__device__ __forceinline__ T elem(S x) {
+  if constexpr (std::is_same<S, T>::value)
+    return x;
+  else
+    return to_f(x);
+}
+
+template <class T, int ROWS, int BK, bool KC, int NT, class S = T>
 struct Stage {
   static constexpr int V = 16 / sizeof(T);
   static constexpr int LD = KC ? BK + V : ROWS + V;  // elements a line
@@ -179,33 +214,33 @@ struct Stage {
 
   __device__ __forceinline__ static void load(T* dst, const Operand& o, int r0, int rmax,
                                               int k0, int kend) {
-    const T* src = static_cast<const T*>(o.p);
+    const S* src = static_cast<const S*>(o.p);
     for (int c = threadIdx.x; c < CHUNKS; c += NT) {
       const int line = c / CPL, q = (c % CPL) * V;
       const int li = KC ? r0 + line : k0 + line;    // the strided index
       const int ci = KC ? k0 + q : r0 + q;          // the contiguous one
       const int lmax = KC ? rmax : kend, cmax = KC ? kend : rmax;
       const int n = li < lmax ? max(0, min(V, cmax - ci)) : 0;
-      const T* s = n > 0 ? src + (size_t)li * o.ld + ci : src;
+      const S* s = n > 0 ? src + (size_t)li * o.ld + ci : src;
       T* d = dst + line * LD + q;
-      if (o.async) {
+      if (std::is_same<S, T>::value && o.async) {
         mma::cp_async16_n(mma::smem_u32(d), s, n * (int)sizeof(T));
       } else {
 #pragma unroll
-        for (int e = 0; e < V; ++e) d[e] = e < n ? s[e] : from_f<T>(0.f);
+        for (int e = 0; e < V; ++e) d[e] = e < n ? elem<T>(s[e]) : from_f<T>(0.f);
       }
     }
   }
 };
 
 // The K loop of one CTA of tile C: a ring of STAGES slices, each of A's then
-// B's Stage; body(a_slice, b_slice) multiplies one.
-template <class T, class C, bool AKC, bool BKC, class Body>
+// B's Stage (operands in S, kept in T); body(a_slice, b_slice) multiplies one.
+template <class T, class S, class C, bool AKC, bool BKC, class Body>
 __device__ __forceinline__ void k_loop(const Problem& pr, T* smem, int m0, int n0, int kbeg,
                                        int kend, Body body) {
   constexpr int BK = C::BK, STAGES = C::STAGES;
-  using SA = Stage<T, C::BM, BK, AKC, C::NT>;
-  using SB = Stage<T, C::BN, BK, BKC, C::NT>;
+  using SA = Stage<T, C::BM, BK, AKC, C::NT, S>;
+  using SB = Stage<T, C::BN, BK, BKC, C::NT, S>;
   constexpr int SLICE = SA::SIZE + SB::SIZE;
   const int nk = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
   auto issue = [&](int it) {
@@ -237,9 +272,11 @@ __device__ __forceinline__ void k_loop(const Problem& pr, T* smem, int m0, int n
 // Each output's sum runs in ascending k.
 // ---------------------------------------------------------------------------
 
-template <int BM_, int BN_, int BK_, int STAGES_, int TM_, int TN_>
+template <int BM_, int BN_, int BK_, int STAGES_, int TM_, int TN_, bool FWD_OPS = false>
 struct FmaCfg {
   static constexpr bool mma = false;
+  static constexpr bool fwd_ops = FWD_OPS;  // the epilogue takes MERGE_D and SIGMOID_BIAS
+  using Elem = float;  // the type kept in shared memory
   static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_, TM = TM_, TN = TN_;
   static constexpr int NT = (BM / TM) * (BN / TN);  // one thread a TM x TN block
 };
@@ -311,7 +348,8 @@ __device__ __forceinline__ void fma_frag1(float (&x)[T2], const float* s, int t,
   }
 }
 
-template <class C, bool AKC, bool BKC>
+// S: the operands' type, float or bf16
+template <class C, bool AKC, bool BKC, class S>
 __global__ void __launch_bounds__(C::NT, kFmaMinCtas<AKC, BKC>) gemm_fma(Problem pr) {
   constexpr int BM = C::BM, BN = C::BN, BK = C::BK, TM = C::TM, TN = C::TN;
   using SA = Stage<float, BM, BK, AKC, C::NT>;
@@ -327,7 +365,7 @@ __global__ void __launch_bounds__(C::NT, kFmaMinCtas<AKC, BKC>) gemm_fma(Problem
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  k_loop<float, C, AKC, BKC>(
+  k_loop<float, S, C, AKC, BKC>(
       pr, smem_f, m0, n0, kbeg, kend, [&](const float* as, const float* bs) {
         if constexpr (BKC) {
 #pragma unroll 4
@@ -361,7 +399,7 @@ __global__ void __launch_bounds__(C::NT, kFmaMinCtas<AKC, BKC>) gemm_fma(Problem
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + row_of<TN, BN>(tx, j, BKC);
-      if (m < pr.M && n < pr.N) epilogue<float>(pr, m, n, acc[i][j]);
+      if (m < pr.M && n < pr.N) epilogue<S, C::fwd_ops>(pr, m, n, acc[i][j]);
     }
   }
 }
@@ -382,6 +420,8 @@ __global__ void __launch_bounds__(C::NT, kFmaMinCtas<AKC, BKC>) gemm_fma(Problem
 template <int BM_, int BN_, int BK_, int STAGES_, int WM_, int WN_>
 struct MmaCfg {
   static constexpr bool mma = true;
+  static constexpr bool fwd_ops = false;
+  using Elem = __nv_bfloat16;  // the type kept in shared memory
   static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_, WM = WM_, WN = WN_;
   static constexpr int NT = WM * WN * 32;
   static constexpr int MI = BM / WM / 16, NJ = BN / WN / 8;
@@ -420,7 +460,7 @@ __global__ void __launch_bounds__(C::NT) gemm_mma(Problem pr) {
                                ((lane >> 3) & 1) * 8
                          : ((lane & 7) + (((lane >> 3) & 1) << 3)) * SB::LD + wn * WTN +
                                ((lane >> 4) << 3);
-  k_loop<bf16, C, AKC, BKC>(
+  k_loop<bf16, bf16, C, AKC, BKC>(
       pr, smem_h, m0, n0, kbeg, kend, [&](const bf16* as, const bf16* bs) {
         const uint32_t a_base = mma::smem_u32(as + a_lane);
         const uint32_t b_base = mma::smem_u32(bs + b_lane);
@@ -474,43 +514,48 @@ __global__ void __launch_bounds__(C::NT) gemm_mma(Problem pr) {
       for (int e = 0; e < 4; ++e) {
         const int m = m0 + wm * WTM + i * 16 + (lane >> 2) + (e >> 1) * 8;
         const int n = n0 + wn * WTN + j * 8 + (lane & 3) * 2 + (e & 1);
-        if (m < pr.M && n < pr.N) epilogue<bf16>(pr, m, n, acc[i][j][e]);
+        if (m < pr.M && n < pr.N) epilogue<bf16, C::fwd_ops>(pr, m, n, acc[i][j][e]);
       }
 }
 
 // the two tiles of each body: Big for the [B*S, *] products and the split-K
-// weight grads, Small (a deeper k-slice) for the [B, *] ones
+// weight grads, Small (a deeper k-slice) for the [B, *] ones; the forward's
+// [B, *] products take FmaSmallFwd, the same tile with the forward's ops
 using FmaBig = FmaCfg<128, 128, 16, 3, 8, 8>;
 using FmaSmall = FmaCfg<32, 32, 32, 3, 2, 2>;
+using FmaSmallFwd = FmaCfg<32, 32, 32, 3, 2, 2, true>;
 using MmaBig = MmaCfg<128, 128, 32, 3, 4, 4>;
 using MmaSmall = MmaCfg<32, 64, 64, 3, 2, 4>;
 
 // dynamic shared memory of tile C with these layouts, in bytes
-template <class T, class C, bool AKC, bool BKC>
+template <class C, bool AKC, bool BKC>
 constexpr int smem_bytes() {
+  using E = typename C::Elem;
   return C::STAGES *
-         (Stage<T, C::BM, C::BK, AKC, C::NT>::SIZE + Stage<T, C::BN, C::BK, BKC, C::NT>::SIZE) *
-         (int)sizeof(T);
+         (Stage<E, C::BM, C::BK, AKC, C::NT>::SIZE + Stage<E, C::BN, C::BK, BKC, C::NT>::SIZE) *
+         (int)sizeof(E);
 }
 
 // One product's launch with tile C: grid (N / BN, M / BM, K / kchunk), each
 // rounded up, and the dynamic shared memory of its operands' layouts.
-template <class T, class C>
+template <class C>
 void shape(const Problem& pr, dim3* grid, int* smem) {
   *grid = dim3((pr.N + C::BN - 1) / C::BN, (pr.M + C::BM - 1) / C::BM,
                (pr.K + pr.kchunk - 1) / pr.kchunk);
-  *smem = pr.a.kc ? (pr.b.kc ? smem_bytes<T, C, true, true>() : smem_bytes<T, C, true, false>())
-                  : (pr.b.kc ? smem_bytes<T, C, false, true>() : smem_bytes<T, C, false, false>());
+  *smem = pr.a.kc ? (pr.b.kc ? smem_bytes<C, true, true>() : smem_bytes<C, true, false>())
+                  : (pr.b.kc ? smem_bytes<C, false, true>() : smem_bytes<C, false, false>());
 }
 
+// T: the operands' type
 template <class T, class C, bool AKC, bool BKC>
 cudaError_t launch_as(const Problem& pr, dim3 grid, cudaStream_t st) {
-  constexpr int bytes = smem_bytes<T, C, AKC, BKC>();
+  static_assert(!C::mma || std::is_same<T, __nv_bfloat16>::value, "mma.sync takes bf16");
+  constexpr int bytes = smem_bytes<C, AKC, BKC>();
   auto kernel = [] {
     if constexpr (C::mma)
       return gemm_mma<C, AKC, BKC>;
     else
-      return gemm_fma<C, AKC, BKC>;
+      return gemm_fma<C, AKC, BKC, T>;
   }();
   // the opt-in above 48 KB is the current device's: set on every launch
   const cudaError_t e =
@@ -524,9 +569,10 @@ cudaError_t launch_as(const Problem& pr, dim3 grid, cudaStream_t st) {
 // the kernel by the operands' layouts.
 template <class T, class C>
 cudaError_t launch(const Problem& pr, cudaStream_t st) {
+  if (!C::fwd_ops && pr.e.op >= MERGE_D) return cudaErrorNotSupported;
   dim3 grid;
   int smem;
-  shape<T, C>(pr, &grid, &smem);
+  shape<C>(pr, &grid, &smem);
   if (pr.a.kc)
     return pr.b.kc ? launch_as<T, C, true, true>(pr, grid, st)
                    : launch_as<T, C, true, false>(pr, grid, st);

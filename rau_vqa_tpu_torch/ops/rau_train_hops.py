@@ -5,11 +5,13 @@ Counterpart of ``rau_vqa_tpu/ops/rau_train_hops.py``.  In training each hop
 re-embeds the image features under its own dropout masks, so the hop loop is
 where a train step spends its work.  ``rau_train_hops`` runs it fused:
 
-- forward: ``csrc/rau_train_hops_fwd.cu`` runs all hops in one launch and
-  saves only the LSTM carries entering each hop, ``c_all`` / ``h_all``
-  ``[H+1, B, R]``; masks come from the counter hash of ``ops/maskgen.py``;
+- forward: ``csrc/rau_train_hops_fwd.cu`` runs each hop as batch-wide
+  phases (``fwd_plan``) that one C entry enqueues, and saves only the LSTM
+  carries entering each hop, ``c_all`` / ``h_all`` ``[H+1, B, R]``; masks
+  come from the counter hash of ``ops/maskgen.py``;
 - backward (``fused_train_bwd="kernel"``): ``csrc/rau_train_hops_bwd.cu``
-  rematerializes each hop from the carries and the same masks, runs the
+  rematerializes each hop from the carries and the same masks (the
+  forward's own phases; in float32 in the same order of sums), runs the
   cotangent chain in reverse, sums the feats-path weight grads over the rows
   and hops and emits the small per-hop cotangents, as batch-wide phases
   (``bwd_plan``) that one C entry enqueues; the remaining weight grads and
@@ -30,7 +32,9 @@ float32; the elementwise math, the softmax, the attention pooling, the
 bias sums, the carries, the scores and the cotangents stay float32 on
 unrounded values.  The kernels take ``q``, ``feats`` and the weights in
 bf16 (their own instantiations, ``FWD_BF16_KERNEL`` / ``BWD_BF16_KERNEL``)
-and emit ``qfeat``, ``join`` and ``merge_d`` in bf16.  The products outside
+and emit ``qfeat``, ``join`` and ``merge_d`` in bf16; the forward sums every
+product in float32 FMA chains, the backward its bf16 ones on the tensor
+cores (``mma.sync``).  The products outside
 the kernels (``gmerge``, ``_outside_grads``) are float32 ``matmul``s on
 bf16-rounded operands, so their sums are float32 as JAX's are; each grad
 is then cast to its param's type and ``dq`` to ``q``'s, as JAX casts them
@@ -87,7 +91,8 @@ _SITE_FEATS, _SITE_Q, _SITE_MERGE = 0, 1, 2
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DROPOUT_ARGS = [ctypes.c_uint32, ctypes.c_float, _I, _P]
-_FWD_ARGS = [_P, _P, _P, ctypes.POINTER(_P)] + [_P] * 6 + [_I] * 9 + _DROPOUT_ARGS
+_FWD_ARGS = ([_P, _P, _P, ctypes.POINTER(_P)] + [_P] * 7 + [_I] * 9 + [ctypes.c_longlong]
+             + _DROPOUT_ARGS)
 _BWD_ARGS = ([_P] * 6 + [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), ctypes.POINTER(_P), _P]
              + [_I] * 9 + [ctypes.c_longlong] + _DROPOUT_ARGS)
 # one instantiation of each kernel per product type, each counted apart
@@ -420,13 +425,14 @@ def _outside_grads(cfg: ModelConfig, mp, q, seed, h_all, attprob, g_scores, em):
 
 
 # ---------------------------------------------------------------------------
-# The backward kernel's plan
+# The kernels' plans
 # ---------------------------------------------------------------------------
 
-# the tile GEMM's tiles (BM, BN, BK) by the products' type
-# (csrc/tile_gemm.cuh): "big" for the [B*S, *] products and the split
-# weight grads, "small" for the [B, *] ones; each a ring of GEMM_STAGES
-# k-slices in shared memory
+# the tile GEMM's tiles (BM, BN, BK) by the body (csrc/tile_gemm.cuh): float32
+# the FMA body, bfloat16 mma.sync; "big" for the [B*S, *] products and the
+# split weight grads, "small" for the [B, *] ones; each a ring of
+# GEMM_STAGES k-slices in shared memory, kept in float32 by the FMA body
+# (whichever the operands' type) and in bf16 by mma.sync
 GEMM_TILES = {torch.float32: {"big": (128, 128, 16), "small": (32, 32, 32)},
               torch.bfloat16: {"big": (128, 128, 32), "small": (32, 64, 64)}}
 GEMM_STAGES = 3
@@ -448,12 +454,12 @@ def gemm_smem(dtype: torch.dtype, size: str) -> int:
 
 
 @dataclass(frozen=True)
-class BwdPhase:
-    """One launch of a hop: a tile GEMM ``out[M, N] = sum_K a b`` (``tile``
-    (BM, BN) set) over ``grid = (n tiles, m tiles, K chunks)``, or another
-    kernel (``tile`` None) over ``grid``; ``smem`` its shared memory in
-    bytes.  ``split`` marks the weight grads, whose K (the B*S rows) is cut
-    into the plan's chunks."""
+class Phase:
+    """One launch of a hop of either kernel: a tile GEMM ``out[M, N] =
+    sum_K a b`` (``tile`` (BM, BN) set) over ``grid = (n tiles, m tiles, K
+    chunks)``, or another kernel (``tile`` None) over ``grid``; ``smem`` its
+    shared memory in bytes.  ``split`` marks the backward's weight grads,
+    whose K (the B*S rows) is cut into the plan's chunks."""
     name: str
     M: int
     N: int
@@ -474,7 +480,7 @@ class BwdPlan:
     The scratch buffer is the launcher's to size (``launcher_plan``), which
     also reports the grids and shared memory that the card's checks hold
     these phases to."""
-    phases: Tuple[BwdPhase, ...]
+    phases: Tuple[Phase, ...]
     chunk_rows: int
     chunks: int
     work_floats: int
@@ -484,45 +490,60 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def bwd_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int, n_sm: int,
-             dtype: torch.dtype = torch.float32) -> BwdPlan:
-    """The phases, tiles, split-K chunks and workspace of the backward
-    kernel at these widths, for products in ``dtype`` on a card with
-    ``n_sm`` SMs.  The weight grads' B*S rows split into chunks such that
-    the i_embed w grad fills about two CTAs a SM.  Raises ``ValueError``
-    for shapes the kernel does not take."""
+@dataclass(frozen=True)
+class FwdPlan:
+    """The forward kernel's launches for one shape: ``phases`` of one hop in
+    the order the C entry enqueues them (every hop runs the same ones), and
+    ``work_floats``, the float32 workspace the wrapper allocates (ifeat and
+    addfeat of every row).  The scratch buffer is the launcher's to size
+    (``fwd_launcher_plan``), which also reports the grids and shared memory
+    that the card's checks hold these phases to."""
+    phases: Tuple[Phase, ...]
+    work_floats: int
+
+
+def _check_dims(name: str, dtype: torch.dtype, dims: Dict[str, int], row_floats: int) -> None:
+    """Raise ``ValueError`` for widths the kernel ``name`` cannot run: a
+    product type other than float32 or bf16, a width below 1, offsets past
+    32 bits, or ``row_floats`` floats a row kernel keeps in shared memory
+    beyond ROWS_SMEM_LIMIT."""
     if dtype not in GEMM_TILES:
-        raise ValueError(f"train_hops_bwd: products in float32 or bfloat16, got {dtype}")
-    dims = dict(B=B, S=S, Dc=Dc, M=M, F=F, R=R, Q=Q, n_sm=n_sm)
+        raise ValueError(f"{name}: products in float32 or bfloat16, got {dtype}")
     bad = [k for k, v in dims.items() if v < 1]
     if bad:
-        raise ValueError(f"train_hops_bwd: {bad} must be at least 1, got {dims}")
-    P = B * S
-    if P * max(Dc, M, F) >= 2 ** 31 or B * max(Q, 4 * R) >= 2 ** 31:
-        raise ValueError(f"train_hops_bwd: batch {B} too large for 32-bit offsets")
-    if (M + S) * 4 > ROWS_SMEM_LIMIT:
-        raise ValueError(f"train_hops_bwd: the row kernels hold M + S = {M + S} floats "
+        raise ValueError(f"{name}: {bad} must be at least 1, got {dims}")
+    B, S = dims["B"], dims["S"]
+    if (B * S * max(dims["Dc"], dims["M"], dims["F"]) >= 2 ** 31
+            or B * max(dims["Q"], 4 * dims["R"]) >= 2 ** 31):
+        raise ValueError(f"{name}: batch {B} too large for 32-bit offsets")
+    if row_floats * 4 > ROWS_SMEM_LIMIT:
+        raise ValueError(f"{name}: the row kernels hold {row_floats} floats "
                          f"in shared memory, at most {ROWS_SMEM_LIMIT // 4}")
-    tiles = GEMM_TILES[dtype]
-    big_m, big_n, _ = tiles["big"]
-    target = _cdiv(2 * n_sm, _cdiv(Dc, big_m) * _cdiv(M, big_n))
-    chunk_rows = _cdiv(_cdiv(P, target), KSTEP) * KSTEP
-    chunks = _cdiv(P, chunk_rows)
-    if chunks > 65535:
-        raise ValueError(f"train_hops_bwd: {chunks} chunks exceed the grid's 65535")
 
+
+def _phase_makers(body: torch.dtype, chunks: int = 1):
+    """(gemm, other): the Phase of a tile GEMM ``gemm(name, M, N, K, size,
+    split=False)`` on ``body``'s tiles (the GEMM_TILES key) and of another
+    kernel ``other(name, grid, shared=0)``."""
     def gemm(name, m, n, k, size, split=False):
-        bm, bn, _ = tiles[size]
+        bm, bn, _ = GEMM_TILES[body][size]
         z = chunks if split else 1
-        return BwdPhase(name, m, n, k, (bm, bn), (_cdiv(n, bn), _cdiv(m, bm), z),
-                        gemm_smem(dtype, size), split)
+        return Phase(name, m, n, k, (bm, bn), (_cdiv(n, bn), _cdiv(m, bm), z),
+                     gemm_smem(body, size), split)
 
     def other(name, grid, shared=0):
-        return BwdPhase(name, 0, 0, 0, None, grid, shared)
+        return Phase(name, 0, 0, 0, None, grid, shared)
 
+    return gemm, other
+
+
+def _hop_forward_phases(B, S, Dc, M, F, R, Q, dtype, gemm, other):
+    """One hop's forward phases, prep to merge, as both kernels enqueue them
+    (csrc/rau_train_hops_phases.cuh)."""
+    P = B * S
     ew = EW_THREADS
     hb = 0 if dtype == torch.float32 else B * R   # h's bf16 copy
-    phases = (
+    return (
         other("prep", (min(_cdiv(B * Q + P * Dc + hb, ew), 4096), 1, 1)),
         gemm("q_d Wq", B, M, Q, "small"),
         gemm("h Wmem", B, S, R, "small"),
@@ -536,6 +557,50 @@ def bwd_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int, n_sm: int,
         gemm("gates", B, 4 * R, R, "small"),
         other("cell", (_cdiv(B * R, ew), 1, 1)),
         gemm("merge", B, M, R, "small"),
+    )
+
+
+def fwd_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int, A: int, n_sm: int,
+             dtype: torch.dtype = torch.float32) -> FwdPlan:
+    """The phases, tiles and workspace of the forward kernel at these
+    widths, for products in ``dtype`` on a card with ``n_sm`` SMs (its
+    tiles do not depend on it; the backward's split does): the hop's
+    forward phases, then the classifier ([B, A], K = M) and do_pred ([B,
+    1], K = M, a sigmoid epilogue), each a small tile GEMM over merge_d.
+    Every product takes the FMA body's tiles in both types: each output
+    one float32 chain in ascending k, exact products of the rounded
+    operands.  On mma.sync the tensor cores' truncated sums put the bf16
+    forward beyond its one-hop bars against the plain version (PERF.md).
+    Raises ``ValueError`` for shapes the kernel does not take."""
+    _check_dims("train_hops_fwd", dtype, dict(B=B, S=S, Dc=Dc, M=M, F=F, R=R, Q=Q, A=A,
+                                              n_sm=n_sm), S)
+    gemm, other = _phase_makers(torch.float32)
+    phases = _hop_forward_phases(B, S, Dc, M, F, R, Q, dtype, gemm, other) + (
+        gemm("classifier", B, A, M, "small"),
+        gemm("do_pred", B, 1, M, "small"),
+    )
+    return FwdPlan(phases, B * S * (M + F))
+
+
+def bwd_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int, n_sm: int,
+             dtype: torch.dtype = torch.float32) -> BwdPlan:
+    """The phases, tiles, split-K chunks and workspace of the backward
+    kernel at these widths, for products in ``dtype`` on a card with
+    ``n_sm`` SMs.  The weight grads' B*S rows split into chunks such that
+    the i_embed w grad fills about two CTAs a SM.  Raises ``ValueError``
+    for shapes the kernel does not take."""
+    _check_dims("train_hops_bwd", dtype, dict(B=B, S=S, Dc=Dc, M=M, F=F, R=R, Q=Q,
+                                              n_sm=n_sm), M + S)
+    P = B * S
+    big_m, big_n, _ = GEMM_TILES[dtype]["big"]
+    target = _cdiv(2 * n_sm, _cdiv(Dc, big_m) * _cdiv(M, big_n))
+    chunk_rows = _cdiv(_cdiv(P, target), KSTEP) * KSTEP
+    chunks = _cdiv(P, chunk_rows)
+    if chunks > 65535:
+        raise ValueError(f"train_hops_bwd: {chunks} chunks exceed the grid's 65535")
+    gemm, other = _phase_makers(dtype, chunks)
+    ew = EW_THREADS
+    phases = _hop_forward_phases(B, S, Dc, M, F, R, Q, dtype, gemm, other) + (
         gemm("dh_new", B, R, M, "small"),
         other("cell_bwd", (_cdiv(B * R, ew), 1, 1)),
         gemm("djoin", B, M, 4 * R, "small"),
@@ -612,10 +677,25 @@ def train_hops_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed):
     on ``q``'s device.  CPU tensors run ``train_hops_fwd_reference``."""
     if not _on_cuda("train_hops_fwd", q):
         return train_hops_fwd_reference(mp, cfg, q, feats, seed)
+    dd = dot_dtype(cfg)
+    widths = (q.shape[0], cfg.cnn_spat, cfg.cnn_dim, cfg.multfeat_dim, cfg.attfeat_dim,
+              cfg.att_state_dim, cfg.rnnout_dim, cfg.answer_size)
+    fwd_plan(*widths, _sm_count(q.device.index or 0), dd)
+    scratch_floats, _ = fwd_launcher_plan(*widths, dd)
+    if scratch_floats < 0:
+        raise ValueError(f"train_hops_fwd: the launcher cannot run batch {widths[0]} "
+                         f"at these widths")
+    return _launch_fwd(mp, cfg, q, feats, seed, scratch_floats)
+
+
+def _launch_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed, scratch_floats: int):
+    """``train_hops_fwd`` on CUDA tensors with this much scratch; raises
+    where the launcher refuses it."""
     d = _check_cuda("train_hops_fwd", cfg, mp, q, feats, seed)
     B, S, M, F, R, A, H = (d[k] for k in "BSMFRAH")
     dev = q.device
     work = torch.empty(B * S * (M + F), device=dev, dtype=torch.float32)
+    scratch = torch.empty(max(scratch_floats, 0), device=dev, dtype=torch.float32)
     scores = torch.empty(H, B, A, device=dev, dtype=torch.float32)
     do_pred = torch.empty(H, B, device=dev, dtype=torch.float32)
     attprob = torch.empty(H, B, S, device=dev, dtype=torch.float32)
@@ -625,8 +705,8 @@ def train_hops_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed):
     _KERNELS[dot_dtype(cfg)][0].launch(
         q.data_ptr(), feats.data_ptr(), seed.data_ptr(), _weight_ptrs(mp),
         work.data_ptr(), scores.data_ptr(), do_pred.data_ptr(), attprob.data_ptr(),
-        c_all.data_ptr(), h_all.data_ptr(), B, d["Q"], S, d["Dc"], M, F, R, A, H,
-        *_dropout_args(cfg), stream)
+        c_all.data_ptr(), h_all.data_ptr(), scratch.data_ptr(), B, d["Q"], S, d["Dc"], M,
+        F, R, A, H, scratch_floats, *_dropout_args(cfg), stream)
     return scores, do_pred, attprob, c_all, h_all
 
 
@@ -687,22 +767,43 @@ def _launch_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all, gmerge
     return em, gw_in
 
 
-@functools.lru_cache(maxsize=64)
-def launcher_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int,
-                  dtype: torch.dtype, chunk_rows: int):
-    """The built launcher's own account of one hop at these shapes
-    (``train_hops_bwd_describe``, a dry run of its entry): (the scratch
-    floats it carves, -1 where it cannot run them; each launch's (grid x,
-    y, z, dynamic shared memory bytes), in the order it enqueues them)."""
+def _describe(kernel: Kernel, fn: str, ints) -> Tuple[int, Tuple]:
+    """A dry run of a C entry (``fn``, its ints, then the launches' buffer):
+    (the scratch floats it carves, -1 where it cannot run them; each
+    launch's (grid x, y, z, dynamic shared memory bytes), in the order it
+    enqueues them)."""
     cap = 64
     out = (_I * (4 * cap))()
     n = _I(0)
-    describe = BWD_KERNEL.function("train_hops_bwd_describe",
-                                   [_I] * 9 + [ctypes.POINTER(_I), _I, ctypes.POINTER(_I)])
-    scratch = describe(B, Q, S, Dc, M, F, R, 4 if dtype == torch.float32 else 2, chunk_rows,
-                       out, cap, ctypes.byref(n))
-    launches = tuple(tuple(out[4 * i:4 * i + 4]) for i in range(min(n.value, cap)))
-    return scratch, launches
+    describe = kernel.function(fn, [_I] * len(ints) + [ctypes.POINTER(_I), _I,
+                                                       ctypes.POINTER(_I)])
+    scratch = describe(*ints, out, cap, ctypes.byref(n))
+    return scratch, tuple(tuple(out[4 * i:4 * i + 4]) for i in range(min(n.value, cap)))
+
+
+def _t_bytes(dtype: torch.dtype) -> int:
+    return 4 if dtype == torch.float32 else 2
+
+
+@functools.lru_cache(maxsize=64)
+def fwd_launcher_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int, A: int,
+                      dtype: torch.dtype):
+    """The built forward launcher's own account of one hop at these shapes
+    (``train_hops_fwd_describe``, a dry run of its entry): (the scratch
+    floats it carves, -1 where it cannot run them; each launch's (grid x,
+    y, z, dynamic shared memory bytes), in the order it enqueues them)."""
+    return _describe(FWD_KERNEL, "train_hops_fwd_describe",
+                     (B, Q, S, Dc, M, F, R, A, _t_bytes(dtype)))
+
+
+@functools.lru_cache(maxsize=64)
+def launcher_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int,
+                  dtype: torch.dtype, chunk_rows: int):
+    """The built backward launcher's own account of one hop at these shapes
+    (``train_hops_bwd_describe``, a dry run of its entry), as
+    ``fwd_launcher_plan``."""
+    return _describe(BWD_KERNEL, "train_hops_bwd_describe",
+                     (B, Q, S, Dc, M, F, R, _t_bytes(dtype), chunk_rows))
 
 
 # ---------------------------------------------------------------------------

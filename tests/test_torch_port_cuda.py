@@ -12,7 +12,9 @@ the encoder also at lengths 0, T and T + 1, on two calls (the same bits),
 at 1 layer of 256, and with a grid that cannot be co-resident (it raises).
 Training kernels (float32): the mask hash bit for bit; the forward at rtol
 1e-4 / atol 1e-4 over 8 recurrent hops of float32 sums taken in another
-order; the backward's grads at a norm-relative error of 1e-3 per leaf, and
+order (two calls bit-equal in both types; a scratch buffer the launcher
+cannot run raises; ``fwd_plan``'s phases are the launcher's own, by a dry
+run of it); the backward's grads at a norm-relative error of 1e-3 per leaf, and
 its emissions and feats-path grads against its plain version at B in {1,
 19, 37, 100} (two calls bit-equal; a plan the launcher cannot run raises;
 ``bwd_plan``'s phases are the launcher's own, by a dry run of it).
@@ -264,6 +266,61 @@ def test_train_hops_fwd_matches_plain(cuda_device, B):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+_FWD_WIDTHS = (CFG.cnn_spat, CFG.cnn_dim, CFG.multfeat_dim, CFG.attfeat_dim,
+               CFG.att_state_dim, CFG.rnnout_dim, CFG.answer_size)
+
+
+def _fwd_call(B, dev, dtype, seed=3):
+    """The forward's inputs at ours_ms widths in ``dtype``: (mp, cfg, q,
+    feats, seed)."""
+    cfg = dataclasses.replace(TRAIN_CFG, compute_dtype="float32" if dtype == torch.float32
+                              else "bfloat16")
+    mp, q, feats = _train_inputs(B, dev, seed=seed)
+    mp = map_tree(lambda w: w.to(dtype), mp)
+    s = torch.tensor([seed], dtype=torch.int32, device=dev)
+    return mp, cfg, q.to(dtype), feats.to(dtype), s
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_hops_fwd_is_deterministic_and_counted(cuda_device, dtype):
+    """Two calls of the forward on the same inputs give the same bits; one
+    launch of its instantiation counted a call."""
+    args = _fwd_call(100, cuda_device, dtype)
+    kernel = rau_train_hops._KERNELS[dtype][0]
+    before = kernel.launches
+    got = rau_train_hops.train_hops_fwd(*args)
+    again = rau_train_hops.train_hops_fwd(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert all(torch.isfinite(g).all() for g in got)
+
+
+@pytest.mark.parametrize("short", [64, None], ids=["scratch_short", "scratch_none"])
+def test_train_hops_fwd_raises_for_a_plan_it_cannot_run(cuda_device, short):
+    """The C entry refuses a scratch buffer shorter than it carves; nothing
+    is counted."""
+    args = _fwd_call(19, cuda_device, torch.float32)
+    scratch, _ = rau_train_hops.fwd_launcher_plan(19, *_FWD_WIDTHS, torch.float32)
+    before = rau_train_hops.FWD_KERNEL.launches
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        rau_train_hops._launch_fwd(*args, scratch - short if short else 0)
+    assert rau_train_hops.FWD_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 19, 37, 100])
+def test_fwd_plan_is_the_launchers(cuda_device, B, dtype):
+    """fwd_plan's phases are the launches the built C entry makes (a dry
+    run of it): the same count, the same grids, shared memory within the
+    plan's."""
+    plan = rau_train_hops.fwd_plan(B, *_FWD_WIDTHS, _n_sm(), dtype)
+    scratch, launches = rau_train_hops.fwd_launcher_plan(B, *_FWD_WIDTHS, dtype)
+    assert scratch > 0
+    assert [l[:3] for l in launches] == [ph.grid for ph in plan.phases]
+    assert all(l[3] <= ph.smem for l, ph in zip(launches, plan.phases))
 
 
 def test_train_hops_bwd_matches_autograd(cuda_device):

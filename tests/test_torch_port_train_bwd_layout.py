@@ -9,7 +9,9 @@ a block's shared memory.  On the card, tests/test_torch_port_cuda.py and
 chip_smoke.py hold these phases to the grids the built launcher reports.
 
 ``phase_backward`` below runs the kernel's phases in plain PyTorch, in the
-plan's order, with the kernel's in-place overwrites (dpre_add over addfeat,
+plan's order (the remat by tests/test_torch_port_train_fwd_layout.py's
+``forward_phase``, as the kernel runs the forward's own phases), with the
+kernel's in-place overwrites (dpre_add over addfeat,
 dpre_i over ifeat), its feats_d and q_d buffers in the product type, its
 per-row att_score w partials and its split-K chunks summed in a fixed
 order.  It is held to ``train_hops_bwd_reference`` (the kernel's plain
@@ -39,6 +41,7 @@ from rau_vqa_tpu_torch import config as tconfig
 from rau_vqa_tpu_torch.config import get_preset
 from rau_vqa_tpu_torch.convert import map_tree, params_from_jax
 from rau_vqa_tpu_torch.ops import rau_train_hops as tth
+from tests.test_torch_port_train_fwd_layout import FORWARD_PHASES, HopInputs, forward_phase
 
 JCFG = JaxModelConfig(
     vocab_size=50, answer_size=17, seq_len=9, embed_dim=8, rnn_size=16,
@@ -193,9 +196,8 @@ def phase_backward(mp, cfg, q, feats, seed, c_all, h_all, gmerge, chunk_rows=Non
     plan = tth.bwd_plan(Bq, S, Dc, M, F, R, Q, 4, dd)
     chunk_rows = chunk_rows or plan.chunk_rows
     lp = mp["attlstm"]["layers"][0]
-    W = {"q": mp["q_proj"], "h": mp["h_proj"], "i": mp["i_embed"], "aq": mp["att_q"],
-         "ai": mp["att_i"], "as": mp["att_score"], "am": mp["att_mem"],
-         "ap": mp["attprob_proj"], "mg": mp["merge"]}
+    W = {"h": mp["h_proj"], "aq": mp["att_q"], "ai": mp["att_i"], "as": mp["att_score"],
+         "am": mp["att_mem"], "ap": mp["attprob_proj"], "mg": mp["merge"]}
 
     def w(k, part="w"):
         return W[k][part].float()
@@ -229,55 +231,23 @@ def phase_backward(mp, cfg, q, feats, seed, c_all, h_all, gmerge, chunk_rows=Non
 
     shapes = ((Bq, S, Dc), (Bq, Q), (Bq, M))
     for hop in reversed(range(H)):
-        fm, qm, mmask = tth._masks(cfg, shapes, seed, hop)
-        c, h = c_all[hop], h_all[hop]
+        masks = tth._masks(cfg, shapes, seed, hop)
+        mmask = masks[2]
+        c = c_all[hop]
+        x = HopInputs(mp, dd, q, feats, c, h_all[hop], masks, ifeat, addfeat)
         v = {}
 
         def run(name):
-            if name == "prep":
-                v["qd"] = r(q.float() * qm if qm is not None else q.float())
-                fd = feats.float() * fm if fm is not None else feats.float()
-                v["fd"] = r(fd.reshape(P, Dc))
-            elif name == "q_d Wq":
-                v["tmp"] = mm(v["qd"], w("q"))
-            elif name == "h Wmem":
-                v["msc"] = mm(h, w("am"))
-            elif name == "qfeat":
-                v["qfeat"] = torch.tanh(((v["tmp"] + w("q", "b")) + mm(h, w("h")))
-                                        + w("h", "b"))
-                em["qfeat"][hop] = v["qfeat"].to(dd)
-            elif name == "qatt":
-                v["qatt"] = mm(v["qfeat"], w("aq")) + w("aq", "b")
-            elif name == "ifeat":
-                ifeat[:] = torch.tanh(mm(v["fd"], w("i")) + w("i", "b"))
-            elif name == "addfeat":
-                addfeat[:] = torch.tanh((mm(ifeat, w("ai")) + w("ai", "b"))
-                                        + v["qatt"].repeat_interleave(S, 0))
-            elif name == "rows_fwd":
-                score = (r(addfeat) @ w("as")).reshape(Bq, S)
-                score = ((score + w("as", "b")[0]) + v["msc"]) + w("am", "b")
-                v["sc"] = torch.softmax(score, dim=1)
-                v["pool"] = (ifeat.reshape(Bq, S, M) * v["sc"][:, :, None]).sum(1)
-            elif name == "join":
-                v["join"] = ((v["qfeat"] + v["pool"]) + mm(v["sc"], w("ap"))) + w("ap", "b")
-                em["join"][hop] = v["join"].to(dd)
-            elif name == "join Wli":
-                v["tmp"] = mm(v["join"], lp["wi"].float())
-            elif name == "gates":
-                v["gates"] = ((v["tmp"] + lp["bi"].float()) + mm(h, lp["wh"].float())) \
-                    + lp["bh"].float()
-            elif name == "cell":
-                g = v["gates"]
-                ig, gt = torch.sigmoid(g[:, :R]), torch.tanh(g[:, R:2 * R])
-                fg, og = torch.sigmoid(g[:, 2 * R:3 * R]), torch.sigmoid(g[:, 3 * R:])
-                v["act"] = (ig, gt, fg, og)
-                v["cn"] = fg * c + ig * gt
-                v["hn"] = og * torch.tanh(v["cn"])
-            elif name == "merge":
-                pre = (v["join"] + mm(v["hn"], w("mg"))) + w("mg", "b")
-                em["merge_d"][hop] = (pre * mmask if mmask is not None else pre).to(dd)
-                g = gmerge[hop]
-                em["dmerge_pre"][hop] = g * mmask if mmask is not None else g
+            if name in FORWARD_PHASES:
+                forward_phase(name, v, x)
+                if name == "qfeat":
+                    em["qfeat"][hop] = v["qfeat_t"]
+                elif name == "join":
+                    em["join"][hop] = v["join_t"]
+                elif name == "merge":
+                    em["merge_d"][hop] = v["merge_t"]
+                    g = gmerge[hop]
+                    em["dmerge_pre"][hop] = g * mmask if mmask is not None else g
             elif name == "dh_new":
                 v["dhn"] = dh + mm(em["dmerge_pre"][hop], w("mg").T)
             elif name == "cell_bwd":

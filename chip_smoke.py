@@ -15,12 +15,16 @@ Phases, in order; any failure exits non-zero:
               size the run uses, and the training kernels' ``fwd_plan`` and
               ``bwd_plan`` (kernels a hop, K chunks, scratch, shared
               memory), their grids held to the launches of a dry run of
-              each built C entry at B in {1, 19, 37, 100}, in both types;
+              each built C entry at B in {1, 19, 37, 100}, in both types,
+              and the hop kernel's ``hops_plan`` held likewise to its C
+              entry's dry run at B in {1, 4, 16, 19, 37, 83, 512};
 3. kernels  — each kernel against its plain version at ``ours_ms`` widths:
-              the encoder at B in {1, 19, 512} (rows of length 0 and T + 1
+              the encoder at B in {1, 19, 83, 512} (rows of length 0 and T + 1
               give zeros; a second call gives the same bits) and the hop
-              kernel at B in {19, 512}, at the bars of
-              tests/test_pallas_rau.py; the device mask hash bit for bit; the
+              kernel at B in {1, 19, 83, 512}, at the bars of
+              tests/test_pallas_rau.py (each reading logged beside its bar;
+              a second call gives the same bits); the device mask hash bit
+              for bit; the
               training hop loop's forward (rtol / atol 1e-4) and backward
               (grads norm-relative 1e-3 per leaf), each twice on the same
               inputs for the same bits, at B in {19, 100}, the bf16
@@ -81,7 +85,10 @@ Phases, in order; any failure exits non-zero:
               the train step and its parts at B=100 (fused float32, fused
               bf16, the unfused preset and it in bf16, each with its idle
               share; the bf16
-              kernels beside their plain versions), and ``answer_pixels``
+              kernels beside their plain versions), the hop kernel at B in
+              {1, 4, 16, 83, 512} with the host's enqueue time of a call and
+              its device kernels a call (the profiler's count, held to its
+              plan's 2 + 11 a hop), and ``answer_pixels``
               at B=120 with its parts: each stage kernel beside its plain
               version, the unfused cuDNN stage and its bound, with its plan
               (tile, ring, shared memory, registers) and the weight bytes its
@@ -94,8 +101,9 @@ Phases, in order; any failure exits non-zero:
               in both types; the forward's peak device memory a call.
 
 Prints each number beside the card's name and power limit, a ``kernels``
-JSON line (the training kernels' entries also give their device kernels a
-call, as recorded), and as the last line ``{"ok": true, "device": {...}}``.  Weights
+JSON line (the hop kernel's and the training kernels' entries also give
+their device kernels a call, as recorded), and as the last line
+``{"ok": true, "device": {...}}``.  Weights
 are random, from the seed.  Imports nothing of JAX or the JAX package.
 """
 
@@ -337,10 +345,11 @@ def train_bwd_bound(cfg, mp, B, dtype=torch.float32):
 
 
 def phase_kernel_label(line: str) -> str:
-    """A short name for a phase kernel of the training forward or backward
-    from the mangled name in ptxas's "Compiling entry" line: the tile GEMM's body,
-    tile (BM x BN x BK, ring depth) and operand layouts (k: k-contiguous,
-    r: row-contiguous), or the other kernel and its type."""
+    """A short name for a phase kernel of the training forward or backward,
+    or of the serving hop loop, from the mangled name in ptxas's "Compiling
+    entry" line: the tile GEMM's body, tile (BM x BN x BK, ring depth) and
+    operand layouts (k: k-contiguous, r: row-contiguous), or the other
+    kernel and its type."""
     m = re.search(r"gemm_(fma|mma)INS_\d+(?:Fma|Mma)CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"
                   r".*?ELb([01])ELb([01])E", line)
     if m:
@@ -348,7 +357,8 @@ def phase_kernel_label(line: str) -> str:
         operands = " bf16 operands" if body == "fma" and "nv_bfloat16" in line else ""
         return (f"gemm_{body} {bm}x{bn}x{bk} ring {st} A {'k' if a == '1' else 'r'} "
                 f"B {'k' if b == '1' else 'r'}{operands}")
-    k = re.search(r"(prep|rows_fwd|softmax_bwd|dpre_add|cell_bwd|cell|colsum|reduce)_kernel", line)
+    k = re.search(r"(prep|rows_fwd|rows_eval|softmax_bwd|dpre_add|cell_bwd|cell|colsum|reduce)"
+                  r"_kernel", line)
     kind = " bf16" if "nv_bfloat16" in line else (" float32" if "IfE" in line else "")
     return (k.group(1) if k else "kernel") + kind
 
@@ -617,7 +627,7 @@ def main() -> int:
                 inst = tuple(int(v) for v in m.groups()) if m else None
                 what = (f" tile {inst[0]}x{inst[1]} nb {inst[2]} ring {inst[3]}" if m
                         else " float32")
-            if name.startswith("rau_train_hops") and "Compiling entry" in line:
+            if name.startswith(("rau_train_hops", "rau_hops")) and "Compiling entry" in line:
                 what = " " + phase_kernel_label(line)
             if name == "fused_resnet" and inst and "registers" in line:
                 stage_regs[inst] = int(re.search(r"Used (\d+) registers", line).group(1))
@@ -664,6 +674,21 @@ def main() -> int:
             f"scratch {scratch * 4 / 1e6:.1f} MB; the launcher's dry run makes the plan's "
             f"grids at B in 1, 19, 37, 100, with shared memory up to "
             f"{max(x[3] for x in launches)} B")
+    # the hop kernel's plan against its built C entry's dry run of a one-hop call
+    hops_widths = (cfg.rnnout_dim, cfg.cnn_spat, cfg.multfeat_dim, cfg.attfeat_dim,
+                   cfg.att_rnn_size, cfg.answer_size)
+    for B in (1, 4, 16, 19, 37, 83, 512):
+        plan = rau_hops.hops_plan(B, cfg)
+        scratch, launches = rau_hops.hops_launcher_plan(B, *hops_widths)
+        grids = [ph.grid for ph in plan.phases]
+        if scratch <= 0 or [x[:3] for x in launches] != grids or any(
+                x[3] > ph.smem for x, ph in zip(launches, plan.phases)):
+            raise SystemExit(f"hops_plan B={B}: the launcher runs {launches} with "
+                             f"{scratch} scratch floats, the plan {grids}")
+        log(f"rau_hops plan B={B}: {plan.kernels(cfg.n_hops)} kernels a call ({len(plan.setup)} "
+            f"+ {len(plan.hop)} a hop, {sum(1 for p in plan.phases if p.tile)} tile GEMMs in "
+            f"a one-hop call), scratch {scratch * 4 / 1e6:.2f} MB, shared memory up to "
+            f"{max(x[3] for x in launches)} B; the launcher's dry run makes the plan's grids")
     params = init_params(cfg, torch.Generator().manual_seed(args.seed), dev)
     enc = lstm_encoder.pack_encoder_weights(params["rnn"])
     hw = rau_hops.pack_hop_weights(params["mult"])
@@ -671,7 +696,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     err = {"lstm_encode": 0.0, "rau_hops": 0.0}
-    for B in (1, 19, 512):
+    for B in (1, 19, 83, 512):
         tokens, lengths, feats = make_batch(cfg, B, cfg.seq_len, rs, dev)
         if B > 1:   # lengths outside [1, T] give zero rows
             lengths[1], lengths[2] = 0, cfg.seq_len + 1
@@ -689,27 +714,31 @@ def main() -> int:
         err["lstm_encode"] = max(err["lstm_encode"], e)
         log(f"lstm_encode B={B} max_abs_err={e:.3e} (bar rtol 0.05 atol 5e-3), "
             f"two calls bit-equal{', lengths 0 and T+1 zero' if B > 1 else ''}")
-        if B == 1:
-            continue
 
         q = want
         ifeat, iatt = embed_image(params["mult"], feats)
         ifeat = ifeat.to(bf16).contiguous()
         iatt = iatt.to(bf16).contiguous()
         s, d, a = rau_hops.rau_hops(hw, cfg, q, ifeat, iatt)
+        again = rau_hops.rau_hops(hw, cfg, q, ifeat, iatt)
         s_r, d_r, a_r = rau_hops.rau_hops_reference(hw, cfg, q, ifeat, iatt,
                                                     dot_dtype=bf16)
         torch.cuda.synchronize()
-        torch.testing.assert_close(s, s_r, rtol=0.05, atol=0.01)
+        es = [(x - y).abs().max().item() for x, y in ((s, s_r), (d, d_r), (a, a_r))]
+        # the scores' reading as a share of its bar (atol 0.01 + rtol 0.05 |want|)
+        share = ((s - s_r).abs() / (0.01 + 0.05 * s_r.abs())).max().item()
         agree = (s.argmax(-1) == s_r.argmax(-1)).float().mean().item()
+        log(f"rau_hops B={B} max_abs_err scores={es[0]:.3e} ({share:.3f} of the bar atol 0.01 "
+            f"rtol 0.05) argmax_agree={agree:.4f} (bar > 0.97) do_pred={es[1]:.3e} (atol "
+            f"5e-3) attprob={es[2]:.3e} (atol 5e-4)")
+        torch.testing.assert_close(s, s_r, rtol=0.05, atol=0.01)
         if agree <= 0.97:
             raise SystemExit(f"rau_hops argmax agreement {agree} <= 0.97")
         torch.testing.assert_close(a, a_r, rtol=0.05, atol=5e-4)
         torch.testing.assert_close(d, d_r, rtol=0.05, atol=5e-3)
-        es = [(x - y).abs().max().item() for x, y in ((s, s_r), (d, d_r), (a, a_r))]
+        if not all(torch.equal(x, y) for x, y in zip((s, d, a), again)):
+            raise SystemExit(f"rau_hops B={B}: two calls on the same inputs differ")
         err["rau_hops"] = max(err["rau_hops"], *es)
-        log(f"rau_hops B={B} max_abs_err scores={es[0]:.3e} do_pred={es[1]:.3e} "
-            f"attprob={es[2]:.3e} argmax_agree={agree:.4f}")
 
     # the training kernels, float32, at mult_dropout 0.5 (the preset's)
     tcfg_m = dataclasses.replace(cfg, fused_train=True)
@@ -1317,6 +1346,35 @@ def main() -> int:
         with torch.no_grad():
             t_s = time_ms(lambda: step(params, *batch), iters=10)
         log(f"predict_step_ms={t_s:.4f} B={B_s} T={int(batch[1].max())} [{card}]")
+    # the hop kernel at the service's batch sizes: device time (CUDA events),
+    # the host's enqueue time of one call (its C entry enqueues 2 + 11 H
+    # launches), beside its bound and the floor of reading the features
+    # once a hop, which do not fit in L2 at B=512
+    hops_kernels = {}
+    for (B_s, _), (tok_s, len_s, feats_s) in zip(serve_batches, data):
+        with torch.no_grad():
+            q_s = lstm_encoder.lstm_encode(enc, cfg, embed_question(params, tok_s).contiguous(),
+                                           len_s)
+            if_s, ia_s = (x.to(bf16).contiguous() for x in embed_image(params["mult"], feats_s))
+            h_ms = time_ms(lambda: rau_hops.rau_hops(hw, cfg, q_s, if_s, ia_s), iters=50)
+            host_s = 0.0
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rau_hops.rau_hops(hw, cfg, q_s, if_s, ia_s)
+                host_s += time.perf_counter() - t0
+            hops_kernels[B_s] = device_kernels(lambda: rau_hops.rau_hops(
+                hw, cfg, q_s, if_s, ia_s))
+        want_k = rau_hops.hops_plan(B_s, cfg).kernels(cfg.n_hops)
+        hb_s, hb_s_by = hops_bound(cfg, hw, B_s)
+        floor_s = (cfg.n_hops * B_s * cfg.cnn_spat * (cfg.multfeat_dim + cfg.attfeat_dim) * 2
+                   / H100_BYTES_PER_S * 1e3)
+        log(f"rau_hops_ms={h_ms:.4f} host_enqueue_ms={host_s / 20 * 1e3:.4f} bound_ms="
+            f"{hb_s:.4f} by {hb_s_by}, features read each hop {floor_s:.4f} ms; "
+            f"{hops_kernels[B_s]} device kernels a call (the plan's {want_k}) B={B_s} [{card}]")
+        if hops_kernels[B_s] != want_k:
+            raise SystemExit(f"rau_hops B={B_s}: {hops_kernels[B_s]} device kernels a call, "
+                             f"not the plan's {want_k}")
     log(f"predict_step_questions_per_s={B / step_ms * 1e3:.1f} B=512 [{card}]")
 
     # the encoder at the service's batch sizes, T=26, beside torch.nn.LSTM in
@@ -1605,7 +1663,8 @@ def main() -> int:
          "replaces": "rau_vqa_tpu/ops/rau_hops.py:152",
          "launches": launches["rau_hops"], "max_abs_err": err["rau_hops"],
          "ms": ms["rau_hops"], "plain_ms": ms["hops_plain"],
-         "bound_ms": hb_ms, "bound_by": hb_by, "library_ms": None},
+         "bound_ms": hb_ms, "bound_by": hb_by, "library_ms": None,
+         "device_kernels_a_call": hops_kernels[512]},
         {"name": "train_hops_fwd", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_fwd.cu",
          "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:358",

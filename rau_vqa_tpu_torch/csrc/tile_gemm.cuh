@@ -1,5 +1,6 @@
 // The grid-level tile GEMM of the training hop loop's two kernels
-// (rau_train_hops_fwd.cu, rau_train_hops_bwd.cu).
+// (rau_train_hops_fwd.cu, rau_train_hops_bwd.cu) and of the serving hop
+// loop (rau_hops.cu).
 //
 // out[m, n] = epi(m, n, sum_k A(m, k) B(k, n)) over a grid of output tiles,
 // one CTA a tile: blockIdx.x walks the n tiles (so neighbouring CTAs share
@@ -417,10 +418,10 @@ __global__ void __launch_bounds__(C::NT, kFmaMinCtas<AKC, BKC>) gemm_fma(Problem
 // more than the order of the sums does.
 // ---------------------------------------------------------------------------
 
-template <int BM_, int BN_, int BK_, int STAGES_, int WM_, int WN_>
+template <int BM_, int BN_, int BK_, int STAGES_, int WM_, int WN_, bool FWD_OPS = false>
 struct MmaCfg {
   static constexpr bool mma = true;
-  static constexpr bool fwd_ops = false;
+  static constexpr bool fwd_ops = FWD_OPS;  // the epilogue takes MERGE_D and SIGMOID_BIAS
   using Elem = __nv_bfloat16;  // the type kept in shared memory
   static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_, WM = WM_, WN = WN_;
   static constexpr int NT = WM * WN * 32;
@@ -519,13 +520,15 @@ __global__ void __launch_bounds__(C::NT) gemm_mma(Problem pr) {
 }
 
 // the two tiles of each body: Big for the [B*S, *] products and the split-K
-// weight grads, Small (a deeper k-slice) for the [B, *] ones; the forward's
-// [B, *] products take FmaSmallFwd, the same tile with the forward's ops
+// weight grads, Small (a deeper k-slice) for the [B, *] ones; the training
+// forward's [B, *] products take FmaSmallFwd, the same tile with the
+// forward's ops, and the serving hop loop's (rau_hops.cu) MmaSmallFwd
 using FmaBig = FmaCfg<128, 128, 16, 3, 8, 8>;
 using FmaSmall = FmaCfg<32, 32, 32, 3, 2, 2>;
 using FmaSmallFwd = FmaCfg<32, 32, 32, 3, 2, 2, true>;
 using MmaBig = MmaCfg<128, 128, 32, 3, 4, 4>;
 using MmaSmall = MmaCfg<32, 64, 64, 3, 2, 4>;
+using MmaSmallFwd = MmaCfg<32, 64, 64, 3, 2, 4, true>;
 
 // dynamic shared memory of tile C with these layouts, in bytes
 template <class C, bool AKC, bool BKC>

@@ -17,11 +17,24 @@ come from an explicit ``torch.Generator`` on the tensors' device.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 Params = Dict
+
+
+def keep_mask(shape, rate: float, generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """Where inverted dropout at ``rate`` keeps an element: a bool tensor of
+    ``shape``, drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def apply_keep(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout of ``x`` by a ``keep_mask``: kept elements scaled by
+    ``1 / (1 - rate)``, the others 0."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
@@ -29,8 +42,7 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     """Inverted dropout (scale at train time), torch nn.Dropout semantics."""
     if not train or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    return apply_keep(x, keep_mask(x.shape, rate, generator, x.device), rate)
 
 
 def _uniform(gen: torch.Generator, shape, scale: float, device) -> torch.Tensor:
@@ -61,22 +73,24 @@ def lstm_init(gen: torch.Generator, input_size: int, rnn_size: int,
 
 def deep_lstm_cell(params: Params, x: torch.Tensor, state: torch.Tensor, *,
                    rnn_size: int, dropout_rate: float = 0.0,
-                   train: bool = False,
-                   generator: Optional[torch.Generator] = None,
+                   in_keep: Optional[Sequence[torch.Tensor]] = None,
                    l1_in_gates: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One timestep of the packed-state question LSTM.
 
-    ``l1_in_gates``: optional precomputed ``x @ wi + bi`` for layer 1, which
-    the encoder hoists out of the time loop as one batched product (layer
-    1's input is never dropped)."""
+    ``in_keep``: in training, the ``keep_mask`` of each dropped input, that
+    of layer ``L + 2`` at ``in_keep[L]``; the caller draws them for every
+    timestep up front, so that a timestep's masks do not depend on how many
+    timesteps there are.  ``l1_in_gates``: optional precomputed ``x @ wi +
+    bi`` for layer 1, which the encoder hoists out of the time loop as one
+    batched product (layer 1's input is never dropped)."""
     R = rnn_size
     inp = x
     outs: List[torch.Tensor] = []
     for L, lp in enumerate(params["layers"]):
         c = state[:, 2 * L * R:(2 * L + 1) * R]
         h = state[:, (2 * L + 1) * R:(2 * L + 2) * R]
-        if L > 0:
-            inp = dropout(inp, dropout_rate, generator, train)
+        if L > 0 and in_keep is not None:
+            inp = apply_keep(inp, in_keep[L - 1], dropout_rate)
         if L == 0 and l1_in_gates is not None:
             gates = l1_in_gates + (h @ lp["wh"] + lp["bh"])
         else:

@@ -27,9 +27,11 @@ from rau_vqa_tpu_torch.convert import map_tree
 from rau_vqa_tpu_torch.devices import pick_device
 from rau_vqa_tpu_torch.models.cells import (
     _uniform,
+    apply_keep,
     att_lstm_cell,
     deep_lstm_cell,
     dropout,
+    keep_mask,
     linear_init,
     lstm_init,
 )
@@ -101,15 +103,30 @@ def encode_question(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens [B, T] (0 = ZEROPAD), lengths [B] in [1, T] -> the packed
     (c, h) LSTM state at each question's last token, [B, rnnout_dim].
 
-    In training, the word embedding is dropped before its tanh with one mask
-    per timestep (so a mask does not depend on T), and the LSTM drops the
-    input of layers >= 2; masks come from ``generator``."""
+    In training, the word embedding is dropped before its tanh and the LSTM
+    drops the input of layers >= 2, with masks from ``generator``.  Each
+    site's masks are drawn for all ``cfg.seq_len`` positions up front, the
+    embedding's first, and cut to T: a timestep's masks, and every draw
+    after the encoder's, do not depend on T (as the JAX package keys each
+    timestep's masks by its index, rau_vqa_tpu/models/rau.py:123-143), so
+    a batch cut to any T >= its longest question trains alike."""
     B, T = tokens.shape
-    if train and cfg.embed_dropout > 0.0:
-        raw = params["embed"]["lookup"][tokens.long()]
-        emb = torch.tanh(torch.stack(
-            [dropout(raw[:, t], cfg.embed_dropout, generator, True)
-             for t in range(T)], dim=1))
+    in_keep = None
+    if train:
+        if T > cfg.seq_len:
+            raise ValueError(f"encode_question: {T} timesteps, at most "
+                             f"seq_len {cfg.seq_len} in training")
+        dev = tokens.device
+        if cfg.embed_dropout > 0.0:
+            keep = keep_mask((B, cfg.seq_len, cfg.embed_dim), cfg.embed_dropout,
+                             generator, dev)[:, :T]
+            raw = params["embed"]["lookup"][tokens.long()]
+            emb = torch.tanh(apply_keep(raw, keep, cfg.embed_dropout))
+        else:
+            emb = embed_question(params, tokens)
+        if cfg.rnn_dropout > 0.0 and cfg.rnn_layers > 1:
+            in_keep = keep_mask((cfg.seq_len, cfg.rnn_layers - 1, B, cfg.rnn_size),
+                                cfg.rnn_dropout, generator, dev)
     else:
         emb = embed_question(params, tokens)
     l1 = params["rnn"]["layers"][0]
@@ -120,8 +137,8 @@ def encode_question(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for t in range(T):
         state = deep_lstm_cell(params["rnn"], emb[:, t], state,
                                rnn_size=cfg.rnn_size,
-                               dropout_rate=cfg.rnn_dropout, train=train,
-                               generator=generator,
+                               dropout_rate=cfg.rnn_dropout,
+                               in_keep=None if in_keep is None else in_keep[t],
                                l1_in_gates=l1_gates[:, t])
         states.append(state)
     states = torch.stack(states)                                # [T, B, D]

@@ -9,7 +9,11 @@ is installed:
 Shapes are the ``ours_ms`` widths.  Serving kernels: the bars of
 tests/test_pallas_rau.py for the Pallas kernels against their XLA paths;
 the encoder also at lengths 0, T and T + 1, on two calls (the same bits),
-at 1 layer of 256, and with a grid that cannot be co-resident (it raises).
+at 1 layer of 256, and with a grid that cannot be co-resident (it raises);
+the hop loop at B in {1, 19, 83, 512}, two calls bit-equal, ``hops_plan``'s
+phases the launcher's own (a dry run of it), the device kernels of a call
+as the profiler records them the launcher's, and a scratch buffer the
+launcher cannot run raises.
 Training kernels (float32): the mask hash bit for bit; the forward at rtol
 1e-4 / atol 1e-4 over 8 recurrent hops of float32 sums taken in another
 order (two calls bit-equal in both types; a scratch buffer the launcher
@@ -37,6 +41,7 @@ import pytest
 import torch
 
 from chip_smoke import (
+    device_kernels,
     scaled_err,
     stage_bar,
     stage_faults,
@@ -173,24 +178,84 @@ def test_lstm_encode_raises_when_the_grid_cannot_be_co_resident(cuda_device):
     assert lstm_encoder.KERNEL.launches == before
 
 
-@pytest.mark.parametrize("B", [19, 512])
-def test_rau_hops_matches_plain(cuda_device, B):
-    params, tokens, lengths, feats = _inputs(B, cuda_device)
+def _hops_inputs(B, dev, seed=0):
+    """The hop kernel's inputs at ours_ms widths: (hw, q, ifeat, iatt), the
+    features in bf16 as ``predict_fused`` casts them."""
+    params, tokens, lengths, feats = _inputs(B, dev, seed)
     hw = rau_hops.pack_hop_weights(params["mult"])
     q = lstm_encoder.lstm_encode_reference(
         params["rnn"], CFG, embed_question(params, tokens), lengths)
     ifeat, iatt = embed_image(params["mult"], feats)
-    ifeat = ifeat.to(torch.bfloat16).contiguous()
-    iatt = iatt.to(torch.bfloat16).contiguous()
+    return hw, q, ifeat.to(torch.bfloat16).contiguous(), iatt.to(torch.bfloat16).contiguous()
+
+
+@pytest.mark.parametrize("B", [1, 19, 83, 512])
+def test_rau_hops_matches_plain(cuda_device, B):
+    """The serving bars of tests/test_pallas_rau.py (scores rtol 0.05 / atol
+    0.01 and argmax agreement > 0.97, attprob atol 5e-4, do_pred atol 5e-3)
+    at the service's latency case, ragged batches and bulk eval; a second
+    call gives the same bits; one launch counted a call."""
+    hw, q, ifeat, iatt = _hops_inputs(B, cuda_device)
+    before = rau_hops.KERNEL.launches
     s, d, a = rau_hops.rau_hops(hw, CFG, q, ifeat, iatt)
+    again = rau_hops.rau_hops(hw, CFG, q, ifeat, iatt)
     s_ref, d_ref, a_ref = rau_hops.rau_hops_reference(
         hw, CFG, q, ifeat, iatt, dot_dtype=torch.bfloat16)
     torch.cuda.synchronize()
+    assert rau_hops.KERNEL.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip((s, d, a), again))
     assert s.shape == (CFG.n_hops, B, CFG.answer_size)
+    agree = (s.argmax(-1) == s_ref.argmax(-1)).float().mean().item()
+    print(f"rau_hops B={B}: scores {(s - s_ref).abs().max().item():.3e} (atol 0.01, rtol "
+          f"0.05), argmax agreement {agree:.4f} (> 0.97), attprob "
+          f"{(a - a_ref).abs().max().item():.3e} (atol 5e-4), do_pred "
+          f"{(d - d_ref).abs().max().item():.3e} (atol 5e-3)")
     torch.testing.assert_close(s, s_ref, rtol=0.05, atol=0.01)
-    assert (s.argmax(-1) == s_ref.argmax(-1)).float().mean().item() > 0.97
+    assert agree > 0.97
     torch.testing.assert_close(a, a_ref, rtol=0.05, atol=5e-4)
     torch.testing.assert_close(d, d_ref, rtol=0.05, atol=5e-3)
+
+
+_HOPS_WIDTHS = (CFG.rnnout_dim, CFG.cnn_spat, CFG.multfeat_dim, CFG.attfeat_dim,
+                CFG.att_rnn_size, CFG.answer_size)
+
+
+@pytest.mark.parametrize("B", [1, 4, 19, 37, 83, 512])
+def test_hops_plan_is_the_launchers(cuda_device, B):
+    """hops_plan's phases are the launches the built C entry makes (a dry
+    run of a one-hop call): the same count, the same grids, shared memory
+    within the plan's."""
+    plan = rau_hops.hops_plan(B, CFG)
+    scratch, launches = rau_hops.hops_launcher_plan(B, *_HOPS_WIDTHS)
+    assert scratch > 0
+    assert [l[:3] for l in launches] == [ph.grid for ph in plan.phases]
+    assert all(l[3] <= ph.smem for l, ph in zip(launches, plan.phases))
+
+
+@pytest.mark.parametrize("B", [1, 83])
+def test_rau_hops_device_kernels_are_the_launchers(cuda_device, B):
+    """The device kernels of one call, as torch.profiler records them
+    (memsets and copies not counted), are the launcher's: its two setup
+    launches and one hop's launches for each hop."""
+    hw, q, ifeat, iatt = _hops_inputs(B, cuda_device)
+    plan = rau_hops.hops_plan(B, CFG)
+    _, launches = rau_hops.hops_launcher_plan(B, *_HOPS_WIDTHS)
+    want = len(plan.setup) + CFG.n_hops * (len(launches) - len(plan.setup))
+    with torch.no_grad():
+        got = device_kernels(lambda: rau_hops.rau_hops(hw, CFG, q, ifeat, iatt))
+    assert got == want == plan.kernels(CFG.n_hops)
+
+
+@pytest.mark.parametrize("short", [64, None], ids=["scratch_short", "scratch_none"])
+def test_rau_hops_raises_for_a_plan_it_cannot_run(cuda_device, short):
+    """The C entry refuses a scratch buffer shorter than it carves; nothing
+    is counted."""
+    hw, q, ifeat, iatt = _hops_inputs(19, cuda_device)
+    scratch, _ = rau_hops.hops_launcher_plan(19, *_HOPS_WIDTHS)
+    before = rau_hops.KERNEL.launches
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        rau_hops._launch(hw, CFG, q, ifeat, iatt, scratch - short if short else 0)
+    assert rau_hops.KERNEL.launches == before
 
 
 def test_predict_step_runs_both_kernels(cuda_device):

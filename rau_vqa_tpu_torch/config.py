@@ -10,7 +10,8 @@ experiments.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -76,11 +77,17 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """The optimization knobs that ``make_train_step`` reads (reference
-    :39-55, :597-629; Adam internals optim_updates.lua:59-62)."""
+    :39-55, :597-629; Adam internals optim_updates.lua:59-62) and those of
+    the ``Trainer``'s host loop (epochs, LR decay :1211-1220, the
+    loss-explosion guard, buckets, eval and checkpoint cadence)."""
 
     batch_size: int = 100
+    max_epochs: int = 50
     learning_rate: float = 3e-3       # embed + rnn groups
     mult_learning_rate: float = 3e-4  # multimodal group
+    lr_decay: float = 0.9             # per-epoch exponential decay, both LRs
+    mult_lr_decay: float = 0.9
+    lr_decay_interval: int = 1        # in epochs
     grad_clip: float = 0.1            # per-group L2 norm clip
     noisy_eta: float = 0.01           # gradient noise
     noisy_gamma: float = 0.55
@@ -94,8 +101,18 @@ class TrainConfig:
     hop_stop_timing: Optional[Tuple[int, ...]] = None
     # k sequential microbatch backward passes per optimizer update (exact)
     grad_accum: int = 1
+    # the loss-explosion guard: a step whose loss is non-finite or above
+    # threshold x its EMA is undone (the reference declares the flag, :29)
+    loss_explode_threshold: float = 3.0
+    # train-step token axis cut to the smallest bucket covering the batch's
+    # longest question (exact: the grads do not depend on T <= seq_len)
+    length_buckets: Tuple[int, ...] = (8, 16)
     # backbone fine-tuning belongs to the from-pixels slice of the port
     train_backbone: bool = False
+    test_interval: int = 1            # epochs between eval sweeps
+    checkpoint_interval: int = 1      # epochs between checkpoints
+    keep_last_checkpoints: int = 0    # 0 = keep every snapshot
+    print_interval: int = 0           # steps between stdout lines (0 = off)
 
 
 # Early-stop tables, 1-indexed by hop in the reference; stored 0-indexed.
@@ -137,3 +154,83 @@ def get_train_preset(name: str) -> Tuple[ModelConfig, TrainConfig]:
 def get_preset(name: str) -> ModelConfig:
     """The model dimensions of a named experiment preset."""
     return get_train_preset(name)[0]
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Data locations and split selection (reference :31-37, :85-95)."""
+
+    split: str = "val2014"            # [val2014|test2015|test-dev2015|train2014]
+    vqa_dir: str = "./data/VQA_prepro/data_train_val"
+    feat_dir: str = "./data/vqa_VGG16Conv_pool5_448/feat_448x448"
+    gt_anno: str = "./data/VQA_prepro/comprehend/comprehend_val2014_annotations.json"
+    official_anno: str = ""           # official VQA annotations JSON: eval
+                                      # sweeps also report the 10-rater metric
+    batch_order: str = "shuffle"      # [shuffle|inorder|sort|randsort|imggroup]
+    test_batch_size: int = 0          # 0 => derive from split (reference :85-95)
+    valid_ratio: float = 0.0
+
+    def resolved_test_batch_size(self) -> int:
+        if self.test_batch_size > 0:
+            return self.test_batch_size
+        # chosen to divide split sizes exactly (reference :85-95)
+        return {"val2014": 83, "test2015": 57, "test-dev2015": 96,
+                "train2014": 100}[self.split]
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    """One experiment: model, optimization, data and the host loop's
+    observability knobs (the JAX package's, without its device mesh and
+    the fields the port never reads: ``DataConfig.prefetch``, which the
+    JAX package does not read either, and ``visatt_batches``)."""
+
+    name: str = "ours_ss"
+    alg_name: str = "LstmAttCtrlGradNoiseDontSelectSingleHopBalance448Pool5"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    save_dir: str = "save_result_vqa"
+    visatt: bool = False          # attention-map PNGs: not ported (needs PIL)
+    graph_interval: int = 10      # epochs between curve renders (:59)
+    profile_dir: str = ""         # non-empty => torch.profiler trace of epoch 1
+    # the eval sweep through ``make_predict_step`` (the two serving kernels
+    # on the card).  The JAX package defaults to its plain XLA path; the
+    # port defaults to its kernels, and False runs the plain float32
+    # ``predict`` on the trainer's device
+    fused_eval: bool = True
+    # question-length buckets for the eval sweep; () = always full seq_len
+    eval_buckets: Tuple[int, ...] = ()
+
+    def replace(self, **kw) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_TEST_DEV = DataConfig(split="test-dev2015",
+                       vqa_dir="./data/VQA_prepro/data_train-val_test-dev")
+# (name, alg_name, DataConfig) of each preset, as the JAX package sets them
+_EXPERIMENTS = {
+    "ours_ss": ("LstmAttCtrlGradNoiseDontSelectSingleHopBalance448Pool5",
+                _TEST_DEV),
+    "ours_ms": ("LstmAttCtrlGradNoiseDontSelect448Pool5", _TEST_DEV),
+    "ours_full": ("LstmAttCtrlGradNoiseDontSelect448Pool5", _TEST_DEV),
+    "ours_resnet": ("NIPSFinalResNet101sz448tmin15lambda0dot5",
+                    dataclasses.replace(
+                        _TEST_DEV,
+                        feat_dir="./data/vqa_resnet_101_convfeat_448")),
+    "ours_resnet_ft": ("NIPSFinalResNet101sz448FineTune",
+                       dataclasses.replace(
+                           _TEST_DEV,
+                           feat_dir="./data/vqa_resnet_101_convfeat_448",
+                           batch_order="imggroup")),
+    "ours_vit": ("RauVitL14Stretch", DataConfig(split="val2014")),
+}
+
+
+def get_experiment(name: str) -> ExperimentConfig:
+    """The whole experiment of a named preset: ``get_train_preset``'s model
+    and training halves with the preset's data, name and ``alg_name``."""
+    mcfg, tcfg = get_train_preset(name)
+    alg_name, data = _EXPERIMENTS[name]
+    return ExperimentConfig(name=name, alg_name=alg_name, model=mcfg,
+                            train=tcfg, data=data)

@@ -58,6 +58,8 @@ class MemoRecent:
 
 
 def _tensor_from_numpy(a) -> torch.Tensor:
+    if torch.is_tensor(a):   # a leaf already decoded to a tensor (msgpack)
+        return a.detach().clone()
     a = np.array(a, copy=True)
     if a.dtype.name == "bfloat16":
         # ml_dtypes.bfloat16, as JAX hands bf16 leaves over: torch.from_numpy
@@ -75,8 +77,9 @@ def _numpy_from_tensor(t: torch.Tensor):
 
 
 def params_from_jax(tree, device="cpu"):
-    """Nested dicts/lists of numpy arrays -> the same tree of tensors, each
-    leaf's type and bits kept (bfloat16 included)."""
+    """Nested dicts/lists of numpy arrays (or tensors) -> the same tree of
+    tensors on ``device``, each leaf's type and bits kept (bfloat16
+    included)."""
     return map_tree(lambda a: _tensor_from_numpy(a).to(device), tree)
 
 

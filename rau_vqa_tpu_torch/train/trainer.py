@@ -15,26 +15,60 @@ Random draws come from ``torch.Generator``s that the step derives from the
 state's seed and step count, so a step is a function of its state and its
 inputs: the forward's dropout from stream 0, group g's gradient noise from
 stream 1 + g.
+
+``Trainer`` is the host loop around the step (``rau_vqa_tpu/train/
+trainer.py:236-1156``): epochs over the loader, LR decay (reference
+:1211-1220), the loss-explosion guard, the eval sweep that writes the
+per-hop submission files, checkpoints, restore and resume.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+import dataclasses
+import json
+import math
+import os
+import time
+import warnings
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from rau_vqa_tpu_torch.config import ModelConfig, TrainConfig
+from rau_vqa_tpu_torch.config import ExperimentConfig, ModelConfig, TrainConfig
 from rau_vqa_tpu_torch.convert import map_tree, tree_leaves
+from rau_vqa_tpu_torch.data.features import (
+    FeatureSource,
+    QuantFeats,
+    check_feat_interface,
+)
+from rau_vqa_tpu_torch.data.loader import VQAData
 from rau_vqa_tpu_torch.devices import pick_device
+from rau_vqa_tpu_torch.eval.predict import (
+    bucket_ladder,
+    compute_answers,
+    make_predict_step,
+    pick_bucket,
+    predict,
+)
+from rau_vqa_tpu_torch.eval.submission import write_results
 from rau_vqa_tpu_torch.models.rau import init_params, rau_forward
 from rau_vqa_tpu_torch.ops.rau_train_hops import check_fused_config
-from rau_vqa_tpu_torch.train.losses import joint_loss_and_metrics
+from rau_vqa_tpu_torch.train.losses import hop_grad_scale, joint_loss_and_metrics
 from rau_vqa_tpu_torch.train.optim import (
     adam_init,
     adam_update,
     add_gradient_noise,
     clip_by_global_norm,
 )
+from rau_vqa_tpu_torch.utils.checkpoint import (
+    flush_checkpoint_writes,
+    latest_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+    to_host,
+)
+from rau_vqa_tpu_torch.utils.logging import MetricsLogger, per_hop_record
 
 PARAM_GROUPS = ("embed", "rnn", "mult")
 
@@ -161,3 +195,582 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
                           state.seed), metrics
 
     return step_fn
+
+
+def _perturbed_seed(seed: int, streak: int) -> int:
+    """The seed of a retry after the guard's ``streak``-th trip in a row: a
+    function of both, as JAX folds the streak into its key."""
+    return (seed * 1_000_003 + 7_919 * streak + 1) % 2 ** 62
+
+
+def _pinned(a, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``a`` in fresh page-locked host memory (cast to ``dtype``).  The
+    caching host allocator hands a freed pinned block out again only once
+    the copies that read it have finished, so a batch is never overwritten
+    while its copy to the card is in flight."""
+    src = torch.from_numpy(np.ascontiguousarray(a))
+    dst = torch.empty(src.shape, dtype=dtype or src.dtype, pin_memory=True)
+    return dst.copy_(src)
+
+
+class Trainer:
+    """End-to-end training and periodic evaluation for one experiment, on
+    ``device`` (``cuda`` when None, raising without a card; ``"cpu"`` runs
+    the kernels' plain versions)."""
+
+    def __init__(self, exp: ExperimentConfig, data: VQAData,
+                 source: FeatureSource, workdir: str, *,
+                 gt_anno: Optional[Dict[int, str]] = None,
+                 official_anno: Optional[str] = None, device=None,
+                 mesh=None, backbone: Optional[str] = None, bb_params=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh is not ported (ROADMAP.md, queue 1)")
+        if backbone is not None or bb_params is not None \
+                or exp.train.train_backbone:
+            raise NotImplementedError(f"a visual backbone {_FROM_PIXELS}")
+        if exp.visatt:
+            raise NotImplementedError(
+                "visatt (attention-map PNGs) is not ported: it needs PIL")
+        self.device = pick_device(device, "Trainer")
+        # model dims come from the dataset (reference :204, :222)
+        self.mcfg = dataclasses.replace(
+            exp.model, vocab_size=data.vocab_size,
+            answer_size=data.answer_size, seq_len=data.seq_len)
+        self.tcfg = exp.train
+        if self.tcfg.grad_accum > 1 \
+                and self.tcfg.batch_size % self.tcfg.grad_accum:
+            raise ValueError(
+                f"batch_size {self.tcfg.batch_size} must divide by "
+                f"grad_accum {self.tcfg.grad_accum}")
+        self.exp = exp
+        self.data = data
+        self.source = source
+        if source is not None:
+            # the head trains on the raw feature interface (the RMS one
+            # belongs to fine-tuning, which is not ported)
+            check_feat_interface(source, False, "Trainer")
+        self._feat_dtype = (torch.bfloat16 if self.mcfg.compute_dtype
+                            == "bfloat16" else torch.float32)
+        self.workdir = workdir
+        self.gt_anno = gt_anno
+        self.official_anno = official_anno
+        self._official_scorer = None
+        self._warned_partial_official = False
+        self.ckpt_dir = os.path.join(workdir, "snapshot")
+        self.logger = MetricsLogger(os.path.join(workdir, "training_log"))
+
+        self.state = init_train_state(self.mcfg, self.tcfg.seed,
+                                      device=self.device)
+        # host copy of the initial state: the guard falls back to it when a
+        # loss explodes before the first checkpoint exists
+        self._fallback_state = TrainState(
+            map_tree(to_host, self.state.params),
+            map_tree(to_host, self.state.opt),
+            self.state.step, self.state.seed)
+        self.train_step = make_train_step(self.mcfg, self.tcfg,
+                                          device=self.device)
+        # buckets=(): the trainer dispatches its own buckets, as in JAX
+        self.predict_step = (make_predict_step(self.mcfg, device=self.device)
+                             if exp.fused_eval else self._plain_predict)
+        # smallest bucket covering a batch's longest question wins; the full
+        # seq_len is always the top rung
+        self._eval_ladder = bucket_ladder(self.mcfg.seq_len,
+                                          exp.eval_buckets or ())
+        self._train_ladder = bucket_ladder(self.mcfg.seq_len,
+                                           self.tcfg.length_buckets or ())
+        self.lr = self.tcfg.learning_rate
+        self.mult_lr = self.tcfg.mult_learning_rate
+        self.epoch = 0                  # completed epochs
+        self._abort_streak = 0          # consecutive explosion-guard trips
+        self.loss_ema: Optional[float] = None
+        data.train_data.set_batch_order_option(exp.data.batch_order)
+        data.train_data.reorder()
+
+    # ------------------------------------------------------------------
+    def _plain_predict(self, params, tokens, lengths, feats):
+        """The plain float32 path (``fused_eval=False``), on the device."""
+        with torch.no_grad():
+            return predict(params, self.mcfg, tokens,
+                           torch.as_tensor(lengths, device=self.device),
+                           feats.float())
+
+    @staticmethod
+    def _bucket_t(ladder, lengths) -> int:
+        """Smallest ladder rung covering this batch's longest question,
+        from the host's lengths (no device sync)."""
+        return pick_bucket(ladder, int(np.max(np.asarray(lengths))))
+
+    def _hop_scale(self, epoch_1based: int) -> torch.Tensor:
+        return hop_grad_scale(
+            self.mcfg.n_hops, scale_by_nhop=self.tcfg.hop_grad_scale_nhop,
+            stop_timing=self.tcfg.hop_stop_timing, epoch=epoch_1based)
+
+    def _pinning(self, ladder):
+        """The loader's ``finish`` on the card, None on the CPU: each batch
+        in page-locked host memory, made in the loader's prefetch thread
+        while the card runs the step, so that the loop only starts its
+        copies.  Features in the step's type (``QuantFeats`` stay int8 with
+        float32 scales); tokens cut to the batch's rung of ``ladder``."""
+        if self.device.type != "cuda":
+            return None
+
+        def pin(batch):
+            feats = batch.feats
+            if isinstance(feats, QuantFeats):
+                feats = QuantFeats(values=_pinned(feats.values),
+                                   scales=_pinned(feats.scales, torch.float32))
+            else:
+                feats = _pinned(feats, self._feat_dtype)
+            tokens = batch.tokens[:, :self._bucket_t(ladder, batch.lengths)]
+            return dataclasses.replace(
+                batch, feats=feats, tokens=_pinned(tokens),
+                lengths=_pinned(batch.lengths),
+                labels=None if batch.labels is None else _pinned(batch.labels),
+                mc_answers=(None if batch.mc_answers is None
+                            else _pinned(batch.mc_answers)))
+        return pin
+
+    def _put(self, a, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """A host array or tensor on the device, with ``non_blocking=True``
+        on the card: asynchronous from the pinned batches of ``_pinning``."""
+        t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            t = t.to(self.device, non_blocking=True)
+        return t if dtype is None else t.to(dtype)
+
+    def _put_batch(self, batch, max_t: Optional[int] = None) -> Dict:
+        """The batch on the device: features in ``compute_dtype``
+        (``QuantFeats`` cross as int8 and are dequantized there), the token
+        axis cut to ``max_t`` (exact: steps past every question's last
+        token carry no gradient; the reference runs to torch.max(x_len),
+        Ours_SS/...lua:448-450)."""
+        dt = self._feat_dtype
+        if isinstance(batch.feats, QuantFeats):
+            v = self._put(batch.feats.values, dt)
+            feats = v * self._put(batch.feats.scales, dt)[:, None, None]
+        else:
+            feats = self._put(batch.feats, dt)
+        tokens = batch.tokens
+        if max_t is not None and max_t < tokens.shape[1]:
+            tokens = tokens[:, :max_t]
+        out = {"tokens": self._put(tokens), "lengths": self._put(batch.lengths),
+               "feats": feats}
+        if batch.labels is not None:
+            out["labels"] = self._put(batch.labels)
+        return out
+
+    def _pad_batch_to(self, batch, target_b: int):
+        """Pad a batch's leading dim to target_b by repeating the last
+        example (exact: callers slice the padded answers away)."""
+        pad = target_b - len(batch.qids)
+        if pad <= 0:
+            return batch
+
+        def p(a):
+            if a is None:
+                return None
+            if torch.is_tensor(a):
+                return torch.cat([a, a[-1:].expand(pad, *a.shape[1:])])
+            return np.concatenate([a, np.repeat(a[-1:], pad, axis=0)], axis=0)
+
+        feats = batch.feats
+        if isinstance(feats, QuantFeats):
+            feats = QuantFeats(values=p(feats.values), scales=p(feats.scales))
+        else:
+            feats = p(feats)
+        return dataclasses.replace(
+            batch, feats=feats, tokens=p(batch.tokens),
+            lengths=p(batch.lengths), labels=p(batch.labels),
+            mc_answers=p(batch.mc_answers), qids=p(batch.qids))
+
+    # ------------------------------------------------------------------
+    def train_epoch(self) -> Dict[str, Any]:
+        """One epoch over the train split; returns averaged metrics.
+
+        Each step's metrics go to the host in one copy, started right after
+        the step and waited for one step later, while the next step is
+        already queued: the host never waits for more than the earlier
+        step, and the card is never left without work by the read.  A loss explosion aborts the epoch: the guard restored an
+        epoch-boundary state whose data order restore() fast-forwarded, so
+        the caller's next train_epoch() runs a clean epoch from it."""
+        epoch_1based = self.epoch + 1
+        hop_scale = self._hop_scale(epoch_1based)
+        hop_scale_dev = self._put(hop_scale)
+        sums: Dict[str, Any] = {}
+        n_steps = 0
+        exploded = 0
+        aborted = False
+        layout = None                   # [(metric, size, shape)]
+        step_base = self.state.step     # a host int: no sync
+        t0 = time.time()
+
+        def start_copy(flat: torch.Tensor):
+            """Start the copy of a step's metrics to the host now, behind
+            that step's work alone; ``consume`` waits for it a step later."""
+            if self.device.type != "cuda":
+                return flat, None
+            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return host, done
+
+        def consume(step_id: int, copied) -> None:
+            """Host bookkeeping for a finished step (guard, prints, sums)."""
+            nonlocal n_steps, exploded, aborted
+            host, done = copied
+            if done is not None:
+                done.synchronize()         # the step's one synchronisation
+            values = host.numpy().astype(np.float64)
+            metrics, i = {}, 0
+            for k, n, shape in layout:
+                metrics[k] = values[i:i + n].reshape(shape)
+                i += n
+            loss = float(metrics["loss"])
+            if not self._guard(loss):
+                exploded += 1
+                aborted = True
+                return
+            n_steps += 1
+            if (self.tcfg.print_interval
+                    and n_steps % self.tcfg.print_interval == 0):
+                print(f"it {step_id} (epoch {epoch_1based}) "
+                      f"loss={loss:.5f} lr={self.lr:.2e} "
+                      f"mult_lr={self.mult_lr:.2e} "
+                      f"[grad] E:{float(metrics['grad_norm_embed']):.4f} "
+                      f"R:{float(metrics['grad_norm_rnn']):.4f} "
+                      f"M:{float(metrics['grad_norm_mult']):.4f}", flush=True)
+            for k in _SCALAR_METRICS:
+                sums[k] = sums.get(k, 0.0) + float(metrics[k])
+            for k in _VECTOR_METRICS:
+                v = np.asarray(metrics[k])
+                sums[k] = sums.get(k, np.zeros_like(v, np.float64)) + v
+
+        pending = None
+        dispatched = 0
+        for batch in self.data.train_data.batches(
+                self.source, finish=self._pinning(self._train_ladder)):
+            dev = self._put_batch(
+                batch, max_t=self._bucket_t(self._train_ladder, batch.lengths))
+            self.state, metrics = self.train_step(
+                self.state, dev["tokens"], dev["lengths"], dev["feats"],
+                dev["labels"], hop_scale_dev, self.lr, self.mult_lr)
+            if layout is None:
+                layout = [(k, v.numel(), tuple(v.shape))
+                          for k, v in metrics.items()]
+            # all of the step's metrics in one copy, read one step later
+            copied = start_copy(torch.cat([v.detach().reshape(-1).float()
+                                           for v in metrics.values()]))
+            dispatched += 1
+            if pending is not None:
+                consume(step_base + dispatched - 1, pending)
+                if aborted:
+                    # the in-flight step's input state was discarded
+                    pending = None
+                    break
+            pending = copied
+        if pending is not None and not aborted:
+            consume(step_base + dispatched, pending)
+        dt = time.time() - t0
+        if aborted:
+            # re-apply the order fast-forward after the generator closed:
+            # breaking out of batches() ran its rewind, which restored the
+            # pre-abort mid-epoch order over the one restore() set up
+            td = self.data.train_data
+            td.reorder_count = self.epoch
+            td.reorder()
+            record = {"epoch": self.epoch, "steps": n_steps,
+                      "exploded": exploded, "aborted": True, "sec": dt}
+            self.logger.log(record, kind="train")
+            return record
+        self.epoch += 1
+        self._abort_streak = 0          # a completed epoch clears the guard
+        out = {k: v / max(n_steps, 1) for k, v in sums.items()}
+        record = {"epoch": self.epoch, "lr": self.lr, "mult_lr": self.mult_lr,
+                  "steps": n_steps, "exploded": exploded, "sec": dt,
+                  "examples_per_sec":
+                      n_steps * self.tcfg.batch_size / max(dt, 1e-9)}
+        record.update(per_hop_record({
+            "trainloss": out.get("ce_per_hop", []),
+            "trainacc": out.get("acc_per_hop", []),
+            "do_pred_loss": out.get("do_pred_loss", []),
+            # gated do_pred accuracy (Ours_SS/...lua:551-557)
+            "do_pred_acc": (sums.get("do_pred_acc_num", np.zeros(1))
+                            / max(float(sums.get("do_pred_acc_den", 0.0)),
+                                  1e-9)),
+            # which hops carried gradient this epoch (the reference's
+            # cmploss_XX columns, Ours_Full/...lua:1137-1143)
+            "cmploss": (hop_scale.numpy() > 0).astype(np.float64),
+        }))
+        for k in _SCALAR_METRICS:
+            if k in out:
+                record[k] = out[k]
+        self.logger.log(record, kind="train")
+
+        # exponential LR decay per epoch (reference :1211-1220)
+        if (self.tcfg.lr_decay < 1.0
+                and self.epoch % self.tcfg.lr_decay_interval == 0):
+            self.lr *= self.tcfg.lr_decay
+            self.mult_lr *= self.tcfg.mult_lr_decay
+        return record
+
+    # ------------------------------------------------------------------
+    def _guard(self, loss: float) -> bool:
+        """Loss-explosion guard: reject the step (restore the last
+        checkpoint, or the initial state before the first one) when the
+        loss is non-finite or > threshold x its EMA.  Read one step behind
+        the dispatch, so the restore also discards the step in flight."""
+        thresh = self.tcfg.loss_explode_threshold
+        bad = not math.isfinite(loss) or (
+            self.loss_ema is not None and thresh > 0
+            and loss > thresh * max(self.loss_ema, 1e-6))
+        if not bad:
+            self.loss_ema = loss if self.loss_ema is None else (
+                0.9 * self.loss_ema + 0.1 * loss)
+            return True
+        path = latest_checkpoint(self.ckpt_dir)
+        if path is not None:
+            self.restore(path)
+        else:
+            # no checkpoint yet: fall back to the initial state, so the
+            # poisoned update is never kept
+            fb = self._fallback_state
+            to_dev = lambda x: x.to(self.device, copy=True)   # noqa: E731
+            self.state = TrainState(map_tree(to_dev, fb.params),
+                                    map_tree(to_dev, fb.opt), fb.step, fb.seed)
+            # the EMA tracked the poisoned run's losses; the initial params
+            # give init-scale losses again, which a stale EMA would reject
+            self.loss_ema = None
+            # epoch and LR rewind with the params (a decayed LR or a
+            # mid-curriculum hop scale must not carry over)
+            self.epoch = 0
+            self.lr = self.tcfg.learning_rate
+            self.mult_lr = self.tcfg.mult_learning_rate
+        # a deterministic divergence would replay bit-identically from the
+        # restored state: perturb the retry's dropout and noise draws (the
+        # data order stays exact), and fail loudly once retries stop helping
+        self._abort_streak += 1
+        if self._abort_streak >= 3:
+            raise RuntimeError(
+                f"loss exploded {self._abort_streak} consecutive epochs even "
+                f"after checkpoint restore + seed perturbation (last loss "
+                f"{loss:g}, ema {self.loss_ema}) — the divergence is "
+                f"deterministic (learning rate / data), not transient")
+        self.state = self.state._replace(
+            seed=_perturbed_seed(self.state.seed, self._abort_streak))
+        return False
+
+    # ------------------------------------------------------------------
+    def evaluate(self, *, write_submissions: bool = True,
+                 return_rows: bool = False) -> Dict[str, Any]:
+        """Full test sweep producing the nHop+2 answer sets; writes the OE
+        and MC submission files and computes fast-val accuracy when ground
+        truth is given (reference :851-1207).  The tail batch is padded to
+        the test batch size and its padding sliced away."""
+        test = self.data.test_data
+        test.inorder()
+        H2 = self.mcfg.n_hops + 2
+        oe_chunks, mc_chunks, qid_chunks = [], [], []
+        params = self.state.params
+        for batch in test.batches(self.source, include_tail=True,
+                                  finish=self._pinning(self._eval_ladder)):
+            orig_b = len(batch.qids)
+            padded = self._pad_batch_to(batch, test.batch_size)
+            dev = self._put_batch(
+                padded, max_t=self._bucket_t(self._eval_ladder, padded.lengths))
+            # host lengths: the step reads them without a device sync
+            tab_pred, _ = self.predict_step(params, dev["tokens"],
+                                            np.asarray(padded.lengths),
+                                            dev["feats"])
+            mc = (None if batch.mc_answers is None
+                  else self._put(batch.mc_answers))
+            oe_ans, mc_ans = compute_answers(tab_pred[:, :orig_b], mc)
+            oe_chunks.append(oe_ans)                      # [H2, B] ids
+            if mc_ans is not None:
+                mc_chunks.append(mc_ans)
+            qid_chunks.append(batch.qids)
+        # one host copy after the sweep
+        qids = np.concatenate(qid_chunks)
+        answer_arr = np.asarray(self.data.answers, dtype=object)
+        oe_strs = answer_arr[torch.cat(oe_chunks, 1).cpu().numpy()]  # [H2, N]
+        mc_strs = (answer_arr[torch.cat(mc_chunks, 1).cpu().numpy()]
+                   if mc_chunks else None)
+
+        def make_rows(strs_h):
+            return [{"answer": a, "question_id": int(q)}
+                    for a, q in zip(strs_h, qids)]
+
+        epoch_f = float(self.epoch)
+        result: Dict[str, Any] = {"epoch": epoch_f}
+        rows_oe = [make_rows(oe_strs[h]) for h in range(H2)]
+        rows_mc = ([make_rows(mc_strs[h]) for h in range(H2)]
+                   if mc_strs is not None else [[]] * H2)
+        if write_submissions:
+            write_results(self.workdir, "OpenEnded", self.exp.data.split,
+                          self.exp.alg_name, epoch_f, rows_oe)
+            if rows_mc[0]:
+                write_results(self.workdir, "MultipleChoice",
+                              self.exp.data.split, self.exp.alg_name,
+                              epoch_f, rows_mc)
+        if self.gt_anno is not None:
+            # fast validation (reference :914-925)
+            missing = [q for q in qids if int(q) not in self.gt_anno]
+            if missing:
+                raise KeyError(
+                    f"fast validation: {len(missing)} question ids not in "
+                    f"GT map (first: {missing[0]})")
+            gt = np.asarray([self.gt_anno[int(q)] for q in qids], dtype=object)
+            result["testOEacc"] = [float((oe_strs[h] == gt).mean())
+                                   for h in range(H2)]
+            if mc_strs is not None:
+                result["testMCacc"] = [float((mc_strs[h] == gt).mean())
+                                       for h in range(H2)]
+        if self.official_anno:
+            # the official 10-rater consensus metric, per hop; annotations
+            # digested once
+            if self._official_scorer is None:
+                from rau_vqa_tpu_torch.eval.vqa_accuracy import (
+                    VQAAccuracyScorer,
+                )
+                with open(self.official_anno) as f:
+                    self._official_scorer = VQAAccuracyScorer(
+                        json.load(f), precision=6)
+            sc = self._official_scorer
+            oe_reps = [sc.score(rows_oe[h]) for h in range(H2)]
+            result["testOEaccOfficial"] = [r["overall"] / 100.0
+                                           for r in oe_reps]
+            if oe_reps[0]["missing"] and not self._warned_partial_official:
+                self._warned_partial_official = True
+                warnings.warn(
+                    f"official annotations cover only {oe_reps[0]['n']} of "
+                    f"{oe_reps[0]['n'] + oe_reps[0]['missing']} evaluated "
+                    f"questions — testOEaccOfficial averages that subset, "
+                    f"not the split testOEacc covers", stacklevel=2)
+            if mc_strs is not None:
+                result["testMCaccOfficial"] = [
+                    sc.score(rows_mc[h])["overall"] / 100.0
+                    for h in range(H2)]
+        if len(result) > 1:
+            self.logger.log(
+                {"epoch": epoch_f,
+                 **per_hop_record({k: v for k, v in result.items()
+                                   if k != "epoch"})},
+                kind="test")
+        if return_rows:
+            result["rows_oe"] = rows_oe
+            result["rows_mc"] = rows_mc if mc_strs is not None else None
+        return result
+
+    # ------------------------------------------------------------------
+    def save(self, *, background: bool = False) -> str:
+        """Write a snapshot; ``background=True`` copies the state to the
+        host here and leaves serialization and disk IO to the writer
+        thread.  The guard and the end of ``fit`` flush pending writes."""
+        return save_checkpoint(
+            self.ckpt_dir, self.state.step, float(self.epoch),
+            self.state._asdict(), background=background,
+            keep_last=self.tcfg.keep_last_checkpoints or None,
+            extra={"lr": self.lr, "mult_lr": self.mult_lr,
+                   "loss_ema": self.loss_ema,
+                   "preset": self.exp.name, "alg_name": self.exp.alg_name,
+                   "n_hops": self.mcfg.n_hops,
+                   "train_backbone": False, "backbone": None,
+                   "backbone_feat_norm": False,
+                   # self-describing snapshot: standalone eval adopts this
+                   # (the reference's Eval.lua:116-118)
+                   "model_config": dataclasses.asdict(self.mcfg)})
+
+    def restore(self, path: str) -> None:
+        """Load a snapshot, the port's ``.pt`` or the JAX package's
+        ``.msgpack``, into the train state, with its LRs, loss EMA and
+        epoch; the data order is fast-forwarded to that epoch."""
+        tree, meta = load_checkpoint(path, self.state._asdict())
+        to_dev = lambda x: x.to(self.device)   # noqa: E731
+        self.state = TrainState(params=map_tree(to_dev, tree["params"]),
+                                opt=map_tree(to_dev, tree["opt"]),
+                                step=int(tree["step"]), seed=int(tree["seed"]))
+        if "lr" in meta:
+            self.lr = meta["lr"]
+            self.mult_lr = meta["mult_lr"]
+        if meta.get("loss_ema") is not None:
+            self.loss_ema = meta["loss_ema"]
+        if "epoch" in meta:
+            self.epoch = int(meta["epoch"])
+            # the epoch order is a pure function of (seed, reorder_count):
+            # the resumed run sees an uninterrupted run's batch order
+            td = self.data.train_data
+            td.reorder_count = self.epoch
+            td.reorder()
+
+    # ------------------------------------------------------------------
+    def _profiled_epoch(self) -> Dict[str, Any]:
+        """``train_epoch`` under torch.profiler, its trace written to
+        ``profile_dir``."""
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            record = self.train_epoch()
+        os.makedirs(self.exp.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.exp.profile_dir, f"epoch{self.epoch:03d}_trace.json"))
+        return record
+
+    def fit(self, epochs: Optional[int] = None, *,
+            eval_each: Optional[bool] = None) -> Dict[str, Any]:
+        epochs = epochs or self.tcfg.max_epochs
+        eval_each = (self.tcfg.test_interval > 0
+                     if eval_each is None else eval_each)
+        last_eval: Dict[str, Any] = {}
+        raised = False
+        try:
+            for i in range(epochs):
+                if i == 0 and self.exp.profile_dir:
+                    record = self._profiled_epoch()
+                else:
+                    record = self.train_epoch()
+                if record.get("aborted"):
+                    # rewound to a state already evaluated and checkpointed
+                    continue
+                if (eval_each and self.tcfg.test_interval > 0
+                        and self.epoch % self.tcfg.test_interval == 0):
+                    last_eval = self.evaluate()
+                if (self.tcfg.checkpoint_interval > 0
+                        and self.epoch % self.tcfg.checkpoint_interval == 0):
+                    self.save(background=True)
+                if (self.exp.graph_interval > 0
+                        and self.epoch % self.exp.graph_interval == 0):
+                    from rau_vqa_tpu_torch.utils.plots import render_curves
+                    render_curves(
+                        os.path.join(self.workdir, "training_log"),
+                        os.path.join(self.workdir, "graphs"),
+                        self.mcfg.n_hops)
+        except BaseException:
+            raised = True
+            raise
+        finally:
+            # periodic snapshots are durable (and write errors surfaced)
+            # even when an epoch raises, but a flush error must not replace
+            # the training exception; an explicit flag, not sys.exc_info(),
+            # which also sees exceptions handled up the caller's stack
+            if not raised:
+                flush_checkpoint_writes()
+            else:
+                try:
+                    flush_checkpoint_writes()
+                except Exception as e:
+                    warnings.warn(
+                        f"background checkpoint write also failed while "
+                        f"unwinding a training error: {e!r}")
+        return last_eval
+
+
+# the step's metrics that the epoch record averages: scalars, and per-hop
+# vectors and sums
+_SCALAR_METRICS = ("loss", "uni_loss", "select_loss", "uni_acc", "select_acc",
+                   "any_correct_ratio", "grad_norm_embed", "grad_norm_rnn",
+                   "grad_norm_mult")
+_VECTOR_METRICS = ("ce_per_hop", "acc_per_hop", "do_pred_loss",
+                   "do_pred_acc_num", "do_pred_acc_den")

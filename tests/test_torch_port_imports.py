@@ -1,6 +1,7 @@
 """The port stands alone: no module of rau_vqa_tpu_torch, and neither
 chip_smoke.py, bench_torch_serving.py nor bench_torch_stage.py, imports JAX, Flax or anything of the JAX package (checked on
-the source, so lazy imports inside functions count too)."""
+the source, so lazy imports inside functions count too).  The packages the
+card's machine lacks are imported only inside the functions that need them."""
 
 import ast
 import pathlib
@@ -32,7 +33,8 @@ def test_sources_found():
             "maskgen.py", "rau_train_hops.py", "treeflat.py", "losses.py",
             "optim.py", "trainer.py", "fused_resnet.py", "transforms.py",
             "resnet.py", "pipeline.py", "devices.py", "bench_torch_serving.py",
-            "bench_torch_stage.py"} <= names
+            "bench_torch_stage.py", "loader.py", "checkpoint.py",
+            "msgpack_flax.py", "cli.py"} <= names
     assert (ROOT / "rau_vqa_tpu_torch" / "models" / "backbones" / "__init__.py") in SOURCES
 
 
@@ -41,3 +43,38 @@ def test_no_jax_import(path):
     for mod in imported_modules(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+# packages the card's machine lacks: (file, function) where each may appear
+OPTIONAL = {"h5py": {("loader.py", "read_prepro"),
+                     ("fixtures.py", "generate_fixture")},
+            "PIL": {("fixtures.py", "fixture_bundle")},
+            "matplotlib": {("plots.py", "render_curves")},
+            "msgpack": set()}
+
+
+def optional_imports(path):
+    """(top-level package, enclosing function or None) of each import."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                yield from walk(child, child.name)
+                continue
+            if isinstance(child, ast.Import):
+                for a in child.names:
+                    yield a.name.split(".")[0], func
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield (child.module or "").split(".")[0], func
+            yield from walk(child, func)
+
+    return list(walk(tree, None))
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_optional_packages_only_where_needed(path):
+    for top, func in optional_imports(path):
+        if top in OPTIONAL:
+            assert (path.name, func) in OPTIONAL[top], \
+                f"{path.name} imports {top} in {func or 'the module body'}"

@@ -121,7 +121,34 @@ Phases, in order; any failure exits non-zero:
               epoch's idle share, runtime synchronisations and copies a step
               in the loop beside the bare step's, sweep ms and q/s, save,
               restore, snapshot MB, peak device memory of an epoch and of
-              the sweep, the phase's seconds.
+              the sweep, the phase's seconds;
+9. serve    — the HTTP service (``rau_vqa_tpu_torch.serve``) on 127.0.0.1, a
+              free port, max_batch 16, max_wait_ms 5, buckets 8 and 16:
+              ``ours_ms`` at full width from a ``.pt`` snapshot of seeded
+              weights, on the trainer phase's fixture, its features packed
+              by ``pack_feature_dir`` into a float32 shard.  Gates: /healthz
+              ok; 64 sequential and 32 x 8 concurrent /answer requests
+              (distinct question/feature pairs) all 200, each answer's
+              top-5 scores within the serving bars (rtol 0.05, atol 0.02)
+              of the plain float32 predict on the card and top-1 agreement
+              > 0.95, 8 per-hop answers; /stats counts every request, the
+              concurrent part ran fewer dispatches than requests, max batch
+              in [2, 16]; each dispatch launched the encoder and hop kernels
+              once; /answer_many of 3 questions matches the single calls
+              with one feature fetch; attention rows sum to 1; 400 for an
+              unknown feature, 404 for an unknown path.  Then the
+              ``ours_resnet`` head with the pixels phase's bf16 ResNet-101:
+              one 448 px PNG (written with zlib) sent 3 times at once as
+              image_b64 runs the backbone once (4 stage-kernel launches)
+              and answers as ``answer_pixels``: the same select answers,
+              the top-5 scores within the serving bars of its select row
+              and nearer to it than a tenth of a wrong feature path's row
+              (the other image, feat_norm flipped).  Readings: unloaded
+              p50/p99 beside the bare step at B=1, saturated q/s, p99 and
+              mean micro-batch, a device-cache miss against a hit, an image
+              miss against a hit, the native packed store against the
+              Python one over an epoch of B=100 batches, the phase's
+              seconds.
 
 Prints each number beside the card's name and power limit, a ``kernels``
 JSON line (the hop kernel's and the training kernels' entries also give
@@ -907,6 +934,434 @@ def trainer_phase(seed: int, card: str) -> dict:
             for k in total:
                 total[k] += launched[k]
             log(f"trainer {name}: {time.perf_counter() - t_cfg:.1f} s in all")
+    return total
+
+
+def png_bytes(pixels: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] -> a PNG (8-bit RGB, no row filter), written with zlib
+    and struct alone (the card's machine has no PIL)."""
+    import struct
+    import zlib
+    h, w, _ = pixels.shape
+    raw = b"".join(b"\x00" + pixels[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def http_json(port: int, path: str, payload=None, timeout: float = 120.0):
+    """(status, JSON body, ms) of one GET (``payload`` None) or POST to
+    127.0.0.1:``port``, bounded by ``timeout`` seconds."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.loads(e.read())
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def serve_phase(seed: int, card: str) -> dict:
+    """Phase 9: the HTTP service (``rau_vqa_tpu_torch.serve``) answers
+    ``ours_ms`` questions over features, and ``ours_resnet`` questions over
+    an image, on the card; returns each kernel's launches in the driven
+    requests (which equal the services' dispatches)."""
+    import base64
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rau_vqa_tpu_torch.config import get_preset
+    from rau_vqa_tpu_torch.data import native
+    from rau_vqa_tpu_torch.data.features import PackedFeatureStore, pack_feature_dir
+    from rau_vqa_tpu_torch.data.fixtures import FixtureSpec, fixture_bundle
+    from rau_vqa_tpu_torch.data.loader import build_vqa_data
+    from rau_vqa_tpu_torch.eval.predict import predict, predict_fused
+    from rau_vqa_tpu_torch.models import pipeline
+    from rau_vqa_tpu_torch.models.backbones import resnet
+    from rau_vqa_tpu_torch.ops import fused_resnet, lstm_encoder, rau_hops
+    from rau_vqa_tpu_torch.serve import RAUService, serve
+    from rau_vqa_tpu_torch.train.trainer import init_train_state
+    from rau_vqa_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counters = {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL,
+                "fused_identity_stage": fused_resnet.KERNEL}
+    total = {k: 0 for k in counters}
+    dispatches = [0]
+
+    @contextlib.contextmanager
+    def driven(services):
+        """Counts each kernel's launches in the block (every count set to 0
+        just before, read just after) and the services' dispatches."""
+        for k in counters.values():
+            k.launches = 0
+        before = [s.stats()["dispatches"] for s in services]
+        seen = {}
+        yield seen
+        torch.cuda.synchronize()
+        seen.update({n: k.launches for n, k in counters.items()})
+        seen["dispatches"] = sum(s.stats()["dispatches"] - b
+                                 for s, b in zip(services, before))
+        for n in total:
+            total[n] += seen[n]
+        dispatches[0] += seen["dispatches"]
+
+    # the trainer phase's paper-dims fixture, in memory
+    spec = FixtureSpec(n_train=1000, n_test=166, n_images=100, n_words=12604,
+                       n_answers=1000, seq_len=26, feat_dim=512, feat_w=14,
+                       feat_h=14, n_mc=4, seed=11 + seed, n_img_classes=10,
+                       class_code="dense")
+    failed = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as root:
+        bundle = fixture_bundle(root, spec)
+        data = build_vqa_data(bundle.info, bundle.arrays, 1, split="val2014",
+                              test_batch_size=1)
+        mcfg = dataclasses.replace(get_preset("ours_ms"), vocab_size=data.vocab_size,
+                                   answer_size=data.answer_size, seq_len=data.seq_len)
+        if (mcfg.vocab_size, mcfg.answer_size, mcfg.seq_len) != \
+                (spec.n_words + 1, spec.n_answers, spec.seq_len):
+            raise SystemExit(f"serve: fixture dims {mcfg}")
+        state = init_train_state(mcfg, seed, device=dev)
+        snap = save_checkpoint(os.path.join(root, "snap"), 0, 0.0, state._asdict(),
+                               extra={"model_config": dataclasses.asdict(mcfg)})
+        imgs = bundle.info["unique_img_train"] + bundle.info["unique_img_test"]
+        shard = os.path.join(root, "shard")
+        t0 = time.perf_counter()
+        pack_feature_dir([bundle.feat_dir], imgs, [1] * len(imgs), shard,
+                         spec.feat_dim, spec.feat_w, spec.feat_h)
+        log(f"serve: {len(imgs)} images packed into a float32 shard in "
+            f"{time.perf_counter() - t0:.2f} s")
+        svc = RAUService(snap, None, [shard], data=data, max_batch=16,
+                         max_wait_ms=5.0, buckets=(8, 16))
+        if svc.source.__class__.__name__ != "PackedFeatureStore":
+            raise SystemExit(f"serve: the shard was read by {svc.source!r}")
+        server = serve(svc, port=0, host="127.0.0.1")
+        port = server.server_address[1]
+        srv_thread = threading.Thread(target=server.serve_forever, daemon=True)
+        srv_thread.start()
+        try:
+            code, body, _ = http_json(port, "/healthz")
+            if (code, body) != (200, {"status": "ok"}):
+                raise SystemExit(f"serve: /healthz gave {code} {body}")
+            td = data.train_data
+            # distinct (question, feature) pairs of the fixture, in order
+            pairs = list(dict.fromkeys(
+                (data.tokens_to_question(td.questions[i], td.lengths[i]), td.img_names[i])
+                for i in range(td.num_examples)))
+            if len(pairs) < 349:
+                raise SystemExit(f"serve: {len(pairs)} distinct pairs in the fixture")
+            pairs, warm = pairs[:320], pairs[320:349]
+            # warm-up, as scripts/bench_serve.py: one request (the first one
+            # casts the kernels' bf16 weights), then bursts of 4, 8 and 16
+            with driven([svc]) as warm_launch:
+                code, _, first_ms = http_json(port, "/answer", {"question": warm[0][0],
+                                                                "feat_name": warm[0][1]})
+                at, codes = 1, []
+                for burst in (4, 8, 16):
+                    with ThreadPoolExecutor(burst) as ex:
+                        codes += ex.map(lambda p: http_json(
+                            port, "/answer", {"question": p[0], "feat_name": p[1]})[0],
+                            warm[at:at + burst])
+                    at += burst
+            if code != 200 or set(codes) != {200}:
+                raise SystemExit(f"serve: warm-up requests failed: {code} {codes}")
+            log(f"serve: the first request took {first_ms:.3f} ms; warm-up launches "
+                f"{warm_launch}")
+            # 2. unloaded: one request at a time
+            with driven([svc]) as seq_launch:
+                unloaded = [http_json(port, "/answer", {"question": q, "feat_name": f,
+                                                        "topk": 5})
+                            for q, f in pairs[:64]]
+            # 3. saturated: 32 clients, 8 requests each, back to back
+            st0 = svc.stats()
+
+            def client(c):
+                return [http_json(port, "/answer", {"question": q, "feat_name": f,
+                                                    "topk": 5})
+                        for q, f in pairs[64 + 8 * c: 72 + 8 * c]]
+            with driven([svc]) as sat_launch:
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(32) as ex:
+                    saturated = [r for rs in ex.map(client, range(32)) for r in rs]
+                sat_s = time.perf_counter() - t0
+            st1 = svc.stats()
+            responses = unloaded + saturated
+            bad = [(c, b) for c, b, _ in responses if c != 200]
+            if bad:
+                raise SystemExit(f"serve: {len(bad)} requests failed, e.g. {bad[0]}")
+            # 4. each answer against the plain float32 predict on the card
+            toks = np.stack([data.question_to_tokens(q, normalize=True)[0] for q, _ in pairs])
+            lens = np.array([data.question_to_tokens(q, normalize=True)[1] for q, _ in pairs],
+                            np.int32)
+            feats = torch.as_tensor(svc.source.get_batch([f for _, f in pairs],
+                                                         [1] * len(pairs)), device=dev)
+            with torch.no_grad():
+                ref = torch.cat([predict(svc.params, mcfg,
+                                         torch.as_tensor(toks[i:i + 64], device=dev),
+                                         torch.as_tensor(lens[i:i + 64], device=dev),
+                                         feats[i:i + 64])[0][-1]
+                                 for i in range(0, len(pairs), 64)]).cpu().numpy()
+            aid = {a: i for i, a in enumerate(data.answers)}
+            worst, top1 = 0.0, 0
+            for (_, body, _), r in zip(responses, ref):
+                got = np.array([a["score"] for a in body["answers"]])
+                want = r[[aid[a["answer"]] for a in body["answers"]]]
+                worst = max(worst, float((np.abs(got - want) / (0.02 + 0.05 * np.abs(want))).max()))
+                top1 += aid[body["answers"][0]["answer"]] == int(r.argmax())
+                if len(body["per_hop"]) != mcfg.n_hops:
+                    failed.append(f"per_hop has {len(body['per_hop'])} entries")
+            agree = top1 / len(responses)
+            log(f"serve: {len(responses)} answers against the plain float32 predict on the "
+                f"card: scores at {worst:.3f} of the bar (rtol 0.05 atol 0.02), top-1 "
+                f"agreement {agree:.4f} (bar > 0.95), per_hop {mcfg.n_hops} entries each")
+            if worst > 1.0 or not agree > 0.95:
+                failed.append(f"answers: {worst:.3f} of the bar, top-1 {agree:.4f}")
+            # 5. stats
+            sat_disp = st1["dispatches"] - st0["dispatches"]
+            log(f"serve: /stats {json.dumps(st1)}")
+            if st1["requests_served"] != len(responses) + 29 or not sat_disp < 256 \
+                    or not 2 <= st1["max_batch_seen"] <= 16:
+                failed.append(f"stats: served {st1['requests_served']} of "
+                              f"{len(responses) + 29}, saturated {sat_disp} dispatches for "
+                              f"256 requests, max batch {st1['max_batch_seen']}")
+            # 6. launches: one of each serving kernel a dispatch
+            for what, seen in (("warm-up", warm_launch), ("unloaded", seq_launch),
+                               ("saturated", sat_launch)):
+                log(f"serve {what}: launches {seen}")
+                if not seen["lstm_encode"] == seen["rau_hops"] == seen["dispatches"] > 0:
+                    failed.append(f"{what} launches {seen}")
+            # 7. /answer_many: 3 questions about one image, one feature fetch
+            name = data.test_data.img_names[0]
+            qs = [data.tokens_to_question(data.test_data.questions[i],
+                                          data.test_data.lengths[i]) for i in range(3)]
+            n_dev = svc.stats()["device_feat_cache_entries"]
+            with driven([svc]) as many_launch:
+                code, many, _ = http_json(port, "/answer_many",
+                                          {"questions": qs, "feat_name": name, "topk": 5})
+                singles = [http_json(port, "/answer", {"question": q, "feat_name": name,
+                                                       "topk": 5})[1] for q in qs]
+            grew = svc.stats()["device_feat_cache_entries"] - n_dev
+            same = code == 200 and all(
+                m["answers"][0]["answer"] == s["answers"][0]["answer"]
+                and np.allclose([a["score"] for a in m["answers"]],
+                                [a["score"] for a in s["answers"]], rtol=0.05, atol=0.02)
+                for m, s in zip(many["results"], singles))
+            log(f"serve: /answer_many of 3 questions: top-1 as the single calls {same}, the "
+                f"device feature cache grew by {grew}; launches {many_launch}")
+            if not same or grew != 1:
+                failed.append(f"answer_many: same {same}, cache grew {grew}")
+            # 8. attention rows
+            code, body, _ = http_json(port, "/answer", {"question": qs[0], "feat_name": name,
+                                                        "attention": True})
+            rows = np.array(body["attention"]["rows"]) if code == 200 else np.zeros((0,))
+            row_err = float(np.abs(rows.sum(1) - 1).max()) if rows.ndim == 2 else 1.0
+            log(f"serve: attention {rows.shape} rows on grid {body.get('attention', {}).get('grid')}, "
+                f"row sums within {row_err:.2e} of 1")
+            if rows.shape != (mcfg.n_hops + 2, mcfg.cnn_spat) or row_err > 1e-3 \
+                    or body["attention"]["grid"] != [mcfg.cnn_w, mcfg.cnn_h]:
+                failed.append(f"attention {rows.shape}")
+            # 9. errors
+            c1, b1, _ = http_json(port, "/answer", {"question": qs[0],
+                                                    "feat_name": "no-such-image.t7"})
+            c2, _, _ = http_json(port, "/nothing")
+            log(f"serve: unknown feat_name -> {c1} {b1}; unknown path -> {c2}")
+            if c1 != 400 or not b1.get("error") or c2 != 404:
+                failed.append(f"errors: {c1} {b1} {c2}")
+
+            # readings: latency unloaded beside the bare step at B=1
+            lat = [ms for _, _, ms in unloaded]
+            step = svc.predict
+            bare = []
+            with torch.no_grad():
+                for i in range(64):
+                    f = feats[i:i + 1]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    tab, _ = step(svc.params, toks[i:i + 1], lens[i:i + 1], f)
+                    tab.float().cpu()
+                    bare.append((time.perf_counter() - t0) * 1e3)
+            sat_lat = [ms for _, _, ms in saturated]
+            log(f"serve_unloaded_ms p50={pct(lat, 50):.3f} p99={pct(lat, 99):.3f} "
+                f"(64 sequential requests); the bare PredictStep at B=1 on the same "
+                f"questions p50={pct(bare, 50):.3f} p99={pct(bare, 99):.3f} [{card}]")
+            log(f"serve_saturated: 32 clients x 8 requests in {sat_s:.3f} s = "
+                f"{256 / sat_s:.1f} q/s, latency p50={pct(sat_lat, 50):.3f} "
+                f"p99={pct(sat_lat, 99):.3f} ms, {sat_disp} dispatches, mean micro-batch "
+                f"{256 / sat_disp:.2f} [{card}]")
+            # a device-cache miss (a feature never asked for) against a hit
+            fresh = [n for n in sorted(set(data.test_data.img_names)) if n != name][:16]
+            miss = [http_json(port, "/answer", {"question": qs[1], "feat_name": n})[2]
+                    for n in fresh]
+            hit = [http_json(port, "/answer", {"question": qs[1], "feat_name": n})[2]
+                   for n in fresh]
+            log(f"serve_feat_cache_ms miss p50={pct(miss, 50):.3f} hit p50={pct(hit, 50):.3f} "
+                f"(16 features each) [{card}]")
+            # the native loader against the Python store: an epoch of B=100
+            names = [td.img_names[i] for i in range(td.num_examples)]
+            py = PackedFeatureStore(shard)
+            t0 = time.perf_counter()
+            for i in range(0, len(names), 100):
+                py.get_batch(names[i:i + 100], [1] * 100)
+            py_s = time.perf_counter() - t0
+            try:
+                nat = native.NativePackedFeatureStore(shard, n_threads=4)
+            except native.NativeUnavailable as e:
+                log(f"serve: NativePackedFeatureStore not measured: {str(e).splitlines()[0]}")
+            else:
+                t0 = time.perf_counter()
+                for i in range(0, len(names), 100):
+                    got = nat.get_batch(names[i:i + 100], [1] * 100)
+                nat_s = time.perf_counter() - t0
+                if not np.array_equal(got, py.get_batch(names[-100:], [1] * 100)):
+                    failed.append("the native store's batch differs from the Python store's")
+                nat.close()
+                log(f"serve_loader_epoch_s native={nat_s:.4f} python={py_s:.4f} "
+                    f"({len(names) // 100} batches of 100 x {mcfg.cnn_spat} x "
+                    f"{mcfg.cnn_dim} float32) [{card}]")
+        finally:
+            server.shutdown()
+            server.server_close()
+            svc.close()
+            srv_thread.join(60)
+
+        # 10. an image: the ours_resnet head and a folded bf16 ResNet-101
+        cfg_r = dataclasses.replace(get_preset("ours_resnet"), vocab_size=data.vocab_size,
+                                    answer_size=data.answer_size, seq_len=data.seq_len)
+        state_r = init_train_state(cfg_r, seed, device=dev)
+        snap_r = save_checkpoint(os.path.join(root, "snap_r"), 0, 0.0, state_r._asdict(),
+                                 extra={"model_config": dataclasses.asdict(cfg_r)})
+        bb = resnet.fold_batchnorm(resnet.resnet101_init(
+            torch.Generator().manual_seed(seed + 1), torch.bfloat16, dev))
+        svc_r = RAUService(snap_r, None, [], data=data, backbone="resnet101",
+                           bb_params=bb, max_batch=16, max_wait_ms=5.0)
+        server = serve(svc_r, port=0, host="127.0.0.1")
+        port = server.server_address[1]
+        srv_thread = threading.Thread(target=server.serve_forever, daemon=True)
+        srv_thread.start()
+        try:
+            rs = np.random.RandomState(seed)
+            size = svc_r.image_size     # 448: the 14 x 14 grid at stride 32
+            pixels = [rs.randint(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(2)]
+            b64 = [base64.b64encode(png_bytes(p)).decode() for p in pixels]
+            try:
+                native.load_image_library()
+                route = "native"
+            except native.NativeUnavailable as e:
+                why = str(e).splitlines()
+                log(f"serve: the native decoder does not build here: "
+                    f"{next((x for x in why if 'error' in x), why[0]).strip()}")
+                try:
+                    import PIL  # noqa: F401
+                    route = "PIL"
+                except ImportError:
+                    route = "none: image_b64 requests get a 400"
+            log(f"serve: image decode route: {route}")
+            img_qs = qs
+
+            def ask_image(q, k=0):
+                return http_json(port, "/answer", {"question": q, "image_b64": b64[k],
+                                                   "topk": 5})
+            with driven([svc_r]) as img_launch:
+                with ThreadPoolExecutor(3) as ex:
+                    img_out = list(ex.map(ask_image, img_qs))
+            st = svc_r.stats()
+            log(f"serve image: 3 requests at once: {[c for c, _, _ in img_out]}, "
+                f"feat_cache_entries {st['feat_cache_entries']}, launches {img_launch}")
+            if any(c != 200 for c, _, _ in img_out) or st["feat_cache_entries"] != 1 \
+                    or img_launch["fused_identity_stage"] != 4 \
+                    or not img_launch["lstm_encode"] == img_launch["rau_hops"] \
+                    == img_launch["dispatches"] > 0:
+                failed.append(f"image: {[(c, b) for c, b, _ in img_out if c != 200]}, cache "
+                              f"{st['feat_cache_entries']}, launches {img_launch}")
+            else:
+                # against answer_pixels on the same image and questions: its
+                # select answers, and its select row's scores (computed by
+                # its own parts) for the answers each response ranked
+                t_q = torch.as_tensor(np.stack([data.question_to_tokens(q, normalize=True)[0]
+                                                for q in img_qs]), device=dev)
+                l_q = torch.as_tensor([data.question_to_tokens(q, normalize=True)[1]
+                                       for q in img_qs], dtype=torch.int32, device=dev)
+
+                def select_row(image, feat_norm=False):
+                    with torch.no_grad():
+                        f = pipeline.extract_features(
+                            "resnet101", bb, torch.as_tensor(np.stack([image] * 3), device=dev),
+                            fused_stages=pipeline.SERVING_STAGES, feat_norm=feat_norm).float()
+                        tab, _ = predict_fused(svc_r.params, pipeline._head_weights(svc_r.params),
+                                               svc_r.mcfg, t_q, l_q, f)
+                    return tab[-1].float().cpu().numpy()
+
+                def bar_share(ref):
+                    """The responses' largest score distance from ``ref``, as a
+                    share of the serving bar (rtol 0.05, atol 0.02)."""
+                    out = 0.0
+                    for (_, b, _), r in zip(img_out, ref):
+                        got = np.array([a["score"] for a in b["answers"]])
+                        want = r[[aid[a["answer"]] for a in b["answers"]]]
+                        out = max(out, float((np.abs(got - want)
+                                              / (0.02 + 0.05 * np.abs(want))).max()))
+                    return out
+                ids, _ = pipeline.answer_pixels(svc_r.params, bb, svc_r.mcfg, "resnet101",
+                                                np.stack([pixels[0]] * 3), t_q, l_q)
+                ids = ids[-1].cpu().numpy()
+                ref = select_row(pixels[0])
+                got = [b["answers"][0]["answer"] for _, b, _ in img_out]
+                want = [data.answers[int(i)] for i in ids]
+                share = bar_share(ref)
+                # a near tie (the other answer within the serving bar of the
+                # top score) counts as agreement, as in the pixels phase
+                tied = [w in {a["answer"] for a in b["answers"]
+                              if abs(a["score"] - b["answers"][0]["score"])
+                              <= 0.02 + 0.05 * abs(b["answers"][0]["score"])}
+                        for w, (_, b, _) in zip(want, img_out)]
+                # the same distance from a wrong feature path: the other image,
+                # and the features with feat_norm flipped.  The random head
+                # gives every image nearly the same scores, so the other
+                # image's row lies within the bar: the served scores must
+                # also lie nearer than a tenth of each wrong row's distance
+                wrong = {"the other image": bar_share(select_row(pixels[1])),
+                         "feat_norm flipped": bar_share(select_row(pixels[0], not svc_r.feat_norm))}
+                log(f"serve image: select answers {got}, answer_pixels {want} (ties {tied}); the served "
+                    f"top-5 scores at {share:.4f} of the serving bar (rtol 0.05 atol 0.02) of "
+                    f"answer_pixels' select row; a wrong feature path's row at "
+                    + ", ".join(f"{v:.4f} ({k})" for k, v in wrong.items())
+                    + " (bar: the served scores nearer than a tenth of each)")
+                if not all(g == w or t for g, w, t in zip(got, want, tied)) or share > 1.0 \
+                        or not share < 0.1 * min(wrong.values()) \
+                        or not (ref.argmax(-1) == ids).all():
+                    failed.append(f"image answers {got} vs answer_pixels {want}, scores at "
+                                  f"{share:.4f} of the bar")
+            # readings: an image request on a miss (a new image) against a hit
+            with driven([svc_r]):
+                _, _, miss_ms = ask_image(img_qs[1], 1)
+                _, _, hit_ms = ask_image(img_qs[2], 1)
+            log(f"serve_image_ms miss={miss_ms:.3f} hit={hit_ms:.3f} ({size} px, route "
+                f"{route}) [{card}]")
+        finally:
+            server.shutdown()
+            server.server_close()
+            svc_r.close()
+            srv_thread.join(60)
+    log(f"serve launches in the driven requests {total}, dispatches {dispatches[0]}")
+    if not total["lstm_encode"] == total["rau_hops"] == dispatches[0]:
+        failed.append(f"launches {total} for {dispatches[0]} dispatches")
+    log(f"serve_phase_s={time.perf_counter() - t_phase:.1f} [{card}]")
+    if failed:
+        raise SystemExit("serve: " + "; ".join(failed))
     return total
 
 
@@ -2000,23 +2455,31 @@ def main() -> int:
         trainer_launches = trainer_phase(args.seed, card)
     log(f"trainer_phase_s={time.perf_counter() - t_phase:.1f} [{card}]")
     log("phase trainer: ok")
+    # 9. the HTTP service through the user's entry points
+    with watchdog(600, "the serve phase"):
+        serve_launches = serve_phase(args.seed, card)
+    log("phase serve: ok")
 
     s2 = stage_ms[2]
     kernels = [
         {"name": "lstm_encode", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/lstm_encoder.cu",
          "replaces": "rau_vqa_tpu/ops/lstm_encoder.py:81",
-         "launches": launches["lstm_encode"], "max_abs_err": err["lstm_encode"],
+         "launches": launches["lstm_encode"] + serve_launches["lstm_encode"],
+         "max_abs_err": err["lstm_encode"],
          "ms": ms["lstm_encode"], "plain_ms": ms["lstm_plain"],
          "bound_ms": lb_ms, "bound_by": lb_by, "library_ms": ms["lstm_library"],
-         "trainer_launches": trainer_launches["lstm_encode"]},
+         "trainer_launches": trainer_launches["lstm_encode"],
+         "serve_launches": serve_launches["lstm_encode"]},
         {"name": "rau_hops", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_hops.cu",
          "replaces": "rau_vqa_tpu/ops/rau_hops.py:152",
-         "launches": launches["rau_hops"], "max_abs_err": err["rau_hops"],
+         "launches": launches["rau_hops"] + serve_launches["rau_hops"],
+         "max_abs_err": err["rau_hops"],
          "ms": ms["rau_hops"], "plain_ms": ms["hops_plain"],
          "bound_ms": hb_ms, "bound_by": hb_by, "library_ms": None,
          "trainer_launches": trainer_launches["rau_hops"],
+         "serve_launches": serve_launches["rau_hops"],
          "device_kernels_a_call": hops_kernels[512]},
         {"name": "train_hops_fwd", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_fwd.cu",
@@ -2071,7 +2534,9 @@ def main() -> int:
         {"name": "fused_identity_stage", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/fused_resnet.cu",
          "replaces": "rau_vqa_tpu/ops/fused_resnet.py:129",
-         "launches": pix_launches["fused_identity_stage"],
+         "launches": pix_launches["fused_identity_stage"]
+         + serve_launches["fused_identity_stage"],
+         "serve_launches": serve_launches["fused_identity_stage"],
          "max_abs_err": stage_err[2][1], "scaled_err": stage_err[2][0],
          "ms": s2["ms"], "plain_ms": s2["plain_ms"],
          "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],

@@ -5,13 +5,17 @@
     python -m rau_vqa_tpu_torch.cli eval --checkpoint snapshot_....pt ...
     python -m rau_vqa_tpu_torch.cli ask --checkpoint ... --question ... --feat-name ...
     python -m rau_vqa_tpu_torch.cli fixture --out /tmp/fixture
+    python -m rau_vqa_tpu_torch.cli serve --checkpoint ... --fixture --port 8080
+    python -m rau_vqa_tpu_torch.cli pack-features --vqa-dir ... --feat-dir ... --out ...
+    python -m rau_vqa_tpu_torch.cli convert-snapshot --input snap.t7 --output snap.pt --vocab-size ...
 
-Every command runs on ``--device`` (``cuda`` by default; it raises without a
-card, ``--device cpu`` runs the kernels' plain versions).  ``eval`` and
-``ask`` read the port's ``.pt`` snapshots and the JAX package's
-``.msgpack`` ones, and adopt the snapshot's model config.  ``train
---fixture`` builds the fixture in memory (no ``h5py``); ``fixture`` and
-``--vqa-dir`` read or write ``data_prepro.h5`` and need ``h5py``.
+Every command that runs the model runs on ``--device`` (``cuda`` by default;
+it raises without a card, ``--device cpu`` runs the kernels' plain
+versions).  ``eval``, ``ask`` and ``serve`` read the port's ``.pt``
+snapshots and the JAX package's ``.msgpack`` ones, and adopt the snapshot's
+model config.  ``--fixture`` builds the fixture in memory (no ``h5py``);
+``fixture`` and ``--vqa-dir`` read or write ``data_prepro.h5`` and need
+``h5py``.
 """
 
 from __future__ import annotations
@@ -348,6 +352,174 @@ def cmd_ask(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """The HTTP inference service (``serve.py``) on ``--port``."""
+    from rau_vqa_tpu_torch.config import get_experiment
+    from rau_vqa_tpu_torch.data.loader import build_vqa_data
+    from rau_vqa_tpu_torch.devices import pick_device
+    from rau_vqa_tpu_torch.serve import RAUService, serve
+
+    device = pick_device(args.device, "serve")
+    bb_params = None
+    if args.backbone:
+        bb_params = _load_backbone_state(args.backbone, args.backbone_state,
+                                         device)
+    data, feat_dirs = None, list(args.feat_dir or [])
+    if args.fixture:
+        workdir = args.save_dir or "save_result_serve"
+        _, bundle = _fixture_setup(get_experiment(args.preset), workdir)
+        data = build_vqa_data(bundle.info, bundle.arrays, 1, split="val2014",
+                              test_batch_size=1)
+        feat_dirs = feat_dirs or [bundle.feat_dir]
+    svc = RAUService(args.checkpoint, args.vqa_dir, feat_dirs,
+                     preset=args.preset, artifact=args.artifact,
+                     fused=not args.plain_eval, backbone=args.backbone,
+                     bb_params=bb_params,
+                     buckets=_parse_buckets(args.eval_buckets),
+                     max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+                     feat_cache_size=args.feat_cache,
+                     request_timeout_s=args.request_timeout, data=data,
+                     device=device)
+    server = serve(svc, args.port)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+        svc.close()
+    return 0
+
+
+def _load_backbone_state(backbone: str, state_path: str, device):
+    """A torchvision ResNet-101 state_dict (.pth) -> the serving tree (BN
+    folded), in bf16 on ``device``."""
+    import torch
+
+    from rau_vqa_tpu_torch.convert import map_tree
+    from rau_vqa_tpu_torch.serve import NOT_PORTED
+    if backbone != "resnet101":
+        raise NotImplementedError(NOT_PORTED["backbone"].format(backbone))
+    if not state_path:
+        raise SystemExit("--backbone requires --backbone-state (a "
+                         "torchvision state_dict .pth)")
+    if state_path.endswith(".msgpack"):
+        raise NotImplementedError(f"--backbone-state {state_path}: "
+                                  f"{NOT_PORTED['fine_tuned']}")
+    from rau_vqa_tpu_torch.models.backbones.resnet import (
+        fold_batchnorm,
+        resnet_from_torch_state,
+    )
+    state = torch.load(state_path, map_location="cpu", weights_only=True)
+    folded = fold_batchnorm(resnet_from_torch_state(state))
+    return map_tree(lambda t: t.to(device, torch.bfloat16), folded)
+
+
+def cmd_pack_features(args) -> int:
+    """Pack per-image .t7 features into one mmap shard.
+
+    Source directories follow the ``datatype_train`` contract: the reference
+    indexes its feature paths by each question's datatype
+    (vqa_prepro_loader.lua:876), so a mixed train2014+val2014 split reads
+    images from different directories.  Test images use datatype 1
+    (vqa_prepro_loader.lua:1378).  Without ``data_prepro.h5``, or without
+    ``h5py`` to read it, every image takes datatype 1, which only one
+    feature directory can serve."""
+    import numpy as np
+
+    from rau_vqa_tpu_torch.data.features import pack_feature_dir
+
+    with open(os.path.join(args.vqa_dir, "data_prepro.json")) as f:
+        info = json.load(f)
+    imgs = list(info.get("unique_img_train", []))
+    dts = np.ones(len(imgs), np.int32)
+    h5_path = os.path.join(args.vqa_dir, "data_prepro.h5")
+    if imgs and os.path.exists(h5_path):
+        try:
+            import h5py
+        except ImportError:
+            if len(args.feat_dir) > 1:
+                raise SystemExit(
+                    f"{h5_path} holds each image's datatype, which needs "
+                    f"h5py to read; with one --feat-dir every image is "
+                    f"datatype 1") from None
+        else:
+            with h5py.File(h5_path, "r") as h5:
+                if "datatype_train" in h5:
+                    # per-question datatype -> per image (img_pos 1-based)
+                    pos = np.asarray(h5["img_pos_train"], np.int64)
+                    dts[pos - 1] = np.asarray(h5["datatype_train"], np.int32)
+    dts = dts.tolist()
+    for p in info.get("unique_img_test", []):
+        imgs.append(p)
+        dts.append(1)
+    store = pack_feature_dir(args.feat_dir, imgs, dts, args.out,
+                             args.cnnout_dim, args.cnnout_w, args.cnnout_h,
+                             dtype=args.dtype)
+    print(f"packed {len(store.index)} images -> {args.out}")
+    return 0
+
+
+def cmd_convert_snapshot(args) -> int:
+    """A reference Torch7 snapshot (.t7) -> the port's .pt snapshot, written
+    at ``--output`` itself (with its .json sidecar); or with ``--to-torch``
+    a .pt or .msgpack snapshot -> .t7."""
+    import shutil
+    import tempfile
+
+    from rau_vqa_tpu_torch.config import get_experiment
+    from rau_vqa_tpu_torch.convert import map_tree
+    from rau_vqa_tpu_torch.train.trainer import init_train_state
+    from rau_vqa_tpu_torch.utils import torch_convert as tc
+    from rau_vqa_tpu_torch.utils.checkpoint import (
+        JAX_SUFFIX,
+        SUFFIX,
+        checkpoint_meta,
+        load_checkpoint,
+        model_config_from_meta,
+        save_checkpoint,
+    )
+
+    exp = _apply_overrides(get_experiment(args.preset), args)
+    mcfg = dataclasses.replace(exp.model, vocab_size=args.vocab_size,
+                               answer_size=args.answer_size,
+                               seq_len=args.seq_len)
+    if args.config_json:
+        with open(args.config_json) as f:
+            cfg_dict = json.load(f)
+        mcfg = model_config_from_meta(cfg_dict.get("model", cfg_dict),
+                                      from_jax=True)
+    if args.to_torch:
+        # the snapshot's own model config
+        saved = checkpoint_meta(args.input)
+        if "model_config" in saved:
+            mcfg = model_config_from_meta(
+                saved["model_config"], from_jax=args.input.endswith(JAX_SUFFIX))
+        template = init_train_state(mcfg, 0, device="cpu")._asdict()
+        tree, meta = load_checkpoint(args.input, template)
+        tc.export_snapshot(args.output, tree["params"], mcfg,
+                           it=meta.get("step", 0),
+                           epoch=meta.get("epoch", 0.0))
+        print(f"wrote Torch snapshot {args.output}")
+        return 0
+    params = tc.convert_snapshot(args.input, mcfg)
+    state = init_train_state(mcfg, 0, device="cpu")
+    state = state._replace(params=map_tree(lambda t, s: s.to(t.dtype),
+                                           state.params, params))
+    # --output literally: save_checkpoint names its files by step and
+    # epoch, so it writes into a temporary directory and the pair moves
+    out_dir = os.path.dirname(os.path.abspath(args.output))
+    os.makedirs(out_dir, exist_ok=True)
+    base = (args.output[:-len(SUFFIX)] if args.output.endswith(SUFFIX)
+            else args.output)
+    with tempfile.TemporaryDirectory(dir=out_dir) as td:
+        path = save_checkpoint(td, 0, 0.0, state._asdict(),
+                               extra={"model_config": dataclasses.asdict(mcfg),
+                                      "converted_from": args.input})
+        shutil.move(path, base + SUFFIX)
+        shutil.move(path[:-len(SUFFIX)] + ".json", base + ".json")
+    print(f"converted {args.input} -> {base}{SUFFIX}")
+    return 0
+
+
 def cmd_fixture(args) -> int:
     from rau_vqa_tpu_torch.data.fixtures import generate_fixture
 
@@ -373,7 +545,31 @@ def main(argv=None) -> int:
                        help="feature file name, e.g. "
                             "COCO_val2014_000000000042.t7")
     p_ask.add_argument("--topk", type=int, default=5)
-    for p in (p_train, p_eval, p_ask):
+    p_serve = sub.add_parser("serve", help="HTTP inference service")
+    p_serve.add_argument("--checkpoint",
+                         help="snapshot (.pt, or the JAX package's .msgpack)")
+    p_serve.add_argument("--artifact",
+                         help="an exported artifact (not ported: refused)")
+    p_serve.add_argument("--port", type=int, default=8080)
+    p_serve.add_argument("--max-batch", type=int, default=16,
+                         help="micro-batching group cap")
+    p_serve.add_argument("--max-wait-ms", type=float, default=5.0,
+                         help="longest a request waits for others to share "
+                              "its dispatch; 0 disables lingering")
+    p_serve.add_argument("--feat-cache", type=int, default=256,
+                         help="entries of each feature LRU (host image "
+                              "features, device features)")
+    p_serve.add_argument("--request-timeout", type=float, default=2600.0,
+                         help="seconds a request waits for its dispatch; "
+                              "/healthz reports 'wedged' past it; 0 "
+                              "disables")
+    p_serve.add_argument("--backbone", default=None,
+                         choices=["vgg16", "resnet101", "vit"],
+                         help="visual backbone for image_b64 requests "
+                              "(resnet101; the others are not ported)")
+    p_serve.add_argument("--backbone-state", default=None,
+                         help="torchvision ResNet-101 state_dict (.pth)")
+    for p in (p_train, p_eval, p_ask, p_serve):
         _add_train_flags(p)
         _add_common_data_flags(p)
         # also after the command; the top-level value stands when absent
@@ -382,9 +578,38 @@ def main(argv=None) -> int:
                                            "(needs h5py)")
     p_fix.add_argument("--out", required=True)
 
+    p_pack = sub.add_parser("pack-features",
+                            help="pack per-image .t7 features into an mmap "
+                                 "shard")
+    p_pack.add_argument("--feat-dir", action="append", required=True)
+    p_pack.add_argument("--vqa-dir", required=True)
+    p_pack.add_argument("--out", required=True)
+    p_pack.add_argument("--cnnout-dim", type=int, default=512)
+    p_pack.add_argument("--cnnout-w", type=int, default=14)
+    p_pack.add_argument("--cnnout-h", type=int, default=14)
+    p_pack.add_argument("--dtype", default="float32",
+                        choices=["float32", "float16", "int8"])
+
+    p_conv = sub.add_parser("convert-snapshot",
+                            help="Torch7 snapshot (.t7) <-> the port's .pt")
+    p_conv.add_argument("--input", required=True)
+    p_conv.add_argument("--output", required=True)
+    p_conv.add_argument("--to-torch", action="store_true",
+                        help=".pt or .msgpack -> .t7")
+    p_conv.add_argument("--vocab-size", type=int, required=True)
+    p_conv.add_argument("--answer-size", type=int, default=1000)
+    p_conv.add_argument("--seq-len", type=int, default=26)
+    p_conv.add_argument("--config-json", default=None,
+                        help="model config json (e.g. a run's config.json) "
+                             "in place of the preset's dims")
+    _add_train_flags(p_conv)
+    _add_common_data_flags(p_conv)
+
     args = parser.parse_args(argv)
     return {"train": cmd_train, "eval": cmd_eval, "ask": cmd_ask,
-            "fixture": cmd_fixture}[args.command](args)
+            "fixture": cmd_fixture, "serve": cmd_serve,
+            "pack-features": cmd_pack_features,
+            "convert-snapshot": cmd_convert_snapshot}[args.command](args)
 
 
 if __name__ == "__main__":

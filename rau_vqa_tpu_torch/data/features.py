@@ -15,11 +15,10 @@ Two sources, one interface:
 - ``T7DirFeatureSource``  — parity path, reads the reference's per-image .t7
   files (dir layout from data/get_vgg16_pool5_448.sh).
 - ``PackedFeatureStore``  — production path over packed shards written by
-  ``PackedShardWriter`` (the JAX package's ``pack_feature_dir`` and
-  ``precompute-features`` write them; the same files read here).
+  ``PackedShardWriter`` (``pack_feature_dir`` here and in the JAX package,
+  and the JAX package's ``precompute-features``, write them).
 
-The port's own copy of ``rau_vqa_tpu/data/features.py``; its
-``pack_feature_dir`` waits for the port's ``pack-features`` command.
+The port's own copy of ``rau_vqa_tpu/data/features.py``.
 """
 
 from __future__ import annotations
@@ -278,3 +277,27 @@ def check_feat_interface(source, expected: bool, where: str) -> None:
         f"(backbone_feat_norm={bool(expected)}) — extract the features "
         f"with the matching backbone snapshot, or evaluate a head trained "
         f"on this interface")
+
+
+def pack_feature_dir(src_dirs: Sequence[str], img_paths: Sequence[str],
+                     datatypes_by_img: Sequence[int], out_dir: str,
+                     dim: int, w: int, h: int,
+                     dtype: str = "float32") -> PackedFeatureStore:
+    """Convert per-image .t7 features into one packed mmap shard.
+
+    ``img_paths``/``datatypes_by_img`` enumerate the unique images of a split
+    (json ``unique_img_*`` lists) with their source-directory index; an image
+    listed twice is packed once, under its first datatype."""
+    src = T7DirFeatureSource(src_dirs, dim, w, h)
+    names, dts, seen = [], [], set()
+    for p, dt in zip(img_paths, datatypes_by_img):
+        name = coco_feat_name(p)
+        if name not in seen:
+            seen.add(name)
+            names.append(name)
+            dts.append(dt)
+    writer = PackedShardWriter(out_dir, len(names), w * h, dim, dtype=dtype)
+    chunk = 256
+    for i in range(0, len(names), chunk):
+        writer.write(i, src.get_batch(names[i:i + chunk], dts[i:i + chunk]))
+    return writer.finish(names)

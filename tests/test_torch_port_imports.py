@@ -34,7 +34,8 @@ def test_sources_found():
             "optim.py", "trainer.py", "fused_resnet.py", "transforms.py",
             "resnet.py", "pipeline.py", "devices.py", "bench_torch_serving.py",
             "bench_torch_stage.py", "loader.py", "checkpoint.py",
-            "msgpack_flax.py", "cli.py"} <= names
+            "msgpack_flax.py", "cli.py", "serve.py", "native.py",
+            "images.py", "torch_convert.py"} <= names
     assert (ROOT / "rau_vqa_tpu_torch" / "models" / "backbones" / "__init__.py") in SOURCES
 
 
@@ -47,8 +48,13 @@ def test_no_jax_import(path):
 
 # packages the card's machine lacks: (file, function) where each may appear
 OPTIONAL = {"h5py": {("loader.py", "read_prepro"),
-                     ("fixtures.py", "generate_fixture")},
-            "PIL": {("fixtures.py", "fixture_bundle")},
+                     ("fixtures.py", "generate_fixture"),
+                     ("cli.py", "cmd_pack_features")},
+            "PIL": {("fixtures.py", "fixture_bundle"),
+                    ("images.py", "decode_scale_center_crop"),
+                    ("images.py", "_load_one"),
+                    ("serve.py", "_decode_image"),
+                    ("chip_smoke.py", "serve_phase")},
             "matplotlib": {("plots.py", "render_curves")},
             "msgpack": set()}
 

@@ -89,7 +89,7 @@ Phases, in order; any failure exits non-zero:
               {1, 4, 16, 83, 512} with the host's enqueue time of a call and
               its device kernels a call (the profiler's count, held to its
               plan's 2 + 11 a hop), and ``answer_pixels``
-              at B=120 with its parts: each stage kernel beside its plain
+              at B=120 with its peak device memory and its parts: each stage kernel beside its plain
               version, the unfused cuDNN stage and its bound, with its plan
               (tile, ring, shared memory, registers) and the weight bytes its
               CTAs read from L2; the stage kernel's levers one at a time (the
@@ -148,7 +148,30 @@ Phases, in order; any failure exits non-zero:
               mean micro-batch, a device-cache miss against a hit, an image
               miss against a hit, the native packed store against the
               Python one over an epoch of B=100 batches, the phase's
-              seconds.
+              seconds;
+10. backbones — the flagship heads from pixels: ``lstm_encode`` and
+              ``rau_hops`` against their plain versions at ``ours_vit``
+              widths (S 256, D 1024) at B in {1, 19, 64}, at the serving
+              bars, two calls bit-equal, the hop plan the launcher's dry
+              run; ``answer_pixels`` for ``ours_ms`` through a bf16 VGG16
+              (He init x0.72 a convolution) on 448 px images at B in {1, 8,
+              64} and for ``ours_vit`` through a bf16 ViT-L/14 at 224 px at
+              B in {1, 64}, gated as the pixels phase against
+              ``pixels_forward`` with bf16's own effect measured against the
+              float32 tree (8 images at a time, TF32 off), one launch of each
+              head kernel a call and none of the stage kernel; readings of
+              each call, the backbone and the head alone beside the
+              backbone's bound, the idle share and peak memory at B=64;
+              ``precompute_features`` over 300 distinct 448 px PNGs at B=64
+              into a float32 shard (each row ``extract_features``' at the
+              same batch size to 1e-5 of the RMS) and an int8 one (bit for
+              bit the host writer's quantization), with the sweep's, the
+              backbone's and the decode's images/s and the decoder that ran;
+              the ``Trainer`` one epoch from the paper-dims fixture's 448 px
+              JPEGs through the frozen VGG16 and one from a shard of them
+              (first-step losses within 5e-3, sweep answers >= 0.99 alike,
+              trained q/s); ``RAUService(backbone="vgg16")`` answering three
+              PNGs by ``image_b64`` as by ``feat_name`` on the float32 shard.
 
 Prints each number beside the card's name and power limit, a ``kernels``
 JSON line (the hop kernel's and the training kernels' entries also give
@@ -939,7 +962,7 @@ def trainer_phase(seed: int, card: str) -> dict:
 
 def png_bytes(pixels: np.ndarray) -> bytes:
     """uint8 [H, W, 3] -> a PNG (8-bit RGB, no row filter), written with zlib
-    and struct alone (the card's machine has no PIL)."""
+    and struct alone."""
     import struct
     import zlib
     h, w, _ = pixels.shape
@@ -1362,6 +1385,471 @@ def serve_phase(seed: int, card: str) -> dict:
     log(f"serve_phase_s={time.perf_counter() - t_phase:.1f} [{card}]")
     if failed:
         raise SystemExit("serve: " + "; ".join(failed))
+    return total
+
+
+# the backbones phase's image sides (VGG16 at ours_ms's 14x14 grid, ViT-L/14
+# at its 224 px) and the images its precomputation sweeps
+BACKBONE_SIDES = {"vgg16": 448, "vit": 224}
+PRECOMPUTE_IMAGES = 300
+
+
+def vgg_flops(size: int) -> float:
+    """VGG16's 13 convolutions at ``size`` px: 2 x 9 x C_in x C_out a pixel
+    of each conv's output map, an image."""
+    from rau_vqa_tpu_torch.models.backbones.vgg import VGG16_CFG
+    flops, c_in, side = 0.0, 3, size
+    for v in VGG16_CFG:
+        if v == "M":
+            side //= 2
+        else:
+            flops += 2.0 * 9 * c_in * v * side * side
+            c_in = v
+    return flops
+
+
+def vit_flops(cfg) -> float:
+    """A ViT's products an image: the patch embedding, then each block's qkv,
+    the two attention products, the projection and the two MLP layers."""
+    S, D, P = cfg.seq, cfg.dim, cfg.patch
+    M = int(D * cfg.mlp_ratio)
+    block = 2.0 * S * D * (3 * D + D + 2 * M) + 2 * 2.0 * S * S * D
+    return 2.0 * S * P * P * 3 * D + cfg.depth * block
+
+
+def pixels_gates(name, cfg, calls, plain, head, f32_feats, predict_plain, gen, failed,
+                 pooled):
+    """The pixels phase's gates for one batch size, set against bf16's own
+    effect measured on these calls: ``calls`` [((ids, att), (images, tokens,
+    lengths))]; ``plain`` runs pixels_forward on the bf16 tree; ``head`` the
+    kernels' head on the bf16 tree's features; ``f32_feats`` the float32
+    tree's features; ``predict_plain`` the float32 head.  Logs each reading
+    beside its bar; appends what fails to ``failed``."""
+    from rau_vqa_tpu_torch.eval.predict import _aggregate
+    S, H, A = cfg.cnn_spat, cfg.n_hops, cfg.answer_size
+    hits = dict.fromkeys(("same", "head", "near", "near_random", "plain_f32", "ref_f32"), 0)
+    total, att_err, att_bf16, att_head = 0, 0.0, 0.0, 0.0
+    B = calls[0][1][0].shape[0]
+    for (ids, att), (images, tokens, lengths) in calls:
+        if ids.shape != (H + 2, B) or att.shape != (H + 2, B, S) \
+                or not torch.isfinite(att).all():
+            raise SystemExit(f"{name} B={B}: shapes {tuple(ids.shape)} {tuple(att.shape)} "
+                             f"or non-finite attention")
+        with torch.no_grad():
+            out, f_ref = plain(images, tokens, lengths)
+            ref_pred, ref_att = _aggregate(out.scores, out.do_pred, out.attprob)
+            head_pred, head_att = head(tokens, lengths, f_ref)
+            f32_pred, f32_att = predict_plain(tokens, lengths, f32_feats(images))
+        ref_ids, f32_ids = ref_pred.argmax(-1), f32_pred.argmax(-1)
+        slack = 2 * (ref_pred - f32_pred).abs().amax(-1)
+        best = ref_pred.amax(-1)
+
+        def near(i):
+            return (best - ref_pred.gather(-1, i[..., None])[..., 0] <= slack).sum().item()
+
+        hits["near"] += near(ids)
+        hits["near_random"] += near(torch.randint(0, A, ids.shape, device=ids.device,
+                                                  generator=gen))
+        hits["same"] += (ids == ref_ids).sum().item()
+        hits["head"] += (head_pred.argmax(-1) == ref_ids).sum().item()
+        hits["plain_f32"] += (ids == f32_ids).sum().item()
+        hits["ref_f32"] += (ref_ids == f32_ids).sum().item()
+        total += ids.numel()
+        att_err = max(att_err, (att - ref_att).abs().max().item())
+        att_bf16 = max(att_bf16, (ref_att - f32_att).abs().max().item())
+        att_head = max(att_head, (head_att - ref_att).abs().max().item())
+    r = {k: v / total for k, v in hits.items()}
+    pooled["ids"] += total
+    pooled["plain_f32"] += hits["plain_f32"]
+    pooled["ref_f32"] += hits["ref_f32"]
+    log(f"{name} B={B} x {len(calls)} calls, {total} ids: answers agree with "
+        f"pixels_forward {r['same']:.4f} (kernels' head alone {r['head']:.4f}, bar > 0.95), "
+        f"within bf16's tie slack {r['near']:.4f} (bar > 0.95; random answers "
+        f"{r['near_random']:.4f}, bar < 0.2); with the float32 tree: answer_pixels "
+        f"{r['plain_f32']:.4f}, pixels_forward {r['ref_f32']:.4f}; attention max_abs_err "
+        f"{att_err:.3e} (bar {2 * att_bf16 + 5e-4:.3e}: twice bf16's own {att_bf16:.3e} "
+        f"+ 5e-4), head alone {att_head:.3e} (bar 5e-4)")
+    if r["near"] <= 0.95 or r["near_random"] >= 0.2:
+        failed.append(f"{name} B={B}: answers within bf16's tie slack {r['near']:.4f}, "
+                      f"random answers {r['near_random']:.4f}")
+    if att_err > 2 * att_bf16 + 5e-4:
+        failed.append(f"{name} B={B}: attention {att_err:.3e}, bf16's own {att_bf16:.3e}")
+    if r["head"] <= 0.95 or att_head > 5e-4:
+        failed.append(f"{name} B={B}: kernels' head vs float32 head: agreement "
+                      f"{r['head']:.4f}, attention {att_head:.3e}")
+
+
+def backbones_phase(seed: int, card: str) -> dict:
+    """Phase 10: the flagship heads from pixels: ``ours_ms`` through VGG16 at
+    448 px and ``ours_vit`` through ViT-L/14 at 224 px by ``answer_pixels``,
+    the serving kernels at ``ours_vit`` widths against their plain versions,
+    ``precompute_features`` into float32 and int8 shards, and the same
+    images through ``RAUService`` and the ``Trainer``; returns the head
+    kernels' launches on those paths."""
+    import base64
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rau_vqa_tpu_torch.config import get_experiment, get_preset
+    from rau_vqa_tpu_torch.convert import map_tree, tree_leaves
+    from rau_vqa_tpu_torch.data.features import PackedShardWriter, coco_feat_name
+    from rau_vqa_tpu_torch.data.fixtures import FixtureSpec, fixture_bundle
+    from rau_vqa_tpu_torch.data.images import ImageDirSource
+    from rau_vqa_tpu_torch.data.loader import build_vqa_data
+    from rau_vqa_tpu_torch.eval.predict import predict, predict_fused
+    from rau_vqa_tpu_torch.models import pipeline
+    from rau_vqa_tpu_torch.models.backbones import vgg, vit
+    from rau_vqa_tpu_torch.models.rau import embed_image, embed_question, init_params
+    from rau_vqa_tpu_torch.ops import fused_resnet, lstm_encoder, rau_hops
+    from rau_vqa_tpu_torch.precompute import (
+        precompute_features, quantize_feats_device, scan_image_dir, unique_by_feat_name)
+    from rau_vqa_tpu_torch.serve import RAUService
+    from rau_vqa_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    rs = np.random.RandomState(seed + 40)
+    heads = {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL}
+    total = dict.fromkeys(heads, 0)
+    failed = []
+
+    def count(block_launches):
+        for n in total:
+            total[n] += block_launches[n]
+
+    # 1. the serving kernels at ours_vit widths (S 256 cells of 1024
+    # channels), against their plain versions at the serving bars
+    cfg_v = get_preset("ours_vit")
+    params_v = init_params(cfg_v, torch.Generator().manual_seed(seed + 41), dev)
+    widths = (cfg_v.rnnout_dim, cfg_v.cnn_spat, cfg_v.multfeat_dim, cfg_v.attfeat_dim,
+              cfg_v.att_rnn_size, cfg_v.answer_size)
+    enc = lstm_encoder.pack_encoder_weights(params_v["rnn"])
+    hw = rau_hops.pack_hop_weights(params_v["mult"])
+    for B in (1, 19, 64):
+        plan = rau_hops.hops_plan(B, cfg_v)
+        scratch, launches = rau_hops.hops_launcher_plan(B, *widths)
+        if scratch <= 0 or [x[:3] for x in launches] != [ph.grid for ph in plan.phases]:
+            raise SystemExit(f"hops_plan at ours_vit widths B={B}: the launcher runs "
+                             f"{launches} with {scratch} scratch floats")
+        tokens, lengths, feats = make_batch(cfg_v, B, cfg_v.seq_len, rs, dev)
+        emb = embed_question(params_v, tokens).contiguous()
+        q = lstm_encoder.lstm_encode(enc, cfg_v, emb, lengths)
+        q2 = lstm_encoder.lstm_encode(enc, cfg_v, emb, lengths)
+        q_ref = lstm_encoder.lstm_encode_reference(enc, cfg_v, emb, lengths, dot_dtype=bf16)
+        ifeat, iatt = embed_image(params_v["mult"], feats)
+        ifeat, iatt = ifeat.to(bf16).contiguous(), iatt.to(bf16).contiguous()
+        s, d, a = rau_hops.rau_hops(hw, cfg_v, q_ref, ifeat, iatt)
+        again = rau_hops.rau_hops(hw, cfg_v, q_ref, ifeat, iatt)
+        s_r, d_r, a_r = rau_hops.rau_hops_reference(hw, cfg_v, q_ref, ifeat, iatt,
+                                                    dot_dtype=bf16)
+        torch.cuda.synchronize()
+        e_q = (q - q_ref).abs().max().item()
+        q_share = ((q - q_ref).abs() / (5e-3 + 0.05 * q_ref.abs())).max().item()
+        share = ((s - s_r).abs() / (0.01 + 0.05 * s_r.abs())).max().item()
+        agree = (s.argmax(-1) == s_r.argmax(-1)).float().mean().item()
+        e_a, e_d = (a - a_r).abs().max().item(), (d - d_r).abs().max().item()
+        bits = torch.equal(q, q2) and all(torch.equal(x, y) for x, y in zip((s, d, a), again))
+        log(f"ours_vit widths B={B} (S {cfg_v.cnn_spat}, D {cfg_v.cnn_dim}): lstm_encode "
+            f"max_abs_err {e_q:.3e} ({q_share:.3f} of the bar atol 5e-3 rtol 0.05); rau_hops "
+            f"scores {(s - s_r).abs().max().item():.3e} ({share:.3f} of the bar atol 0.01 "
+            f"rtol 0.05), argmax_agree {agree:.4f} (bar > 0.97), attprob {e_a:.3e} (atol "
+            f"5e-4), do_pred {e_d:.3e} (atol 5e-3); two calls bit-equal: {bits}; the plan's "
+            f"{len(plan.phases)} launches a one-hop call are the launcher's")
+        if not (q_share <= 1 and share <= 1 and agree > 0.97 and bits):
+            failed.append(f"kernels at ours_vit widths B={B}: encoder {q_share:.3f} of its "
+                          f"bar, hops {share:.3f}, agreement {agree:.4f}, bit-equal {bits}")
+        torch.testing.assert_close(a, a_r, rtol=0.05, atol=5e-4)
+        torch.testing.assert_close(d, d_r, rtol=0.05, atol=5e-3)
+
+    # 2. ours_ms through VGG16 at 448 px and ours_vit through ViT-L/14 at
+    # 224 px: bf16 trees from the seed (VGG16's He init x0.72 a convolution,
+    # pool5 near unit scale), their float32 copies the yardstick of bf16's
+    # own effect (TF32 off), run 8 images at a time
+    cfg_m = get_preset("ours_ms")
+    params_m = init_params(cfg_m, torch.Generator().manual_seed(seed + 42), dev)
+    bb_vgg = vgg.vgg16_pool5_init(torch.Generator().manual_seed(seed + 43), device=dev)
+    bb_vgg = map_tree(lambda t: (t * 0.72 if t.ndim == 4 else t).to(bf16), bb_vgg)
+    bb_vit = vit.vit_init(torch.Generator().manual_seed(seed + 44), vit.VIT_L14, bf16, dev)
+    side = BACKBONE_SIDES["vgg16"]
+    models = {"vgg16": (cfg_m, params_m, bb_vgg, side, {1: 24, 8: 4, 64: 1}),
+              "vit": (cfg_v, params_v, bb_vit, BACKBONE_SIDES["vit"], {1: 24, 64: 1})}
+    gen = torch.Generator(dev).manual_seed(seed)
+    timing = {}
+    for name, (cfg, params, bb, img_side, n_calls) in models.items():
+        bb_f32 = map_tree(lambda t: t.float(), bb)
+        data = {B: [(torch.as_tensor(rs.randint(0, 256, (B, img_side, img_side, 3),
+                                                dtype=np.uint8),
+                                     device=dev), *make_batch(cfg, B, cfg.seq_len, rs, dev)[:2])
+                    for _ in range(n)] for B, n in n_calls.items()}
+        for k in (fused_resnet.KERNEL, *heads.values()):
+            k.launches = 0
+        outs = {B: [pipeline.answer_pixels(params, bb, cfg, name, *d) for d in batches]
+                for B, batches in data.items()}
+        torch.cuda.synchronize()
+        launched = {n: k.launches for n, k in heads.items()}
+        n_all = sum(n_calls.values())
+        log(f"{name} answer_pixels launches in {n_all} calls: {launched}, stage kernel "
+            f"{fused_resnet.KERNEL.launches}")
+        if launched != {"lstm_encode": n_all, "rau_hops": n_all} or fused_resnet.KERNEL.launches:
+            raise SystemExit(f"{name}: expected one launch of each head kernel a call and "
+                             f"no stage kernel, got {launched}, {fused_resnet.KERNEL.launches}")
+        count(launched)
+        head_w = pipeline._head_weights(params)
+
+        def f32_feats(images, _bb=bb_f32, _name=name):
+            return torch.cat([pipeline.extract_features(_name, _bb, images[i:i + 8])
+                              for i in range(0, images.shape[0], 8)])
+
+        pooled = {"ids": 0, "plain_f32": 0, "ref_f32": 0}
+        for B, batches in data.items():
+            pixels_gates(
+                name, cfg, list(zip(outs[B], batches)),
+                plain=lambda im, t, ln, _bb=bb, _c=cfg, _p=params, _n=name: (
+                    pipeline.pixels_forward(_p, _bb, _c, _n, im, t, ln),
+                    pipeline.extract_features(_n, _bb, im).float()),
+                head=lambda t, ln, f, _p=params, _w=head_w, _c=cfg: predict_fused(
+                    _p, _w, _c, t, ln, f),
+                f32_feats=f32_feats,
+                predict_plain=lambda t, ln, f, _p=params, _c=cfg: predict(_p, _c, t, ln, f),
+                gen=gen, failed=failed, pooled=pooled)
+        a_f32 = pooled["plain_f32"] / pooled["ids"]
+        r_f32 = pooled["ref_f32"] / pooled["ids"]
+        log(f"{name}, all {pooled['ids']} ids: agreement with the float32 tree, "
+            f"answer_pixels {a_f32:.4f}, pixels_forward {r_f32:.4f} (bar: no less, less 0.03)")
+        if a_f32 < r_f32 - 0.03:
+            failed.append(f"{name}: answer_pixels agrees {a_f32:.4f} with the float32 tree, "
+                          f"pixels_forward {r_f32:.4f}")
+        del bb_f32
+        timing[name] = (cfg, params, bb, data)
+
+    # 3. readings: answer_pixels, the backbone alone and the head alone at
+    # each B, each beside the backbone's bound; the idle share and the peak
+    # device memory at B=64
+    for name, (cfg, params, bb, data) in timing.items():
+        flops = vgg_flops(side) if name == "vgg16" else vit_flops(vit.VIT_L14)
+        w_bytes = nbytes(bb)
+        head_w = pipeline._head_weights(params)
+        for B, batches in data.items():
+            images, tokens, lengths = batches[0]
+            iters = 5 if B == 64 else 20
+            ans_ms = time_ms(lambda: pipeline.answer_pixels(params, bb, cfg, name, images,
+                                                            tokens, lengths), iters=iters)
+            with torch.no_grad():
+                bb_ms = time_ms(lambda: pipeline.extract_features(name, bb, images), iters=iters)
+                feats = pipeline.extract_features(name, bb, images).float()
+                head_ms = time_ms(lambda: predict_fused(params, head_w, cfg, tokens, lengths,
+                                                        feats), iters=iters)
+            io_bytes = w_bytes + images.numel() + feats.numel() * 2
+            b_ms, b_by = bound(io_bytes, B * flops, H100_BF16_FLOPS)
+            log(f"{name}_answer_pixels_ms={ans_ms:.4f} B={B} images_per_s="
+                f"{B / ans_ms * 1e3:.1f}; backbone alone {bb_ms:.4f} ms (bound {b_ms:.4f} ms "
+                f"by {b_by}: {B * flops / 1e9:.1f} GFLOP, {io_bytes / 1e9:.3f} GB; "
+                f"{B * flops / bb_ms / 1e9:.1f} TFLOP/s), head alone {head_ms:.4f} ms [{card}]")
+        images, tokens, lengths = data[64][0]
+        busy_ms, top, ops, _, _ = device_profile(lambda: pipeline.answer_pixels(
+            params, bb, cfg, name, images, tokens, lengths))
+        if busy_ms > 0:
+            log(f"{name}_answer_pixels_device_busy_ms={busy_ms:.4f} of {ans_ms:.4f} (idle "
+                f"share {1 - busy_ms / ans_ms:.3f}) B=64 [{card}]")
+            for k, t in top[:8]:
+                log(f"{name}_answer_pixels_device_ms={t:.4f} {k[:70]} <- "
+                    f"{ops.get(k, 'no op')[:100]}")
+        else:
+            log(f"{name}_answer_pixels_device_busy_ms: not measured (the profiler recorded "
+                f"no device time)")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pipeline.answer_pixels(params, bb, cfg, name, images, tokens, lengths)
+        torch.cuda.synchronize()
+        log(f"{name}_answer_pixels_peak_mb={(torch.cuda.max_memory_allocated() - held) / 1e6:.1f} "
+            f"B=64 above the {held / 1e6:.1f} MB held [{card}]")
+    del timing, models, bb_vit
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_backbones_") as root:
+        # 4. precompute_features: 300 distinct 448 px PNGs, B=64 (the last
+        # batch partial), the bf16 VGG16 into a float32 and an int8 shard
+        img_root = os.path.join(root, "images")
+        os.makedirs(os.path.join(img_root, "val2014"))
+        rel = [f"val2014/COCO_val2014_{i:012d}.png" for i in range(PRECOMPUTE_IMAGES)]
+        pix = rs.randint(0, 256, (len(rel), side, side, 3), dtype=np.uint8)
+
+        def write(i):
+            with open(os.path.join(img_root, rel[i]), "wb") as f:
+                f.write(png_bytes(pix[i]))
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            list(ex.map(write, range(len(rel))))
+        log(f"precompute: {len(rel)} PNGs of {side} px written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        del pix
+        found = scan_image_dir(img_root)
+        names, paths = unique_by_feat_name(found)
+        t0 = time.perf_counter()
+        f32 = precompute_features(img_root, found, os.path.join(root, "f32"), "vgg16", bb_vgg,
+                                  size=side, batch_size=64)
+        sweep_s = time.perf_counter() - t0
+        q8 = precompute_features(img_root, found, os.path.join(root, "i8"), "vgg16", bb_vgg,
+                                 size=side, batch_size=64, dtype="int8")
+        log(f"precompute: decoded by {f32.decoder}; the int8 sweep's {q8.decoder}")
+        if list(f32.index) != names or list(q8.index) != names:
+            failed.append("precompute: the shard's names are not unique_by_feat_name's")
+        # each row against extract_features of the same decoded images at the
+        # same batch size, the last batch padded alike
+        src = ImageDirSource(img_root, size=side, backend="native")
+        rows = np.asarray(f32.mmap)
+        worst, bit_equal = 0.0, True
+        t_dec = 0.0
+        for i in range(0, len(paths), 64):
+            chunk = paths[i:i + 64]
+            t0 = time.perf_counter()
+            imgs = src.get_batch(chunk + [chunk[-1]] * (64 - len(chunk)))
+            t_dec += time.perf_counter() - t0
+            with torch.no_grad():
+                want = pipeline.extract_features("vgg16", bb_vgg, torch.as_tensor(
+                    imgs, device=dev)).float().cpu().numpy()[:len(chunk)]
+            got = rows[i:i + len(chunk)]
+            rms = float(np.sqrt(np.square(want).mean()))
+            worst = max(worst, float(np.abs(got - want).max()) / rms)
+            bit_equal = bit_equal and np.array_equal(got, want)
+        log(f"precompute: float32 rows vs extract_features at B=64: max_abs_err/RMS "
+            f"{worst:.3e} (bar 1e-5), bit-equal {bit_equal}; decoded by {src.decoders()}")
+        if worst > 1e-5:
+            failed.append(f"precompute: float32 rows {worst:.3e} of the features' RMS from "
+                          f"extract_features")
+        host = PackedShardWriter(os.path.join(root, "host"), len(names), f32.spat, f32.dim,
+                                 dtype="int8")
+        host.write(0, rows)
+        q_equal = (np.array_equal(np.asarray(q8.mmap), np.asarray(host.arr))
+                   and np.array_equal(q8.scales, host.scales))
+        # and the quantization alone on 64 rows of spread scales, a zero row
+        # and round-half-even ties at the clip's edge (the JAX pin's cases)
+        feats = (rs.randn(64, f32.spat, f32.dim)
+                 * rs.uniform(0.05, 40.0, (64, 1, 1))).astype(np.float32)
+        feats[3] = 0.0
+        feats[4, 0, :2] = (127.5, -126.5)
+        pin = PackedShardWriter(os.path.join(root, "pin"), 64, f32.spat, f32.dim, dtype="int8")
+        pin.write(0, feats)
+        q, sc = quantize_feats_device(torch.as_tensor(feats, device=dev))
+        pin_equal = (np.array_equal(q.cpu().numpy(), np.asarray(pin.arr))
+                     and np.array_equal(sc.cpu().numpy(), pin.scales))
+        log(f"precompute: the int8 shard equals PackedShardWriter.write's host quantization "
+            f"of the float32 rows bit for bit: {q_equal}; quantize_feats_device on {feats.size} "
+            f"values of spread scales, a zero row and ties: {pin_equal}")
+        if not (q_equal and pin_equal):
+            failed.append(f"precompute: the int8 shard ({q_equal}) or the quantization "
+                          f"({pin_equal}) differs from the host's")
+        images64 = torch.as_tensor(src.get_batch(paths[:64]), device=dev)
+        with torch.no_grad():
+            bb64 = time_ms(lambda: pipeline.extract_features("vgg16", bb_vgg, images64),
+                           iters=5)
+        log(f"precompute_images_per_s={len(names) / sweep_s:.1f} (the float32 sweep, "
+            f"{len(names)} images, {sweep_s:.3f} s); the backbone alone at B=64 "
+            f"{64 / bb64 * 1e3:.1f} images/s; the decode alone "
+            f"{len(paths) / t_dec:.1f} images/s [{card}]")
+
+        # 5. the Trainer from the paper-dims fixture's images at 448 px, and
+        # from a shard that precompute_features made of the same images
+        spec = FixtureSpec(n_train=1000, n_test=166, n_images=100, n_words=12604,
+                           n_answers=1000, seq_len=26, feat_dim=512, feat_w=14,
+                           feat_h=14, n_mc=4, seed=11 + seed, n_img_classes=5,
+                           class_code="dense")
+        t0 = time.perf_counter()
+        bundle = fixture_bundle(os.path.join(root, "fixture"), spec, images=True,
+                                image_size=side)
+        fix_images = os.path.join(root, "fixture", "images")
+        log(f"trainer from images: the fixture with {2 * spec.n_images} JPEGs of {side} px "
+            f"made in {time.perf_counter() - t0:.2f} s")
+        gt = {int(k): v for k, v in bundle.gt.items()}
+        shard = precompute_features(fix_images, scan_image_dir(fix_images),
+                                    os.path.join(root, "fix_shard"), "vgg16", bb_vgg,
+                                    size=side, batch_size=64)
+        runs = {}
+        for kind in ("images", "shard"):
+            exp = get_experiment("ours_ms")
+            exp = exp.replace(data=dataclasses.replace(exp.data, split="val2014",
+                                                       test_batch_size=83))
+            data = build_vqa_data(bundle.info, bundle.arrays, exp.train.batch_size,
+                                  split="val2014", test_batch_size=83, seed=exp.train.seed)
+            if kind == "images":
+                src_t = ImageDirSource(fix_images, size=side, backend="native")
+                tr = Trainer(exp, data, src_t, os.path.join(root, kind), gt_anno=gt,
+                             backbone="vgg16", bb_params=bb_vgg)
+            else:
+                tr = Trainer(exp, data, shard, os.path.join(root, kind), gt_anno=gt)
+            losses, step = [], tr.train_step
+
+            def spy(*a, _step=step, _losses=losses):
+                out = _step(*a)
+                _losses.append(out[1]["loss"])
+                return out
+            tr.train_step = spy
+            for k in heads.values():
+                k.launches = 0
+            tr.fit(epochs=1, eval_each=False)
+            res = tr.evaluate(return_rows=True, write_submissions=False)
+            torch.cuda.synchronize()
+            count({n: k.launches for n, k in heads.items()})
+            rec = tr.logger.read("train")[-1]
+            runs[kind] = (float(losses[0]), res, rec, tr)
+            log(f"trainer from {kind}: first-step loss {float(losses[0]):.6f}, epoch loss "
+                f"{rec['loss']:.4f}, trained q/s {rec['examples_per_sec']:.1f} "
+                f"(B={exp.train.batch_size}, epoch {rec['sec']:.3f} s)"
+                + (f"; images decoded by {src_t.decoders()}" if kind == "images" else "")
+                + f" [{card}]")
+        (l_i, r_i, _, tr_i), (l_s, r_s, _, _) = runs["images"], runs["shard"]
+        rel_l = abs(l_i - l_s) / abs(l_s)
+        rows_i = [x for h in r_i["rows_oe"] for x in h]
+        rows_s = [x for h in r_s["rows_oe"] for x in h]
+        agree = np.mean([x == y for x, y in zip(rows_i, rows_s)])
+        log(f"trainer: first-step losses from images and from the shard part by {rel_l:.3e} "
+            f"relative (bar 5e-3); the sweeps' answers agree on {agree:.4f} of "
+            f"{len(rows_i)} (bar >= 0.99)")
+        if rel_l > 5e-3 or agree < 0.99 or len(rows_i) != len(rows_s):
+            failed.append(f"trainer: losses {rel_l:.3e} apart, answers agree {agree:.4f}")
+
+        # 6. the service: the image-trained snapshot, three of the 300 PNGs by
+        # image_b64 against feat_name requests on the float32 shard
+        snap = tr_i.save()
+        data1 = build_vqa_data(bundle.info, bundle.arrays, 1, split="val2014",
+                               test_batch_size=1)
+        svc = RAUService(snap, None, [os.path.join(root, "f32")], data=data1,
+                         backbone="vgg16", bb_params=bb_vgg)
+        try:
+            words = [data1.tokens_to_question(data1.test_data.questions[i],
+                                              data1.test_data.lengths[i]) for i in range(3)]
+            for k in heads.values():
+                k.launches = 0
+            for i, p in enumerate(paths[:3]):
+                with open(os.path.join(img_root, p), "rb") as f:
+                    b64 = base64.b64encode(f.read()).decode()
+                by_img = svc.answer(words[i], image_b64=b64, topk=5)
+                by_name = svc.answer(words[i], feat_name=names[i], topk=5)
+                gs = np.array([x["score"] for x in by_img["answers"]])
+                ws = np.array([x["score"] for x in by_name["answers"]])
+                gap = ws[0] - ws[1]
+                same_top = by_img["answers"][0]["answer"] == by_name["answers"][0]["answer"]
+                err = float(np.abs(gs - ws).max())
+                log(f"serve vgg16 image {i}: top answer {by_img['answers'][0]['answer']!r} "
+                    f"by image_b64, {by_name['answers'][0]['answer']!r} by feat_name (top-2 "
+                    f"gap {gap:.3e}); top-5 scores max_abs_err {err:.3e} (bar atol 0.02 "
+                    f"rtol 0.05)")
+                if not np.all(np.abs(gs - ws) <= 0.02 + 0.05 * np.abs(ws)) or \
+                        (not same_top and gap > 2 * (0.02 + 0.05 * abs(ws[0]))):
+                    failed.append(f"serve image {i}: {by_img['answers'][:2]} vs "
+                                  f"{by_name['answers'][:2]}")
+            torch.cuda.synchronize()
+            served = {n: k.launches for n, k in heads.items()}
+            log(f"serve vgg16: launches in 6 requests {served}, dispatches "
+                f"{svc.stats()['dispatches']}")
+            if served["lstm_encode"] < 1 or served["rau_hops"] < 1:
+                failed.append(f"serve vgg16: the head kernels did not run: {served}")
+            count(served)
+        finally:
+            svc.close()
+    if failed:
+        raise SystemExit("backbones: " + "; ".join(failed))
+    log(f"backbones_phase_s={time.perf_counter() - t_phase:.1f} [{card}]")
     return total
 
 
@@ -2449,6 +2937,13 @@ def main() -> int:
             log(f"answer_pixels_device_ms={t:.4f} {name[:70]} <- {ops.get(name, 'no op')[:110]}")
     else:
         log("answer_pixels_device_busy_ms: not measured (the profiler recorded no device time)")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pipeline.answer_pixels(params_r, bb, cfg_r, "resnet101", images, tokens, lengths)
+    torch.cuda.synchronize()
+    log(f"answer_pixels_peak_mb={(torch.cuda.max_memory_allocated() - held) / 1e6:.1f} B={B} "
+        f"above the {held / 1e6:.1f} MB held [{card}]")
     # 8. train and evaluate from files through the user's entry point
     t_phase = time.perf_counter()
     with watchdog(900, "the trainer phase"):
@@ -2459,27 +2954,35 @@ def main() -> int:
     with watchdog(600, "the serve phase"):
         serve_launches = serve_phase(args.seed, card)
     log("phase serve: ok")
+    # 10. the flagship heads from pixels through VGG16 and ViT-L/14
+    with watchdog(600, "the backbones phase"):
+        backbones_launches = backbones_phase(args.seed, card)
+    log("phase backbones: ok")
 
     s2 = stage_ms[2]
     kernels = [
         {"name": "lstm_encode", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/lstm_encoder.cu",
          "replaces": "rau_vqa_tpu/ops/lstm_encoder.py:81",
-         "launches": launches["lstm_encode"] + serve_launches["lstm_encode"],
+         "launches": launches["lstm_encode"] + serve_launches["lstm_encode"]
+         + backbones_launches["lstm_encode"],
          "max_abs_err": err["lstm_encode"],
          "ms": ms["lstm_encode"], "plain_ms": ms["lstm_plain"],
          "bound_ms": lb_ms, "bound_by": lb_by, "library_ms": ms["lstm_library"],
          "trainer_launches": trainer_launches["lstm_encode"],
-         "serve_launches": serve_launches["lstm_encode"]},
+         "serve_launches": serve_launches["lstm_encode"],
+         "backbones_launches": backbones_launches["lstm_encode"]},
         {"name": "rau_hops", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_hops.cu",
          "replaces": "rau_vqa_tpu/ops/rau_hops.py:152",
-         "launches": launches["rau_hops"] + serve_launches["rau_hops"],
+         "launches": launches["rau_hops"] + serve_launches["rau_hops"]
+         + backbones_launches["rau_hops"],
          "max_abs_err": err["rau_hops"],
          "ms": ms["rau_hops"], "plain_ms": ms["hops_plain"],
          "bound_ms": hb_ms, "bound_by": hb_by, "library_ms": None,
          "trainer_launches": trainer_launches["rau_hops"],
          "serve_launches": serve_launches["rau_hops"],
+         "backbones_launches": backbones_launches["rau_hops"],
          "device_kernels_a_call": hops_kernels[512]},
         {"name": "train_hops_fwd", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_fwd.cu",

@@ -7,6 +7,8 @@
     python -m rau_vqa_tpu_torch.cli fixture --out /tmp/fixture
     python -m rau_vqa_tpu_torch.cli serve --checkpoint ... --fixture --port 8080
     python -m rau_vqa_tpu_torch.cli pack-features --vqa-dir ... --feat-dir ... --out ...
+    python -m rau_vqa_tpu_torch.cli precompute-features --image-root ... --out ... --backbone vgg16 --backbone-state vgg16.pth
+    python -m rau_vqa_tpu_torch.cli train --preset ours_ms --fixture --backbone vgg16
     python -m rau_vqa_tpu_torch.cli convert-snapshot --input snap.t7 --output snap.pt --vocab-size ...
 
 Every command that runs the model runs on ``--device`` (``cuda`` by default;
@@ -15,7 +17,11 @@ versions).  ``eval``, ``ask`` and ``serve`` read the port's ``.pt``
 snapshots and the JAX package's ``.msgpack`` ones, and adopt the snapshot's
 model config.  ``--fixture`` builds the fixture in memory (no ``h5py``);
 ``fixture`` and ``--vqa-dir`` read or write ``data_prepro.h5`` and need
-``h5py``.
+``h5py``.  ``train`` and ``eval`` read raw images with ``--image-root``
+through a frozen ``--backbone`` (vgg16, resnet101 or vit) loaded from
+``--backbone-state``; with ``--fixture`` and no ``--image-root``,
+``--backbone vgg16|resnet101`` writes the fixture's images at 64 px and
+runs a random backbone from a seed.
 """
 
 from __future__ import annotations
@@ -90,6 +96,25 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--plain-eval", action="store_true",
                    help="eval sweeps through the plain float32 predict "
                         "instead of the serving kernels")
+    p.add_argument("--backbone-feat-norm", action="store_true",
+                   help="RMS-normalize each feature cell of a backbone's "
+                        "output over D (recorded in the snapshot)")
+
+
+def _add_backbone_flags(p: argparse.ArgumentParser, images: bool) -> None:
+    p.add_argument("--backbone", default=None,
+                   choices=["vgg16", "resnet101", "vit"],
+                   help="frozen visual backbone on the device (with "
+                        "--image-root, or for serve's image_b64 requests)")
+    p.add_argument("--backbone-state", default=None,
+                   help="the backbone's weights: a torchvision vgg16 or "
+                        "resnet101 state_dict, or a timm ViT-L/14 one (.pth)")
+    if images:
+        p.add_argument("--image-root", default=None,
+                       help="train/eval from raw images under this root (paths "
+                            "from the json's unique_img lists) through "
+                            "--backbone instead of precomputed features")
+        p.add_argument("--image-size", type=int, default=448)
 
 
 def _add_device_flag(p: argparse.ArgumentParser, default) -> None:
@@ -120,6 +145,8 @@ def _apply_overrides(exp, args):
         m["fused_train"] = True
     if args.plain_eval:
         exp = exp.replace(fused_eval=False)
+    if args.backbone_feat_norm:
+        t["backbone_feat_norm"] = True
     eb = _parse_buckets(args.eval_buckets)
     if eb is not None:
         exp = exp.replace(eval_buckets=eb)
@@ -164,17 +191,30 @@ def _make_feature_source(feat_dir: str, mcfg, *, ship_int8: bool = False):
     return T7DirFeatureSource(feat_dirs, mcfg.cnn_dim, mcfg.cnn_w, mcfg.cnn_h)
 
 
-def _fixture_setup(exp, workdir):
+FIXTURE_IMAGE_SIZE = 64   # the fixture's images: a 2x2 grid at stride 32
+
+
+def _fixture_setup(exp, workdir, images_backbone=None):
     """The tiny fixture in memory (its .t7 features under
     ``workdir/fixture/feat``), and the experiment shrunk onto it as the JAX
-    CLI shrinks it.  Returns (exp, bundle)."""
+    CLI shrinks it.  ``images_backbone`` (a conv backbone's name) also
+    writes its images at 64 px under ``workdir/fixture/images`` (the same
+    questions and answers) and sizes the model for that backbone's 2x2
+    grid (``rau_vqa_tpu/cli.py:458-497``).
+    Returns (exp, bundle)."""
     from rau_vqa_tpu_torch.data.fixtures import FixtureSpec, fixture_bundle
     spec = FixtureSpec()
-    bundle = fixture_bundle(os.path.join(workdir, "fixture"), spec)
+    bundle = fixture_bundle(os.path.join(workdir, "fixture"), spec,
+                            images=bool(images_backbone),
+                            image_size=FIXTURE_IMAGE_SIZE)
+    if images_backbone:
+        cnn = dict(cnn_dim={"vgg16": 512, "resnet101": 2048}[images_backbone],
+                   cnn_w=2, cnn_h=2)
+    else:
+        cnn = dict(cnn_dim=spec.feat_dim, cnn_w=spec.feat_w, cnn_h=spec.feat_h)
     exp = exp.replace(
         model=dataclasses.replace(
-            exp.model, cnn_dim=spec.feat_dim, cnn_w=spec.feat_w,
-            cnn_h=spec.feat_h, embed_dim=16, rnn_size=16, multfeat_dim=16,
+            exp.model, **cnn, embed_dim=16, rnn_size=16, multfeat_dim=16,
             attfeat_dim=8, att_rnn_size=16, embed_dropout=0.0,
             rnn_dropout=0.0, mult_dropout=0.1),
         train=dataclasses.replace(
@@ -187,9 +227,11 @@ def _fixture_setup(exp, workdir):
     return exp, bundle
 
 
-def _load_data(exp, args, workdir, *, batch_size=None, test_batch_size=None):
+def _load_data(exp, args, workdir, *, batch_size=None, test_batch_size=None,
+               images_backbone=None):
     """(exp, VQAData, feature source, GT map or None): the fixture in
-    memory with ``--fixture``, else the files ``exp.data`` names."""
+    memory with ``--fixture`` (with its images for ``images_backbone``),
+    else the files ``exp.data`` names."""
     from rau_vqa_tpu_torch.data.loader import (
         build_vqa_data,
         load_gt_annotations,
@@ -197,7 +239,7 @@ def _load_data(exp, args, workdir, *, batch_size=None, test_batch_size=None):
     )
     bs = batch_size or exp.train.batch_size
     if args.fixture:
-        exp, bundle = _fixture_setup(exp, workdir)
+        exp, bundle = _fixture_setup(exp, workdir, images_backbone)
         if batch_size is None:
             bs = exp.train.batch_size
         data = build_vqa_data(
@@ -245,6 +287,10 @@ def _adopt_snapshot(exp, checkpoint: str):
             model=dataclasses.replace(exp.model, n_hops=meta["n_hops"]))
     if "alg_name" in meta:
         exp = exp.replace(alg_name=meta["alg_name"])
+    if meta.get("backbone_feat_norm"):
+        # the head learned on RMS-normalized features: eval and serve
+        # featurize images the same way
+        exp = exp.replace(train=dataclasses.replace(exp.train, backbone_feat_norm=True))
     return exp
 
 
@@ -255,10 +301,13 @@ def cmd_train(args) -> int:
     exp = _apply_overrides(get_experiment(args.preset), args)
     workdir = args.save_dir or f"{exp.save_dir}_{exp.data.split}"
     os.makedirs(workdir, exist_ok=True)
-    exp, data, source, gt = _load_data(exp, args, workdir)
+    exp, data, source, gt = _load_data(exp, args, workdir,
+                                       images_backbone=_fixture_images(args))
+    source, backbone, bb_params = _make_source_and_backbone(args, exp, source, workdir)
     trainer = Trainer(exp, data, source, workdir, gt_anno=gt,
                       official_anno=_checked_official_anno(exp),
-                      device=args.device)
+                      device=args.device, backbone=backbone,
+                      bb_params=bb_params, vit_cfg=_vit_cfg(backbone))
     if args.init_from:
         trainer.restore(args.init_from)
         print(f"resumed from {args.init_from} at epoch {trainer.epoch}")
@@ -275,6 +324,7 @@ def cmd_train(args) -> int:
     if "testOEacc" in result:
         accs = ", ".join(f"{a * 100:.2f}" for a in result["testOEacc"])
         print(f"final testOE accuracy per hop: {accs}")
+    _print_decoders(source)
     print(f"done; artifacts in {workdir}")
     return 0
 
@@ -293,11 +343,14 @@ def cmd_eval(args) -> int:
     os.makedirs(workdir, exist_ok=True)
     # only the data of the fixture: the model config stays the snapshot's
     model = exp.model
-    exp, data, source, gt = _load_data(exp, args, workdir)
+    exp, data, source, gt = _load_data(exp, args, workdir,
+                                       images_backbone=_fixture_images(args))
     exp = exp.replace(model=model)
+    source, backbone, bb_params = _make_source_and_backbone(args, exp, source, workdir)
     trainer = Trainer(exp, data, source, workdir, gt_anno=gt,
                       official_anno=_checked_official_anno(exp),
-                      device=args.device)
+                      device=args.device, backbone=backbone,
+                      bb_params=bb_params, vit_cfg=_vit_cfg(backbone))
     trainer.restore(args.checkpoint)
     print(f"evaluating snapshot at epoch {trainer.epoch} "
           f"({trainer.mcfg.n_hops} hops) on {exp.data.split}")
@@ -307,6 +360,7 @@ def cmd_eval(args) -> int:
             print(f"hop {h + 1:02d}: OE {a * 100:.2f}"
                   + (f", MC {result['testMCacc'][h] * 100:.2f}"
                      if "testMCacc" in result else ""))
+    _print_decoders(source)
     print(f"result files in {workdir}/results/")
     return 0
 
@@ -374,7 +428,7 @@ def cmd_serve(args) -> int:
     svc = RAUService(args.checkpoint, args.vqa_dir, feat_dirs,
                      preset=args.preset, artifact=args.artifact,
                      fused=not args.plain_eval, backbone=args.backbone,
-                     bb_params=bb_params,
+                     bb_params=bb_params, vit_cfg=_vit_cfg(args.backbone),
                      buckets=_parse_buckets(args.eval_buckets),
                      max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
                      feat_cache_size=args.feat_cache,
@@ -389,28 +443,128 @@ def cmd_serve(args) -> int:
     return 0
 
 
-def _load_backbone_state(backbone: str, state_path: str, device):
-    """A torchvision ResNet-101 state_dict (.pth) -> the serving tree (BN
-    folded), in bf16 on ``device``."""
+def _load_backbone_state(backbone: str, state_path: str, device, dtype=None):
+    """A state dict from a local .pth -> the backbone's tree on ``device``
+    in ``dtype`` (bf16 when None, the serving type): torchvision's vgg16 or
+    resnet101 (BN folded) or timm's ViT-L/14.  A fine-tuned .msgpack
+    snapshot's backbone group is refused."""
     import torch
 
     from rau_vqa_tpu_torch.convert import map_tree
+    from rau_vqa_tpu_torch.models.backbones import resnet, vgg
+    from rau_vqa_tpu_torch.models.backbones import vit as vit_mod
     from rau_vqa_tpu_torch.serve import NOT_PORTED
-    if backbone != "resnet101":
-        raise NotImplementedError(NOT_PORTED["backbone"].format(backbone))
     if not state_path:
-        raise SystemExit("--backbone requires --backbone-state (a "
-                         "torchvision state_dict .pth)")
+        raise SystemExit("--backbone requires --backbone-state (a torchvision "
+                         "vgg16/resnet101 or timm ViT state_dict .pth)")
     if state_path.endswith(".msgpack"):
         raise NotImplementedError(f"--backbone-state {state_path}: "
                                   f"{NOT_PORTED['fine_tuned']}")
-    from rau_vqa_tpu_torch.models.backbones.resnet import (
-        fold_batchnorm,
-        resnet_from_torch_state,
-    )
     state = torch.load(state_path, map_location="cpu", weights_only=True)
-    folded = fold_batchnorm(resnet_from_torch_state(state))
-    return map_tree(lambda t: t.to(device, torch.bfloat16), folded)
+    if backbone == "resnet101":
+        tree = resnet.fold_batchnorm(resnet.resnet_from_torch_state(state))
+    elif backbone == "vit":
+        tree = vit_mod.vit_from_timm_state(state, vit_mod.VIT_L14)
+    elif backbone == "vgg16":
+        tree = vgg.vgg16_from_torch_state(state)
+    else:
+        raise ValueError(f"unknown backbone {backbone!r}")
+    return map_tree(lambda t: t.to(device, dtype or torch.bfloat16), tree)
+
+
+def _vit_cfg(backbone):
+    """The CLI's ViT: ViT-L/14, read when called."""
+    from rau_vqa_tpu_torch.models.backbones import vit as vit_mod
+    return vit_mod.VIT_L14 if backbone == "vit" else None
+
+
+def _validate_backbone_image_size(backbone, size, flag):
+    """The ViT's position embeddings fix its input side; the stride-32 conv
+    backbones take any multiple of 32 (checked against the model's grid in
+    ``_make_source_and_backbone``)."""
+    if backbone == "vit":
+        need = _vit_cfg("vit").image_size
+        if size != need:
+            raise SystemExit(f"--backbone vit uses the ViT-L/14 config, whose position "
+                             f"embeddings fix the input at {need}px: pass {flag} {need}")
+
+
+def _fixture_images(args):
+    """The backbone whose fixture images ``--fixture --backbone`` writes
+    (no ``--image-root``), else None."""
+    if not (args.fixture and getattr(args, "backbone", None)
+            and not getattr(args, "image_root", None)):
+        return None
+    if args.backbone == "vit":
+        raise SystemExit("--fixture --backbone supports the conv backbones (ViT-L/14's "
+                         "position embedding pins 224 px): pass --image-root and "
+                         "--backbone-state")
+    return args.backbone
+
+
+def _make_source_and_backbone(args, exp, source, workdir):
+    """(source, backbone, bb_params): ``source`` and no backbone without
+    ``--image-root``, else the images under it and the frozen backbone on
+    ``--device`` (float32; bf16 with ``--bf16``).  With ``--fixture``
+    and no ``--backbone-state`` the backbone is random from seed 0, VGG16's
+    He init scaled by 0.72 a convolution so that pool5 stays near unit
+    scale (``rau_vqa_tpu/cli.py:347-445``)."""
+    import torch
+
+    from rau_vqa_tpu_torch.convert import map_tree
+    from rau_vqa_tpu_torch.data.images import ImageDirSource
+    from rau_vqa_tpu_torch.devices import pick_device
+    if _fixture_images(args):
+        args.image_root = os.path.join(workdir, "fixture", "images")
+        args.image_size = FIXTURE_IMAGE_SIZE
+    if not getattr(args, "image_root", None):
+        return source, None, None
+    if not args.backbone:
+        raise SystemExit("--image-root needs --backbone (+ --backbone-state)")
+    _validate_backbone_image_size(args.backbone, args.image_size, "--image-size")
+    # the backbone's grid must be the model's attention grid
+    mcfg = exp.model
+    if args.backbone == "vit":
+        seq = _vit_cfg("vit").seq
+        if seq != mcfg.cnn_spat:
+            raise SystemExit(f"ViT-L/14 yields {seq} tokens but the model config "
+                             f"expects cnn_spat={mcfg.cnn_spat} ({mcfg.cnn_w}x{mcfg.cnn_h})")
+    else:
+        # an exact multiple: the strided convs would make a larger grid
+        # for any other size (479 px -> 15x15)
+        if args.image_size % 32:
+            raise SystemExit(f"--image-size {args.image_size} is not a multiple of 32 "
+                             f"(the conv backbones are stride-32): use --image-size "
+                             f"{mcfg.cnn_w * 32}")
+        grid = args.image_size // 32
+        if grid * grid != mcfg.cnn_spat:
+            raise SystemExit(f"--image-size {args.image_size} gives a {grid}x{grid}="
+                             f"{grid * grid} feature grid but the model config expects "
+                             f"cnn_spat={mcfg.cnn_spat} ({mcfg.cnn_w}x{mcfg.cnn_h}): use "
+                             f"--image-size {mcfg.cnn_w * 32}")
+    source = ImageDirSource(args.image_root, size=args.image_size, backend="native")
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    device = pick_device(args.device, "the backbone")
+    if args.backbone_state or not args.fixture:
+        return source, args.backbone, _load_backbone_state(
+            args.backbone, args.backbone_state, device, dtype)
+    if args.backbone == "vit":
+        raise SystemExit("--fixture's random backbones are the conv backbones; "
+                         "--backbone vit needs --backbone-state")
+    from rau_vqa_tpu_torch.models.backbones import resnet, vgg
+    print(f"fixture: random-init {args.backbone} backbone (no --backbone-state)")
+    gen = torch.Generator().manual_seed(0)
+    if args.backbone == "resnet101":
+        return source, args.backbone, resnet.resnet101_init(gen, dtype, device)
+    bb = vgg.vgg16_pool5_init(gen, dtype, device)
+    # He init scaled by 0.72 a convolution (13 of them: pool5 std ~57 ->
+    # ~0.8), else the stacked-tanh head saturates on the features
+    return source, args.backbone, map_tree(lambda t: t * 0.72 if t.ndim == 4 else t, bb)
+
+
+def _print_decoders(source) -> None:
+    if hasattr(source, "decoders"):
+        print(f"images decoded by: {source.decoders()}")
 
 
 def cmd_pack_features(args) -> int:
@@ -455,6 +609,62 @@ def cmd_pack_features(args) -> int:
                              args.cnnout_dim, args.cnnout_w, args.cnnout_h,
                              dtype=args.dtype)
     print(f"packed {len(store.index)} images -> {args.out}")
+    return 0
+
+
+def cmd_precompute_features(args) -> int:
+    """Run a backbone over raw images on the device and write a packed
+    feature shard, usable as ``--feat-dir`` (the reference's offline
+    extraction, data/get_vgg16_pool5_448.sh; ``rau_vqa_tpu/cli.py:788-850``).
+    Prints the host decoders that made the images."""
+    import time
+
+    import torch
+
+    from rau_vqa_tpu_torch.devices import pick_device
+    from rau_vqa_tpu_torch.precompute import MESH, precompute_features, scan_image_dir
+    from rau_vqa_tpu_torch.utils.rigcheck import StallWatchdog
+
+    if args.mesh_data:
+        raise NotImplementedError(MESH)
+    if args.vqa_dir:
+        with open(os.path.join(args.vqa_dir, "data_prepro.json")) as f:
+            info = json.load(f)
+        rel = (list(info.get("unique_img_train", []))
+               + list(info.get("unique_img_test", [])))
+    else:
+        rel = scan_image_dir(args.image_root)
+    if not rel:
+        raise SystemExit("no images found (empty --image-root scan or empty "
+                         "unique_img lists)")
+    _validate_backbone_image_size(args.backbone, args.size, "--size")
+    device = pick_device(args.device, "precompute-features")
+    bb_params = _load_backbone_state(args.backbone, args.backbone_state, device,
+                                     torch.float32)
+    # a device call that never returns raises nothing: end the run instead
+    watchdog = StallWatchdog("precompute-features", args.stall_timeout)
+    t0 = time.time()
+    last = [0.0]
+
+    def progress(done, total):
+        watchdog.poke()
+        now = time.time()
+        if now - last[0] >= 10 or done == total:
+            last[0] = now
+            print(f"  {done}/{total} images ({done / max(now - t0, 1e-9):.1f} img/s)",
+                  flush=True)
+
+    try:
+        store = precompute_features(
+            args.image_root, rel, args.out, args.backbone, bb_params,
+            size=args.size, batch_size=args.batch, dtype=args.dtype,
+            backend=args.backend, compute_dtype="bfloat16" if args.bf16 else None,
+            vit_cfg=_vit_cfg(args.backbone), progress=progress, device=device)
+    finally:
+        watchdog.cancel()
+    print(f"precomputed {len(store.index)} images -> {args.out} "
+          f"[S={store.spat}, D={store.dim}] dtype={args.dtype}")
+    print(f"images decoded by: {store.decoder}")
     return 0
 
 
@@ -563,12 +773,8 @@ def main(argv=None) -> int:
                          help="seconds a request waits for its dispatch; "
                               "/healthz reports 'wedged' past it; 0 "
                               "disables")
-    p_serve.add_argument("--backbone", default=None,
-                         choices=["vgg16", "resnet101", "vit"],
-                         help="visual backbone for image_b64 requests "
-                              "(resnet101; the others are not ported)")
-    p_serve.add_argument("--backbone-state", default=None,
-                         help="torchvision ResNet-101 state_dict (.pth)")
+    for p, images in ((p_train, True), (p_eval, True), (p_serve, False)):
+        _add_backbone_flags(p, images)
     for p in (p_train, p_eval, p_ask, p_serve):
         _add_train_flags(p)
         _add_common_data_flags(p)
@@ -590,6 +796,41 @@ def main(argv=None) -> int:
     p_pack.add_argument("--dtype", default="float32",
                         choices=["float32", "float16", "int8"])
 
+    p_pre = sub.add_parser(
+        "precompute-features",
+        help="run a backbone over raw images on the device and write a packed "
+             "feature shard")
+    p_pre.add_argument("--image-root", required=True,
+                       help="COCO-style image directory")
+    p_pre.add_argument("--out", required=True,
+                       help="output shard dir (usable as --feat-dir)")
+    p_pre.add_argument("--backbone", required=True,
+                       choices=["vgg16", "resnet101", "vit"])
+    p_pre.add_argument("--backbone-state",
+                       help="the backbone's state_dict .pth (torchvision "
+                            "vgg16/resnet101, timm ViT-L/14)")
+    p_pre.add_argument("--vqa-dir",
+                       help="enumerate images from the prepro json's "
+                            "unique_img lists; default: scan --image-root")
+    p_pre.add_argument("--size", type=int, default=448,
+                       help="input resolution (conv backbones: 448 -> 14x14 "
+                            "grid, 224 -> 7x7; vit: its config's, 224)")
+    p_pre.add_argument("--stall-timeout", type=float, default=900,
+                       help="end the run if no batch completes within this "
+                            "many seconds; 0 disables")
+    p_pre.add_argument("--batch", type=int, default=64, help="device batch")
+    p_pre.add_argument("--dtype", default="float32",
+                       choices=["float32", "float16", "int8"],
+                       help="storage type of the shard")
+    p_pre.add_argument("--bf16", action="store_true",
+                       help="bfloat16 backbone compute; storage stays --dtype")
+    p_pre.add_argument("--backend", default="native", choices=["native", "pil"],
+                       help="host image decoder (native: libjpeg/libpng, "
+                            "PIL where it cannot be built)")
+    p_pre.add_argument("--mesh-data", type=int, default=0,
+                       help="a device mesh (refused: still to port)")
+    _add_device_flag(p_pre, argparse.SUPPRESS)
+
     p_conv = sub.add_parser("convert-snapshot",
                             help="Torch7 snapshot (.t7) <-> the port's .pt")
     p_conv.add_argument("--input", required=True)
@@ -609,6 +850,7 @@ def main(argv=None) -> int:
     return {"train": cmd_train, "eval": cmd_eval, "ask": cmd_ask,
             "fixture": cmd_fixture, "serve": cmd_serve,
             "pack-features": cmd_pack_features,
+            "precompute-features": cmd_precompute_features,
             "convert-snapshot": cmd_convert_snapshot}[args.command](args)
 
 

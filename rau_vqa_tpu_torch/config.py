@@ -107,8 +107,11 @@ class TrainConfig:
     # train-step token axis cut to the smallest bucket covering the batch's
     # longest question (exact: the grads do not depend on T <= seq_len)
     length_buckets: Tuple[int, ...] = (8, 16)
-    # backbone fine-tuning belongs to the from-pixels slice of the port
+    # backbone fine-tuning is still to port (ROADMAP.md, queue 1, item 5)
     train_backbone: bool = False
+    # RMS-normalize each feature cell over D where a backbone makes the
+    # features (models/pipeline.extract_features); snapshots record it
+    backbone_feat_norm: bool = False
     test_interval: int = 1            # epochs between eval sweeps
     checkpoint_interval: int = 1      # epochs between checkpoints
     keep_last_checkpoints: int = 0    # 0 = keep every snapshot

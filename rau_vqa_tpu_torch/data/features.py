@@ -164,6 +164,9 @@ class PackedFeatureStore(FeatureSource):
                 f"{self._store_dtype} features instead — repack with "
                 f"--dtype int8 to get int8 shipping", stacklevel=2)
         self.raw_int8 = bool(raw_int8 and self.scales is not None)
+        # set by precompute_features on the store it returns: the host
+        # decoders that made the rows' images
+        self.decoder = None
 
     def get_batch(self, names: Sequence[str], datatypes: Sequence[int]):
         rows = np.fromiter((self.index[n] for n in names), np.int64, len(names))

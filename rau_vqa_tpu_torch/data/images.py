@@ -64,7 +64,20 @@ class ImageDirSource:
         self.n_threads = n_threads
         self.backend = backend
         self.native_error: Optional[str] = None
+        # images decoded so far by each decoder (a native batch's files it
+        # cannot read count under PIL)
+        self.decoded = {"native": 0, "pil": 0}
         self.pool = ThreadPoolExecutor(max_workers=n_threads)
+
+    def decoders(self) -> str:
+        """Which decoders made the images so far, with their counts, and
+        why the native one did not run where it was asked for and did not."""
+        ran = ", ".join(f"{k} {n}" for k, n in self.decoded.items() if n) or "none yet"
+        if self.native_error:
+            lines = self.native_error.splitlines()
+            why = next((x for x in lines if "error:" in x), lines[0]).strip()
+            ran += f" (the native decoder is unavailable: {why})"
+        return ran
 
     def _load_one(self, rel_path: str) -> np.ndarray:
         try:
@@ -101,7 +114,12 @@ class ImageDirSource:
                 self.native_error = str(e)
                 self.backend = "pil"
             else:
-                for i in np.flatnonzero(~ok):
+                bad = np.flatnonzero(~ok)
+                for i in bad:
                     out[i] = self._load_one(rel_paths[i])
+                self.decoded["native"] += len(rel_paths) - len(bad)
+                self.decoded["pil"] += len(bad)
                 return out
-        return np.stack(list(self.pool.map(self._load_one, rel_paths)))
+        out = np.stack(list(self.pool.map(self._load_one, rel_paths)))
+        self.decoded["pil"] += len(rel_paths)
+        return out

@@ -28,15 +28,15 @@ from rau_vqa_tpu_torch.convert import MemoRecent
 from rau_vqa_tpu_torch.devices import pick_device
 from rau_vqa_tpu_torch.ops.fused_resnet import (
     fused_identity_stage, pack_stage_weights, stack_identity_blocks)
+from rau_vqa_tpu_torch.roadmap import still_to_port
 
 RESNET101_BLOCKS = (3, 4, 23, 3)
 STAGE_WIDTH = (64, 128, 256, 512)   # bottleneck inner widths; out = 4x
 BN_EPS = 1e-5
 
-_TODO = "is still to port (ROADMAP.md, queue 1, item 10)"
-S2D_STEM = f"the space-to-depth stem {_TODO}"
-REMAT = f"remat=True (backbone fine-tuning) {_TODO}"
-INT8 = f"the int8 serving mode {_TODO}"
+S2D_STEM = still_to_port("the space-to-depth stem", "transforms")
+REMAT = still_to_port("remat=True (checkpointing for backbone fine-tuning)", "fine-tuning")
+INT8 = still_to_port("the int8 serving mode", "transforms")
 
 _CONVS = ("conv1", "conv2", "conv3", "down")
 

@@ -3,9 +3,10 @@
 Counterpart of the two normalization schemes of
 ``rau_vqa_tpu/ops/transforms.py`` (:30-71) that the from-pixels path applies
 (the loader's, vqa_prepro_loader.lua:55-62, 1061-1067): ImageNet mean/std for
-ResNet, BGR * 255 - mean_bgr for VGG.  The other transforms of that module
-(resizing, crops, flips, lighting, color jitter) are still to port
-(ROADMAP.md, queue 1, item 10).
+ResNet and ViT, BGR * 255 - mean_bgr for VGG.  The other transforms of that
+module (resizing, crops, flips, rotation, lighting, color jitter) are still
+to port (ROADMAP.md, queue 1, item 6, transforms); no path of the JAX package
+calls them.
 """
 
 from __future__ import annotations

@@ -1,0 +1,12 @@
+"""The refusals of options the port does not have yet, each naming the item
+of ROADMAP.md's queue 1 that holds the work, so that every refusal of one
+kind reads alike and follows the queue when it is reordered."""
+
+from __future__ import annotations
+
+ITEMS = {"fine-tuning": 5, "transforms": 6, "multi-device": 7, "export": 8}
+
+
+def still_to_port(what: str, item: str) -> str:
+    """'<what> is still to port (ROADMAP.md, queue 1, item N, <item>)'."""
+    return f"{what} is still to port (ROADMAP.md, queue 1, item {ITEMS[item]}, {item})"

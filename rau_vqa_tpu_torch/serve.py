@@ -2,7 +2,7 @@
 
 POST /answer with JSON {"question": str, "feat_name": str} (precomputed
 features) or {"question": str, "image_b64": str} (an encoded image, through
-the ResNet-101 backbone when one is configured) returns the top-k answers of
+the VGG16, ResNet-101 or ViT backbone when one is configured) returns the top-k answers of
 the "select" aggregate and each hop's answer.  POST /answer_many with
 {"questions": [str, ...], "feat_name"|"image_b64"} answers several questions
 about ONE image: its features are fetched once and the questions share a
@@ -22,8 +22,8 @@ or with ``fused=False`` the plain float32 ``predict``); request threads
 tokenize, read features and upload them with blocking copies.  Features stay
 on the device in an LRU keyed by feature name or image hash.  Image requests
 decode on the host (the native C++ decoder, else PIL); one lasting backbone
-thread runs ResNet-101 for them, one image at a time, its identity runs in
-the stage kernel; a host LRU keeps those features, and concurrent requests
+thread runs the backbone for them, one image at a time (a ResNet's identity
+runs in the stage kernel); a host LRU keeps those features, and concurrent requests
 for one image wait for one backbone run.
 
 The port's counterpart of ``rau_vqa_tpu/serve.py``.
@@ -52,14 +52,12 @@ from rau_vqa_tpu_torch.data.features import QuantFeats, check_feat_interface
 from rau_vqa_tpu_torch.devices import pick_device
 from rau_vqa_tpu_torch.eval.predict import make_predict_step, predict
 from rau_vqa_tpu_torch.models import pipeline
+from rau_vqa_tpu_torch.roadmap import still_to_port
 
 NOT_PORTED = {
-    "artifact": "serving from an exported artifact waits for eval/export.py "
-                "(ROADMAP.md, queue 1, item 7)",
-    "backbone": "the {} backbone is still to port (ROADMAP.md, queue 1, "
-                "item 6); the service runs resnet101",
-    "fine_tuned": "a fine-tuned backbone group: fine-tuning is still to port "
-                  "(ROADMAP.md, queue 1, item 6)",
+    "artifact": still_to_port("serving from an exported artifact (eval/export.py)",
+                              "export"),
+    "fine_tuned": still_to_port("a fine-tuned backbone group", "fine-tuning"),
 }
 PAD_BUCKETS = (1, 4, 8)   # then max_batch: the group sizes a dispatch pads to
 
@@ -75,13 +73,16 @@ class RAUService:
     ``h5py``) or from ``data``, a ``VQAData`` built in memory.  ``fused``
     runs the serving kernels through ``make_predict_step`` with length
     ``buckets`` ((8, 16) when None); ``fused=False`` the plain float32
-    ``predict``.  ``backbone="resnet101"`` with ``bb_params`` (a
-    ``fold_batchnorm`` tree on ``device``) answers image requests."""
+    ``predict``.  ``backbone`` (``"vgg16"``, ``"resnet101"`` or ``"vit"``,
+    with ``vit_cfg``, ViT-L/14 when None) with ``bb_params`` on ``device``
+    (for ResNet-101 a ``fold_batchnorm`` tree) answers image requests,
+    decoded at ``cnn_w`` x 32 px for the conv backbones and ``cnn_w`` x 14
+    for the ViT (``rau_vqa_tpu/serve.py:176-181``)."""
 
     def __init__(self, checkpoint: Optional[str], vqa_dir: Optional[str],
                  feat_dirs, *, preset: str = "ours_ms",
                  artifact: Optional[str] = None,
-                 backbone: Optional[str] = None, bb_params=None,
+                 backbone: Optional[str] = None, bb_params=None, vit_cfg=None,
                  fused: bool = True, buckets=None,
                  max_batch: int = 16, max_wait_ms: float = 5.0,
                  feat_cache_size: int = 256,
@@ -101,9 +102,7 @@ class RAUService:
         if checkpoint is None:
             raise ValueError("pass a checkpoint: the port's .pt snapshot or "
                              "the JAX package's .msgpack one")
-        if backbone in ("vgg16", "vit"):
-            raise NotImplementedError(NOT_PORTED["backbone"].format(backbone))
-        if backbone not in (None, "resnet101"):
+        if backbone not in (None,) + pipeline.BACKBONES:
             raise ValueError(f"unknown backbone {backbone!r}")
         meta = checkpoint_meta(checkpoint)
         if meta.get("train_backbone"):
@@ -132,7 +131,10 @@ class RAUService:
             device=self.device) if self.fused else self._plain_predict)
         self.backbone = backbone
         self.bb_params = bb_params
-        self.image_size = self.mcfg.cnn_w * 32   # stride-32 ResNet grid
+        self.vit_cfg = vit_cfg
+        # the decode size follows the snapshot's feature grid: the conv
+        # backbones are stride 32, ViT-L/14's patches 14 px
+        self.image_size = self.mcfg.cnn_w * (14 if backbone == "vit" else 32)
         self.source = (_make_feature_source(",".join(feat_dirs), self.mcfg)
                        if feat_dirs else None)
         if self.source is not None:
@@ -213,8 +215,8 @@ class RAUService:
 
     def _extract(self, pixels: np.ndarray) -> np.ndarray:
         """uint8 [1, size, size, 3] -> host float32 [1, S, D] features:
-        the backbone on the device, every identity run in the stage
-        kernel, in the service's backbone thread."""
+        the backbone on the device (a ResNet's identity runs in the stage
+        kernel), in the service's backbone thread."""
         return self._backbone_pool.submit(self._run_backbone, pixels).result(
             self._wait_s())
 
@@ -222,7 +224,7 @@ class RAUService:
         with self._on_device(), torch.no_grad():
             feats = pipeline.extract_features(
                 self.backbone, self.bb_params,
-                torch.tensor(pixels, device=self.device),
+                torch.tensor(pixels, device=self.device), vit_cfg=self.vit_cfg,
                 fused_stages=pipeline.SERVING_STAGES, feat_norm=self.feat_norm)
             return feats.float().cpu().numpy()
 

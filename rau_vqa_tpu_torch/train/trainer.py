@@ -44,6 +44,7 @@ from rau_vqa_tpu_torch.data.features import (
 )
 from rau_vqa_tpu_torch.data.loader import VQAData
 from rau_vqa_tpu_torch.devices import pick_device
+from rau_vqa_tpu_torch.models.pipeline import extract_features
 from rau_vqa_tpu_torch.eval.predict import (
     bucket_ladder,
     compute_answers,
@@ -68,6 +69,7 @@ from rau_vqa_tpu_torch.utils.checkpoint import (
     save_checkpoint,
     to_host,
 )
+from rau_vqa_tpu_torch.roadmap import still_to_port
 from rau_vqa_tpu_torch.utils.logging import MetricsLogger, per_hop_record
 
 PARAM_GROUPS = ("embed", "rnn", "mult")
@@ -76,8 +78,7 @@ PARAM_GROUPS = ("embed", "rnn", "mult")
 # gradient accumulation sums add across microbatches and means average.
 _SUM_METRICS = ("do_pred_acc_num", "do_pred_acc_den")
 
-_FROM_PIXELS = ("belongs to the from-pixels slice of the port (ROADMAP.md, "
-                "queue 1): backbone fine-tuning is not ported")
+FINE_TUNING = still_to_port("backbone fine-tuning ({})", "fine-tuning")
 
 
 class TrainState(NamedTuple):
@@ -99,7 +100,7 @@ def init_train_state(mcfg: ModelConfig, seed: int, *, device=None,
     """Fresh parameters from ``seed`` and zero Adam moments, on ``device``
     (``cuda`` when None, as ``make_train_step``)."""
     if bb_params is not None:
-        raise NotImplementedError(f"a backbone parameter group {_FROM_PIXELS}")
+        raise NotImplementedError(FINE_TUNING.format("a backbone parameter group"))
     device = pick_device(device, "init_train_state")
     params = init_params(mcfg, torch.Generator().manual_seed(seed), device)
     return TrainState(params=params,
@@ -138,7 +139,7 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
     """
     device = pick_device(device, "make_train_step")
     if tcfg.train_backbone or backbone is not None or img_repeat != 1:
-        raise NotImplementedError(f"train_backbone / img_repeat {_FROM_PIXELS}")
+        raise NotImplementedError(FINE_TUNING.format("train_backbone, img_repeat"))
     if mcfg.fused_train:
         check_fused_config(mcfg)
     accum = int(tcfg.grad_accum or 1)
@@ -203,6 +204,13 @@ def _perturbed_seed(seed: int, streak: int) -> int:
     return (seed * 1_000_003 + 7_919 * streak + 1) % 2 ** 62
 
 
+def _is_images(feats) -> bool:
+    """Whether a batch's ``feats`` are uint8 images [B, H, W, 3] for the
+    frozen backbone, not features."""
+    return (not isinstance(feats, QuantFeats) and feats.ndim == 4
+            and feats.dtype in (np.uint8, torch.uint8))
+
+
 def _pinned(a, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``a`` in fresh page-locked host memory (cast to ``dtype``).  The
     caching host allocator hands a freed pinned block out again only once
@@ -216,19 +224,30 @@ def _pinned(a, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
 class Trainer:
     """End-to-end training and periodic evaluation for one experiment, on
     ``device`` (``cuda`` when None, raising without a card; ``"cpu"`` runs
-    the kernels' plain versions)."""
+    the kernels' plain versions).
+
+    With ``backbone`` (``"vgg16"``, ``"resnet101"`` or ``"vit"``, with
+    ``vit_cfg``) and ``bb_params``, a source of uint8 images (an
+    ``ImageDirSource``) works too: the frozen backbone, placed on the device
+    once, makes each batch's features there (``extract_features`` with
+    ``tcfg.backbone_feat_norm``), for the train steps and the eval sweep
+    (``rau_vqa_tpu/train/trainer.py:361-382``, ``:485-514``)."""
 
     def __init__(self, exp: ExperimentConfig, data: VQAData,
                  source: FeatureSource, workdir: str, *,
                  gt_anno: Optional[Dict[int, str]] = None,
                  official_anno: Optional[str] = None, device=None,
-                 mesh=None, backbone: Optional[str] = None, bb_params=None):
+                 mesh=None, backbone: Optional[str] = None, bb_params=None,
+                 vit_cfg=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported (ROADMAP.md, queue 1)")
-        if backbone is not None or bb_params is not None \
-                or exp.train.train_backbone:
-            raise NotImplementedError(f"a visual backbone {_FROM_PIXELS}")
+            raise NotImplementedError(still_to_port("a device mesh", "multi-device"))
+        if exp.train.train_backbone:
+            raise NotImplementedError(FINE_TUNING.format("train_backbone"))
+        if (backbone is None) != (bb_params is None):
+            raise ValueError("pass backbone and bb_params together")
+        if backbone is not None and exp.data.batch_order == "imggroup":
+            raise NotImplementedError(FINE_TUNING.format(
+                "the 'imggroup' order of image batches"))
         if exp.visatt:
             raise NotImplementedError(
                 "visatt (attention-map PNGs) is not ported: it needs PIL")
@@ -247,9 +266,12 @@ class Trainer:
         self.data = data
         self.source = source
         if source is not None:
-            # the head trains on the raw feature interface (the RMS one
-            # belongs to fine-tuning, which is not ported)
-            check_feat_interface(source, False, "Trainer")
+            # a packed shard's rows must be of the head's feature interface
+            check_feat_interface(source, self.tcfg.backbone_feat_norm, "Trainer")
+        self.backbone = backbone
+        self.vit_cfg = vit_cfg
+        self.bb_params = (None if bb_params is None else
+                          map_tree(lambda t: t.to(self.device), bb_params))
         self._feat_dtype = (torch.bfloat16 if self.mcfg.compute_dtype
                             == "bfloat16" else torch.float32)
         self.workdir = workdir
@@ -311,7 +333,8 @@ class Trainer:
         in page-locked host memory, made in the loader's prefetch thread
         while the card runs the step, so that the loop only starts its
         copies.  Features in the step's type (``QuantFeats`` stay int8 with
-        float32 scales); tokens cut to the batch's rung of ``ladder``."""
+        float32 scales, images uint8: the backbone reads them on the card);
+        tokens cut to the batch's rung of ``ladder``."""
         if self.device.type != "cuda":
             return None
 
@@ -320,6 +343,8 @@ class Trainer:
             if isinstance(feats, QuantFeats):
                 feats = QuantFeats(values=_pinned(feats.values),
                                    scales=_pinned(feats.scales, torch.float32))
+            elif _is_images(feats):
+                feats = _pinned(feats)
             else:
                 feats = _pinned(feats, self._feat_dtype)
             tokens = batch.tokens[:, :self._bucket_t(ladder, batch.lengths)]
@@ -341,14 +366,17 @@ class Trainer:
 
     def _put_batch(self, batch, max_t: Optional[int] = None) -> Dict:
         """The batch on the device: features in ``compute_dtype``
-        (``QuantFeats`` cross as int8 and are dequantized there), the token
-        axis cut to ``max_t`` (exact: steps past every question's last
-        token carry no gradient; the reference runs to torch.max(x_len),
-        Ours_SS/...lua:448-450)."""
+        (``QuantFeats`` cross as int8 and are dequantized there; uint8 images
+        cross as they are and the frozen backbone makes their features
+        there), the token axis cut to ``max_t`` (exact: steps past every
+        question's last token carry no gradient; the reference runs to
+        torch.max(x_len), Ours_SS/...lua:448-450)."""
         dt = self._feat_dtype
         if isinstance(batch.feats, QuantFeats):
             v = self._put(batch.feats.values, dt)
             feats = v * self._put(batch.feats.scales, dt)[:, None, None]
+        elif _is_images(batch.feats):
+            feats = self._featurize(self._put(batch.feats)).to(dt)
         else:
             feats = self._put(batch.feats, dt)
         tokens = batch.tokens
@@ -359,6 +387,15 @@ class Trainer:
         if batch.labels is not None:
             out["labels"] = self._put(batch.labels)
         return out
+
+    def _featurize(self, images: torch.Tensor) -> torch.Tensor:
+        """uint8 images on the device -> the frozen backbone's features."""
+        if self.backbone is None:
+            raise ValueError("image batches need a visual backbone: pass "
+                             "Trainer(backbone=..., bb_params=...)")
+        with torch.no_grad():
+            return extract_features(self.backbone, self.bb_params, images, self.vit_cfg,
+                                    feat_norm=self.tcfg.backbone_feat_norm)
 
     def _pad_batch_to(self, batch, target_b: int):
         """Pad a batch's leading dim to target_b by repeating the last
@@ -676,7 +713,7 @@ class Trainer:
                    "preset": self.exp.name, "alg_name": self.exp.alg_name,
                    "n_hops": self.mcfg.n_hops,
                    "train_backbone": False, "backbone": None,
-                   "backbone_feat_norm": False,
+                   "backbone_feat_norm": self.tcfg.backbone_feat_norm,
                    # self-describing snapshot: standalone eval adopts this
                    # (the reference's Eval.lua:116-118)
                    "model_config": dataclasses.asdict(self.mcfg)})

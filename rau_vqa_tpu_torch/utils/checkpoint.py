@@ -27,6 +27,7 @@ import torch
 
 from rau_vqa_tpu_torch.config import ModelConfig
 from rau_vqa_tpu_torch.convert import map_tree, params_from_jax
+from rau_vqa_tpu_torch.roadmap import still_to_port
 from rau_vqa_tpu_torch.utils import msgpack_flax
 
 SUFFIX = ".pt"
@@ -277,8 +278,8 @@ def _from_jax_snapshot(path: str, template: Dict, meta: Dict) -> Dict:
         raw = msgpack_flax.loads(f.read())
     if "backbone" in raw.get("params", {}) or meta.get("train_backbone"):
         raise NotImplementedError(
-            f"{path} carries a fine-tuned backbone group: fine-tuning is not "
-            f"ported (ROADMAP.md, queue 1)")
+            f"{path} carries a fine-tuned backbone group: "
+            + still_to_port("backbone fine-tuning", "fine-tuning"))
     if "model_config" in meta:
         model_config_from_meta(meta["model_config"], from_jax=True)
     params = params_from_jax(_from_state_dict(template["params"],

@@ -432,6 +432,7 @@ def test_jax_meta_fields(tmp_path):
     (d / "snapshot_iter000001_epoch1.00.json").write_text(json.dumps({"epoch": 1}))
     (d / "LATEST").write_text("snapshot_iter000001_epoch1.00")
     assert ck.latest_checkpoint(str(d)) == str(path)
-    with pytest.raises(NotImplementedError, match="fine-tuning is not ported"):
+    with pytest.raises(NotImplementedError,
+                       match=r"fine-tuning is still to port \(ROADMAP.md, queue 1, item 5"):
         ck.load_checkpoint(str(path), {"params": {}, "opt": {}, "step": 0,
                                        "seed": 0})

@@ -122,3 +122,139 @@ def test_commands_default_to_cuda(tmp_path, monkeypatch):
                    str(tmp_path / "run")])
     assert tcli.main(["train", "--fixture", "--epochs", "1", "--save-dir",
                       str(tmp_path / "run"), "--device", "cpu"]) == 0
+
+
+# ---------------------------------------------------------------------------
+# from raw images through a frozen backbone
+# ---------------------------------------------------------------------------
+
+def _torchvision_vgg16(path, seed=0):
+    """A torchvision-format vgg16 state dict of JAX's init (x0.72 a
+    convolution) at ``path``; returns JAX's tree."""
+    import numpy as np
+
+    from rau_vqa_tpu_torch.models.backbones.vgg import TORCH_CONV_INDICES
+    from tests.test_torch_port_vgg_vit import jax_vgg
+    bb = jax_vgg(seed, 0.72)
+    state = {}
+    for i, c in zip(TORCH_CONV_INDICES, bb["convs"]):
+        state[f"features.{i}.weight"] = torch.as_tensor(
+            np.ascontiguousarray(c["w"].transpose(3, 2, 0, 1)))
+        state[f"features.{i}.bias"] = torch.as_tensor(c["b"])
+    torch.save(state, path)
+    return bb
+
+
+@pytest.fixture(scope="module")
+def image_run(tmp_path_factory):
+    """A JAX snapshot of the image head (ours_ms, 2x2x512) fitted one epoch
+    from the fixture's images through a frozen VGG16, and that VGG16 as a
+    torchvision .pth."""
+    from tests.test_torch_port_trainer import image_fixture_root, image_trainers
+    root = tmp_path_factory.mktemp("image_cli")
+    fix = image_fixture_root.__wrapped__(tmp_path_factory)
+    pth = str(root / "vgg16.pth")
+    bb = _torchvision_vgg16(pth)
+    jt, _ = image_trainers(fix, root, bb)
+    jt.train_epoch()
+    return {"ck": jt.save(), "images": os.path.join(fix, "images"), "pth": pth}
+
+
+def test_eval_from_images_writes_the_jax_cli_rows(image_run, tmp_path, capsys):
+    """``eval --image-root --backbone vgg16 --backbone-state`` of a JAX
+    snapshot: the rows the JAX CLI's eval writes (the plain float32 path on
+    both sides; the native decoder, bit-equal on both), and the decoder that
+    ran is printed."""
+    flags = ["--checkpoint", image_run["ck"], "--fixture", "--image-root",
+             image_run["images"], "--backbone", "vgg16", "--backbone-state",
+             image_run["pth"], "--image-size", "64"]
+    assert jcli.main(["eval", *flags, "--save-dir", str(tmp_path / "j")]) == 0
+    assert tcli.main(["--device", "cpu", "eval", *flags, "--plain-eval",
+                      "--save-dir", str(tmp_path / "t")]) == 0
+    assert "images decoded by: " in capsys.readouterr().out
+    want, got = results(tmp_path / "j"), results(tmp_path / "t")
+    assert sorted(got) == sorted(want) and len(got) > 0
+    assert got == want
+
+
+def test_train_and_eval_a_fixture_through_a_random_backbone(tmp_path, capsys):
+    """``train --fixture --backbone vgg16``: the fixture's images at 64 px, a
+    random VGG16 from seed 0 (He x0.72 a convolution: pool5 near unit
+    scale); ``eval --fixture --backbone vgg16`` of its snapshot makes the
+    same backbone and scores the last sweep's accuracy."""
+    run = tmp_path / "run"
+    assert tcli.main(["--device", "cpu", "train", "--preset", "ours_ss", "--fixture",
+                      "--backbone", "vgg16", "--epochs", "1", "--save-dir", str(run)]) == 0
+    out = capsys.readouterr().out
+    assert "random-init vgg16" in out and "images decoded by: native" in out
+    final = [x for x in out.splitlines() if x.startswith("final testOE")][0]
+    with open(run / "config.json") as f:
+        model = json.load(f)["model"]
+    assert (model["cnn_dim"], model["cnn_w"], model["cnn_h"]) == (512, 2, 2)
+    ck = str(run / "snapshot" / "snapshot_iter000010_epoch1.00.pt")
+    assert tcli.main(["--device", "cpu", "eval", "--checkpoint", ck, "--fixture",
+                      "--backbone", "vgg16", "--save-dir", str(tmp_path / "ev")]) == 0
+    hops = [x.split("OE ")[1].split(",")[0] for x in capsys.readouterr().out.splitlines()
+            if x.startswith("hop ")]
+    assert ", ".join(hops) == final.split(": ")[1]
+    # the random backbone's scale: pool5 near unit, the head's tanh alive
+    from rau_vqa_tpu_torch.models import pipeline
+    from rau_vqa_tpu_torch.models.backbones import vgg
+    bb = vgg.vgg16_pool5_init(torch.Generator().manual_seed(0), device="cpu")
+    bb = {"convs": [{"w": c["w"] * 0.72, "b": c["b"]} for c in bb["convs"]]}
+    x = torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8)
+    std = pipeline.extract_features("vgg16", bb, x).std().item()
+    assert 0.1 < std < 5.0, std
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--backbone", "vgg16", "--image-size", "70"], "multiple of 32"),
+    (["--backbone", "vgg16", "--image-size", "128"], "4x4=16 feature grid"),
+    (["--backbone", "vit", "--image-size", "448"], "fix the input at 224px"),
+    (["--backbone", "vit", "--image-size", "224"], "256 tokens"),
+    (["--image-size", "64"], "needs --backbone"),
+])
+def test_image_root_checks_the_grid_first(tmp_path, flags, match):
+    """The backbone's grid against the model's, before any weights load."""
+    with pytest.raises(SystemExit, match=match):
+        tcli.main(["--device", "cpu", "train", "--preset", "ours_ss", "--fixture",
+                   "--image-root", str(tmp_path), "--save-dir", str(tmp_path / "r"),
+                   *flags])
+
+
+def test_backbone_refusals(tmp_path):
+    with pytest.raises(SystemExit, match="conv backbones"):
+        tcli.main(["--device", "cpu", "train", "--fixture", "--backbone", "vit",
+                   "--save-dir", str(tmp_path / "v")])
+    with pytest.raises(NotImplementedError, match="item 5, fine-tuning"):
+        tcli.main(["--device", "cpu", "train", "--fixture", "--backbone", "vgg16",
+                   "--backbone-state", "snap.msgpack", "--save-dir", str(tmp_path / "m")])
+    with pytest.raises(NotImplementedError, match="item 5, fine-tuning"):
+        tcli.main(["--device", "cpu", "train", "--preset", "ours_resnet_ft", "--fixture",
+                   "--save-dir", str(tmp_path / "ft")])
+
+
+@pytest.mark.parametrize("backbone", ["vgg16", "vit"])
+def test_backbone_state_loads_as_the_jax_cli(tmp_path, backbone, monkeypatch):
+    """``_load_backbone_state``: a torchvision vgg16 or timm ViT state dict
+    (.pth) -> JAX's tree, in the type asked (bf16 by default, the serving
+    type)."""
+    import jax
+    import numpy as np
+
+    from rau_vqa_tpu.models.backbones import vit as JVT
+    from rau_vqa_tpu_torch.models.backbones import vit as TVT
+    from tests.test_torch_port_vgg_vit import JTINY, TTINY, _timm_state, assert_same_tree
+    path = str(tmp_path / f"{backbone}.pth")
+    if backbone == "vgg16":
+        _torchvision_vgg16(path, seed=1)
+    else:
+        monkeypatch.setattr(JVT, "VIT_L14", JTINY)
+        monkeypatch.setattr(TVT, "VIT_L14", TTINY)
+        torch.save({k: torch.as_tensor(v) for k, v in
+                    _timm_state(np.random.RandomState(2), JTINY).items()}, path)
+    want = jcli._load_backbone_state(backbone, path)
+    got = tcli._load_backbone_state(backbone, path, torch.device("cpu"), torch.float32)
+    assert_same_tree(got, jax.tree.map(np.asarray, want))
+    b16 = tcli._load_backbone_state(backbone, path, torch.device("cpu"))
+    assert {t.dtype for t in jax.tree.leaves(b16)} == {torch.bfloat16}

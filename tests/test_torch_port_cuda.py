@@ -30,7 +30,13 @@ bf16 fused step and the unfused step, float32 and bf16, on the card.
 From pixels: the identity-stage kernel at scale-normalised bars, and
 ``answer_pixels`` (``ours_resnet`` head, bf16 ResNet-101 at 448 px) against
 ``pixels_forward`` at the bars of chip_smoke.py's pixels phase; the stage
-checks take their bars and random stacks from chip_smoke.py.
+checks take their bars and random stacks from chip_smoke.py.  VGG16 and
+ViT-L/14 from pixels: both serving kernels at ``ours_vit`` widths (S 256,
+D 1024) against their plain versions at the serving bars, two calls
+bit-equal, the hop kernel's plan the launcher's; ``answer_pixels`` of each
+backbone against ``pixels_forward`` at the pixels phase's bars;
+``quantize_feats_device`` bit for bit the host writer's, and
+``precompute_features`` on the card against ``extract_features``.
 """
 
 import dataclasses
@@ -61,6 +67,8 @@ from rau_vqa_tpu_torch.eval.predict import (
     predict_fused,
 )
 from rau_vqa_tpu_torch.models.backbones.resnet import fold_batchnorm, resnet101_init
+from rau_vqa_tpu_torch.models.backbones.vgg import vgg16_pool5_init
+from rau_vqa_tpu_torch.models.backbones.vit import VIT_L14, vit_init
 from rau_vqa_tpu_torch.models.pipeline import (
     answer_pixels,
     extract_features,
@@ -90,14 +98,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(B, dev, seed=0):
-    params = init_params(CFG, torch.Generator().manual_seed(seed), dev)
+def _inputs(B, dev, seed=0, cfg=CFG):
+    params = init_params(cfg, torch.Generator().manual_seed(seed), dev)
     rs = np.random.RandomState(seed)
-    lengths = rs.randint(1, CFG.seq_len + 1, B).astype(np.int32)
-    tokens = np.zeros((B, CFG.seq_len), np.int64)
+    lengths = rs.randint(1, cfg.seq_len + 1, B).astype(np.int32)
+    tokens = np.zeros((B, cfg.seq_len), np.int64)
     for k in range(B):
-        tokens[k, :lengths[k]] = rs.randint(1, CFG.vocab_size, lengths[k])
-    feats = np.abs(rs.randn(B, CFG.cnn_spat, CFG.cnn_dim)).astype(np.float32)
+        tokens[k, :lengths[k]] = rs.randint(1, cfg.vocab_size, lengths[k])
+    feats = np.abs(rs.randn(B, cfg.cnn_spat, cfg.cnn_dim)).astype(np.float32)
     return (params, torch.as_tensor(tokens, device=dev),
             torch.as_tensor(lengths, device=dev),
             torch.as_tensor(feats, device=dev))
@@ -178,13 +186,14 @@ def test_lstm_encode_raises_when_the_grid_cannot_be_co_resident(cuda_device):
     assert lstm_encoder.KERNEL.launches == before
 
 
-def _hops_inputs(B, dev, seed=0):
-    """The hop kernel's inputs at ours_ms widths: (hw, q, ifeat, iatt), the
-    features in bf16 as ``predict_fused`` casts them."""
-    params, tokens, lengths, feats = _inputs(B, dev, seed)
+def _hops_inputs(B, dev, seed=0, cfg=CFG):
+    """The hop kernel's inputs at ``cfg``'s widths (ours_ms by default):
+    (hw, q, ifeat, iatt), the features in bf16 as ``predict_fused`` casts
+    them."""
+    params, tokens, lengths, feats = _inputs(B, dev, seed, cfg)
     hw = rau_hops.pack_hop_weights(params["mult"])
     q = lstm_encoder.lstm_encode_reference(
-        params["rnn"], CFG, embed_question(params, tokens), lengths)
+        params["rnn"], cfg, embed_question(params, tokens), lengths)
     ifeat, iatt = embed_image(params["mult"], feats)
     return hw, q, ifeat.to(torch.bfloat16).contiguous(), iatt.to(torch.bfloat16).contiguous()
 
@@ -242,8 +251,11 @@ def test_rau_hops_device_kernels_are_the_launchers(cuda_device, B):
     _, launches = rau_hops.hops_launcher_plan(B, *_HOPS_WIDTHS)
     want = len(plan.setup) + CFG.n_hops * (len(launches) - len(plan.setup))
     with torch.no_grad():
-        got = device_kernels(lambda: rau_hops.rau_hops(hw, CFG, q, ifeat, iatt))
-    assert got == want == plan.kernels(CFG.n_hops)
+        # raises where a call's kernel records (or, where the profiler lost
+        # some, its launch records) are not ``want``
+        device_kernels(lambda: rau_hops.rau_hops(hw, CFG, q, ifeat, iatt), want,
+                       f"rau_hops B={B}", torch.cuda.get_device_name(0))
+    assert want == plan.kernels(CFG.n_hops)
 
 
 @pytest.mark.parametrize("short", [64, None], ids=["scratch_short", "scratch_none"])
@@ -765,3 +777,130 @@ def test_train_step_runs_both_kernels(cuda_device):
             rau_train_hops.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
     assert state.step == 1
     assert all(torch.isfinite(v).all() for v in metrics.values())
+
+
+# ---------------------------------------------------------------------------
+# VGG16 and ViT-L/14 from pixels; precomputation
+# ---------------------------------------------------------------------------
+
+VIT_CFG = get_preset("ours_vit")
+
+
+@pytest.mark.parametrize("B", [1, 19, 64])
+def test_serving_kernels_at_ours_vit_widths(cuda_device, B):
+    """Both serving kernels where ours_vit runs them (S 256 cells of 1024
+    channels): the serving bars, two calls bit-equal, the hop kernel's plan
+    the launcher's dry run."""
+    hw, q, ifeat, iatt = _hops_inputs(B, cuda_device, seed=3, cfg=VIT_CFG)
+    assert ifeat.shape == (B, 256, VIT_CFG.multfeat_dim)
+    s, d, a = rau_hops.rau_hops(hw, VIT_CFG, q, ifeat, iatt)
+    again = rau_hops.rau_hops(hw, VIT_CFG, q, ifeat, iatt)
+    s_ref, d_ref, a_ref = rau_hops.rau_hops_reference(
+        hw, VIT_CFG, q, ifeat, iatt, dot_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip((s, d, a), again))
+    torch.testing.assert_close(s, s_ref, rtol=0.05, atol=0.01)
+    assert (s.argmax(-1) == s_ref.argmax(-1)).float().mean().item() > 0.97
+    torch.testing.assert_close(a, a_ref, rtol=0.05, atol=5e-4)
+    torch.testing.assert_close(d, d_ref, rtol=0.05, atol=5e-3)
+    widths = (VIT_CFG.rnnout_dim, VIT_CFG.cnn_spat, VIT_CFG.multfeat_dim,
+              VIT_CFG.attfeat_dim, VIT_CFG.att_rnn_size, VIT_CFG.answer_size)
+    plan = rau_hops.hops_plan(B, VIT_CFG)
+    scratch, launches = rau_hops.hops_launcher_plan(B, *widths)
+    assert scratch > 0 and [x[:3] for x in launches] == [ph.grid for ph in plan.phases]
+    enc, emb, lengths = _encoder_inputs(VIT_CFG, B, VIT_CFG.seq_len, cuda_device, seed=3)
+    got = _encode_and_check(VIT_CFG, enc, emb, lengths)
+    assert torch.equal(got, lstm_encoder.lstm_encode(enc, VIT_CFG, emb, lengths))
+
+
+def _other_backbone(name, dev):
+    """(head config, bf16 tree, image side): VGG16 He x0.72 a convolution
+    (pool5 near unit scale) under ours_ms, ViT-L/14 under ours_vit."""
+    gen = torch.Generator().manual_seed(1)
+    if name == "vgg16":
+        bb = vgg16_pool5_init(gen, device=dev)
+        bb = {"convs": [{"w": (c["w"] * 0.72).to(torch.bfloat16),
+                         "b": c["b"].to(torch.bfloat16)} for c in bb["convs"]]}
+        return CFG, bb, 448
+    return VIT_CFG, vit_init(gen, VIT_L14, torch.bfloat16, dev), 224
+
+
+@pytest.mark.parametrize("backbone", ["vgg16", "vit"])
+def test_answer_pixels_other_backbones(cuda_device, backbone):
+    """One B=8 call: the encoder and hop kernels once each, no stage kernel;
+    against pixels_forward on the same bf16 tree with bf16's own effect
+    measured against the float32 tree: answers > 0.95 counting bf16 ties,
+    attention within twice bf16's own change plus 5e-4."""
+    cfg, bb, side = _other_backbone(backbone, cuda_device)
+    B = 8
+    params, tokens, lengths, _ = _inputs(B, cuda_device, seed=4, cfg=cfg)
+    images = torch.as_tensor(np.random.RandomState(4).randint(0, 256, (B, side, side, 3))
+                             .astype(np.uint8), device=cuda_device)
+    before = (fused_resnet.KERNEL.launches, lstm_encoder.KERNEL.launches,
+              rau_hops.KERNEL.launches)
+    ids, att = answer_pixels(params, bb, cfg, backbone, images, tokens, lengths)
+    torch.cuda.synchronize()
+    assert (fused_resnet.KERNEL.launches, lstm_encoder.KERNEL.launches,
+            rau_hops.KERNEL.launches) == (before[0], before[1] + 1, before[2] + 1)
+    assert ids.shape == (cfg.n_hops + 2, B) and att.shape == (cfg.n_hops + 2, B, cfg.cnn_spat)
+    with torch.no_grad():
+        out = pixels_forward(params, bb, cfg, backbone, images, tokens, lengths)
+        ref_pred, ref_att = _aggregate(out.scores, out.do_pred, out.attprob)
+        f32 = extract_features(backbone, map_tree(lambda t: t.float(), bb), images)
+        f32_pred, f32_att = predict(params, cfg, tokens, lengths, f32)
+    assert (att - ref_att).abs().max().item() <= \
+        2 * (ref_att - f32_att).abs().max().item() + 5e-4
+    slack = 2 * (ref_pred - f32_pred).abs().amax(-1)
+    gap = ref_pred.amax(-1) - ref_pred.gather(-1, ids[..., None])[..., 0]
+    assert (gap <= slack).float().mean().item() > 0.95
+
+
+def test_device_int8_quantization_is_the_hosts(cuda_device, tmp_path):
+    """quantize_feats_device on the card: the bytes and scales of
+    PackedShardWriter.write's host arithmetic, ties and a zero image too."""
+    from rau_vqa_tpu_torch.data.features import PackedShardWriter
+    from rau_vqa_tpu_torch.precompute import quantize_feats_device
+    rs = np.random.RandomState(7)
+    feats = (rs.randn(64, 196, 512) * rs.uniform(0.05, 40.0, (64, 1, 1))).astype(np.float32)
+    feats[3] = 0.0
+    feats[4, 0, 0] = np.float32(127.5)
+    feats[4, 0, 1] = -np.float32(126.5)
+    host = PackedShardWriter(str(tmp_path), 64, 196, 512, dtype="int8")
+    host.write(0, feats)
+    q, s = quantize_feats_device(torch.as_tensor(feats, device=cuda_device))
+    np.testing.assert_array_equal(q.cpu().numpy(), np.asarray(host.arr))
+    np.testing.assert_array_equal(s.cpu().numpy(), host.scales)
+
+
+def test_precompute_on_the_card_is_extract_features(cuda_device, tmp_path):
+    """5 PNGs at 64 px, batch 2 (the last batch padded): every row the
+    backbone's output for the decoded images at the same batch size, to
+    1e-5 of the features' RMS; the int8 shard the host's
+    quantization of those rows, bit for bit."""
+    from chip_smoke import png_bytes
+    from rau_vqa_tpu_torch.data.features import PackedShardWriter, coco_feat_name
+    from rau_vqa_tpu_torch.data.images import ImageDirSource
+    from rau_vqa_tpu_torch.precompute import precompute_features
+    rs = np.random.RandomState(5)
+    (tmp_path / "val2014").mkdir()
+    rel = []
+    for i in range(5):
+        p = f"val2014/COCO_val2014_{i:012d}.png"
+        (tmp_path / p).write_bytes(png_bytes(rs.randint(0, 256, (64, 64, 3)).astype(np.uint8)))
+        rel.append(p)
+    _, bb, _ = _other_backbone("vgg16", cuda_device)
+    store = precompute_features(str(tmp_path), rel, str(tmp_path / "f32"), "vgg16", bb,
+                                size=64, batch_size=2)
+    # the reference at the sweep's batch size, its last batch padded alike
+    src = ImageDirSource(str(tmp_path), size=64)
+    want = np.concatenate([extract_features("vgg16", bb, torch.as_tensor(
+        src.get_batch(c + [c[-1]] * (2 - len(c))), device=cuda_device)).float().cpu().numpy()
+        [:len(c)] for c in (rel[0:2], rel[2:4], rel[4:])])
+    got = store.get_batch([coco_feat_name(p) for p in rel], [1] * 5)
+    assert np.abs(got - want).max() <= 1e-5 * np.sqrt(np.square(want).mean())
+    q8 = precompute_features(str(tmp_path), rel, str(tmp_path / "i8"), "vgg16", bb,
+                             size=64, batch_size=2, dtype="int8")
+    host = PackedShardWriter(str(tmp_path / "host"), 5, 4, 512, dtype="int8")
+    host.write(0, np.asarray(store.mmap))
+    np.testing.assert_array_equal(np.asarray(q8.mmap), np.asarray(host.arr))
+    np.testing.assert_array_equal(q8.scales, host.scales)

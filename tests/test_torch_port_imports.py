@@ -1,6 +1,7 @@
 """The port stands alone: no module of rau_vqa_tpu_torch, and neither
 chip_smoke.py, bench_torch_serving.py nor bench_torch_stage.py, imports JAX, Flax or anything of the JAX package (checked on
-the source, so lazy imports inside functions count too).  The packages the
+the source, so lazy imports inside functions count too), nor torchvision or
+timm: their state dicts are read as dicts from local files.  The packages the
 card's machine lacks are imported only inside the functions that need them."""
 
 import ast
@@ -11,7 +12,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "rau_vqa_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "bench_torch_serving.py", ROOT / "bench_torch_stage.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rau_vqa_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rau_vqa_tpu", "torchvision", "timm")
 
 
 def imported_modules(path):
@@ -35,7 +36,8 @@ def test_sources_found():
             "resnet.py", "pipeline.py", "devices.py", "bench_torch_serving.py",
             "bench_torch_stage.py", "loader.py", "checkpoint.py",
             "msgpack_flax.py", "cli.py", "serve.py", "native.py",
-            "images.py", "torch_convert.py"} <= names
+            "images.py", "torch_convert.py", "vgg.py", "vit.py", "precompute.py",
+            "rigcheck.py", "roadmap.py"} <= names
     assert (ROOT / "rau_vqa_tpu_torch" / "models" / "backbones" / "__init__.py") in SOURCES
 
 

@@ -8,7 +8,9 @@ whose ``cnn_dim`` and grid match it.  ``extract_features`` and
 runs the serving code with the kernels' plain versions: the stage kernel's
 (float32 here) and the head's with bf16 dots, so it is held to JAX's
 float32 ``answer_pixels`` at the serving bars: answer agreement >= 0.95,
-attention within rtol 0.05 / atol 5e-4.
+attention within rtol 0.05 / atol 5e-4.  VGG16 (full widths, 64 px) and a
+tiny ViT (tests/test_torch_port_vgg_vit.py) go through the same three entry
+points at the same bars, each under a head of its grid and width.
 """
 
 import dataclasses
@@ -24,13 +26,18 @@ from rau_vqa_tpu.config import ModelConfig as JaxModelConfig
 from rau_vqa_tpu.models import pipeline as JP
 from rau_vqa_tpu.models import rau as jrau
 from rau_vqa_tpu.models.backbones import resnet as JR
+from rau_vqa_tpu.models.backbones import vgg as JV
+from rau_vqa_tpu.models.backbones import vit as JVT
 from rau_vqa_tpu_torch import config as tconfig
 from rau_vqa_tpu_torch.convert import params_from_jax, params_to_jax
 from rau_vqa_tpu_torch.models import pipeline as TP
 from rau_vqa_tpu_torch.models import rau as trau
 from rau_vqa_tpu_torch.models.backbones import resnet as TR
+from rau_vqa_tpu_torch.models.backbones import vgg as TV
+from rau_vqa_tpu_torch.models.backbones import vit as TVT
 from rau_vqa_tpu_torch.ops import fused_resnet, lstm_encoder, rau_hops
 from tests.test_torch_port_backbone import assert_scaled_close, narrow_resnet
+from tests.test_torch_port_vgg_vit import JTINY, TTINY
 
 JCFG = JaxModelConfig(
     vocab_size=50, answer_size=16, seq_len=9, embed_dim=8, rnn_size=16,
@@ -68,12 +75,104 @@ def test_extract_features_matches_jax(feat_norm):
 
 
 def test_extract_features_other_backbones_are_still_to_port():
+    """VGG16 and the ViT are ported (their parity tests follow); what stays
+    to port of them, their fine-tuning, names its item; an unknown backbone
+    is refused."""
     _, bb, images, _, _ = setup(1)
-    for name in ("vgg16", "vit"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-            TP.extract_features(name, params_from_jax(bb), torch.as_tensor(images))
+    with pytest.raises(NotImplementedError, match="queue 1, item 5, fine-tuning"):
+        TV.vgg16_pool5_apply(params_from_jax(jax_vgg(0)), torch.zeros(1, 32, 32, 3),
+                             remat=True)
+    with pytest.raises(NotImplementedError, match="queue 1, item 5, fine-tuning"):
+        TVT.vit_apply(params_from_jax(jax_vit(0)), TTINY, torch.zeros(1, 28, 28, 3),
+                      remat=True)
     with pytest.raises(ValueError, match="unknown backbone"):
         TP.extract_features("alexnet", params_from_jax(bb), torch.as_tensor(images))
+
+
+# ---------------------------------------------------------------------------
+# VGG16 (full widths, 64 px -> 2x2x512, He init x0.72 as the JAX CLI's
+# fixture) and a tiny ViT (28 px, patch 14 -> 2x2x64), each under a head of
+# its grid and width
+# ---------------------------------------------------------------------------
+
+OTHER = {"vgg16": (512, 64), "vit": (TTINY.dim, TTINY.image_size)}
+
+
+def jax_vgg(seed):
+    return jax.tree.map(lambda a: np.asarray(a) * (0.72 if a.ndim == 4 else 1.0),
+                        JV.vgg16_pool5_init(jax.random.PRNGKey(seed)))
+
+
+def jax_vit(seed):
+    return jax.tree.map(np.asarray, JVT.vit_init(jax.random.PRNGKey(seed), JTINY))
+
+
+def other_setup(backbone, B, seed=0):
+    """(JAX head config, port head config, head params, backbone tree) and
+    the batch, for ``backbone`` in ``OTHER``."""
+    dim, size = OTHER[backbone]
+    jcfg = dataclasses.replace(JCFG, cnn_dim=dim)
+    cfg = dataclasses.replace(CFG, cnn_dim=dim)
+    p = jax.tree.map(np.asarray, jrau.init_params(jax.random.PRNGKey(seed), jcfg))
+    bb = (jax_vgg if backbone == "vgg16" else jax_vit)(seed + 100)
+    _, _, _, tokens, lengths = setup(B, seed)
+    images = np.random.RandomState(seed + 7).randint(0, 256, (B, size, size, 3)).astype(np.uint8)
+    return jcfg, cfg, p, bb, images, tokens, lengths
+
+
+@pytest.fixture
+def tiny_jax_vit(monkeypatch):
+    """The JAX package's pixels_forward and answer_pixels take the default
+    ViT config: here the tiny one."""
+    monkeypatch.setattr(JVT, "VIT_L14", JTINY)
+
+
+@pytest.mark.parametrize("backbone", ["vgg16", "vit"])
+@pytest.mark.parametrize("feat_norm", [False, True])
+def test_extract_features_other_backbones_match_jax(backbone, feat_norm):
+    _, _, _, bb, images, _, _ = other_setup(backbone, 3, seed=1)
+    kw = {"vit_cfg": JTINY} if backbone == "vit" else {}
+    want = JP.extract_features(backbone, bb, jnp.asarray(images), feat_norm=feat_norm, **kw)
+    got = TP.extract_features(backbone, params_from_jax(bb), torch.as_tensor(images),
+                              TTINY if backbone == "vit" else None, feat_norm=feat_norm)
+    assert got.shape == (3, 4, OTHER[backbone][0])
+    assert_scaled_close(got.numpy(), np.asarray(want), 3e-5)
+    if feat_norm:
+        np.testing.assert_allclose(got.square().mean(-1).numpy(), 1.0, rtol=1e-4)
+
+
+@pytest.mark.parametrize("backbone", ["vgg16", "vit"])
+def test_pixels_forward_other_backbones_match_jax(backbone, tiny_jax_vit):
+    jcfg, cfg, p, bb, images, tokens, lengths = other_setup(backbone, 4, seed=2)
+    want = JP.pixels_forward(p, bb, jcfg, backbone, jnp.asarray(images),
+                             jnp.asarray(tokens), jnp.asarray(lengths))
+    got = TP.pixels_forward(params_from_jax(p), params_from_jax(bb), cfg, backbone,
+                            torch.as_tensor(images), torch.as_tensor(tokens),
+                            torch.as_tensor(lengths), vit_cfg=TTINY)
+    for name in ("scores", "do_pred", "attprob", "final_c", "final_h"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("backbone", ["vgg16", "vit"])
+def test_answer_pixels_other_backbones_cpu_match_jax(backbone, tiny_jax_vit):
+    """The serving entry point on the CPU: the head's kernels' plain
+    versions (bf16 dots), no kernel launched, at the serving bars."""
+    B = 8
+    jcfg, cfg, p, bb, images, tokens, lengths = other_setup(backbone, B, seed=3)
+    want_ids, want_att = JP.answer_pixels(p, bb, jcfg, backbone, jnp.asarray(images),
+                                          jnp.asarray(tokens), jnp.asarray(lengths))
+    before = (fused_resnet.KERNEL.launches, lstm_encoder.KERNEL.launches,
+              rau_hops.KERNEL.launches)
+    ids, att = TP.answer_pixels(params_from_jax(p), params_from_jax(bb), cfg, backbone,
+                                images, tokens, lengths, vit_cfg=TTINY, device="cpu")
+    assert (fused_resnet.KERNEL.launches, lstm_encoder.KERNEL.launches,
+            rau_hops.KERNEL.launches) == before
+    H = jcfg.n_hops
+    assert ids.shape == (H + 2, B) and att.shape == (H + 2, B, jcfg.cnn_spat)
+    assert (ids.numpy() == np.asarray(want_ids)).mean() >= 0.95
+    np.testing.assert_allclose(att.numpy(), np.asarray(want_att), rtol=0.05, atol=5e-4)
 
 
 @pytest.mark.parametrize("folded", [False, True])

@@ -529,12 +529,12 @@ def test_http_status_codes(http, env):
 
 
 def test_unported_options_are_refused(env, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 8, export"):
         RAUService(None, env["vqa"], env["feat"], artifact=str(tmp_path),
                    device="cpu")
-    for name in ("vgg16", "vit"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            port_service(env, backbone=name)
+    # the three backbones are ported (test_backbone_image_requests_match_jax)
+    with pytest.raises(ValueError, match="unknown backbone"):
+        port_service(env, backbone="alexnet")
     # a snapshot whose sidecar says the backbone was fine-tuned
     ck = str(tmp_path / "ft.msgpack")
     with open(env["ck"], "rb") as a, open(ck, "wb") as b:
@@ -543,7 +543,7 @@ def test_unported_options_are_refused(env, tmp_path, monkeypatch):
         meta = json.load(f)
     with open(str(tmp_path / "ft.json"), "w") as f:
         json.dump({**meta, "train_backbone": True, "backbone": "resnet101"}, f)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5, fine-tuning"):
         RAUService(ck, env["vqa"], env["feat"], device="cpu")
     # a packed shard of RMS-normalized rows for a raw-trained head
     shard = str(tmp_path / "rms")
@@ -595,10 +595,10 @@ def test_cli_serve(env, tmp_path, monkeypatch):
         server.shutdown()
         t.join(WAIT)
     assert not t.is_alive() and rc == [0]
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 8, export"):
         tcli.main(["--device", "cpu", "serve", "--checkpoint", env["ck"],
                    "--artifact", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(SystemExit, match="--backbone-state"):
         tcli.main(["--device", "cpu", "serve", "--checkpoint", env["ck"],
                    "--backbone", "vit"])
     with pytest.raises(NotImplementedError, match="fine-tun"):
@@ -664,3 +664,52 @@ def test_image_without_a_decoder_is_a_400_naming_both(env, monkeypatch):
         server.server_close()
         svc.close()
         t.join(WAIT)
+
+
+@pytest.fixture(scope="module")
+def image_envs(tmp_path_factory):
+    """JAX snapshots of image heads, each fitted one epoch from the
+    fixture's images through a frozen backbone: VGG16 (64 px, 2x2x512) and
+    the tiny ViT (28 px, 2x2x64)."""
+    from rau_vqa_tpu.models.backbones import vit as jvit
+    from tests.test_torch_port_trainer import image_fixture_root, image_trainers
+    from tests.test_torch_port_vgg_vit import JTINY, jax_vgg
+    fix = image_fixture_root.__wrapped__(tmp_path_factory)
+    out = {}
+    for backbone, bb in (("vgg16", jax_vgg(0, 0.72)),
+                         ("vit", jax.tree.map(np.asarray,
+                                              jvit.vit_init(jax.random.PRNGKey(0), JTINY)))):
+        root = tmp_path_factory.mktemp(f"port_serve_{backbone}")
+        jt, _ = image_trainers(fix, root, bb, backbone=backbone)
+        jt.train_epoch()
+        out[backbone] = {"ck": jt.save(), "vqa": os.path.join(fix, "vqa_prepro"),
+                         "feat": [], "bb": bb, "images": os.path.join(fix, "images")}
+    return out
+
+
+@pytest.mark.parametrize("backbone", ["vgg16", "vit"])
+def test_backbone_image_requests_match_jax(image_envs, backbone, monkeypatch):
+    """image_b64 requests through a VGG16 or ViT service: decoded at
+    cnn_w x 32 or x 14 px (the JAX rule), featurized in the backbone
+    thread, answered as the JAX service answers them at the serving bars."""
+    from rau_vqa_tpu.models.backbones import vit as jvit
+    from rau_vqa_tpu_torch.convert import params_from_jax
+    from tests.test_torch_port_vgg_vit import JTINY, TTINY
+    env = image_envs[backbone]
+    monkeypatch.setattr(jvit, "VIT_L14", JTINY)   # the JAX service's ViT
+    svc = port_service(env, backbone=backbone, bb_params=params_from_jax(env["bb"]),
+                       vit_cfg=TTINY if backbone == "vit" else None)
+    jsvc = jax_service(env, fused=True, backbone=backbone, bb_params=env["bb"])
+    try:
+        assert svc.image_size == jsvc.image_size == (28 if backbone == "vit" else 64)
+        for rel in ("val2014/COCO_val2014_000000000003.jpg",
+                    "val2014/COCO_val2014_000000000011.jpg"):
+            with open(os.path.join(env["images"], rel), "rb") as f:
+                b64 = base64.b64encode(f.read()).decode()
+            kw = dict(image_b64=b64, topk=4, attention=True)
+            for g, w in zip(svc.answer_many(QUESTIONS[:2], **kw),
+                            jsvc.answer_many(QUESTIONS[:2], **kw)):
+                assert_same_answer(g, w, FUSED_BAR)
+        assert svc.stats()["feat_cache_entries"] == 2
+    finally:
+        svc.close()

@@ -26,6 +26,7 @@ from rau_vqa_tpu.data import fixtures as jfix
 from rau_vqa_tpu.data import loader as jload
 from rau_vqa_tpu.eval.metrics import fast_val_accuracy as jax_fast_val
 from rau_vqa_tpu.eval.vqa_accuracy import VQAAccuracyScorer as JaxScorer
+from rau_vqa_tpu.models.backbones import vit as jvit
 from rau_vqa_tpu.train import trainer as jtrainer
 from rau_vqa_tpu_torch.config import get_experiment
 from rau_vqa_tpu_torch.convert import params_from_jax, tree_leaves
@@ -503,10 +504,20 @@ def test_trainer_device_rule_and_unported_options(fixture_root, tmp_path,
                                                   monkeypatch):
     exp = tiny(get_experiment("ours_ms"))
     data, src, _ = _inputs((tload, tfeat), fixture_root, exp, 8)
-    for kw, match in ((dict(mesh=object(), device="cpu"), "mesh"),
-                      (dict(backbone="resnet101", device="cpu"), "backbone")):
+    bb = {"convs": []}
+    for e, kw, match in (
+            (exp, dict(mesh=object(), device="cpu"), "item 7, multi-device"),
+            (exp.replace(train=dataclasses.replace(exp.train, train_backbone=True)),
+             dict(device="cpu"), "train_backbone.*item 5, fine-tuning"),
+            (exp.replace(data=dataclasses.replace(exp.data, batch_order="imggroup")),
+             dict(backbone="vgg16", bb_params=bb, device="cpu"),
+             "imggroup.*item 5, fine-tuning")):
         with pytest.raises(NotImplementedError, match=match):
-            ttrainer.Trainer(exp, data, src, str(tmp_path), **kw)
+            ttrainer.Trainer(e, data, src, str(tmp_path), **kw)
+    with pytest.raises(ValueError, match="together"):
+        ttrainer.Trainer(exp, data, src, str(tmp_path), backbone="vgg16", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5, fine-tuning"):
+        ttrainer.make_train_step(exp.model, exp.train, device="cpu", backbone="vgg16")
     with pytest.raises(NotImplementedError, match="PIL"):
         ttrainer.Trainer(exp.replace(visatt=True), data, src, str(tmp_path),
                          device="cpu")
@@ -552,3 +563,124 @@ def test_fit_renders_the_jax_curves(fixture_root, tmp_path):
     want = jax_render(str(tmp_path / "run" / "training_log"),
                       str(tmp_path / "jax_graphs"), 1)
     assert got == sorted(os.path.basename(p) for p in want)
+
+
+# ---------------------------------------------------------------------------
+# from images through a frozen backbone
+# ---------------------------------------------------------------------------
+
+IMAGE_MODEL = {"cnn_dim": 512, "cnn_w": 2, "cnn_h": 2, "mult_dropout": 0.0}
+
+
+@pytest.fixture(scope="module")
+def image_fixture_root(tmp_path_factory):
+    """The fixture with its images at 64 px (a 2x2 VGG16 grid)."""
+    root = str(tmp_path_factory.mktemp("port_trainer_images"))
+    jfix.generate_fixture(root, SPEC, images=True, image_size=64)
+    return root
+
+
+def image_trainers(root, tmp_path, bb, model=None, train=None, backbone="vgg16"):
+    """(JAX trainer, port trainer): the same backbone tree, frozen, over the
+    fixture's images decoded by PIL (64 px for VGG16 and a 2x2 grid of 512;
+    for the ViT the tiny one of tests/test_torch_port_vgg_vit.py at 28 px,
+    2x2 of 64); the port's starts from JAX's params."""
+    from rau_vqa_tpu.data import images as jimages
+    from rau_vqa_tpu_torch.data import images as timages
+    from tests.test_torch_port_vgg_vit import JTINY, TTINY
+    vit = backbone == "vit"
+    model = {**IMAGE_MODEL, **({"cnn_dim": JTINY.dim} if vit else {}), **(model or {})}
+    size = JTINY.image_size if vit else 64
+    vqa_dir = os.path.join(root, "vqa_prepro")
+    gt = jload.load_gt_annotations(os.path.join(vqa_dir, "gt_annotations.json"))
+    out = []
+    for exp, load, images, kw in (
+            (tiny(jax_get_preset("ours_ms"), model, train), jload, jimages,
+             dict(bb_params=bb, vit_cfg=JTINY if vit else None)),
+            (tiny(get_experiment("ours_ms"), model, train, fused_eval=False), tload, timages,
+             dict(bb_params=params_from_jax(bb), vit_cfg=TTINY if vit else None,
+                  device="cpu"))):
+        data = load.load_vqa_data(vqa_dir, exp.train.batch_size, split="val2014",
+                                  test_batch_size=8)
+        src = images.ImageDirSource(os.path.join(root, "images"), size=size)
+        cls = jtrainer.Trainer if load is jload else ttrainer.Trainer
+        out.append(cls(exp, data, src, str(tmp_path / load.__name__.split(".")[0]),
+                       gt_anno=gt, backbone=backbone, **kw))
+    jt, tt = out
+    tt.state = tt.state._replace(params=params_from_jax(jax.tree.map(np.asarray,
+                                                                     jt.state.params)))
+    return jt, tt
+
+
+@pytest.mark.parametrize("backbone,feat_norm", [("vgg16", False), ("vgg16", True),
+                                                ("vit", False)])
+def test_frozen_backbone_epoch_and_sweep_match_jax(image_fixture_root, tmp_path, backbone,
+                                                   feat_norm):
+    """One epoch and a sweep from the fixture's images through a frozen
+    VGG16 (JAX's init, x0.72 a convolution) or a tiny ViT: per-step losses
+    and epoch records at the train step's bar, params at 2e-3 per leaf by
+    norm, the data order exactly, and the sweep's rows and accuracies equal
+    (the plain float32 path on both sides), raw and RMS-normalized
+    features."""
+    from tests.test_torch_port_vgg_vit import JTINY, jax_vgg
+    bb = (jax_vgg(0, 0.72) if backbone == "vgg16" else
+          jax.tree.map(np.asarray, jvit.vit_init(jax.random.PRNGKey(0), JTINY)))
+    jt, tt = image_trainers(image_fixture_root, tmp_path, bb, backbone=backbone,
+                            train={"backbone_feat_norm": feat_norm})
+    # the attention score's bias has a zero gradient in exact arithmetic
+    # whatever the features (NOISE_ONLY); the detector finds no other leaf
+    assert noise_only_leaves(tt) <= NOISE_ONLY
+    a, b = jt.evaluate(return_rows=True), tt.evaluate(return_rows=True)
+    assert b["rows_oe"] == a["rows_oe"] and b["testOEacc"] == a["testOEacc"]
+    jl, tl, jq, tq = [], [], [], []
+    record_steps(jt, jl, jq)
+    record_steps(tt, tl, tq)
+    ja, ta = jt.train_epoch(), tt.train_epoch()
+    for k in ja:
+        if k in ("sec", "examples_per_sec"):
+            continue
+        if k in ("epoch", "steps", "exploded", "lr", "mult_lr") or k.startswith("cmploss"):
+            assert ta[k] == ja[k], k
+        else:
+            close(ta[k], ja[k], msg=k)
+    assert len(tl) == len(jl) == 10
+    close(torch.stack(tl).numpy(), np.asarray(jl), msg="per-step losses")
+    for x, y in zip(tq, jq):
+        np.testing.assert_array_equal(x, y)
+    assert_params_close(tt.state.params, jt.state.params, NOISE_ONLY)
+    a, b = jt.evaluate(return_rows=True), tt.evaluate(return_rows=True)
+    assert b["rows_oe"] == a["rows_oe"] and b["rows_mc"] == a["rows_mc"]
+    assert b["testOEacc"] == a["testOEacc"]
+    path = tt.save()
+    with open(path[:-len(".pt")] + ".json") as f:
+        meta = json.load(f)
+    assert meta["backbone_feat_norm"] is feat_norm and meta["backbone"] is None
+
+
+def test_image_batches_stay_uint8_until_the_device(image_fixture_root, tmp_path, monkeypatch):
+    """The pinning hook keeps an image batch uint8 (a float32 cast on the host
+    is 4x the bytes and the wrong operand); _put_batch featurizes it on the
+    device in the step's type, as extract_features does."""
+    from rau_vqa_tpu_torch.models.pipeline import extract_features
+    from tests.test_torch_port_vgg_vit import jax_vgg
+    _, tt = image_trainers(image_fixture_root, tmp_path, jax_vgg(1, 0.72),
+                           model={"compute_dtype": "bfloat16"})
+    pinned = []
+
+    def fake_pinned(a, dtype=None):
+        pinned.append((np.asarray(a).dtype, dtype))
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t if dtype is None else t.to(dtype)
+
+    monkeypatch.setattr(ttrainer, "_pinned", fake_pinned)
+    monkeypatch.setattr(tt, "device", torch.device("cuda"))
+    td = tt.data.train_data
+    td.inorder()
+    batch = next(iter(td.batches(tt.source, finish=tt._pinning(tt._train_ladder))))
+    assert batch.feats.dtype == torch.uint8 and batch.feats.shape == (16, 64, 64, 3)
+    assert pinned[0] == (np.uint8, None)
+    monkeypatch.setattr(tt, "device", torch.device("cpu"))
+    dev = tt._put_batch(batch)
+    assert dev["feats"].dtype == torch.bfloat16 and dev["feats"].shape == (16, 4, 512)
+    want = extract_features("vgg16", tt.bb_params, batch.feats).to(torch.bfloat16)
+    assert torch.equal(dev["feats"], want)

@@ -171,7 +171,28 @@ Phases, in order; any failure exits non-zero:
               JPEGs through the frozen VGG16 and one from a shard of them
               (first-step losses within 5e-3, sweep answers >= 0.99 alike,
               trained q/s); ``RAUService(backbone="vgg16")`` answering three
-              PNGs by ``image_b64`` as by ``feat_name`` on the float32 shard.
+              PNGs by ``image_b64`` as by ``feat_name`` on the float32 shard;
+11. finetune — backbone fine-tuning (under a 300 s watchdog): the
+              ``ours_resnet_ft`` preset as shipped (bf16, unfused, no remat,
+              'imggroup' groups of 3: B=288 on 96 unique 448 px images, a
+              random folded ResNet-101, the RMS interface, Zipf labels) for
+              10 steps: every loss finite, the loss falls, grad_norm_backbone
+              > 0, every backbone leaf moves, the first loss within 5% of the
+              plain float32 step's; readings: step ms, trained q/s, idle
+              share, device kernels a step, peak memory with remat off and
+              on, and step 1's backbone grads with remat against without
+              (norm-relative 1e-3); ``ours_ms`` fused through VGG16 at B=96
+              (32 unique 448 px images): the backward kernel with the
+              features' gradient against its plain version (norm-relative
+              1e-3 per output, two calls bit-equal), its bf16 instantiation at
+              the backward's bf16 bars, both timed beside their bounds, and
+              the fine-tuning step 4 times in float32 and 3 in bf16, each
+              launching its dfeats backward and never the other; the
+              ``Trainer`` one fine-tuning epoch from the paper-dims fixture's
+              448 px JPEGs through VGG16 in the 'imggroup' order, its sweep
+              with the trained backbone, a snapshot that resumes to the same
+              bits, and ``RAUService`` serving it through its own backbone as
+              ``answer_pixels`` answers.
 
 Prints each number beside the card's name and power limit, a ``kernels``
 JSON line (the hop kernel's and the training kernels' entries also give
@@ -420,12 +441,13 @@ def train_fwd_bound(cfg, mp, B, dtype=torch.float32):
     return bound(n_bytes, B * H * train_hop_flops(cfg)[0], peak)
 
 
-def train_bwd_bound(cfg, mp, B, dtype=torch.float32):
+def train_bwd_bound(cfg, mp, B, dtype=torch.float32, dfeats=False):
     """Least time for the backward kernel's work: q, feats (in ``dtype``),
     the carries, gmerge and the weights read once; its emissions (float32
     cotangents, qfeat / join / merge_d in ``dtype``) and the summed
     feats-path grads written once; the hop's remat (without the classifier)
-    plus its backward at ``dtype``'s peak."""
+    plus its backward at ``dtype``'s peak; with ``dfeats`` also the
+    features' gradient, written once, and its product a hop."""
     Q, S, Dc, M, F, R, A, H = (cfg.rnnout_dim, cfg.cnn_spat, cfg.cnn_dim, cfg.multfeat_dim,
                                cfg.attfeat_dim, cfg.att_state_dim, cfg.answer_size, cfg.n_hops)
     e, peak = _operand_size_and_peak(dtype)
@@ -435,6 +457,9 @@ def train_bwd_bound(cfg, mp, B, dtype=torch.float32):
                   + Dc * M + M + M * F + 2 * F) * 4 + nbytes(mp))
     fwd, bwd = train_hop_flops(cfg)
     n_ops = B * H * (fwd - 2 * (M * A + M) + bwd)
+    if dfeats:
+        n_bytes += B * S * Dc * 4
+        n_ops += B * H * 2 * S * Dc * M
     return bound(n_bytes, n_ops, peak)
 
 
@@ -497,7 +522,7 @@ def train_bf16_deep_bar(r) -> float:
     return min(2 * r["host"], 0.75 * r["float32"])
 
 
-def train_bf16_readings(rth, cfg, mp, B, rs, dev, host=False):
+def train_bf16_readings(rth, cfg, mp, B, rs, dev, host=False, dfeats=False):
     """The bf16 training kernels against their bf16 plain versions on one
     batch of B rows (``cfg``: fused, bf16): {"fwd": {output: r}, "bwd":
     {grad leaf: r}}, where r holds the norm-relative distance from the bf16
@@ -506,8 +531,9 @@ def train_bf16_readings(rth, cfg, mp, B, rs, dev, host=False):
     version run on the host CPU (the same arithmetic summed in another
     order).  The backward's leaves are its feats-path grads and the outside
     products over its emissions, on the kernel forward's carries, with the
-    cotangent of a per-hop cross-entropy; att_score b's grad, zero in exact
-    arithmetic, is held to an absolute 1e-5 here instead."""
+    cotangent of a per-hop cross-entropy, and with ``dfeats`` the features'
+    gradient ("feats"); att_score b's grad, zero in exact arithmetic, is
+    held to an absolute 1e-5 here instead."""
     from rau_vqa_tpu_torch.convert import map_tree
     bf16 = torch.bfloat16
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
@@ -551,9 +577,11 @@ def train_bf16_readings(rth, cfg, mp, B, rs, dev, host=False):
         dd = rth.dot_dtype(c)
         gmerge = (rth._rnd(g_.reshape(H * B, -1), dd)
                   @ rth._rnd(mp_["cls"]["w"], dd).T).reshape(H, B, -1)
-        em, gw_in = bwd(mp_, c, q_, feats_, seed_, c_, h_, gmerge.contiguous())
+        em, gw_in = bwd(mp_, c, q_, feats_, seed_, c_, h_, gmerge.contiguous(), dfeats)
         gw_out, dq = rth._outside_grads(c, mp_, q_, seed_, h_, p_, g_, em)
         grads = {p: (gw_in[p] if p in gw_in else gw_out[p]) for p in rth._DIFF_WEIGHTS}
+        if dfeats:
+            grads["feats"] = gw_in[rth.DFEATS]
         return {**on(dev, grads)[0], "dq": dq.to(dev)}
 
     grads = {"kernel": hand_grads(rth.train_hops_bwd, cfg, dev, mp16, q, feats),
@@ -1853,6 +1881,408 @@ def backbones_phase(seed: int, card: str) -> dict:
     return total
 
 
+def finetune_phase(seed: int, card: str) -> dict:
+    """Phase 11: backbone fine-tuning through the user's entry points.
+    ``ours_resnet_ft`` as the preset ships it (bf16, unfused, no remat,
+    grouped images) through a random folded ResNet-101, then with remat;
+    ``ours_ms`` fused through VGG16, whose backward kernel sums the
+    features' gradient (``dfeats``), held to its plain version; the
+    ``Trainer`` fine-tuning from the paper-dims fixture's JPEGs, its sweep,
+    snapshot, resume and ``RAUService``.  Returns the launches of this
+    phase's kernels and the dfeats kernels' readings."""
+    import base64
+    import tempfile
+
+    from rau_vqa_tpu_torch.config import get_experiment, get_train_preset
+    from rau_vqa_tpu_torch.convert import map_tree, tree_leaves
+    from rau_vqa_tpu_torch.data.fixtures import FixtureSpec, fixture_bundle
+    from rau_vqa_tpu_torch.data.images import ImageDirSource
+    from rau_vqa_tpu_torch.data.loader import build_vqa_data
+    from rau_vqa_tpu_torch.models import pipeline
+    from rau_vqa_tpu_torch.models.backbones import resnet, vgg
+    from rau_vqa_tpu_torch.models.rau import init_params
+    from rau_vqa_tpu_torch.ops import lstm_encoder, rau_hops
+    from rau_vqa_tpu_torch.ops import rau_train_hops as rth
+    from rau_vqa_tpu_torch.serve import RAUService
+    from rau_vqa_tpu_torch.train.losses import hop_grad_scale
+    from rau_vqa_tpu_torch.train.trainer import (
+        Trainer, _generator, featurizer, head_params, init_train_state, loss_and_grads,
+        make_train_step)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(seed + 50)
+    failed = []
+    zipf = 1.0 / np.arange(1, 11)
+    log(f"finetune: TF32 in this run: matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+        f"{torch.backends.cudnn.allow_tf32} (the train step leaves both as the process sets "
+        f"them); the backbone computes in the compute type: under bfloat16 on a bf16 cast of "
+        f"its float32 masters made in the step, in float32 on them")
+
+    def inputs(cfg, B, n_images, side, s):
+        tokens, lengths, _ = make_batch(dataclasses.replace(cfg, cnn_dim=1), B, cfg.seq_len,
+                                        rs, dev)
+        images = torch.randint(0, 256, (n_images, side, side, 3), dtype=torch.uint8,
+                               device=dev, generator=torch.Generator(dev).manual_seed(s))
+        labels = torch.as_tensor(rs.choice(10, B, p=zipf / zipf.sum()), device=dev)
+        return tokens, lengths, images, labels
+
+    def moved(a, b):
+        leaves = list(zip(tree_leaves(a), tree_leaves(b)))
+        return sum(1 for x, y in leaves if not torch.equal(x, y)), len(leaves)
+
+    # 1. ours_resnet_ft as the preset ships it: bf16, unfused, no remat,
+    # 'imggroup' groups of 3 (B=288 on 96 unique 448 px images), a random
+    # folded ResNet-101, the RMS interface (the zero-asset rule), Zipf labels
+    mcfg, tcfg = get_train_preset("ours_resnet_ft")
+    tcfg = dataclasses.replace(tcfg, backbone_feat_norm=True)
+    g, B, side = 3, tcfg.batch_size, mcfg.cnn_w * 32
+    bb = resnet.fold_batchnorm(resnet.resnet101_init(
+        torch.Generator().manual_seed(seed + 51), device=dev))
+    state0 = init_train_state(mcfg, seed, bb_params=bb)
+    del bb
+    tokens, lengths, images, labels = inputs(mcfg, B, B // g, side, seed + 52)
+    hop_scale = hop_grad_scale(mcfg.n_hops, scale_by_nhop=tcfg.hop_grad_scale_nhop,
+                               stop_timing=tcfg.hop_stop_timing, epoch=1).to(dev)
+    lr, mult_lr = tcfg.learning_rate, tcfg.mult_learning_rate
+    batch = (tokens, lengths, images, labels, hop_scale, lr, mult_lr)
+    step = make_train_step(mcfg, tcfg, backbone="resnet101", img_repeat=g)
+    state, hist, step_ms, peak = state0, [], [], {}
+    for i in range(10):
+        if i == 1:
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, *batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            peak["off"] = (torch.cuda.max_memory_allocated() - held) / 1e6
+        hist.append({k: v.detach() for k, v in m.items()})
+    losses = [m["loss"].item() for m in hist]
+    bad = [i for i, m in enumerate(hist) if not all(torch.isfinite(v).all() for v in m.values())]
+    n_moved, n_leaves = moved(state.params["backbone"], state0.params["backbone"])
+    gnb = [m["grad_norm_backbone"].item() for m in hist]
+    ms = float(np.mean(step_ms[1:]))
+    log(f"ours_resnet_ft losses: " + " ".join(f"{x:.4f}" for x in losses))
+    log(f"ours_resnet_ft grad_norm_backbone first/last {gnb[0]:.4e} / {gnb[-1]:.4e}; backbone "
+        f"leaves moved {n_moved} of {n_leaves}")
+    if bad or not losses[-1] < losses[0] or min(gnb) <= 0 or n_moved < n_leaves:
+        failed.append(f"ours_resnet_ft: non-finite steps {bad}, losses {losses[0]:.4f} -> "
+                      f"{losses[-1]:.4f}, grad_norm_backbone {min(gnb):.3e}, moved "
+                      f"{n_moved}/{n_leaves}")
+    busy, top, ops, n_kern, host = device_profile(lambda: step(state, *batch), iters=2)
+    for name, t in top[:8]:
+        log(f"ours_resnet_ft_device_ms={t:.3f} {name[:70]} <- {ops.get(name, 'no op')[:110]}")
+    log("ours_resnet_ft host ops (own ms a step, calls a step): " + "; ".join(
+        f"{k} {v:.1f} ({c:.0f})" for k, v, c in host[:8]))
+    log(f"ours_resnet_ft_step_ms={ms:.2f} (steps 2-10; the first {step_ms[0]:.1f}) B={B} on "
+        f"{B // g} unique {side} px images; trained_q_per_s={B / ms * 1e3:.1f}; device busy "
+        + (f"{busy:.2f} ms a step, idle share {1 - busy / ms:.3f}" if busy > 0
+           else "not measured (the profiler recorded no device time)")
+        + f"; {n_kern:.0f} device kernels a step; peak memory {peak['off']:.1f} MB above the "
+        f"{held / 1e6:.1f} MB held, remat off [{card}]")
+    # the first step against the plain float32 step on the same inputs (the
+    # float32 one with remat, the same values in less memory)
+    mcfg32 = dataclasses.replace(mcfg, compute_dtype="float32")
+    tcfg32 = dataclasses.replace(tcfg, backbone_remat=True)
+    _, m32 = make_train_step(mcfg32, tcfg32, backbone="resnet101", img_repeat=g)(state0, *batch)
+    gap = abs(losses[0] - m32["loss"].item()) / abs(m32["loss"].item())
+    log(f"ours_resnet_ft first-step loss: bf16 {losses[0]:.6f}, float32 "
+        f"{m32['loss'].item():.6f}, relative gap {gap:.3e} (bar 0.05)")
+    if gap > 0.05:
+        failed.append(f"ours_resnet_ft: first-step loss {gap:.3e} from float32's")
+    del m32
+    # remat on: its peak memory in a step, and step 1's backbone grads
+    # against remat off's
+    step_r = make_train_step(mcfg, dataclasses.replace(tcfg, backbone_remat=True),
+                             backbone="resnet101", img_repeat=g)
+    torch.cuda.synchronize()
+    held_r = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step_r(state0, *batch)
+    torch.cuda.synchronize()
+    peak["on"] = (torch.cuda.max_memory_allocated() - held_r) / 1e6
+    remat_ms = (time.perf_counter() - t0) * 1e3
+    grads = {}
+    for remat in (False, True):
+        fz = featurizer(mcfg, dataclasses.replace(tcfg, backbone_remat=remat), "resnet101",
+                        img_repeat=g)
+        gr, _ = loss_and_grads(mcfg, state0.params, tokens, lengths, images, labels,
+                               hop_scale, generator=_generator(dev, state0.seed, 0, 0),
+                               featurize=fz)
+        grads[remat] = gr["backbone"]
+        del gr
+    worst = max(norm_rel(a, b) for a, b in zip(tree_leaves(grads[True]),
+                                                tree_leaves(grads[False])))
+    log(f"ours_resnet_ft remat on: peak memory {peak['on']:.1f} MB above the "
+        f"{held_r / 1e6:.1f} MB held (off: {peak['off']:.1f} MB), a step {remat_ms:.1f} ms; "
+        f"backbone grads against remat off's: worst leaf norm-relative {worst:.3e} (bar 1e-3) "
+        f"[{card}]")
+    if worst > 1e-3:
+        failed.append(f"ours_resnet_ft: remat's backbone grads {worst:.3e} from remat off's")
+    del grads, state, state0, hist, step, step_r, images
+    torch.cuda.empty_cache()
+
+    # 2. ours_ms fused through VGG16, float32, B=96 on 32 unique 448 px
+    # images: the backward kernel with the features' gradient
+    mcfg2, tcfg2 = get_train_preset("ours_ms")
+    mcfg2 = dataclasses.replace(mcfg2, fused_train=True)
+    tcfg2 = dataclasses.replace(tcfg2, train_backbone=True, backbone_feat_norm=True,
+                                batch_size=96)
+    B2 = tcfg2.batch_size
+    vbb = map_tree(lambda t: t * 0.72 if t.ndim == 4 else t,
+                   vgg.vgg16_pool5_init(torch.Generator().manual_seed(seed + 53), device=dev))
+    batch2 = inputs(mcfg2, B2, B2 // g, side, seed + 54)
+    hs2 = hop_grad_scale(mcfg2.n_hops, scale_by_nhop=tcfg2.hop_grad_scale_nhop,
+                         stop_timing=tcfg2.hop_stop_timing, epoch=1).to(dev)
+    with torch.no_grad():
+        feats = featurizer(mcfg2, tcfg2, "vgg16", img_repeat=g)(vbb, batch2[2]).contiguous()
+    mp = init_params(mcfg2, torch.Generator().manual_seed(seed + 55), dev)["mult"]
+    q = torch.as_tensor(0.5 * rs.randn(B2, mcfg2.rnnout_dim).astype(np.float32), device=dev)
+    s = torch.tensor([seed + 56], dtype=torch.int32, device=dev)
+    _, _, _, c_all, h_all = rth.train_hops_fwd(mp, mcfg2, q, feats, s)
+    gsc = 1e-3 * torch.randn(mcfg2.n_hops, B2, mcfg2.answer_size, device=dev,
+                             generator=torch.Generator(dev).manual_seed(seed + 57))
+    gmerge = (gsc @ mp["cls"]["w"].T).contiguous()
+    args = (mp, mcfg2, q, feats, s, c_all, h_all, gmerge)
+    em, gw = rth.train_hops_bwd(*args, dfeats=True)
+    em2, gw2 = rth.train_hops_bwd(*args, dfeats=True)
+    want_em, want_gw = rth.train_hops_bwd_reference(*args, dfeats=True)
+    torch.cuda.synchronize()
+    errs = {"/".join(map(str, k)): norm_rel(gw[k], want_gw[k]) for k in gw}
+    errs.update({k: norm_rel(em[k], want_em[k]) for k in em})
+    same = (all(torch.equal(gw[k], gw2[k]) for k in gw)
+            and all(torch.equal(em[k], em2[k]) for k in em))
+    dfe = errs["feats"]
+    log(f"train_hops_bwd dfeats B={B2} (VGG16 features, 448 px): dfeats norm-relative "
+        f"{dfe:.3e}, worst of every output {max(errs.values()):.3e} (bar 1e-3); two calls "
+        f"bit-equal {same}")
+    if max(errs.values()) > 1e-3 or not same:
+        failed.append(f"train_hops_bwd dfeats: {errs}, bit-equal {same}")
+    # the plan with dfeats against the built launcher's dry run, and the
+    # device kernels a call against the plan
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    widths = (mcfg2.cnn_spat, mcfg2.cnn_dim, mcfg2.multfeat_dim, mcfg2.attfeat_dim,
+              mcfg2.att_state_dim, mcfg2.rnnout_dim)
+    kern_a_call = {}
+    for dtp in (torch.float32, torch.bfloat16):
+        plan = rth.bwd_plan(B2, *widths, n_sm, dtp, True)
+        scratch, launches_ = rth.launcher_plan(B2, *widths, dtp, plan.chunk_rows, True)
+        if scratch <= 0 or [x[:3] for x in launches_] != [ph.grid for ph in plan.phases]:
+            failed.append(f"bwd_plan with dfeats {dtp}: the launcher runs {launches_}")
+        kern_a_call[dtp] = len(plan.phases) * mcfg2.n_hops
+    log(f"train_hops_bwd with dfeats B={B2}: {kern_a_call[torch.float32] // mcfg2.n_hops} "
+        f"kernels a hop (the plan's, the launcher's dry run alike in both types)")
+    dt = {"device_kernels": device_kernels(
+        lambda: rth.train_hops_bwd(*args, dfeats=True), kern_a_call[torch.float32],
+        f"train_hops_bwd dfeats float32 B={B2}", card)}
+    dt["ms"] = time_ms(lambda: rth.train_hops_bwd(*args, dfeats=True), iters=5, warmup=2)
+    dt["without_ms"] = time_ms(lambda: rth.train_hops_bwd(*args), iters=5, warmup=2)
+    dt["plain_ms"] = time_ms(lambda: rth.train_hops_bwd_reference(*args, dfeats=True),
+                             iters=2, warmup=1)
+    b_ms, b_by = train_bwd_bound(mcfg2, mp, B2, dfeats=True)
+    log(f"train_hops_bwd_dfeats_ms={dt['ms']:.3f} (without dfeats {dt['without_ms']:.3f}) "
+        f"plain_ms={dt['plain_ms']:.3f} bound_ms={b_ms:.3f} by {b_by} B={B2} float32 [{card}]")
+    # the dfeats product alone at ours_resnet_ft's shapes (computed, not run:
+    # the preset ships unfused): its operations over the peaks, and the
+    # float32 sum's read and write a hop that the kernel makes
+    Bp, Sp, Dp, Mp, Hp = B, mcfg.cnn_spat, mcfg.cnn_dim, mcfg.multfeat_dim, mcfg.n_hops
+    ops_p = 2 * Bp * Sp * Dp * Mp * Hp
+    traffic = 2 * Bp * Sp * Dp * 4 * Hp
+    log(f"dfeats at ours_resnet_ft's shapes (B={Bp}, S={Sp}, Dc={Dp}, M={Mp}, {Hp} hops): "
+        f"{ops_p / 1e12:.3f} TFLOP, {ops_p / H100_BF16_FLOPS * 1e3:.2f} ms at the bf16 peak, "
+        f"{ops_p / H100_F32_FLOPS * 1e3:.2f} ms at the float32 peak; the kernel's float32 sum "
+        f"read and written each hop: {traffic / 1e9:.2f} GB, "
+        f"{traffic / H100_BYTES_PER_S * 1e3:.2f} ms at {H100_BYTES_PER_S / 1e12:.2f} TB/s")
+    # the bf16 instantiation against its bf16 plain version at these shapes:
+    # at one hop dfeats within the backward's bf16 bar, under half the
+    # float32 plain version's distance; at the main path's eight hops, where
+    # the sum over the hops in hop order, each hop's feats mask and its bf16
+    # dpre_i first come into play, dfeats and every grad leaf within
+    # train_bf16_deep_bar (twice the plain version's own drift on the host
+    # CPU, under 3/4 of the float32 plain version's distance)
+    cfg16 = dataclasses.replace(mcfg2, compute_dtype="bfloat16", n_hops=1)
+    r16 = train_bf16_readings(rth, cfg16, mp, B2, rs, dev, dfeats=True)["bwd"]["feats"]
+    bar16 = train_bf16_bar("bwd", "feats")
+    log(f"train_hops_bwd_bf16 dfeats B={B2}, one hop: norm-relative {r16['kernel']:.3e} from "
+        f"the bf16 plain version (bar {bar16:.1e}); the float32 plain version "
+        f"{r16['float32']:.3e} (the bar must be under half of it)")
+    if not r16["kernel"] <= bar16 < 0.5 * r16["float32"]:
+        failed.append(f"train_hops_bwd_bf16 dfeats: {r16}")
+    cfg16 = dataclasses.replace(mcfg2, compute_dtype="bfloat16")
+    deep = train_bf16_readings(rth, cfg16, mp, B2, rs, dev, host=True, dfeats=True)["bwd"]
+    deep_bars = {k: train_bf16_deep_bar(r) for k, r in deep.items()}
+    log(f"train_hops_bwd_bf16 dfeats B={B2}, {cfg16.n_hops} hops, norm-relative from the bf16 "
+        f"plain version: kernel / float32 plain / bf16 plain on the host (bar): " + ", ".join(
+            f"{k} {r['kernel']:.3e} / {r['float32']:.3e} / {r['host']:.3e} ({deep_bars[k]:.3e})"
+            for k, r in deep.items()) + f" [{card}]")
+    for k, r in deep.items():
+        if not r["kernel"] <= deep_bars[k]:
+            failed.append(f"train_hops_bwd_bf16 dfeats {cfg16.n_hops} hops: {k} "
+                          f"{r['kernel']:.3e} > {deep_bars[k]:.3e}")
+    r16_deep = deep["feats"]
+    b16 = torch.bfloat16
+    mcfg16 = dataclasses.replace(mcfg2, compute_dtype="bfloat16")
+    mp16 = map_tree(lambda w: w.to(b16), mp)
+    args16 = (mp16, mcfg16, q.to(b16), feats.to(b16), s, c_all, h_all,
+              (rth._rnd(gsc, b16) @ rth._rnd(mp["cls"]["w"], b16).T).contiguous())
+    _, g16 = rth.train_hops_bwd(*args16, dfeats=True)
+    _, g16b = rth.train_hops_bwd(*args16, dfeats=True)
+    _, w16 = rth.train_hops_bwd_reference(*args16, dfeats=True)
+    torch.cuda.synchronize()
+    same16 = all(torch.equal(g16[k], g16b[k]) for k in g16)
+    err16 = norm_rel(g16[rth.DFEATS], w16[rth.DFEATS])
+    dt16 = {"device_kernels": device_kernels(
+                lambda: rth.train_hops_bwd(*args16, dfeats=True), kern_a_call[torch.bfloat16],
+                f"train_hops_bwd dfeats bfloat16 B={B2}", card),
+            "ms": time_ms(lambda: rth.train_hops_bwd(*args16, dfeats=True), iters=5, warmup=2),
+            "plain_ms": time_ms(lambda: rth.train_hops_bwd_reference(*args16, dfeats=True),
+                                iters=2, warmup=1)}
+    b16_ms, b16_by = train_bwd_bound(mcfg16, mp16, B2, b16, dfeats=True)
+    log(f"train_hops_bwd_dfeats_bf16_ms={dt16['ms']:.3f} plain_ms={dt16['plain_ms']:.3f} "
+        f"bound_ms={b16_ms:.3f} by {b16_by} B={B2}, eight hops: dfeats norm-relative "
+        f"{err16:.3e} from the bf16 plain version; two calls bit-equal {same16} [{card}]")
+    if not same16:
+        failed.append("train_hops_bwd_bf16 dfeats: two calls differ")
+    del args, args16, em, em2, gw, gw2, want_em, want_gw, g16, g16b, w16
+    # the main path: the fine-tuning step, fused, in float32 then bf16; the
+    # counts start at 0 here
+    counted = {"train_hops_fwd": rth.FWD_KERNEL, "train_hops_bwd": rth.BWD_KERNEL,
+               "train_hops_bwd_dfeats": rth.BWD_DFEATS_KERNEL,
+               "train_hops_fwd_bf16": rth.FWD_BF16_KERNEL,
+               "train_hops_bwd_bf16": rth.BWD_BF16_KERNEL,
+               "train_hops_bwd_dfeats_bf16": rth.BWD_DFEATS_BF16_KERNEL,
+               "lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL}
+    for k in counted.values():
+        k.launches = 0
+    init = init_train_state(mcfg2, seed, bb_params=vbb)
+    runs = {}
+    for name, cfg_, n in (("float32", mcfg2, 4), ("bfloat16", mcfg16, 3)):
+        st, ls, t0 = init, [], time.perf_counter()
+        step2 = make_train_step(cfg_, tcfg2, backbone="vgg16", img_repeat=g)
+        for _ in range(n):
+            st, m = step2(st, *batch2[:4], hs2, tcfg2.learning_rate, tcfg2.mult_learning_rate)
+            ls.append(m["loss"].item())
+        runs[name] = (ls, moved(st.params["backbone"], init.params["backbone"]),
+                      (time.perf_counter() - t0) * 1e3 / n)
+    launches = {n: k.launches for n, k in counted.items()}
+    for name, (ls, (nm, nl), t) in runs.items():
+        log(f"ours_ms fused through VGG16, {name}, B={B2}: losses "
+            + " ".join(f"{x:.4f}" for x in ls) + f"; backbone leaves moved {nm} of {nl}; "
+            f"{t:.1f} ms a step (with its host reads) [{card}]")
+        if not all(np.isfinite(ls)) or nm == 0:
+            failed.append(f"ours_ms fused {name}: losses {ls}, moved {nm}")
+    log(f"finetune launches, fused steps (4 float32, 3 bf16): {launches}")
+    want = {"train_hops_fwd": 4, "train_hops_bwd": 0, "train_hops_bwd_dfeats": 4,
+            "train_hops_fwd_bf16": 3, "train_hops_bwd_bf16": 0,
+            "train_hops_bwd_dfeats_bf16": 3}
+    if any(launches[k] != v for k, v in want.items()):
+        failed.append(f"fused fine-tuning launches {launches}, expected {want}")
+    del init, batch2
+
+    # 3. the Trainer: one fine-tuning epoch on the paper-dims fixture's 448 px
+    # JPEGs through VGG16 in the 'imggroup' order, its sweep with the trained
+    # backbone, a snapshot that resumes to the same bits and that
+    # RAUService serves through its own backbone
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_finetune_") as root:
+        spec = FixtureSpec(n_train=1000, n_test=166, n_images=100, n_words=12604,
+                           n_answers=1000, seq_len=26, feat_dim=512, feat_w=14, feat_h=14,
+                           n_mc=4, seed=13 + seed, n_img_classes=5, class_code="dense")
+        bundle = fixture_bundle(os.path.join(root, "fixture"), spec, images=True,
+                                image_size=side, uniform_img_assign=True)
+        fix_images = os.path.join(root, "fixture", "images")
+        gt = {int(k): v for k, v in bundle.gt.items()}
+        exp = get_experiment("ours_ms")
+        exp = exp.replace(
+            train=dataclasses.replace(exp.train, train_backbone=True),
+            data=dataclasses.replace(exp.data, split="val2014", test_batch_size=83,
+                                     batch_order="imggroup"))
+
+        def trainer(work):
+            data = build_vqa_data(bundle.info, bundle.arrays, exp.train.batch_size,
+                                  split="val2014", test_batch_size=83, seed=exp.train.seed)
+            return Trainer(exp, data, ImageDirSource(fix_images, size=side, backend="native"),
+                           os.path.join(root, work), gt_anno=gt, backbone="vgg16",
+                           bb_params=vbb)
+        tr = trainer("run")
+        for k in counted.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        rec = tr.train_epoch()
+        t_epoch = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = tr.evaluate(write_submissions=False)
+        t_sweep = time.perf_counter() - t0
+        nm, nl = moved(tr.state.params["backbone"], map_tree(lambda t: t.float(), vbb))
+        log(f"trainer fine-tuning: img_repeat {tr.img_repeat} (imggroup), epoch loss "
+            f"{rec['loss']:.4f}, grad_norm_backbone {rec['grad_norm_backbone']:.4e}, "
+            f"{rec['steps']} steps in {t_epoch:.2f} s, trained q/s "
+            f"{rec['examples_per_sec']:.1f}; sweep {t_sweep:.2f} s with the trained backbone "
+            f"(OE {res['testOEacc'][-1]:.4f}); backbone leaves moved {nm} of {nl} [{card}]")
+        if (not np.isfinite(rec["loss"]) or nm == 0 or tr._bb_tree() is not
+                tr.state.params["backbone"] or len(res["testOEacc"]) != exp.model.n_hops + 2):
+            failed.append(f"trainer fine-tuning: loss {rec['loss']}, moved {nm}")
+        snap = tr.save()
+        tr2 = trainer("resumed")
+        tr2.restore(snap)
+        same = (all(torch.equal(a, b) for a, b in zip(tree_leaves(tr.state.params),
+                                                      tree_leaves(tr2.state.params)))
+                and all(torch.equal(a, b) for a, b in zip(tree_leaves(tr.state.opt),
+                                                          tree_leaves(tr2.state.opt)))
+                and (tr.state.step, tr.state.seed, tr.epoch, tr.lr)
+                == (tr2.state.step, tr2.state.seed, tr2.epoch, tr2.lr))
+        log(f"trainer fine-tuning: the 4-group snapshot resumes to the same bits: {same}")
+        if not same:
+            failed.append("trainer fine-tuning: the resumed state differs")
+        data1 = build_vqa_data(bundle.info, bundle.arrays, 1, split="val2014",
+                               test_batch_size=1)
+        svc = RAUService(snap, None, [], data=data1)
+        try:
+            if svc.backbone != "vgg16" or not all(
+                    torch.equal(a, b) for a, b in zip(tree_leaves(svc.bb_params),
+                                                      tree_leaves(tr.state.params["backbone"]))):
+                failed.append("serve: not the snapshot's own backbone")
+            head = head_params(tr.state.params)
+            for i in range(3):
+                words = data1.tokens_to_question(data1.test_data.questions[i],
+                                                 data1.test_data.lengths[i])
+                path = os.path.join(fix_images, data1.test_data.img_paths[i])
+                with open(path, "rb") as f:
+                    raw = f.read()
+                out = svc.answer(words, image_b64=base64.b64encode(raw).decode(), topk=2)
+                tok, ln = data1.question_to_tokens(words, normalize=True)
+                ids, _ = pipeline.answer_pixels(head, tr.state.params["backbone"], tr.mcfg,
+                                                "vgg16", svc._decode_image(raw), tok[None],
+                                                np.asarray([ln]))
+                want_a = [data1.answers[int(x)] for x in ids[:, 0].tolist()]
+                sc = [a["score"] for a in out["answers"]]
+                ok = out["answers"][0]["answer"] == want_a[-1] and out["per_hop"] == want_a[:-2]
+                log(f"serve fine-tuned snapshot, image {i}: select answer "
+                    f"{out['answers'][0]['answer']!r}, answer_pixels' {want_a[-1]!r}; per-hop "
+                    f"answers alike {out['per_hop'] == want_a[:-2]}; top-2 gap "
+                    f"{sc[0] - sc[1]:.3e}")
+                if not ok:
+                    failed.append(f"serve image {i}: {out['answers'][0]['answer']!r} / "
+                                  f"{out['per_hop']} vs answer_pixels' {want_a}")
+        finally:
+            svc.close()
+    torch.cuda.synchronize()
+    for n in ("lstm_encode", "rau_hops"):
+        launches[n] += counted[n].launches
+    if failed:
+        raise SystemExit("finetune: " + "; ".join(failed))
+    log(f"finetune_phase_s={time.perf_counter() - t_phase:.1f} [{card}]")
+    return {"launches": launches, "err": {"train_hops_bwd_dfeats": max(errs.values()),
+                                          "train_hops_bwd_dfeats_bf16": max(r16["kernel"],
+                                                                            r16_deep["kernel"])},
+            "ms": {"train_hops_bwd_dfeats": dt, "train_hops_bwd_dfeats_bf16": dt16},
+            "bound": {"train_hops_bwd_dfeats": (b_ms, b_by),
+                      "train_hops_bwd_dfeats_bf16": (b16_ms, b16_by)}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2958,6 +3388,11 @@ def main() -> int:
     with watchdog(600, "the backbones phase"):
         backbones_launches = backbones_phase(args.seed, card)
     log("phase backbones: ok")
+    # 11. backbone fine-tuning through the user's entry points
+    with watchdog(300, "the finetune phase"):
+        ft = finetune_phase(args.seed, card)
+    ft_launches = ft["launches"]
+    log("phase finetune: ok")
 
     s2 = stage_ms[2]
     kernels = [
@@ -2965,24 +3400,26 @@ def main() -> int:
          "source": "rau_vqa_tpu_torch/csrc/lstm_encoder.cu",
          "replaces": "rau_vqa_tpu/ops/lstm_encoder.py:81",
          "launches": launches["lstm_encode"] + serve_launches["lstm_encode"]
-         + backbones_launches["lstm_encode"],
+         + backbones_launches["lstm_encode"] + ft_launches["lstm_encode"],
          "max_abs_err": err["lstm_encode"],
          "ms": ms["lstm_encode"], "plain_ms": ms["lstm_plain"],
          "bound_ms": lb_ms, "bound_by": lb_by, "library_ms": ms["lstm_library"],
          "trainer_launches": trainer_launches["lstm_encode"],
          "serve_launches": serve_launches["lstm_encode"],
-         "backbones_launches": backbones_launches["lstm_encode"]},
+         "backbones_launches": backbones_launches["lstm_encode"],
+         "finetune_launches": ft_launches["lstm_encode"]},
         {"name": "rau_hops", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_hops.cu",
          "replaces": "rau_vqa_tpu/ops/rau_hops.py:152",
          "launches": launches["rau_hops"] + serve_launches["rau_hops"]
-         + backbones_launches["rau_hops"],
+         + backbones_launches["rau_hops"] + ft_launches["rau_hops"],
          "max_abs_err": err["rau_hops"],
          "ms": ms["rau_hops"], "plain_ms": ms["hops_plain"],
          "bound_ms": hb_ms, "bound_by": hb_by, "library_ms": None,
          "trainer_launches": trainer_launches["rau_hops"],
          "serve_launches": serve_launches["rau_hops"],
          "backbones_launches": backbones_launches["rau_hops"],
+         "finetune_launches": ft_launches["rau_hops"],
          "device_kernels_a_call": hops_kernels[512]},
         {"name": "train_hops_fwd", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_fwd.cu",
@@ -2992,6 +3429,7 @@ def main() -> int:
          "ms": tms["train_hops_fwd"], "plain_ms": tms["train_fwd_plain"],
          "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None,
          "trainer_launches": trainer_launches["train_hops_fwd"],
+         "finetune_launches": ft_launches["train_hops_fwd"],
          "device_kernels_a_call": fwd_kernels[torch.float32]},
         # max_abs_err here: the worst norm-relative grad error over the leaves
         {"name": "train_hops_bwd", "route": "cuda",
@@ -3014,6 +3452,7 @@ def main() -> int:
          "max_abs_err": err["train_hops_fwd_bf16"],
          "ms": tms16["train_hops_fwd_bf16"], "plain_ms": tms16["train_fwd_bf16_plain"],
          "bound_ms": fb16_ms, "bound_by": fb16_by, "library_ms": None,
+         "finetune_launches": ft_launches["train_hops_fwd_bf16"],
          "device_kernels_a_call": fwd_kernels[bf16]},
         {"name": "train_hops_bwd_bf16", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_bwd.cu",
@@ -3023,6 +3462,32 @@ def main() -> int:
          "ms": tms16["train_hops_bwd_bf16"], "plain_ms": tms16["train_bwd_bf16_plain"],
          "bound_ms": bb16_ms, "bound_by": bb16_by, "library_ms": None,
          "device_kernels_a_call": bwd_kernels[bf16]},
+        # the backward with the features' gradient (backbone fine-tuning,
+        # fused): launches in the finetune phase's fused steps; at B=96,
+        # ours_ms widths, eight hops; max_abs_err: the worst norm-relative
+        # error of its outputs (float32) and of dfeats at one hop (bf16)
+        # against the plain version
+        {"name": "train_hops_bwd_dfeats", "route": "cuda",
+         "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_bwd.cu",
+         "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:471",
+         "launches": ft_launches["train_hops_bwd_dfeats"],
+         "max_abs_err": ft["err"]["train_hops_bwd_dfeats"],
+         "ms": ft["ms"]["train_hops_bwd_dfeats"]["ms"],
+         "plain_ms": ft["ms"]["train_hops_bwd_dfeats"]["plain_ms"],
+         "bound_ms": ft["bound"]["train_hops_bwd_dfeats"][0],
+         "bound_by": ft["bound"]["train_hops_bwd_dfeats"][1], "library_ms": None,
+         "without_dfeats_ms": ft["ms"]["train_hops_bwd_dfeats"]["without_ms"],
+         "device_kernels_a_call": ft["ms"]["train_hops_bwd_dfeats"]["device_kernels"]},
+        {"name": "train_hops_bwd_dfeats_bf16", "route": "cuda",
+         "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_bwd.cu",
+         "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:471",
+         "launches": ft_launches["train_hops_bwd_dfeats_bf16"],
+         "max_abs_err": ft["err"]["train_hops_bwd_dfeats_bf16"],
+         "ms": ft["ms"]["train_hops_bwd_dfeats_bf16"]["ms"],
+         "plain_ms": ft["ms"]["train_hops_bwd_dfeats_bf16"]["plain_ms"],
+         "bound_ms": ft["bound"]["train_hops_bwd_dfeats_bf16"][0],
+         "bound_by": ft["bound"]["train_hops_bwd_dfeats_bf16"][1], "library_ms": None,
+         "device_kernels_a_call": ft["ms"]["train_hops_bwd_dfeats_bf16"]["device_kernels"]},
         # the check entry of the device hash; launches: its check's
         {"name": "maskgen", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/maskgen.cu",

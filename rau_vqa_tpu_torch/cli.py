@@ -21,7 +21,13 @@ model config.  ``--fixture`` builds the fixture in memory (no ``h5py``);
 through a frozen ``--backbone`` (vgg16, resnet101 or vit) loaded from
 ``--backbone-state``; with ``--fixture`` and no ``--image-root``,
 ``--backbone vgg16|resnet101`` writes the fixture's images at 64 px and
-runs a random backbone from a seed.
+runs a random backbone from a seed.  ``train --train-backbone`` (or
+``--preset ours_resnet_ft``) fine-tunes the backbone instead, as a 4th
+parameter group; ``--backbone-state`` also takes a fine-tuned snapshot
+(``.pt`` or ``.msgpack``), whose backbone group it reads:
+
+    python -m rau_vqa_tpu_torch.cli train --preset ours_ms --fixture --train-backbone
+    python -m rau_vqa_tpu_torch.cli train --preset ours_resnet_ft --image-root ... --backbone resnet101 --backbone-state resnet101.pth
 """
 
 from __future__ import annotations
@@ -98,7 +104,20 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
                         "instead of the serving kernels")
     p.add_argument("--backbone-feat-norm", action="store_true",
                    help="RMS-normalize each feature cell of a backbone's "
-                        "output over D (recorded in the snapshot)")
+                        "output over D (recorded in the snapshot; adopted "
+                        "from a fine-tuned --backbone-state's sidecar)")
+    p.add_argument("--train-backbone", action="store_true",
+                   help="fine-tune the backbone: it joins the train state as "
+                        "a 4th parameter group and the step differentiates "
+                        "through the pixels (needs --image-root, or --fixture)")
+    p.add_argument("--backbone-lr-scale", type=float, default=None,
+                   help="backbone LR = learning rate x this (default 0.1)")
+    p.add_argument("--backbone-trust-ratio", type=float, default=None,
+                   help="per-leaf backbone update cap: ||update|| <= "
+                        "tau (||w|| + 1e-3) a step (default 2e-4; 0 disables)")
+    p.add_argument("--no-backbone-remat", action="store_true",
+                   help="no block-by-block checkpointing in the fine-tuned "
+                        "backbone (more memory, no recompute)")
 
 
 def _add_backbone_flags(p: argparse.ArgumentParser, images: bool) -> None:
@@ -108,7 +127,8 @@ def _add_backbone_flags(p: argparse.ArgumentParser, images: bool) -> None:
                         "--image-root, or for serve's image_b64 requests)")
     p.add_argument("--backbone-state", default=None,
                    help="the backbone's weights: a torchvision vgg16 or "
-                        "resnet101 state_dict, or a timm ViT-L/14 one (.pth)")
+                        "resnet101 state_dict, or a timm ViT-L/14 one (.pth), "
+                        "or a fine-tuned snapshot (.pt or .msgpack)")
     if images:
         p.add_argument("--image-root", default=None,
                        help="train/eval from raw images under this root (paths "
@@ -146,7 +166,30 @@ def _apply_overrides(exp, args):
     if args.plain_eval:
         exp = exp.replace(fused_eval=False)
     if args.backbone_feat_norm:
+        # whether or not the backbone trains: the interface a backbone makes
         t["backbone_feat_norm"] = True
+    # fine-tuning comes from the flag or from a preset (ours_resnet_ft)
+    wants_ft = exp.train.train_backbone or args.train_backbone
+    if args.train_backbone:
+        if not getattr(args, "image_root", None) and not args.fixture:
+            raise SystemExit("--train-backbone fine-tunes through the pixels: it "
+                             "needs --image-root (+ --backbone/--backbone-state), or "
+                             "--fixture for a zero-asset run")
+        t["train_backbone"] = True
+    if wants_ft:
+        if args.backbone_lr_scale is not None:
+            t["backbone_lr_scale"] = args.backbone_lr_scale
+        if args.no_backbone_remat:
+            t["backbone_remat"] = False
+        if args.backbone_trust_ratio is not None:
+            t["backbone_trust_ratio"] = args.backbone_trust_ratio
+    else:
+        for flag, name in (("backbone_lr_scale", "--backbone-lr-scale"),
+                           ("backbone_trust_ratio", "--backbone-trust-ratio")):
+            if getattr(args, flag) is not None:
+                raise SystemExit(f"{name} needs --train-backbone")
+        if args.no_backbone_remat:
+            raise SystemExit("--no-backbone-remat needs --train-backbone")
     eb = _parse_buckets(args.eval_buckets)
     if eb is not None:
         exp = exp.replace(eval_buckets=eb)
@@ -204,9 +247,12 @@ def _fixture_setup(exp, workdir, images_backbone=None):
     Returns (exp, bundle)."""
     from rau_vqa_tpu_torch.data.fixtures import FixtureSpec, fixture_bundle
     spec = FixtureSpec()
+    # the same questions per image, so that the 'imggroup' order of the
+    # fine-tuning run works on the fixture too
     bundle = fixture_bundle(os.path.join(workdir, "fixture"), spec,
                             images=bool(images_backbone),
-                            image_size=FIXTURE_IMAGE_SIZE)
+                            image_size=FIXTURE_IMAGE_SIZE,
+                            uniform_img_assign=bool(images_backbone))
     if images_backbone:
         cnn = dict(cnn_dim={"vgg16": 512, "resnet101": 2048}[images_backbone],
                    cnn_w=2, cnn_h=2)
@@ -301,9 +347,25 @@ def cmd_train(args) -> int:
     exp = _apply_overrides(get_experiment(args.preset), args)
     workdir = args.save_dir or f"{exp.save_dir}_{exp.data.split}"
     os.makedirs(workdir, exist_ok=True)
+    # train_backbone from the flag or the preset (ours_resnet_ft)
+    wants_ft = exp.train.train_backbone
+    if wants_ft and not args.fixture and not args.image_root:
+        raise SystemExit(f"preset {exp.name!r} fine-tunes the backbone: pass "
+                         f"--image-root + --backbone resnet101 + --backbone-state "
+                         f"(or --fixture for the zero-asset run)")
+    if wants_ft and args.fixture and not args.image_root:
+        # the zero-asset fine-tune: the fixture's images and a random conv
+        # backbone (VGG16 unless named)
+        args.backbone = args.backbone or "vgg16"
+    images_backbone = _fixture_images(args)
     exp, data, source, gt = _load_data(exp, args, workdir,
-                                       images_backbone=_fixture_images(args))
-    source, backbone, bb_params = _make_source_and_backbone(args, exp, source, workdir)
+                                       images_backbone=images_backbone)
+    if wants_ft and images_backbone:
+        # a random backbone: the raw interface saturates the tanh head, the
+        # RMS-normalized one lets the run learn the images
+        exp = exp.replace(train=dataclasses.replace(exp.train, backbone_feat_norm=True))
+    source, backbone, bb_params, exp = _make_source_and_backbone(
+        args, exp, source, workdir, adopt_feat_norm=not args.backbone_feat_norm)
     trainer = Trainer(exp, data, source, workdir, gt_anno=gt,
                       official_anno=_checked_official_anno(exp),
                       device=args.device, backbone=backbone,
@@ -335,10 +397,27 @@ def cmd_eval(args) -> int:
     files."""
     from rau_vqa_tpu_torch.config import get_experiment
     from rau_vqa_tpu_torch.train.trainer import Trainer
+    from rau_vqa_tpu_torch.utils.checkpoint import checkpoint_meta
 
     # the snapshot's config first, then the runtime flags
     exp = _apply_overrides(_adopt_snapshot(get_experiment(args.preset),
                                            args.checkpoint), args)
+    if exp.train.train_backbone:
+        # evaluation trains nothing: a fine-tuning preset evaluates from
+        # features or a frozen backbone, and its training order goes too
+        exp = exp.replace(
+            train=dataclasses.replace(exp.train, train_backbone=False),
+            data=dataclasses.replace(exp.data, batch_order="shuffle"
+                                     if exp.data.batch_order == "imggroup"
+                                     else exp.data.batch_order))
+    meta = checkpoint_meta(args.checkpoint)
+    if (args.image_root and not args.backbone_state and meta.get("train_backbone")
+            and meta.get("backbone")):
+        # a fine-tuned snapshot carries its trained backbone: from pixels,
+        # it is the backbone (as the service adopts it)
+        args.backbone = args.backbone or meta["backbone"]
+        args.backbone_state = args.checkpoint
+        print(f"adopting the fine-tuned {args.backbone} backbone from {args.checkpoint}")
     workdir = args.save_dir or f"save_result_eval_{exp.data.split}"
     os.makedirs(workdir, exist_ok=True)
     # only the data of the fixture: the model config stays the snapshot's
@@ -346,7 +425,8 @@ def cmd_eval(args) -> int:
     exp, data, source, gt = _load_data(exp, args, workdir,
                                        images_backbone=_fixture_images(args))
     exp = exp.replace(model=model)
-    source, backbone, bb_params = _make_source_and_backbone(args, exp, source, workdir)
+    source, backbone, bb_params, exp = _make_source_and_backbone(
+        args, exp, source, workdir, adopt_feat_norm=False)
     trainer = Trainer(exp, data, source, workdir, gt_anno=gt,
                       official_anno=_checked_official_anno(exp),
                       device=args.device, backbone=backbone,
@@ -412,10 +492,13 @@ def cmd_serve(args) -> int:
     from rau_vqa_tpu_torch.data.loader import build_vqa_data
     from rau_vqa_tpu_torch.devices import pick_device
     from rau_vqa_tpu_torch.serve import RAUService, serve
+    from rau_vqa_tpu_torch.utils.checkpoint import has_backbone_group
 
     device = pick_device(args.device, "serve")
     bb_params = None
-    if args.backbone:
+    # a fine-tuned snapshot serves its own backbone unless one is given
+    if args.backbone and (args.backbone_state or not args.checkpoint
+                          or not has_backbone_group(args.checkpoint)):
         bb_params = _load_backbone_state(args.backbone, args.backbone_state,
                                          device)
     data, feat_dirs = None, list(args.feat_dir or [])
@@ -444,22 +527,25 @@ def cmd_serve(args) -> int:
 
 
 def _load_backbone_state(backbone: str, state_path: str, device, dtype=None):
-    """A state dict from a local .pth -> the backbone's tree on ``device``
-    in ``dtype`` (bf16 when None, the serving type): torchvision's vgg16 or
-    resnet101 (BN folded) or timm's ViT-L/14.  A fine-tuned .msgpack
-    snapshot's backbone group is refused."""
+    """The backbone's tree on ``device`` in ``dtype`` (bf16 when None, the
+    serving type) from a local file: a fine-tuned snapshot, the port's
+    ``.pt`` or the JAX package's ``.msgpack``, whose backbone group it takes
+    (a ResNet folded, ``load_backbone_group``), or else a state dict (.pth)
+    of torchvision's vgg16 or resnet101 (BN folded) or timm's ViT-L/14."""
     import torch
 
     from rau_vqa_tpu_torch.convert import map_tree
     from rau_vqa_tpu_torch.models.backbones import resnet, vgg
     from rau_vqa_tpu_torch.models.backbones import vit as vit_mod
-    from rau_vqa_tpu_torch.serve import NOT_PORTED
+    from rau_vqa_tpu_torch.utils.checkpoint import JAX_SUFFIX, SUFFIX, load_backbone_group
     if not state_path:
         raise SystemExit("--backbone requires --backbone-state (a torchvision "
-                         "vgg16/resnet101 or timm ViT state_dict .pth)")
-    if state_path.endswith(".msgpack"):
-        raise NotImplementedError(f"--backbone-state {state_path}: "
-                                  f"{NOT_PORTED['fine_tuned']}")
+                         "vgg16/resnet101 or timm ViT state_dict .pth, or a "
+                         "fine-tuned snapshot .pt or .msgpack)")
+    dtype = dtype or torch.bfloat16
+    if state_path.endswith((SUFFIX, JAX_SUFFIX)):
+        tree = load_backbone_group(state_path, backbone)
+        return map_tree(lambda t: t.to(device, dtype), tree)
     state = torch.load(state_path, map_location="cpu", weights_only=True)
     if backbone == "resnet101":
         tree = resnet.fold_batchnorm(resnet.resnet_from_torch_state(state))
@@ -469,7 +555,7 @@ def _load_backbone_state(backbone: str, state_path: str, device, dtype=None):
         tree = vgg.vgg16_from_torch_state(state)
     else:
         raise ValueError(f"unknown backbone {backbone!r}")
-    return map_tree(lambda t: t.to(device, dtype or torch.bfloat16), tree)
+    return map_tree(lambda t: t.to(device, dtype), tree)
 
 
 def _vit_cfg(backbone):
@@ -502,23 +588,27 @@ def _fixture_images(args):
     return args.backbone
 
 
-def _make_source_and_backbone(args, exp, source, workdir):
-    """(source, backbone, bb_params): ``source`` and no backbone without
-    ``--image-root``, else the images under it and the frozen backbone on
-    ``--device`` (float32; bf16 with ``--bf16``).  With ``--fixture``
-    and no ``--backbone-state`` the backbone is random from seed 0, VGG16's
-    He init scaled by 0.72 a convolution so that pool5 stays near unit
-    scale (``rau_vqa_tpu/cli.py:347-445``)."""
+def _make_source_and_backbone(args, exp, source, workdir, *, adopt_feat_norm=False):
+    """(source, backbone, bb_params, exp): ``source`` and no backbone
+    without ``--image-root``, else the images under it and the backbone on
+    ``--device`` (float32; bf16 with ``--bf16`` unless it is fine-tuned,
+    whose masters are float32).  With ``--fixture`` and no
+    ``--backbone-state`` the backbone is random from seed 0, VGG16's He init
+    scaled by 0.72 a convolution so that pool5 stays near unit scale
+    (``rau_vqa_tpu/cli.py:347-445``).  A fine-tuned ``--backbone-state``
+    records the feature interface it trained on: with ``adopt_feat_norm``
+    the run takes it, else a mismatch is reported."""
     import torch
 
     from rau_vqa_tpu_torch.convert import map_tree
     from rau_vqa_tpu_torch.data.images import ImageDirSource
     from rau_vqa_tpu_torch.devices import pick_device
+    from rau_vqa_tpu_torch.utils.checkpoint import checkpoint_meta
     if _fixture_images(args):
         args.image_root = os.path.join(workdir, "fixture", "images")
         args.image_size = FIXTURE_IMAGE_SIZE
     if not getattr(args, "image_root", None):
-        return source, None, None
+        return source, None, None, exp
     if not args.backbone:
         raise SystemExit("--image-root needs --backbone (+ --backbone-state)")
     _validate_backbone_image_size(args.backbone, args.image_size, "--image-size")
@@ -543,11 +633,27 @@ def _make_source_and_backbone(args, exp, source, workdir):
                              f"cnn_spat={mcfg.cnn_spat} ({mcfg.cnn_w}x{mcfg.cnn_h}): use "
                              f"--image-size {mcfg.cnn_w * 32}")
     source = ImageDirSource(args.image_root, size=args.image_size, backend="native")
-    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    dtype = (torch.bfloat16 if args.bf16 and not exp.train.train_backbone
+             else torch.float32)
     device = pick_device(args.device, "the backbone")
     if args.backbone_state or not args.fixture:
-        return source, args.backbone, _load_backbone_state(
-            args.backbone, args.backbone_state, device, dtype)
+        bb = _load_backbone_state(args.backbone, args.backbone_state, device, dtype)
+        meta = checkpoint_meta(args.backbone_state)
+        if "backbone_feat_norm" in meta:
+            # a fine-tuned snapshot: the interface its backbone trained on
+            sn = bool(meta["backbone_feat_norm"])
+            if sn != exp.train.backbone_feat_norm:
+                if adopt_feat_norm:
+                    print(f"adopting backbone_feat_norm={sn} from {args.backbone_state} "
+                          f"(pass --backbone-feat-norm to override)")
+                    exp = exp.replace(train=dataclasses.replace(
+                        exp.train, backbone_feat_norm=sn))
+                else:
+                    print(f"WARNING: {args.backbone_state} was fine-tuned with "
+                          f"backbone_feat_norm={sn} but this run uses "
+                          f"{exp.train.backbone_feat_norm}: the feature interface "
+                          f"will not match the backbone's training")
+        return source, args.backbone, bb, exp
     if args.backbone == "vit":
         raise SystemExit("--fixture's random backbones are the conv backbones; "
                          "--backbone vit needs --backbone-state")
@@ -555,11 +661,12 @@ def _make_source_and_backbone(args, exp, source, workdir):
     print(f"fixture: random-init {args.backbone} backbone (no --backbone-state)")
     gen = torch.Generator().manual_seed(0)
     if args.backbone == "resnet101":
-        return source, args.backbone, resnet.resnet101_init(gen, dtype, device)
+        return source, args.backbone, resnet.resnet101_init(gen, dtype, device), exp
     bb = vgg.vgg16_pool5_init(gen, dtype, device)
     # He init scaled by 0.72 a convolution (13 of them: pool5 std ~57 ->
     # ~0.8), else the stacked-tanh head saturates on the features
-    return source, args.backbone, map_tree(lambda t: t * 0.72 if t.ndim == 4 else t, bb)
+    return (source, args.backbone,
+            map_tree(lambda t: t * 0.72 if t.ndim == 4 else t, bb), exp)
 
 
 def _print_decoders(source) -> None:

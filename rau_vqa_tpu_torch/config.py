@@ -107,8 +107,19 @@ class TrainConfig:
     # train-step token axis cut to the smallest bucket covering the batch's
     # longest question (exact: the grads do not depend on T <= seq_len)
     length_buckets: Tuple[int, ...] = (8, 16)
-    # backbone fine-tuning is still to port (ROADMAP.md, queue 1, item 5)
+    # backbone fine-tuning: the backbone joins the train state as a 4th
+    # parameter group and the step differentiates through the pixels
     train_backbone: bool = False
+    # the backbone group's LR: learning_rate times this
+    backbone_lr_scale: float = 0.1
+    # checkpoint the fine-tuned backbone block by block (the same grads,
+    # less activation memory)
+    backbone_remat: bool = True
+    # the head's gradient noise on the backbone group too
+    backbone_grad_noise: bool = False
+    # per-leaf update cap of the backbone group: ||update|| <= tau *
+    # (||leaf|| + 1e-3) a step; 0 disables
+    backbone_trust_ratio: float = 2e-4
     # RMS-normalize each feature cell over D where a backbone makes the
     # features (models/pipeline.extract_features); snapshots record it
     backbone_feat_norm: bool = False
@@ -138,7 +149,7 @@ TRAIN_PRESETS = {
                                    compute_dtype="bfloat16"),
                        TrainConfig(batch_size=288,
                                    hop_stop_timing=_RESNET_STOP_TIMING,
-                                   train_backbone=True)),
+                                   train_backbone=True, backbone_remat=False)),
     "ours_vit": (ModelConfig(n_hops=8, cnn_dim=1024, cnn_w=16, cnn_h=16),
                  TrainConfig()),
 }

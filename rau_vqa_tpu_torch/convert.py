@@ -38,7 +38,11 @@ class MemoRecent:
     identity: the per-parameter-set preparation of weights (layout, type,
     stacking) runs once while the same trees come back, two of them in turn
     included (a bf16 serving tree and its float32 reference).  It assumes
-    parameters are not changed in place between calls, as at eval."""
+    parameters are not changed in place between calls, as at eval.
+
+    A tree being trained (a leaf requires grad) is prepared afresh on every
+    call and never kept: each step's tree is new, and a kept entry would
+    hold its prepared weights and, through them, the step's graph."""
 
     KEEP = 2
 
@@ -47,6 +51,9 @@ class MemoRecent:
         self.entries = []   # [(tree, fn(tree))], the most recent last
 
     def __call__(self, tree):
+        if torch.is_grad_enabled() and any(
+                torch.is_tensor(t) and t.requires_grad for t in tree_leaves(tree)):
+            return self.fn(tree)
         for i, (t, value) in enumerate(self.entries):
             if t is tree:
                 self.entries.append(self.entries.pop(i))

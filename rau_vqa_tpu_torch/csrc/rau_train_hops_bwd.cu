@@ -10,7 +10,12 @@
 // softmax, the content score and qfeat; the nine per-hop emissions of _EMITS
 // (:76-80) for the weight-gradient products that run outside; and the
 // feats-path weight gradients of _INKERNEL_GRADS (:72-73) -- i_embed w / b,
-// att_i w / b, att_score w -- summed over the rows and the hops.  Two
+// att_i w / b, att_score w -- summed over the rows and the hops; and, where
+// the caller asks for it (the features are trained, as under backbone
+// fine-tuning), the features' own gradient dfeats [B, S, Dc], float32,
+// summed over the hops: each hop's fmask (dpre_i Wi^T).  The JAX package's
+// Pallas backward returns zeros there (:649, :664); its plain autodiff on
+// the CPU differentiates the features, and so does this.  Two
 // instantiations by the products' operand type T: float, and bf16, where q,
 // feats and the weights arrive in bf16, each product rounds both operands to
 // bf16 and sums in float32, and the emitted activations qfeat / join /
@@ -54,8 +59,13 @@
 //   G dh      dhp + dpre_q Wh^T  (the carry into hop h - 1)
 //   G att_i w ifeat^T dpre_add, split over P             M x F, K = P
 //   G dpre_i  (p djoin + dpre_add Wa^T)(1 - ifeat^2) in place of ifeat
+//   G dfeats  dfeats += fmask (dpre_i Wi^T), with dfeats only   P x Dc, K = M
 //   G i_emb w feats_d^T dpre_i, split over P             Dc x M, K = P
 //   colsum    the i_embed b partials;  reduce  the hop's grads, in order
+// dfeats adds one product a hop, 2 P Dc M operations (~118 GFLOP a hop at
+// B=288, S=196, Dc=2048, M=512) and a read and a write of the float32 sum;
+// each element is one CTA's in every hop, added in hop order: no atomics,
+// the same bits in every call.
 
 #include "rau_train_hops_phases.cuh"
 
@@ -281,13 +291,14 @@ int chunks_for(int P, int chunk_rows) { return (P + chunk_rows - 1) / chunk_rows
 
 // Enqueues every phase of the H hops on the stream; with rec set, enqueues
 // nothing and records each launch instead (the pointers are then unread).
+// want_dfeats: enqueue the features' gradient into dfeats (unread in a dry run)
 template <class T>
 int bwd_launch(const void* q, const void* feats, const void* seed_p, const void* c_all,
                const void* h_all, const void* gmerge, const void* const* weights,
-               void* work, void* const* emits, void* const* grads, void* scratch, int B,
-               int Q, int S, int Dc, int M, int F, int R, int H, int chunk_rows,
-               long long scratch_floats, uint32_t thresh, float scale, int use_mask,
-               void* stream, rth::Rec* rec = nullptr) {
+               void* work, void* const* emits, void* const* grads, float* dfeats,
+               bool want_dfeats, void* scratch, int B, int Q, int S, int Dc, int M, int F,
+               int R, int H, int chunk_rows, long long scratch_floats, uint32_t thresh,
+               float scale, int use_mask, void* stream, rth::Rec* rec = nullptr) {
   if (B <= 0 || H <= 0 || S <= 0 || Dc <= 0 || M <= 0 || F <= 0 || R <= 0 || Q <= 0)
     return (int)cudaErrorInvalidValue;
   const int P = B * S;
@@ -313,10 +324,13 @@ int bwd_launch(const void* q, const void* feats, const void* seed_p, const void*
     err = cudaMemsetAsync(g[k], 0, gsize[k] * 4, st);
   if (err == cudaSuccess && !rec) err = cudaMemsetAsync(sc.dc, 0, (size_t)B * R * 4, st);
   if (err == cudaSuccess && !rec) err = cudaMemsetAsync(sc.dh, 0, (size_t)B * R * 4, st);
+  if (err == cudaSuccess && !rec && want_dfeats)
+    err = cudaMemsetAsync(dfeats, 0, (size_t)P * Dc * 4, st);
   // one launch a phase of bwd_plan
   constexpr bool f32 = std::is_same<T, float>::value;
   using E = rth::Enqueuer<T, typename std::conditional<f32, tg::FmaBig, tg::MmaBig>::type,
                           typename std::conditional<f32, tg::FmaSmall, tg::MmaSmall>::type>;
+  using DfC = typename std::conditional<f32, tg::FmaBigDf, tg::MmaBigDf>::type;
   E eq{st, rec, seed, thresh, scale, use_mask, err};
   auto em = [&](int i, int hop, int width) {
     return static_cast<char*>(emits[i]) +
@@ -430,6 +444,13 @@ int bwd_launch(const void* q, const void* feats, const void* seed_p, const void*
       eq.big(E::rows(E::pick(dpre_add, sc.ab), F), E::rows(W[rth::AI_W], F), P, M, F, e);
     }
     const float* dpre_i = ifeat;
+    // the features' gradient: dfeats += fmask (dpre_i Wi^T)  [P, M] x [M, Dc]
+    if (want_dfeats) {
+      Epi e = eq.epi(tg::DFEATS, dfeats);
+      e.hop = hop;
+      eq.template gemm<DfC>(tg::Problem{E::rows(E::pick(dpre_i, sc.xb), M),
+                                        E::rows(W[rth::I_W], M), P, Dc, M, M, e});
+    }
     // i_embed w grad partials: feats_d^T dpre_i  [Dc, P] x [P, M]
     eq.big(E::kmaj(sc.fd, Dc), E::kmaj(E::pick(dpre_i, sc.xb), M), Dc, M, P,
            eq.epi(tg::STORE, sc.part8), chunk_rows);
@@ -466,7 +487,8 @@ int bwd_launch(const void* q, const void* feats, const void* seed_p, const void*
 // second); work: B * S * (M + F) floats; emits: 9 pointers in _EMITS order,
 // [H, B, width], float32 but for qfeat / join / merge_d in the weights'
 // type; grads, float32, written: i_embed w [Dc, M], i_embed b [M], att_i w
-// [M, F], att_i b [F], att_score w [F, 1]; scratch: scratch_floats floats,
+// [M, F], att_i b [F], att_score w [F, 1]; dfeats: null, or [B, S, Dc] float32,
+// written with the features' gradient; scratch: scratch_floats floats,
 // at least train_hops_bwd_describe(...)'s count; chunk_rows: rows of B * S a
 // chunk of the split-K weight grads, a positive multiple of 32.  Enqueues
 // every phase on the stream and returns the first error, cudaSuccess (0) if
@@ -475,26 +497,28 @@ int bwd_launch(const void* q, const void* feats, const void* seed_p, const void*
   extern "C" int NAME(const void* q, const void* feats, const void* seed,              \
                       const void* c_all, const void* h_all, const void* gmerge,        \
                       const void* const* weights, void* work, void* const* emits,      \
-                      void* const* grads, void* scratch, int B, int Q, int S, int Dc,  \
-                      int M, int F, int R, int H, int chunk_rows,                      \
+                      void* const* grads, void* dfeats, void* scratch, int B, int Q,   \
+                      int S, int Dc, int M, int F, int R, int H, int chunk_rows,       \
                       long long scratch_floats, uint32_t thresh, float scale,          \
                       int use_mask, void* stream) {                                    \
     return bwd_launch<T>(q, feats, seed, c_all, h_all, gmerge, weights, work, emits,   \
-                         grads, scratch, B, Q, S, Dc, M, F, R, H, chunk_rows,          \
-                         scratch_floats, thresh, scale, use_mask, stream);             \
+                         grads, static_cast<float*>(dfeats), dfeats != nullptr,        \
+                         scratch, B, Q, S, Dc, M, F, R, H, chunk_rows, scratch_floats, \
+                         thresh, scale, use_mask, stream);                             \
   }
 TRAIN_HOPS_BWD_ENTRY(train_hops_bwd_launch, float)
 TRAIN_HOPS_BWD_ENTRY(train_hops_bwd_bf16_launch, __nv_bfloat16)
 
 // The launcher's own account of one hop at these shapes, operands of t_bytes
-// bytes (4: float, 2: bf16) and chunk_rows: a dry run of the entries above
+// bytes (4: float, 2: bf16), chunk_rows and dfeats (1: with the features'
+// gradient, 0: without): a dry run of the entries above
 // (nothing is enqueued) writes each launch's grid x, y, z and dynamic shared
 // memory bytes, in order, to launches (4 ints a launch, at most cap of them)
 // and their count to n_launches.  Returns the scratch floats it carves, -1
 // if it cannot run these shapes.
 extern "C" int train_hops_bwd_describe(int B, int Q, int S, int Dc, int M, int F, int R,
-                                       int t_bytes, int chunk_rows, int* launches, int cap,
-                                       int* n_launches) {
+                                       int t_bytes, int chunk_rows, int dfeats,
+                                       int* launches, int cap, int* n_launches) {
   *n_launches = 0;
   if (B <= 0 || S <= 0 || chunk_rows <= 0 || chunk_rows % KSTEP || (t_bytes != 4 && t_bytes != 2))
     return -1;
@@ -509,12 +533,13 @@ extern "C" int train_hops_bwd_describe(int B, int Q, int S, int Dc, int M, int F
   const int err =
       t_bytes == 4
           ? bwd_launch<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, weights,
-                              nullptr, emits, grads, nullptr, B, Q, S, Dc, M, F, R, 1,
-                              chunk_rows, (long long)n, 0u, 1.f, 0, nullptr, &rec)
+                              nullptr, emits, grads, nullptr, dfeats != 0, nullptr, B, Q, S,
+                              Dc, M, F, R, 1, chunk_rows, (long long)n, 0u, 1.f, 0, nullptr,
+                              &rec)
           : bwd_launch<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                      weights, nullptr, emits, grads, nullptr, B, Q, S, Dc, M,
-                                      F, R, 1, chunk_rows, (long long)n, 0u, 1.f, 0, nullptr,
-                                      &rec);
+                                      weights, nullptr, emits, grads, nullptr, dfeats != 0,
+                                      nullptr, B, Q, S, Dc, M, F, R, 1, chunk_rows,
+                                      (long long)n, 0u, 1.f, 0, nullptr, &rec);
   *n_launches = rec.n;
   return err == 0 ? (int)n : -1;
 }

@@ -33,6 +33,9 @@
 // the biases, tanh, the bias order of JAX's sums, the masks and the
 // in-place scales of the phases; with ``emit`` set it also
 // writes the value in T (an emission, or the bf16 copy of an operand).
+// The ops of one product alone (the forward's MERGE_D and SIGMOID_BIAS, the
+// backward's DFEATS) sit on tiles of their own, so that the other
+// products' epilogues do not carry them.
 
 #pragma once
 
@@ -89,6 +92,8 @@ enum Op {
   // epilogue they cost the backward 4-5% (PERF.md)
   MERGE_D,       // emit2 = mask((v0 + acc) + bias0) (MERGE without a cotangent)
   SIGMOID_BIAS,  // out = sigmoid(acc + bias0)
+  // the backward's features gradient, on a tile with df_ops alone
+  DFEATS,        // out += fmask(acc), the feats site's mask of the hop: sums over the hops
 };
 
 struct Epi {
@@ -116,13 +121,16 @@ struct Problem {
   Epi e;
 };
 
+__device__ __forceinline__ maskgen::Site mask_site(const Epi& e, int site) {
+  return {maskgen::site_salt((uint32_t)e.seed[0], e.hop, site), e.thresh, e.scale,
+          e.mask_on != 0};
+}
 __device__ __forceinline__ maskgen::Site merge_site(const Epi& e) {
-  return {maskgen::site_salt((uint32_t)e.seed[0], e.hop, maskgen::SITE_MERGE), e.thresh,
-          e.scale, e.mask_on != 0};
+  return mask_site(e, maskgen::SITE_MERGE);
 }
 
-// kFwdOps: with the forward's ops
-template <class T, bool kFwdOps>
+// kFwdOps: with the forward's ops; kDfOps: with DFEATS
+template <class T, bool kFwdOps, bool kDfOps = false>
 __device__ __forceinline__ void epilogue(const Problem& pr, int m, int n, float acc) {
   const Epi& e = pr.e;
   const int N = pr.N;
@@ -130,6 +138,13 @@ __device__ __forceinline__ void epilogue(const Problem& pr, int m, int n, float 
   const size_t ov = (size_t)(m / e.rdiv) * N + n;
   const T* b0 = static_cast<const T*>(e.bias0);
   const T* b1 = static_cast<const T*>(e.bias1);
+  if constexpr (kDfOps) {
+    // [B*S, Dc] rows: o is the element's index in feats, as the mask's
+    if (e.op == DFEATS) {
+      e.out[o] += mask_site(e, maskgen::SITE_FEATS).apply(acc, (uint32_t)o);
+      return;
+    }
+  }
   if constexpr (kFwdOps) {
     if (e.op == MERGE_D) {
       put(static_cast<T*>(e.emit2), o,
@@ -273,10 +288,12 @@ __device__ __forceinline__ void k_loop(const Problem& pr, T* smem, int m0, int n
 // Each output's sum runs in ascending k.
 // ---------------------------------------------------------------------------
 
-template <int BM_, int BN_, int BK_, int STAGES_, int TM_, int TN_, bool FWD_OPS = false>
+template <int BM_, int BN_, int BK_, int STAGES_, int TM_, int TN_, bool FWD_OPS = false,
+          bool DF_OPS = false>
 struct FmaCfg {
   static constexpr bool mma = false;
   static constexpr bool fwd_ops = FWD_OPS;  // the epilogue takes MERGE_D and SIGMOID_BIAS
+  static constexpr bool df_ops = DF_OPS;    // the epilogue takes DFEATS
   using Elem = float;  // the type kept in shared memory
   static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_, TM = TM_, TN = TN_;
   static constexpr int NT = (BM / TM) * (BN / TN);  // one thread a TM x TN block
@@ -400,7 +417,7 @@ __global__ void __launch_bounds__(C::NT, kFmaMinCtas<AKC, BKC>) gemm_fma(Problem
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + row_of<TN, BN>(tx, j, BKC);
-      if (m < pr.M && n < pr.N) epilogue<S, C::fwd_ops>(pr, m, n, acc[i][j]);
+      if (m < pr.M && n < pr.N) epilogue<S, C::fwd_ops, C::df_ops>(pr, m, n, acc[i][j]);
     }
   }
 }
@@ -418,10 +435,12 @@ __global__ void __launch_bounds__(C::NT, kFmaMinCtas<AKC, BKC>) gemm_fma(Problem
 // more than the order of the sums does.
 // ---------------------------------------------------------------------------
 
-template <int BM_, int BN_, int BK_, int STAGES_, int WM_, int WN_, bool FWD_OPS = false>
+template <int BM_, int BN_, int BK_, int STAGES_, int WM_, int WN_, bool FWD_OPS = false,
+          bool DF_OPS = false>
 struct MmaCfg {
   static constexpr bool mma = true;
   static constexpr bool fwd_ops = FWD_OPS;  // the epilogue takes MERGE_D and SIGMOID_BIAS
+  static constexpr bool df_ops = DF_OPS;    // the epilogue takes DFEATS
   using Elem = __nv_bfloat16;  // the type kept in shared memory
   static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_, WM = WM_, WN = WN_;
   static constexpr int NT = WM * WN * 32;
@@ -515,18 +534,21 @@ __global__ void __launch_bounds__(C::NT) gemm_mma(Problem pr) {
       for (int e = 0; e < 4; ++e) {
         const int m = m0 + wm * WTM + i * 16 + (lane >> 2) + (e >> 1) * 8;
         const int n = n0 + wn * WTN + j * 8 + (lane & 3) * 2 + (e & 1);
-        if (m < pr.M && n < pr.N) epilogue<bf16, C::fwd_ops>(pr, m, n, acc[i][j][e]);
+        if (m < pr.M && n < pr.N) epilogue<bf16, C::fwd_ops, C::df_ops>(pr, m, n, acc[i][j][e]);
       }
 }
 
 // the two tiles of each body: Big for the [B*S, *] products and the split-K
 // weight grads, Small (a deeper k-slice) for the [B, *] ones; the training
 // forward's [B, *] products take FmaSmallFwd, the same tile with the
-// forward's ops, and the serving hop loop's (rau_hops.cu) MmaSmallFwd
+// forward's ops, the serving hop loop's (rau_hops.cu) MmaSmallFwd, and the
+// backward's features gradient the Big tile with DFEATS
 using FmaBig = FmaCfg<128, 128, 16, 3, 8, 8>;
+using FmaBigDf = FmaCfg<128, 128, 16, 3, 8, 8, false, true>;
 using FmaSmall = FmaCfg<32, 32, 32, 3, 2, 2>;
 using FmaSmallFwd = FmaCfg<32, 32, 32, 3, 2, 2, true>;
 using MmaBig = MmaCfg<128, 128, 32, 3, 4, 4>;
+using MmaBigDf = MmaCfg<128, 128, 32, 3, 4, 4, false, true>;
 using MmaSmall = MmaCfg<32, 64, 64, 3, 2, 4>;
 using MmaSmallFwd = MmaCfg<32, 64, 64, 3, 2, 4, true>;
 
@@ -572,7 +594,9 @@ cudaError_t launch_as(const Problem& pr, dim3 grid, cudaStream_t st) {
 // the kernel by the operands' layouts.
 template <class T, class C>
 cudaError_t launch(const Problem& pr, cudaStream_t st) {
-  if (!C::fwd_ops && pr.e.op >= MERGE_D) return cudaErrorNotSupported;
+  if ((!C::fwd_ops && (pr.e.op == MERGE_D || pr.e.op == SIGMOID_BIAS)) ||
+      (!C::df_ops && pr.e.op == DFEATS))
+    return cudaErrorNotSupported;
   dim3 grid;
   int smem;
   shape<C>(pr, &grid, &smem);

@@ -23,6 +23,7 @@ from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from rau_vqa_tpu_torch.convert import MemoRecent
 from rau_vqa_tpu_torch.devices import pick_device
@@ -35,7 +36,6 @@ STAGE_WIDTH = (64, 128, 256, 512)   # bottleneck inner widths; out = 4x
 BN_EPS = 1e-5
 
 S2D_STEM = still_to_port("the space-to-depth stem", "transforms")
-REMAT = still_to_port("remat=True (checkpointing for backbone fine-tuning)", "fine-tuning")
 INT8 = still_to_port("the int8 serving mode", "transforms")
 
 _CONVS = ("conv1", "conv2", "conv3", "down")
@@ -162,6 +162,13 @@ def _bottleneck(x: torch.Tensor, blk: Dict, stride: int) -> torch.Tensor:
     return _block(x, _prep_block(blk), stride)
 
 
+def remat_block(fn, x: torch.Tensor, *args) -> torch.Tensor:
+    """``fn(x, *args)`` under ``torch.utils.checkpoint``: the backward keeps
+    only the inputs and recomputes the rest, the weights' preparation inside
+    ``fn`` included (the JAX package's ``jax.checkpoint`` of a block)."""
+    return checkpoint(fn, x, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 _bottleneck_folded = _bottleneck
 
 
@@ -251,13 +258,17 @@ def resnet101_apply(params: Dict, x: torch.Tensor,
     that calls written for the JAX package run: it must divide B, as there,
     and the CUDA kernel tiles the work its own way.  The OIHW weights are
     prepared once per parameter set (``convert.MemoRecent``), for the blocks
-    that run through F.conv2d only."""
+    that run through F.conv2d only; a tree being trained prepares them on
+    every call.
+
+    ``remat=True`` (fine-tuning) checkpoints each bottleneck block: the
+    backward keeps the block inputs and recomputes the rest, the block's
+    weight preparation included (``rau_vqa_tpu/models/backbones/resnet.py:
+    232-246``)."""
     folded = "bn1" not in params
-    if remat:
-        if fused_stages:
-            raise ValueError("remat and fused_stages are exclusive (the fused "
-                             "stage kernel is a serving path)")
-        raise NotImplementedError(REMAT)
+    if remat and fused_stages:
+        raise ValueError("remat and fused_stages are exclusive (the fused "
+                         "stage kernel is a serving path)")
     if fused_stages and not folded:
         raise ValueError("fused_stages requires a fold_batchnorm tree")
     if tuple(params["conv1"]["w"].shape[:3]) == (4, 4, 12):
@@ -278,7 +289,11 @@ def resnet101_apply(params: Dict, x: torch.Tensor,
                                      block_b=fused_block_b or 1)
             continue
         for b in range(len(blocks)):
-            x = _block(x, _prepared_block(params, prep, stage, b), stride if b == 0 else 1)
+            s = stride if b == 0 else 1
+            if remat:
+                x = remat_block(_bottleneck, x, blocks[b], s)
+            else:
+                x = _block(x, _prepared_block(params, prep, stage, b), s)
     B, h, w, c = x.shape
     return x.reshape(B, h * w, c)
 

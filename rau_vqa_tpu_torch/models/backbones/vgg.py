@@ -24,15 +24,14 @@ import torch.nn.functional as F
 
 from rau_vqa_tpu_torch.convert import MemoRecent
 from rau_vqa_tpu_torch.devices import pick_device
-from rau_vqa_tpu_torch.models.backbones.resnet import _conv_init, _conv_p, _nchw, _nhwc, _prep_conv
-from rau_vqa_tpu_torch.roadmap import still_to_port
+from rau_vqa_tpu_torch.models.backbones.resnet import (
+    _conv_init, _conv_p, _nchw, _nhwc, _prep_conv, remat_block)
 
 # channel plan, 'M' = 2x2/2 max-pool (13 conv layers -> pool5)
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
              512, 512, 512, "M", 512, 512, 512, "M"]
 # torchvision's vgg16 ``features`` indices of the 13 convolutions
 TORCH_CONV_INDICES = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
-REMAT = still_to_port("remat=True (checkpointing for backbone fine-tuning)", "fine-tuning")
 
 
 def vgg16_pool5_init(generator: torch.Generator, dtype=torch.float32,
@@ -55,21 +54,40 @@ def vgg16_pool5_init(generator: torch.Generator, dtype=torch.float32,
 _prepared = MemoRecent(lambda params: [_prep_conv(p) for p in params["convs"]])
 
 
+def _stage(x: torch.Tensor, convs: List[Dict]) -> torch.Tensor:
+    """One pool stage over prepared convs: each with its bias and ReLU, then
+    the 2x2/2 max-pool."""
+    for p in convs:
+        x = torch.relu(_conv_p(x, p))
+    return _nhwc(F.max_pool2d(_nchw(x), 2, 2))
+
+
+def _stage_hwio(x: torch.Tensor, convs: List[Dict]) -> torch.Tensor:
+    """``_stage`` over HWIO convs, prepared here (inside the checkpoint)."""
+    return _stage(x, [_prep_conv(p) for p in convs])
+
+
 def vgg16_pool5_apply(params: Dict, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
     """x [B, H, W, 3] (Caffe-BGR preprocessed) -> pool5 features
     [B, (H/32)*(W/32), 512], in the type of the tree's weights (x is cast to
-    it)."""
-    if remat:
-        raise NotImplementedError(REMAT)
-    convs = _prepared(params)
+    it).  ``remat=True`` (fine-tuning) checkpoints each pool stage: the
+    backward keeps the five stage inputs and recomputes the convolutions,
+    their weights' preparation included (``rau_vqa_tpu/models/backbones/
+    vgg.py:69-78``)."""
     x = x.to(params["convs"][0]["w"].dtype)
+    convs = params["convs"] if remat else _prepared(params)
     i = 0
+    seg: List[Dict] = []
     for v in VGG16_CFG:
-        if v == "M":
-            x = _nhwc(F.max_pool2d(_nchw(x), 2, 2))
-        else:
-            x = torch.relu(_conv_p(x, convs[i]))
+        if v != "M":
+            seg.append(convs[i])
             i += 1
+        elif remat:
+            x = remat_block(_stage_hwio, x, seg)
+            seg = []
+        else:
+            x = _stage(x, seg)
+            seg = []
     B, h, w, c = x.shape
     return x.reshape(B, h * w, c)
 

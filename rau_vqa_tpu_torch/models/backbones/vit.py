@@ -22,10 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from rau_vqa_tpu_torch.devices import pick_device
-from rau_vqa_tpu_torch.models.backbones.resnet import _nchw
-from rau_vqa_tpu_torch.roadmap import still_to_port
-
-REMAT = still_to_port("remat=True (checkpointing for backbone fine-tuning)", "fine-tuning")
+from rau_vqa_tpu_torch.models.backbones.resnet import _nchw, remat_block
 
 
 @dataclass(frozen=True)
@@ -119,9 +116,10 @@ def _block(x, blk, cfg: ViTConfig):
 def vit_apply(params: Dict, cfg: ViTConfig, x: torch.Tensor,
               remat: bool = False) -> torch.Tensor:
     """x [B, H, W, 3] (ImageNet-normalized RGB) -> patch tokens [B, S, D],
-    in the type of the tree's weights (x is cast to it)."""
-    if remat:
-        raise NotImplementedError(REMAT)
+    in the type of the tree's weights (x is cast to it).  ``remat=True``
+    (fine-tuning) checkpoints each transformer block: the backward keeps one
+    [B, S, D] residual a block (``rau_vqa_tpu/models/backbones/vit.py:
+    127-142``)."""
     B = x.shape[0]
     pe = params["patch_embed"]
     x = x.to(pe["w"].dtype)
@@ -131,7 +129,7 @@ def vit_apply(params: Dict, cfg: ViTConfig, x: torch.Tensor,
     x = x.flatten(2).transpose(1, 2) + pe["b"]
     x = x + params["pos_embed"]
     for blk in params["blocks"]:
-        x = _block(x, blk, cfg)
+        x = remat_block(_block, x, blk, cfg) if remat else _block(x, blk, cfg)
     return _ln(x, params["ln_final"], cfg.ln_eps)
 
 

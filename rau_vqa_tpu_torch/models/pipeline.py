@@ -33,23 +33,26 @@ _head_weights = MemoRecent(pack_kernel_weights)
 
 def extract_features(backbone: str, bb_params: Dict, images_u8: torch.Tensor,
                      vit_cfg=None, fused_stages=(), fused_block_b: int = 0,
-                     feat_norm: bool = False) -> torch.Tensor:
+                     remat: bool = False, feat_norm: bool = False) -> torch.Tensor:
     """uint8 [B, H, W, 3] RGB -> [B, S, D] features in the backbone's type,
     normalization included (the two schemes of vqa_prepro_loader.lua:1061-1067;
     the ViT takes ImageNet mean/std).  ``vit_cfg`` defaults to ViT-L/14.
     ``fused_stages`` routes those ResNet stages' identity blocks through the
     stage kernel; the other backbones have no stages to fuse and ignore it,
-    as in the JAX package.  ``feat_norm=True`` RMS-normalizes each [b, s]
-    cell over D (the JAX package's fine-tuning interface, :62-64)."""
+    as in the JAX package.  ``remat=True`` checkpoints the backbone block by
+    block (fine-tuning, where the backward runs through here): the same
+    values, less activation memory.  ``feat_norm=True`` RMS-normalizes each
+    [b, s] cell over D (the JAX package's fine-tuning interface, :62-64)."""
     x = images_u8.float() / 255.0
     if backbone == "vgg16":
-        feats = vgg16_pool5_apply(bb_params, T.vgg_preprocess(x))
+        feats = vgg16_pool5_apply(bb_params, T.vgg_preprocess(x), remat=remat)
     elif backbone == "resnet101":
         feats = resnet101_apply(bb_params, T.color_normalize(x),
                                 fused_stages=tuple(fused_stages),
-                                fused_block_b=fused_block_b)
+                                fused_block_b=fused_block_b, remat=remat)
     elif backbone == "vit":
-        feats = vit_apply(bb_params, vit_cfg or VIT_L14, T.color_normalize(x))
+        feats = vit_apply(bb_params, vit_cfg or VIT_L14, T.color_normalize(x),
+                          remat=remat)
     else:
         raise ValueError(f"unknown backbone {backbone!r}; one of {BACKBONES}")
     if feat_norm:

@@ -16,14 +16,18 @@ where a train step spends its work.  ``rau_train_hops`` runs it fused:
   and hops and emits the small per-hop cotangents, as batch-wide phases
   (``bwd_plan``) that one C entry enqueues; the remaining weight grads and
   ``dq`` are batched products over ``[H*B, *]`` in PyTorch
-  (``_outside_grads``), as the JAX package leaves them to XLA.  ``fused_train_bwd="xla"`` instead runs
-  autograd through ``rau_train_hops_reference``.
+  (``_outside_grads``), as the JAX package leaves them to XLA.  Where the
+  features require grad (backbone fine-tuning), the backward kernel also
+  sums their gradient over the hops (``dfeats``: one more product a hop,
+  masked in its epilogue); the JAX package's Pallas backward returns zeros
+  there (:649, :664), its plain autodiff on the CPU does not.
+  ``fused_train_bwd="xla"`` instead runs autograd through
+  ``rau_train_hops_reference``.
 
 CPU tensors run the kernels' plain versions (``train_hops_fwd_reference``,
 ``train_hops_bwd_reference``); CUDA tensors launch the kernels or raise.
 ``do_pred``, ``attprob`` and the final state are monitors: only the score
-cotangent propagates, ``do_pred``'s weights get exactly zero and ``feats``
-gets no gradient.
+cotangent propagates and ``do_pred``'s weights get exactly zero.
 
 Types follow ``cfg.compute_dtype`` as the JAX package's ``dot_dtype`` does
 (:299, :364-365, :478-479).  In float32 everything is float32.  In
@@ -86,6 +90,9 @@ _EMITS = [("dpre_q", "M", True), ("dqatt", "F", True),
           ("dgates", "G", True), ("dmerge_pre", "M", True),
           ("qfeat", "M", False), ("join", "M", False), ("merge_d", "M", False)]
 
+# the features' gradient, beside the in-kernel grads where asked for
+DFEATS = ("feats",)
+
 _SITE_FEATS, _SITE_Q, _SITE_MERGE = 0, 1, 2
 
 _P = ctypes.c_void_p
@@ -93,15 +100,19 @@ _I = ctypes.c_int
 _DROPOUT_ARGS = [ctypes.c_uint32, ctypes.c_float, _I, _P]
 _FWD_ARGS = ([_P, _P, _P, ctypes.POINTER(_P)] + [_P] * 7 + [_I] * 9 + [ctypes.c_longlong]
              + _DROPOUT_ARGS)
-_BWD_ARGS = ([_P] * 6 + [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), ctypes.POINTER(_P), _P]
-             + [_I] * 9 + [ctypes.c_longlong] + _DROPOUT_ARGS)
-# one instantiation of each kernel per product type, each counted apart
+_BWD_ARGS = ([_P] * 6 + [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), ctypes.POINTER(_P), _P,
+                          _P] + [_I] * 9 + [ctypes.c_longlong] + _DROPOUT_ARGS)
+# one instantiation of each kernel per product type, each counted apart, and
+# the backward's calls with the features' gradient counted apart again
 FWD_KERNEL = Kernel("rau_train_hops_fwd", "train_hops_fwd_launch", _FWD_ARGS)
 BWD_KERNEL = Kernel("rau_train_hops_bwd", "train_hops_bwd_launch", _BWD_ARGS)
 FWD_BF16_KERNEL = Kernel("rau_train_hops_fwd", "train_hops_fwd_bf16_launch", _FWD_ARGS)
 BWD_BF16_KERNEL = Kernel("rau_train_hops_bwd", "train_hops_bwd_bf16_launch", _BWD_ARGS)
+BWD_DFEATS_KERNEL = Kernel("rau_train_hops_bwd", "train_hops_bwd_launch", _BWD_ARGS)
+BWD_DFEATS_BF16_KERNEL = Kernel("rau_train_hops_bwd", "train_hops_bwd_bf16_launch", _BWD_ARGS)
 _KERNELS = {torch.float32: (FWD_KERNEL, BWD_KERNEL),
             torch.bfloat16: (FWD_BF16_KERNEL, BWD_BF16_KERNEL)}
+_DFEATS_KERNELS = {torch.float32: BWD_DFEATS_KERNEL, torch.bfloat16: BWD_DFEATS_BF16_KERNEL}
 _DOT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -232,10 +243,12 @@ def _hop_fwd_core(mp, q, feats, c, hprev, fm, qm, mm, dd) -> Dict:
     return t
 
 
-def _hop_bwd_core(mp, t, dmerge_d, dc_in, dh_in, mm, dd):
+def _hop_bwd_core(mp, t, dmerge_d, dc_in, dh_in, mm, dd, fm=None, dfeats=False):
     """Backward of one hop (``_hop_bwd_core``, :170-276): the cotangent chain,
     the feats-path weight grads (biases 1-D here) and the emissions, with
-    product type ``dd``.  Returns (emissions, grads, dc_prev, dh_prev)."""
+    product type ``dd``; with ``dfeats`` also the features' gradient of the
+    hop, ``fm`` (dpre_i Wi^T), under ``DFEATS``.  Returns (emissions, grads,
+    dc_prev, dh_prev)."""
     def dotT(x, w):
         # x @ w^T (:185-189)
         return _rnd(x, dd) @ _rnd(w, dd).T
@@ -304,6 +317,10 @@ def _hop_bwd_core(mp, t, dmerge_d, dc_in, dh_in, mm, dd):
     dpre_i = difeat * (1.0 - t["ifeat"] ** 2)                     # [B, S, M]
     gw[("i_embed", "w")] = gradw2(t["feats_d"].reshape(B * S, Dc), dpre_i.reshape(B * S, M))
     gw[("i_embed", "b")] = dpre_i.reshape(B * S, M).sum(0)
+    if dfeats:
+        # feats_d = feats fm; prei = feats_d Wi + bi
+        dx = dotT(dpre_i.reshape(B * S, M), mp["i_embed"]["w"]).reshape(B, S, Dc)
+        gw[DFEATS] = dx * fm if fm is not None else dx
     return em, gw, dc_prev, dh_prev
 
 
@@ -348,10 +365,12 @@ def rau_train_hops_reference(mp: Dict, cfg: ModelConfig, q, feats, seed):
 
 
 def train_hops_bwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed,
-                             c_all, h_all, gmerge):
+                             c_all, h_all, gmerge, dfeats: bool = False):
     """Plain version of the backward kernel: the hops in reverse from the
     saved carries.  Returns (emissions {name: [H, B, width]}, the feats-path
-    grads {path: tensor}, float32)."""
+    grads {path: tensor}, float32); with ``dfeats`` the grads also hold the
+    features' gradient under ``DFEATS``, summed over the hops in the
+    kernel's order."""
     dd = dot_dtype(cfg)
     H = cfg.n_hops
     shapes = _shapes(cfg, q, feats)
@@ -362,7 +381,7 @@ def train_hops_bwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed,
     for hop in reversed(range(H)):
         fm, qm, mm = _masks(cfg, shapes, seed, hop)
         t = _hop_fwd_core(mp, q, feats, c_all[hop], h_all[hop], fm, qm, mm, dd)
-        ems[hop], gw, dc, dh = _hop_bwd_core(mp, t, gmerge[hop], dc, dh, mm, dd)
+        ems[hop], gw, dc, dh = _hop_bwd_core(mp, t, gmerge[hop], dc, dh, mm, dd, fm, dfeats)
         for path, g in gw.items():
             gw_in[path] = gw_in[path] + g if path in gw_in else g
     em = {name: torch.stack([e[name] for e in ems]) for name, _, _ in _EMITS}
@@ -583,12 +602,13 @@ def fwd_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int, A: int, n_
 
 
 def bwd_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int, n_sm: int,
-             dtype: torch.dtype = torch.float32) -> BwdPlan:
+             dtype: torch.dtype = torch.float32, dfeats: bool = False) -> BwdPlan:
     """The phases, tiles, split-K chunks and workspace of the backward
     kernel at these widths, for products in ``dtype`` on a card with
-    ``n_sm`` SMs.  The weight grads' B*S rows split into chunks such that
-    the i_embed w grad fills about two CTAs a SM.  Raises ``ValueError``
-    for shapes the kernel does not take."""
+    ``n_sm`` SMs; ``dfeats`` adds the features' gradient, one [B*S, Dc]
+    product a hop after dpre_i.  The weight grads' B*S rows split into
+    chunks such that the i_embed w grad fills about two CTAs a SM.  Raises
+    ``ValueError`` for shapes the kernel does not take."""
     _check_dims("train_hops_bwd", dtype, dict(B=B, S=S, Dc=Dc, M=M, F=F, R=R, Q=Q,
                                               n_sm=n_sm), M + S)
     P = B * S
@@ -613,6 +633,7 @@ def bwd_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int, n_sm: int,
         gemm("dh", B, R, M, "small"),
         gemm("att_i w", M, F, P, "big", split=True),
         gemm("dpre_i", P, M, F, "big"),
+    ) + ((gemm("dfeats", P, Dc, M, "big"),) if dfeats else ()) + (
         gemm("i_embed w", Dc, M, P, "big", split=True),
         other("colsum", (_cdiv(M, ew), _cdiv(P, COLSUM_ROWS), 1)),
         other("reduce", (_cdiv(Dc * M + M + M * F + 2 * F, ew), 1, 1)),
@@ -710,29 +731,34 @@ def _launch_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed, scratch_floats: int)
     return scores, do_pred, attprob, c_all, h_all
 
 
-def train_hops_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all, gmerge):
+def train_hops_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all, gmerge,
+                   dfeats: bool = False):
     """The backward kernel: (emissions {name: [H, B, width]}, the feats-path
-    grads {path: tensor} summed over the rows and hops, float32).  ``q``,
-    ``feats`` and the weights in ``cfg.compute_dtype``; ``gmerge`` is the
-    score cotangent times ``cls_w^T``, [H, B, M] float32.  CPU tensors run
+    grads {path: tensor} summed over the rows and hops, float32); with
+    ``dfeats`` the grads also hold the features' gradient [B, S, Dc] under
+    ``DFEATS``, float32, and the launch counts in ``BWD_DFEATS_KERNEL`` /
+    ``BWD_DFEATS_BF16_KERNEL``.  ``q``, ``feats`` and the weights in
+    ``cfg.compute_dtype``; ``gmerge`` is the score cotangent times
+    ``cls_w^T``, [H, B, M] float32.  CPU tensors run
     ``train_hops_bwd_reference``."""
     if not _on_cuda("train_hops_bwd", q):
         return train_hops_bwd_reference(mp, cfg, q, feats, seed, c_all, h_all,
-                                        gmerge)
+                                        gmerge, dfeats)
     B, S = feats.shape[:2]
     dd = dot_dtype(cfg)
     plan = bwd_plan(B, S, cfg.cnn_dim, cfg.multfeat_dim, cfg.attfeat_dim, cfg.att_state_dim,
-                    cfg.rnnout_dim, _sm_count(q.device.index or 0), dd)
+                    cfg.rnnout_dim, _sm_count(q.device.index or 0), dd, dfeats)
     scratch_floats, _ = launcher_plan(B, S, cfg.cnn_dim, cfg.multfeat_dim, cfg.attfeat_dim,
-                                      cfg.att_state_dim, cfg.rnnout_dim, dd, plan.chunk_rows)
+                                      cfg.att_state_dim, cfg.rnnout_dim, dd, plan.chunk_rows,
+                                      dfeats)
     if scratch_floats < 0:
         raise ValueError(f"train_hops_bwd: the launcher cannot run batch {B} at these widths")
     return _launch_bwd(mp, cfg, q, feats, seed, c_all, h_all, gmerge, plan.chunk_rows,
-                       scratch_floats)
+                       scratch_floats, dfeats)
 
 
 def _launch_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all, gmerge,
-                chunk_rows: int, scratch_floats: int):
+                chunk_rows: int, scratch_floats: int, dfeats: bool = False):
     """``train_hops_bwd`` on CUDA tensors with this split of the weight
     grads' rows and this much scratch; raises where the launcher refuses
     them."""
@@ -754,16 +780,20 @@ def _launch_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all, gmerge
               ("att_score", "w"): (F, 1)}
     gw_in = {p: torch.empty(shapes[p], device=dev, dtype=torch.float32)
              for p in _INKERNEL_GRADS}
+    df = torch.empty(B, S, Dc, device=dev, dtype=torch.float32) if dfeats else None
     work = torch.empty(B * S * (M + F), device=dev, dtype=torch.float32)
     scratch = torch.empty(max(scratch_floats, 0), device=dev, dtype=torch.float32)
     em_ptrs = (_P * len(_EMITS))(*[em[n].data_ptr() for n, _, _ in _EMITS])
     grad_ptrs = (_P * len(gw_in))(*[gw_in[p].data_ptr() for p in _INKERNEL_GRADS])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _KERNELS[dd][1].launch(
+    kernel = _DFEATS_KERNELS[dd] if dfeats else _KERNELS[dd][1]
+    kernel.launch(
         q.data_ptr(), feats.data_ptr(), seed.data_ptr(), c_all.data_ptr(),
         h_all.data_ptr(), gmerge.data_ptr(), _weight_ptrs(mp), work.data_ptr(),
-        em_ptrs, grad_ptrs, scratch.data_ptr(), B, Q, S, Dc, M, F, R, H,
-        chunk_rows, scratch_floats, *_dropout_args(cfg), stream)
+        em_ptrs, grad_ptrs, None if df is None else df.data_ptr(), scratch.data_ptr(),
+        B, Q, S, Dc, M, F, R, H, chunk_rows, scratch_floats, *_dropout_args(cfg), stream)
+    if df is not None:
+        gw_in[DFEATS] = df
     return em, gw_in
 
 
@@ -798,12 +828,12 @@ def fwd_launcher_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int, A
 
 @functools.lru_cache(maxsize=64)
 def launcher_plan(B: int, S: int, Dc: int, M: int, F: int, R: int, Q: int,
-                  dtype: torch.dtype, chunk_rows: int):
+                  dtype: torch.dtype, chunk_rows: int, dfeats: bool = False):
     """The built backward launcher's own account of one hop at these shapes
-    (``train_hops_bwd_describe``, a dry run of its entry), as
-    ``fwd_launcher_plan``."""
+    (``train_hops_bwd_describe``, a dry run of its entry), with the
+    features' gradient or without, as ``fwd_launcher_plan``."""
     return _describe(BWD_KERNEL, "train_hops_bwd_describe",
-                     (B, Q, S, Dc, M, F, R, _t_bytes(dtype), chunk_rows))
+                     (B, Q, S, Dc, M, F, R, _t_bytes(dtype), chunk_rows, int(dfeats)))
 
 
 # ---------------------------------------------------------------------------
@@ -818,38 +848,44 @@ def _kernel_operands(cfg: ModelConfig, mp, q, feats):
     return mp_k, q.to(dd), feats.to(dd)
 
 
-def _bwd_kernel(cfg, mp, q, feats, seed, c_all, h_all, attprob, g_scores):
+def _bwd_kernel(cfg, mp, q, feats, seed, c_all, h_all, attprob, g_scores, dfeats=False):
     """The hand-derived backward: the backward kernel (or its plain version)
-    plus the outside products.  Returns ({path: grad} for _DIFF_WEIGHTS, dq),
-    float32."""
+    plus the outside products.  Returns ({path: grad} for _DIFF_WEIGHTS, dq,
+    the features' gradient or None), float32."""
     dd = dot_dtype(cfg)
     H, B = g_scores.shape[:2]
     gmerge = (_rnd(g_scores.reshape(H * B, -1), dd)
               @ _rnd(mp["cls"]["w"], dd).T).reshape(H, B, -1)
     mp_k, q_k, feats_k = _kernel_operands(cfg, mp, q, feats)
     em, gw_in = train_hops_bwd(mp_k, cfg, q_k, feats_k, seed, c_all, h_all,
-                               gmerge.contiguous())
+                               gmerge.contiguous(), dfeats)
     gw_out, dq = _outside_grads(cfg, mp, q, seed, h_all, attprob, g_scores, em)
-    return {p: (gw_in[p] if p in gw_in else gw_out[p]) for p in _DIFF_WEIGHTS}, dq
+    return ({p: (gw_in[p] if p in gw_in else gw_out[p]) for p in _DIFF_WEIGHTS}, dq,
+            gw_in.get(DFEATS))
 
 
-def _bwd_autograd(cfg, mp, q, feats, seed, g_scores):
+def _bwd_autograd(cfg, mp, q, feats, seed, g_scores, dfeats=False):
     """The ``"xla"`` backward: autograd through the plain version, which
-    regenerates the same masks."""
+    regenerates the same masks; the features' gradient too with
+    ``dfeats``."""
     with torch.enable_grad():
         leaves = [pluck(mp, p).detach().requires_grad_() for p in _DIFF_WEIGHTS]
         mp_ = rebuild(_DIFF_WEIGHTS, leaves)
         mp_["do_pred"] = mp["do_pred"]
         q_ = q.detach().requires_grad_()
-        scores = rau_train_hops_reference(mp_, cfg, q_, feats, seed)[0]
-        grads = torch.autograd.grad(scores, leaves + [q_], g_scores)
-    return dict(zip(_DIFF_WEIGHTS, grads[:-1])), grads[-1]
+        f_ = feats.detach().requires_grad_(dfeats)
+        inputs = leaves + [q_] + ([f_] if dfeats else [])
+        scores = rau_train_hops_reference(mp_, cfg, q_, f_, seed)[0]
+        grads = torch.autograd.grad(scores, inputs, g_scores)
+    n = len(_DIFF_WEIGHTS)
+    return dict(zip(_DIFF_WEIGHTS, grads[:n])), grads[n], grads[n + 1] if dfeats else None
 
 
 class _FusedTrainHops(torch.autograd.Function):
     """(cfg, seed, q, feats, *weights in _FWD_WEIGHTS order) -> (scores,
-    do_pred, attprob, final_c, final_h); only ``scores`` is differentiable.
-    Each grad comes back in its input's type."""
+    do_pred, attprob, final_c, final_h); only ``scores`` is differentiable,
+    in the weights, ``q`` and, where they require grad, the features.  Each
+    grad comes back in its input's type."""
 
     @staticmethod
     def forward(ctx, cfg, seed, q, feats, *weights):
@@ -868,23 +904,25 @@ class _FusedTrainHops(torch.autograd.Function):
         seed, q, feats, c_all, h_all, attprob, *weights = ctx.saved_tensors
         mp = rebuild(_FWD_WEIGHTS, weights)
         g_scores = g_scores.contiguous()
+        want = ctx.needs_input_grad[3]
         if cfg.fused_train_bwd == "xla":
-            grads, dq = _bwd_autograd(cfg, mp, q, feats, seed, g_scores)
+            grads, dq, df = _bwd_autograd(cfg, mp, q, feats, seed, g_scores, want)
         else:
-            grads, dq = _bwd_kernel(cfg, mp, q, feats, seed, c_all, h_all,
-                                    attprob, g_scores)
+            grads, dq, df = _bwd_kernel(cfg, mp, q, feats, seed, c_all, h_all,
+                                        attprob, g_scores, want)
         dw = [grads[p].to(w.dtype) if p in grads else torch.zeros_like(w)
               for p, w in zip(_FWD_WEIGHTS, weights)]
-        return (None, None, dq.to(q.dtype), None, *dw)
+        return (None, None, dq.to(q.dtype), None if df is None else df.to(feats.dtype), *dw)
 
 
 def rau_train_hops(mp: Dict, cfg: ModelConfig, q, feats, seed):
     """The fused training hop loop: (scores [H, B, A], do_pred [H, B],
-    attprob [H, B, S], final_c, final_h), float32.  Differentiable in ``mp``
-    and ``q`` through ``scores`` only; ``feats`` gets no gradient.
+    attprob [H, B, S], final_c, final_h), float32.  Differentiable through
+    ``scores`` only: in ``mp``, ``q`` and, where they require grad, in
+    ``feats`` (backbone fine-tuning), as JAX's autodiff of its plain loop.
     ``seed``: an int or an int32 tensor; the masks of hop h are those of
     ``site_salt(seed, h, site)``.  Products in ``cfg.compute_dtype``."""
     check_fused_config(cfg)
     seed = _seed_tensor(seed, q.device)
     weights = [pluck(mp, p) for p in _FWD_WEIGHTS]
-    return _FusedTrainHops.apply(cfg, seed, q, feats.detach(), *weights)
+    return _FusedTrainHops.apply(cfg, seed, q, feats, *weights)

@@ -1,10 +1,11 @@
 """The refusals of options the port does not have yet, each naming the item
 of ROADMAP.md's queue 1 that holds the work, so that every refusal of one
-kind reads alike and follows the queue when it is reordered."""
+kind reads alike and follows the queue when it is reordered.  Item 5,
+fine-tuning, is done and refuses nothing; the items keep their numbers."""
 
 from __future__ import annotations
 
-ITEMS = {"fine-tuning": 5, "transforms": 6, "multi-device": 7, "export": 8}
+ITEMS = {"transforms": 6, "multi-device": 7, "export": 8}
 
 
 def still_to_port(what: str, item: str) -> str:

@@ -57,7 +57,6 @@ from rau_vqa_tpu_torch.roadmap import still_to_port
 NOT_PORTED = {
     "artifact": still_to_port("serving from an exported artifact (eval/export.py)",
                               "export"),
-    "fine_tuned": still_to_port("a fine-tuned backbone group", "fine-tuning"),
 }
 PAD_BUCKETS = (1, 4, 8)   # then max_batch: the group sizes a dispatch pads to
 
@@ -77,7 +76,10 @@ class RAUService:
     with ``vit_cfg``, ViT-L/14 when None) with ``bb_params`` on ``device``
     (for ResNet-101 a ``fold_batchnorm`` tree) answers image requests,
     decoded at ``cnn_w`` x 32 px for the conv backbones and ``cnn_w`` x 14
-    for the ViT (``rau_vqa_tpu/serve.py:176-181``)."""
+    for the ViT (``rau_vqa_tpu/serve.py:176-181``).  A fine-tuned snapshot
+    (its sidecar's ``train_backbone``) serves images through its own trained
+    backbone group, as stored, unless ``bb_params`` is given
+    (``rau_vqa_tpu/serve.py:150-165``)."""
 
     def __init__(self, checkpoint: Optional[str], vqa_dir: Optional[str],
                  feat_dirs, *, preset: str = "ours_ms",
@@ -91,11 +93,8 @@ class RAUService:
         from rau_vqa_tpu_torch.cli import _adopt_snapshot, _make_feature_source
         from rau_vqa_tpu_torch.config import get_experiment
         from rau_vqa_tpu_torch.data.loader import load_vqa_data
-        from rau_vqa_tpu_torch.train.trainer import init_train_state
-        from rau_vqa_tpu_torch.utils.checkpoint import (
-            checkpoint_meta,
-            load_checkpoint,
-        )
+        from rau_vqa_tpu_torch.train.trainer import init_train_state, trained_backbone
+        from rau_vqa_tpu_torch.utils.checkpoint import checkpoint_meta, load_checkpoint
 
         if artifact is not None:
             raise NotImplementedError(NOT_PORTED["artifact"])
@@ -105,9 +104,6 @@ class RAUService:
         if backbone not in (None,) + pipeline.BACKBONES:
             raise ValueError(f"unknown backbone {backbone!r}")
         meta = checkpoint_meta(checkpoint)
-        if meta.get("train_backbone"):
-            raise NotImplementedError(f"{checkpoint} carries "
-                                      f"{NOT_PORTED['fine_tuned']}")
         self.device = pick_device(device, "RAUService")
         exp = _adopt_snapshot(get_experiment(preset), checkpoint)
         if data is None:
@@ -120,7 +116,15 @@ class RAUService:
             exp.model, vocab_size=data.vocab_size,
             answer_size=data.answer_size, seq_len=data.seq_len)
         template = init_train_state(self.mcfg, 0, device="cpu")._asdict()
-        tree, _ = load_checkpoint(checkpoint, template)
+        # the head's three groups, and a fine-tuned snapshot's own backbone
+        # where none is given, computing in the type it was trained in
+        own_bb = bb_params is None and meta.get("train_backbone") and meta.get("backbone")
+        if own_bb:
+            backbone = meta["backbone"]
+        tree, _ = load_checkpoint(checkpoint, template, backbone=backbone if own_bb else None)
+        if own_bb:
+            bb_params = trained_backbone(self.mcfg, map_tree(
+                lambda x: x.to(self.device), tree["params"].pop("backbone")))
         self.params = map_tree(lambda x: x.to(self.device), tree["params"])
         # the head's feature interface (RMS-normalized or raw), which image
         # requests featurize to and a packed shard must carry

@@ -11,10 +11,20 @@ versions on the CPU; in float32 or, with ``compute_dtype="bfloat16"``, on
 bf16 casts of the params, whose grads reach the float32 params through the
 cast.
 
+With ``TrainConfig.train_backbone`` (backbone fine-tuning) the backbone is
+a 4th parameter group, ``"backbone"``, with float32 masters and Adam
+moments: the step takes uint8 images and runs preprocess, the backbone, the
+head, the joint loss and the backward through all of them, and the group
+gets its own LR, the trust-ratio cap and the zero-signal freeze
+(``rau_vqa_tpu/train/trainer.py:60-233``).  Under ``compute_dtype=
+"bfloat16"`` the backbone computes on a bf16 cast of its masters made in
+the step, as the head does; in float32 it runs float32.  The step leaves
+the process's TF32 switches as they are.
+
 Random draws come from ``torch.Generator``s that the step derives from the
 state's seed and step count, so a step is a function of its state and its
 inputs: the forward's dropout from stream 0, group g's gradient noise from
-stream 1 + g.
+stream 1 + g (the backbone's, with ``backbone_grad_noise``, from 1 + 3).
 
 ``Trainer`` is the host loop around the step (``rau_vqa_tpu/train/
 trainer.py:236-1156``): epochs over the loader, LR decay (reference
@@ -54,16 +64,18 @@ from rau_vqa_tpu_torch.eval.predict import (
 )
 from rau_vqa_tpu_torch.eval.submission import write_results
 from rau_vqa_tpu_torch.models.rau import init_params, rau_forward
-from rau_vqa_tpu_torch.ops.rau_train_hops import check_fused_config
+from rau_vqa_tpu_torch.ops.rau_train_hops import check_fused_config, dot_dtype
 from rau_vqa_tpu_torch.train.losses import hop_grad_scale, joint_loss_and_metrics
 from rau_vqa_tpu_torch.train.optim import (
     adam_init,
     adam_update,
     add_gradient_noise,
     clip_by_global_norm,
+    trust_ratio_cap,
 )
 from rau_vqa_tpu_torch.utils.checkpoint import (
     flush_checkpoint_writes,
+    has_backbone_group,
     latest_checkpoint,
     load_checkpoint,
     save_checkpoint,
@@ -77,8 +89,6 @@ PARAM_GROUPS = ("embed", "rnn", "mult")
 # Metric keys that are sums over the batch (the rest are batch means): under
 # gradient accumulation sums add across microbatches and means average.
 _SUM_METRICS = ("do_pred_acc_num", "do_pred_acc_den")
-
-FINE_TUNING = still_to_port("backbone fine-tuning ({})", "fine-tuning")
 
 
 class TrainState(NamedTuple):
@@ -98,25 +108,44 @@ def _generator(device: torch.device, seed: int, step: int,
 def init_train_state(mcfg: ModelConfig, seed: int, *, device=None,
                      bb_params=None) -> TrainState:
     """Fresh parameters from ``seed`` and zero Adam moments, on ``device``
-    (``cuda`` when None, as ``make_train_step``)."""
-    if bb_params is not None:
-        raise NotImplementedError(FINE_TUNING.format("a backbone parameter group"))
+    (``cuda`` when None, as ``make_train_step``).  With ``bb_params`` the
+    backbone joins as a 4th group, ``"backbone"``: every leaf of the tree
+    given is trained (a plain ResNet's BN statistics too, as the JAX
+    package's ``value_and_grad`` over the whole tree), its masters and Adam
+    moments float32 (``rau_vqa_tpu/train/trainer.py:60-74``)."""
     device = pick_device(device, "init_train_state")
     params = init_params(mcfg, torch.Generator().manual_seed(seed), device)
-    return TrainState(params=params,
-                      opt={g: adam_init(params[g]) for g in PARAM_GROUPS},
+    groups = PARAM_GROUPS
+    if bb_params is not None:
+        params["backbone"] = map_tree(
+            lambda t: torch.as_tensor(t).to(device, torch.float32), bb_params)
+        groups += ("backbone",)
+    return TrainState(params=params, opt={g: adam_init(params[g]) for g in groups},
                       step=0, seed=seed)
+
+
+def head_params(params: Dict) -> Dict:
+    """The head's three groups of a train state's params (``rau_forward``
+    and the predict steps take these; under fine-tuning the state also
+    holds ``"backbone"``): ``params`` itself where it holds just those, as
+    the predict step keeps its weight packs per params object."""
+    return {g: params[g] for g in PARAM_GROUPS} if "backbone" in params else params
 
 
 def loss_and_grads(mcfg: ModelConfig, params: Dict, tokens, lengths, feats,
                    labels, hop_scale, *,
                    generator: Optional[torch.Generator] = None,
-                   hop_seed=None) -> Tuple[Dict, Dict]:
+                   hop_seed=None, featurize=None) -> Tuple[Dict, Dict]:
     """The joint loss's gradient with respect to every parameter, as a tree
-    like ``params``, and the metrics of ``joint_loss_and_metrics``."""
+    like ``params``, and the metrics of ``joint_loss_and_metrics``.  With
+    ``featurize`` (fine-tuning), ``feats`` are images and
+    ``featurize(params["backbone"], feats)`` makes the features inside the
+    differentiated function."""
     with torch.enable_grad():
         p = map_tree(lambda x: x.detach().requires_grad_(), params)
-        out = rau_forward(p, mcfg, tokens, lengths, feats, train=True,
+        if featurize is not None:
+            feats = featurize(p["backbone"], feats)
+        out = rau_forward(head_params(p), mcfg, tokens, lengths, feats, train=True,
                           generator=generator, hop_seed=hop_seed)
         loss, metrics = joint_loss_and_metrics(out.scores, out.do_pred,
                                                labels, hop_scale)
@@ -125,8 +154,34 @@ def loss_and_grads(mcfg: ModelConfig, params: Dict, tokens, lengths, feats,
     return map_tree(lambda _: next(flat), params), metrics
 
 
+def trained_backbone(mcfg: ModelConfig, bb: Dict) -> Dict:
+    """The tree a trained backbone group computes on, in the fine-tuning
+    step, the eval sweep and the service alike: its float32 masters under
+    float32, a bf16 cast of them under bf16 (differentiable, so the step's
+    grads reach the masters)."""
+    dt = dot_dtype(mcfg)
+    return bb if dt == torch.float32 else map_tree(lambda t: t.to(dt), bb)
+
+
+def featurizer(mcfg: ModelConfig, tcfg: TrainConfig, backbone: str, vit_cfg=None,
+               img_repeat: int = 1):
+    """The fine-tuning step's ``featurize(bb, images)`` (``loss_and_grads``):
+    the backbone in the compute type (``trained_backbone``), with
+    ``tcfg.backbone_remat`` and ``tcfg.backbone_feat_norm``, each image's
+    features repeated to its ``img_repeat`` consecutive questions."""
+
+    def featurize(bb, images):
+        feats = extract_features(backbone, trained_backbone(mcfg, bb), images, vit_cfg,
+                                 remat=tcfg.backbone_remat,
+                                 feat_norm=tcfg.backbone_feat_norm)
+        # grouped batches: question row i belongs to unique image i // g
+        return feats.repeat_interleave(img_repeat, 0) if img_repeat > 1 else feats
+
+    return featurize
+
+
 def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
-                    backbone: Optional[str] = None, img_repeat: int = 1):
+                    backbone: Optional[str] = None, vit_cfg=None, img_repeat: int = 1):
     """The train step on ``device``: ``cuda`` when None, and then it raises
     without a card; only an explicit ``device="cpu"`` runs the plain
     versions.
@@ -134,31 +189,55 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
     ``step(state, tokens, lengths, feats, labels, hop_scale, lr, mult_lr)
     -> (state, metrics)``.  Inputs may be numpy arrays or tensors.  With
     ``tcfg.grad_accum = k > 1`` the step runs k sequential microbatch
-    backward passes (microbatch i = rows [i*B/k, (i+1)*B/k)) and one update
-    on the averaged gradients: exact, since every loss term is a batch mean.
+    backward passes (microbatch i = rows [i*B/k, (i+1)*B/k) of each input,
+    split by its own length) and one update on the averaged gradients:
+    exact, since every loss term is a batch mean.
+
+    With ``tcfg.train_backbone`` (``backbone`` needed: ``"vgg16"``,
+    ``"resnet101"`` or ``"vit"`` with ``vit_cfg``) ``feats`` is a uint8
+    image batch [B / img_repeat, H, W, 3] and the state carries the
+    ``"backbone"`` group.  ``img_repeat = g > 1`` runs the backbone once on
+    each of the B / g unique images and repeats each image's features to its
+    g consecutive questions (the ``imggroup`` order): exact, the backbone's
+    gradient summing its questions' (``rau_vqa_tpu/train/trainer.py:83-233``).
     """
     device = pick_device(device, "make_train_step")
-    if tcfg.train_backbone or backbone is not None or img_repeat != 1:
-        raise NotImplementedError(FINE_TUNING.format("train_backbone, img_repeat"))
+    train_bb = bool(tcfg.train_backbone)
+    if train_bb and not backbone:
+        raise ValueError("train_backbone needs backbone= (the step's feats "
+                         "argument becomes a uint8 image batch)")
+    img_repeat = int(img_repeat or 1)
+    if img_repeat > 1 and not train_bb:
+        raise ValueError("img_repeat (grouped unique-image batches) is a "
+                         "fine-tuning mode — set tcfg.train_backbone")
     if mcfg.fused_train:
         check_fused_config(mcfg)
     accum = int(tcfg.grad_accum or 1)
+    groups = PARAM_GROUPS + ("backbone",) if train_bb else PARAM_GROUPS
+    fz = featurizer(mcfg, tcfg, backbone, vit_cfg, img_repeat) if train_bb else None
 
     def grads_and_metrics(params, tokens, lengths, feats, labels, hop_scale,
                           generator):
         if accum == 1:
             return loss_and_grads(mcfg, params, tokens, lengths, feats,
-                                  labels, hop_scale, generator=generator)
+                                  labels, hop_scale, generator=generator, featurize=fz)
         B = tokens.shape[0]
         if B % accum:
             raise ValueError(f"batch_size {B} must divide by grad_accum {accum}")
         mb = B // accum
+        if img_repeat > 1 and mb % img_repeat:
+            raise ValueError(f"microbatch size {mb} must divide by img_repeat "
+                             f"{img_repeat} (microbatches must split at "
+                             f"image-group boundaries)")
+        # feats may hold the unique images alone: each input splits by its
+        # own length
+        fb = feats.shape[0] // accum
         grads = metrics = None
         for i in range(accum):
             rows = slice(i * mb, (i + 1) * mb)
             g, m = loss_and_grads(mcfg, params, tokens[rows], lengths[rows],
-                                  feats[rows], labels[rows], hop_scale,
-                                  generator=generator)
+                                  feats[i * fb:(i + 1) * fb], labels[rows], hop_scale,
+                                  generator=generator, featurize=fz)
             grads = g if grads is None else map_tree(torch.add, grads, g)
             metrics = m if metrics is None else {
                 k: metrics[k] + m[k] for k in metrics}
@@ -178,19 +257,35 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
         grads, metrics = grads_and_metrics(
             state.params, tokens, lengths, feats, labels, hop_scale,
             _generator(device, state.seed, state.step, 0))
-        lrs = {"embed": lr, "rnn": lr, "mult": mult_lr}
+        lrs = {"embed": lr, "rnn": lr, "mult": mult_lr,
+               "backbone": lr * float(tcfg.backbone_lr_scale)}
         new_params, new_opt = {}, {}
-        for i, g in enumerate(PARAM_GROUPS):
-            # state.step counts completed steps; the noise schedule takes the
-            # 1-based iteration (the reference's `it`, :598)
-            gg = add_gradient_noise(
-                grads[g], _generator(device, state.seed, state.step, 1 + i),
-                state.step + 1, tcfg.noisy_eta, tcfg.noisy_gamma)
+        for i, g in enumerate(groups):
+            gg = grads[g]
+            if g == "backbone":
+                # the zero-signal test on the gradient before its noise: the
+                # noise alone would keep a dead backbone's norm above 0
+                alive = (sum(torch.sum(torch.square(x.float())) for x in tree_leaves(gg))
+                         > 0).float()
+            if g != "backbone" or tcfg.backbone_grad_noise:
+                # state.step counts completed steps; the noise schedule takes
+                # the 1-based iteration (the reference's `it`, :598)
+                gg = add_gradient_noise(
+                    gg, _generator(device, state.seed, state.step, 1 + i),
+                    state.step + 1, tcfg.noisy_eta, tcfg.noisy_gamma)
             gg, norm = clip_by_global_norm(gg, tcfg.grad_clip)
             new_params[g], new_opt[g] = adam_update(
                 state.params[g], gg, lrs[g], state.opt[g],
                 beta1=tcfg.adam_beta1, beta2=tcfg.adam_beta2,
                 epsilon=tcfg.adam_epsilon)
+            if g == "backbone":
+                if tcfg.backbone_trust_ratio > 0:
+                    new_params[g] = trust_ratio_cap(new_params[g], state.params[g],
+                                                    tcfg.backbone_trust_ratio)
+                # the zero-signal freeze: an exactly-zero backbone gradient
+                # (a saturated head) moves nothing, stale momentum included
+                new_params[g] = map_tree(lambda n, o: o + (n - o) * alive.to(n.dtype),
+                                         new_params[g], state.params[g])
             metrics[f"grad_norm_{g}"] = norm
         return TrainState(new_params, new_opt, state.step + 1,
                           state.seed), metrics
@@ -231,7 +326,12 @@ class Trainer:
     ``ImageDirSource``) works too: the frozen backbone, placed on the device
     once, makes each batch's features there (``extract_features`` with
     ``tcfg.backbone_feat_norm``), for the train steps and the eval sweep
-    (``rau_vqa_tpu/train/trainer.py:361-382``, ``:485-514``)."""
+    (``rau_vqa_tpu/train/trainer.py:361-382``, ``:485-514``).  With
+    ``tcfg.train_backbone`` the backbone is fine-tuned instead: it joins the
+    state as the ``"backbone"`` group, the train step takes the raw uint8
+    batches, and the eval sweep featurizes with the trained group; under the
+    ``imggroup`` order each batch carries its unique images alone and the
+    step repeats their features (``img_repeat``, the order's group size)."""
 
     def __init__(self, exp: ExperimentConfig, data: VQAData,
                  source: FeatureSource, workdir: str, *,
@@ -241,13 +341,14 @@ class Trainer:
                  vit_cfg=None):
         if mesh is not None:
             raise NotImplementedError(still_to_port("a device mesh", "multi-device"))
-        if exp.train.train_backbone:
-            raise NotImplementedError(FINE_TUNING.format("train_backbone"))
+        self.train_backbone = bool(exp.train.train_backbone)
+        if self.train_backbone and (backbone is None or bb_params is None):
+            raise ValueError(
+                "train_backbone needs an image data source plus "
+                "Trainer(backbone=..., bb_params=...) — fine-tuning "
+                "differentiates through the pixels (--image-root)")
         if (backbone is None) != (bb_params is None):
             raise ValueError("pass backbone and bb_params together")
-        if backbone is not None and exp.data.batch_order == "imggroup":
-            raise NotImplementedError(FINE_TUNING.format(
-                "the 'imggroup' order of image batches"))
         if exp.visatt:
             raise NotImplementedError(
                 "visatt (attention-map PNGs) is not ported: it needs PIL")
@@ -270,7 +371,8 @@ class Trainer:
             check_feat_interface(source, self.tcfg.backbone_feat_norm, "Trainer")
         self.backbone = backbone
         self.vit_cfg = vit_cfg
-        self.bb_params = (None if bb_params is None else
+        # the frozen backbone on the device; fine-tuned, it lives in the state
+        self.bb_params = (None if bb_params is None or self.train_backbone else
                           map_tree(lambda t: t.to(self.device), bb_params))
         self._feat_dtype = (torch.bfloat16 if self.mcfg.compute_dtype
                             == "bfloat16" else torch.float32)
@@ -282,16 +384,31 @@ class Trainer:
         self.ckpt_dir = os.path.join(workdir, "snapshot")
         self.logger = MetricsLogger(os.path.join(workdir, "training_log"))
 
-        self.state = init_train_state(self.mcfg, self.tcfg.seed,
-                                      device=self.device)
-        # host copy of the initial state: the guard falls back to it when a
-        # loss explodes before the first checkpoint exists
+        self.state = init_train_state(
+            self.mcfg, self.tcfg.seed, device=self.device,
+            bb_params=bb_params if self.train_backbone else None)
+        # grouped fine-tuning: under the 'imggroup' order each image's
+        # questions are consecutive, so the step runs the backbone once an
+        # image and repeats its features
+        self.img_repeat = 1
+        if self.train_backbone and exp.data.batch_order == "imggroup":
+            g = data.train_data.uniform_image_group_size()
+            if self.tcfg.batch_size % g:
+                raise ValueError(
+                    f"imggroup fine-tuning: batch_size {self.tcfg.batch_size} "
+                    f"must divide by the questions-per-image group size {g} "
+                    f"(batches must start on image-group boundaries)")
+            self.img_repeat = g
+        # host copy of the initial state (the backbone group too): the guard
+        # falls back to it when a loss explodes before the first checkpoint
         self._fallback_state = TrainState(
             map_tree(to_host, self.state.params),
             map_tree(to_host, self.state.opt),
             self.state.step, self.state.seed)
-        self.train_step = make_train_step(self.mcfg, self.tcfg,
-                                          device=self.device)
+        self.train_step = make_train_step(
+            self.mcfg, self.tcfg, device=self.device,
+            backbone=backbone if self.train_backbone else None, vit_cfg=vit_cfg,
+            img_repeat=self.img_repeat)
         # buckets=(): the trainer dispatches its own buckets, as in JAX
         self.predict_step = (make_predict_step(self.mcfg, device=self.device)
                              if exp.fused_eval else self._plain_predict)
@@ -310,6 +427,11 @@ class Trainer:
         data.train_data.reorder()
 
     # ------------------------------------------------------------------
+    def _bb_tree(self):
+        """The live backbone: the trained group under fine-tuning, else the
+        frozen one."""
+        return self.state.params["backbone"] if self.train_backbone else self.bb_params
+
     def _plain_predict(self, params, tokens, lengths, feats):
         """The plain float32 path (``fused_eval=False``), on the device."""
         with torch.no_grad():
@@ -364,19 +486,23 @@ class Trainer:
             t = t.to(self.device, non_blocking=True)
         return t if dtype is None else t.to(dtype)
 
-    def _put_batch(self, batch, max_t: Optional[int] = None) -> Dict:
+    def _put_batch(self, batch, max_t: Optional[int] = None,
+                   featurize: bool = True) -> Dict:
         """The batch on the device: features in ``compute_dtype``
         (``QuantFeats`` cross as int8 and are dequantized there; uint8 images
-        cross as they are and the frozen backbone makes their features
-        there), the token axis cut to ``max_t`` (exact: steps past every
-        question's last token carry no gradient; the reference runs to
-        torch.max(x_len), Ours_SS/...lua:448-450)."""
+        cross as they are and the backbone makes their features there, or,
+        with ``featurize=False``, stay images for the fine-tuning step), the
+        token axis cut to ``max_t`` (exact: steps past every question's last
+        token carry no gradient; the reference runs to torch.max(x_len),
+        Ours_SS/...lua:448-450)."""
         dt = self._feat_dtype
         if isinstance(batch.feats, QuantFeats):
             v = self._put(batch.feats.values, dt)
             feats = v * self._put(batch.feats.scales, dt)[:, None, None]
         elif _is_images(batch.feats):
-            feats = self._featurize(self._put(batch.feats)).to(dt)
+            feats = self._put(batch.feats)
+            if featurize:
+                feats = self._featurize(feats).to(dt)
         else:
             feats = self._put(batch.feats, dt)
         tokens = batch.tokens
@@ -389,12 +515,16 @@ class Trainer:
         return out
 
     def _featurize(self, images: torch.Tensor) -> torch.Tensor:
-        """uint8 images on the device -> the frozen backbone's features."""
+        """uint8 images on the device -> the live backbone's features (the
+        trained group under fine-tuning, in the type the step computes it
+        in: the sweep sees the model that was trained)."""
         if self.backbone is None:
             raise ValueError("image batches need a visual backbone: pass "
                              "Trainer(backbone=..., bb_params=...)")
+        bb = (trained_backbone(self.mcfg, self._bb_tree()) if self.train_backbone
+              else self.bb_params)
         with torch.no_grad():
-            return extract_features(self.backbone, self.bb_params, images, self.vit_cfg,
+            return extract_features(self.backbone, bb, images, self.vit_cfg,
                                     feat_norm=self.tcfg.backbone_feat_norm)
 
     def _pad_batch_to(self, batch, target_b: int):
@@ -477,19 +607,26 @@ class Trainer:
                       f"mult_lr={self.mult_lr:.2e} "
                       f"[grad] E:{float(metrics['grad_norm_embed']):.4f} "
                       f"R:{float(metrics['grad_norm_rnn']):.4f} "
-                      f"M:{float(metrics['grad_norm_mult']):.4f}", flush=True)
+                      f"M:{float(metrics['grad_norm_mult']):.4f}"
+                      + (f" B:{float(metrics['grad_norm_backbone']):.4f}"
+                         if "grad_norm_backbone" in metrics else ""), flush=True)
             for k in _SCALAR_METRICS:
-                sums[k] = sums.get(k, 0.0) + float(metrics[k])
+                if k in metrics:
+                    sums[k] = sums.get(k, 0.0) + float(metrics[k])
             for k in _VECTOR_METRICS:
                 v = np.asarray(metrics[k])
                 sums[k] = sums.get(k, np.zeros_like(v, np.float64)) + v
 
         pending = None
         dispatched = 0
+        # grouped fine-tuning: the loader fetches each batch's unique images
+        # alone (the step repeats their features)
         for batch in self.data.train_data.batches(
-                self.source, finish=self._pinning(self._train_ladder)):
+                self.source, finish=self._pinning(self._train_ladder),
+                image_stride=self.img_repeat):
             dev = self._put_batch(
-                batch, max_t=self._bucket_t(self._train_ladder, batch.lengths))
+                batch, max_t=self._bucket_t(self._train_ladder, batch.lengths),
+                featurize=not self.train_backbone)
             self.state, metrics = self.train_step(
                 self.state, dev["tokens"], dev["lengths"], dev["feats"],
                 dev["labels"], hop_scale_dev, self.lr, self.mult_lr)
@@ -609,7 +746,7 @@ class Trainer:
         test.inorder()
         H2 = self.mcfg.n_hops + 2
         oe_chunks, mc_chunks, qid_chunks = [], [], []
-        params = self.state.params
+        params = head_params(self.state.params)
         for batch in test.batches(self.source, include_tail=True,
                                   finish=self._pinning(self._eval_ladder)):
             orig_b = len(batch.qids)
@@ -712,7 +849,11 @@ class Trainer:
                    "loss_ema": self.loss_ema,
                    "preset": self.exp.name, "alg_name": self.exp.alg_name,
                    "n_hops": self.mcfg.n_hops,
-                   "train_backbone": False, "backbone": None,
+                   # a fine-tuned snapshot carries the 4th group; its kind
+                   # tells serve and eval what it is
+                   "train_backbone": self.train_backbone,
+                   "backbone": self.backbone if self.train_backbone else None,
+                   # the interface the head trained on, whichever backbone
                    "backbone_feat_norm": self.tcfg.backbone_feat_norm,
                    # self-describing snapshot: standalone eval adopts this
                    # (the reference's Eval.lua:116-118)
@@ -721,8 +862,25 @@ class Trainer:
     def restore(self, path: str) -> None:
         """Load a snapshot, the port's ``.pt`` or the JAX package's
         ``.msgpack``, into the train state, with its LRs, loss EMA and
-        epoch; the data order is fast-forwarded to that epoch."""
-        tree, meta = load_checkpoint(path, self.state._asdict())
+        epoch; the data order is fast-forwarded to that epoch.
+
+        Under fine-tuning a head-only snapshot (of a run on precomputed
+        features or a frozen backbone) is a warm start: its three head
+        groups are restored, and the current backbone group, fresh Adam
+        moments, step, seed, LRs and epoch are kept (``rau_vqa_tpu/train/
+        trainer.py:935-989``)."""
+        template = self.state._asdict()
+        if self.train_backbone and not has_backbone_group(path):
+            head = {**template, "params": head_params(template["params"]),
+                    "opt": {g: template["opt"][g] for g in PARAM_GROUPS}}
+            tree, _ = load_checkpoint(path, head)
+            tree = {"params": {**tree["params"],
+                               "backbone": template["params"]["backbone"]},
+                    "opt": {**tree["opt"], "backbone": template["opt"]["backbone"]},
+                    "step": template["step"], "seed": template["seed"]}
+            meta = {}
+        else:
+            tree, meta = load_checkpoint(path, template)
         to_dev = lambda x: x.to(self.device)   # noqa: E731
         self.state = TrainState(params=map_tree(to_dev, tree["params"]),
                                 opt=map_tree(to_dev, tree["opt"]),
@@ -808,6 +966,6 @@ class Trainer:
 # vectors and sums
 _SCALAR_METRICS = ("loss", "uni_loss", "select_loss", "uni_acc", "select_acc",
                    "any_correct_ratio", "grad_norm_embed", "grad_norm_rnn",
-                   "grad_norm_mult")
+                   "grad_norm_mult", "grad_norm_backbone")
 _VECTOR_METRICS = ("ce_per_hop", "acc_per_hop", "do_pred_loss",
                    "do_pred_acc_num", "do_pred_acc_den")

@@ -11,7 +11,9 @@ The port's format: ``snapshot_iter{it:06d}_epoch{epoch:.2f}.pt``, which is
 ``weights_only=True``), beside the JAX package's JSON sidecar (lr, mult_lr,
 loss_ema, the model config ...) and ``LATEST`` file.  ``load_checkpoint``
 also reads the JAX package's ``snapshot_….msgpack`` files, through
-``utils/msgpack_flax.py``.
+``utils/msgpack_flax.py``.  A fine-tuned snapshot carries a 4th parameter
+group, ``"backbone"``; ``load_backbone_group`` takes it out of either
+format.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ import torch
 
 from rau_vqa_tpu_torch.config import ModelConfig
 from rau_vqa_tpu_torch.convert import map_tree, params_from_jax
-from rau_vqa_tpu_torch.roadmap import still_to_port
 from rau_vqa_tpu_torch.utils import msgpack_flax
 
 SUFFIX = ".pt"
@@ -271,19 +272,27 @@ def _from_state_dict(template: Any, raw: Any, where: str = "") -> Any:
     return raw
 
 
-def _from_jax_snapshot(path: str, template: Dict, meta: Dict) -> Dict:
-    """A JAX package's TrainState snapshot (params, opt, step, rng) as the
-    port's train-state tree (params, opt, step, seed)."""
+def _read_msgpack(path: str) -> Dict:
     with open(path, "rb") as f:
-        raw = msgpack_flax.loads(f.read())
-    if "backbone" in raw.get("params", {}) or meta.get("train_backbone"):
-        raise NotImplementedError(
-            f"{path} carries a fine-tuned backbone group: "
-            + still_to_port("backbone fine-tuning", "fine-tuning"))
+        return msgpack_flax.loads(f.read())
+
+
+def _read_snapshot(path: str) -> Dict:
+    """A snapshot as stored, of either format."""
+    if path.endswith(JAX_SUFFIX):
+        return _read_msgpack(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _from_jax_snapshot(path: str, raw: Dict, template: Dict, meta: Dict) -> Dict:
+    """A JAX package's TrainState snapshot ``raw`` (params, opt, step, rng)
+    as the port's train-state tree (params, opt, step, seed), in
+    ``template``'s groups: a fine-tuned snapshot's backbone group comes
+    along where the template has one and is left out where it has not."""
     if "model_config" in meta:
         model_config_from_meta(meta["model_config"], from_jax=True)
-    params = params_from_jax(_from_state_dict(template["params"],
-                                              raw["params"], "/params"))
+    groups = {k: v for k, v in raw["params"].items() if k in template["params"]}
+    params = params_from_jax(_from_state_dict(template["params"], groups, "/params"))
     opt = {}
     for g, t in template["opt"].items():
         r = raw["opt"][g]
@@ -297,16 +306,92 @@ def _from_jax_snapshot(path: str, template: Dict, meta: Dict) -> Dict:
             "seed": template["seed"]}
 
 
-def load_checkpoint(path: str, template: Any) -> Tuple[Any, Dict]:
+def load_checkpoint(path: str, template: Any, *,
+                    backbone: Optional[str] = None) -> Tuple[Any, Dict]:
     """(tree, sidecar meta) of a snapshot saved by ``save_checkpoint``, or
     of the JAX package's ``.msgpack`` TrainState snapshot (then ``template``
     is the port's train state as a dict, and the tree comes back in its
     structure); leaves on the CPU.  ``template`` gives the structure, shapes
-    and types the snapshot must have."""
+    and types the snapshot must have; a fine-tuned snapshot's backbone group
+    is left out for a template of the head's groups alone, as the JAX
+    package's restore leaves it (the service, ``eval`` and ``ask``).  With
+    ``backbone`` (its kind, as ``load_backbone_group`` takes it) that group
+    comes back too, as ``tree["params"]["backbone"]``, from the same read."""
     meta = checkpoint_meta(path)
+    raw = _read_snapshot(path)
     if path.endswith(JAX_SUFFIX):
-        tree = _from_jax_snapshot(path, template, meta)
+        tree = _from_jax_snapshot(path, raw, template, meta)
     else:
-        tree = torch.load(path, map_location="cpu", weights_only=True)
+        tree = raw
+        if (_groups(tree) and "backbone" in tree["params"]
+                and not (_groups(template) and "backbone" in template["params"])):
+            tree = {**tree, "params": {k: v for k, v in tree["params"].items()
+                                       if k != "backbone"},
+                    "opt": {k: v for k, v in tree["opt"].items() if k != "backbone"}}
     validate_tree_shapes(template, tree)
+    if backbone is not None:
+        tree["params"]["backbone"] = _backbone_group(raw.get("params", {}), backbone, path)
     return tree, meta
+
+
+def _groups(tree) -> bool:
+    """Whether ``tree`` is a train state's, its params a dict of groups."""
+    return isinstance(tree, dict) and isinstance(tree.get("params"), dict)
+
+
+def has_backbone_group(path: str) -> bool:
+    """Whether a snapshot carries a fine-tuned backbone group: its sidecar's
+    ``train_backbone``, or the snapshot itself where there is no sidecar."""
+    meta = checkpoint_meta(path)
+    if "train_backbone" in meta:
+        return bool(meta["train_backbone"])
+    return "backbone" in _read_snapshot(path).get("params", {})
+
+
+def _lists(raw: Any) -> Any:
+    """A flax state dict's lists (stored as {"0": ..., "1": ...}) as lists."""
+    if isinstance(raw, dict):
+        if raw and all(k.isdigit() for k in raw) and sorted(map(int, raw)) == list(
+                range(len(raw))):
+            return [_lists(raw[str(i)]) for i in range(len(raw))]
+        return {k: _lists(v) for k, v in raw.items()}
+    if isinstance(raw, (list, tuple)):
+        return [_lists(v) for v in raw]
+    return raw
+
+
+# the top-level keys of each backbone's tree
+_BACKBONE_KEYS = {"vgg16": {"convs"}, "vit": {"patch_embed", "pos_embed", "blocks", "ln_final"},
+                  "resnet101": {"conv1", "stages"}}
+
+
+def load_backbone_group(path: str, kind: str, *, fold: bool = True) -> Dict:
+    """The fine-tuned ``"backbone"`` group of a 4-group snapshot, the port's
+    ``.pt`` or the JAX package's ``.msgpack``, as a tree of CPU tensors
+    (``rau_vqa_tpu/utils/checkpoint.py:184-260``).  ``kind``: ``"vgg16"``,
+    ``"resnet101"`` or ``"vit"`` (the sidecar's ``backbone``).  A ResNet's
+    own structure decides: a plain (conv + BN) tree is folded with ``fold``
+    (the serving form, exact at inference), a folded one comes as it is."""
+    return _backbone_group(_read_snapshot(path).get("params", {}), kind, path, fold=fold)
+
+
+def _backbone_group(params: Dict, kind: str, path: str, *, fold: bool = True) -> Dict:
+    """``load_backbone_group`` of a snapshot's params already read from
+    ``path``."""
+    if kind not in _BACKBONE_KEYS:
+        raise ValueError(f"unknown backbone kind {kind!r}")
+    raw = params.get("backbone")
+    if raw is None:
+        raise ValueError(f"{path} has no 'backbone' parameter group — not a "
+                         f"fine-tuned snapshot (train with --train-backbone "
+                         f"to produce one; a torchvision or timm state dict "
+                         f"is read from a .pth)")
+    bb = params_from_jax(_lists(raw))
+    keys = set(bb) if isinstance(bb, dict) else set()
+    if keys - ({"bn1"} if kind == "resnet101" else set()) != _BACKBONE_KEYS[kind]:
+        raise ValueError(f"{path}: its backbone group (keys {sorted(keys)}) is not "
+                         f"a {kind} tree")
+    if kind == "resnet101" and fold and "bn1" in bb:
+        from rau_vqa_tpu_torch.models.backbones.resnet import fold_batchnorm
+        bb = fold_batchnorm(bb)
+    return bb

@@ -216,8 +216,10 @@ def test_resnet101_apply_raises_as_the_jax_package_does():
     x = torch.zeros(3, 32, 32, 3)
     with pytest.raises(ValueError, match="exclusive"):
         TR.resnet101_apply(folded, x, fused_stages=(0,), remat=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.resnet101_apply(folded, x, remat=True)
+    # remat, once refused here, is the forward without it
+    x1 = torch.randn(3, 32, 32, 3)
+    torch.testing.assert_close(TR.resnet101_apply(folded, x1, remat=True),
+                               TR.resnet101_apply(folded, x1), rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="fold_batchnorm"):
         TR.resnet101_apply(tree, x, fused_stages=(0,))
     with pytest.raises(ValueError, match="does not divide"):

@@ -412,7 +412,9 @@ def test_jax_snapshot_restores_into_the_port(fixture_root, tmp_path, capsys):
 
 def test_jax_meta_fields(tmp_path):
     """The JAX-only model fields are accepted at the port's values and
-    refused otherwise; a snapshot with a backbone group is refused."""
+    refused otherwise; a snapshot with a backbone group loads into a
+    template of the head's groups without it, and its group is read by
+    ``load_backbone_group``, which refuses a group of another kind."""
     from rau_vqa_tpu.config import ModelConfig as JaxModelConfig
     mc = dataclasses.asdict(JaxModelConfig(n_hops=3, fused_train_block=8))
     cfg = ck.model_config_from_meta(mc, from_jax=True)
@@ -432,7 +434,9 @@ def test_jax_meta_fields(tmp_path):
     (d / "snapshot_iter000001_epoch1.00.json").write_text(json.dumps({"epoch": 1}))
     (d / "LATEST").write_text("snapshot_iter000001_epoch1.00")
     assert ck.latest_checkpoint(str(d)) == str(path)
-    with pytest.raises(NotImplementedError,
-                       match=r"fine-tuning is still to port \(ROADMAP.md, queue 1, item 5"):
-        ck.load_checkpoint(str(path), {"params": {}, "opt": {}, "step": 0,
-                                       "seed": 0})
+    tree, meta = ck.load_checkpoint(str(path), {"params": {}, "opt": {}, "step": 0,
+                                                "seed": 0})
+    assert tree["params"] == {} and tree["step"] == 1 and meta == {"epoch": 1}
+    assert ck.has_backbone_group(str(path))
+    with pytest.raises(ValueError, match="not a vgg16 tree"):
+        ck.load_backbone_group(str(path), "vgg16")

@@ -222,16 +222,41 @@ def test_image_root_checks_the_grid_first(tmp_path, flags, match):
                    *flags])
 
 
-def test_backbone_refusals(tmp_path):
+def test_backbone_refusals(tmp_path, capsys):
+    """The ViT has no random fixture backbone.  What fine-tuning's item
+    once refused runs since it was ported: a fine-tuned JAX snapshot as
+    ``--backbone-state`` (its backbone group, and the RMS interface its
+    sidecar records, adopted by the fresh head), and ``--preset
+    ours_resnet_ft`` on the fixture (a random VGG16 fine-tuned in bf16 over
+    grouped images)."""
+    import numpy as np
+
+    from rau_vqa_tpu.utils import checkpoint as jck
+    from rau_vqa_tpu_torch.utils import checkpoint as tck
+    from tests.test_torch_port_vgg_vit import jax_vgg
     with pytest.raises(SystemExit, match="conv backbones"):
         tcli.main(["--device", "cpu", "train", "--fixture", "--backbone", "vit",
                    "--save-dir", str(tmp_path / "v")])
-    with pytest.raises(NotImplementedError, match="item 5, fine-tuning"):
-        tcli.main(["--device", "cpu", "train", "--fixture", "--backbone", "vgg16",
-                   "--backbone-state", "snap.msgpack", "--save-dir", str(tmp_path / "m")])
-    with pytest.raises(NotImplementedError, match="item 5, fine-tuning"):
-        tcli.main(["--device", "cpu", "train", "--preset", "ours_resnet_ft", "--fixture",
-                   "--save-dir", str(tmp_path / "ft")])
+    snap = jck.save_checkpoint(
+        str(tmp_path / "ft"), 5, 1.0,
+        {"params": {"embed": {"x": np.zeros(3)}, "backbone": jax_vgg(4, 0.72)},
+         "step": np.int32(5)},
+        extra={"train_backbone": True, "backbone": "vgg16", "backbone_feat_norm": True})
+    run = tmp_path / "m"
+    assert tcli.main(["--device", "cpu", "train", "--fixture", "--backbone", "vgg16",
+                      "--backbone-state", snap, "--epochs", "1",
+                      "--save-dir", str(run)]) == 0
+    assert f"adopting backbone_feat_norm=True from {snap}" in capsys.readouterr().out
+    (meta,) = [json.load(open(p)) for p in run.glob("snapshot/*.json")]
+    assert meta["backbone_feat_norm"] is True and meta["train_backbone"] is False
+    run = tmp_path / "rft"
+    assert tcli.main(["--device", "cpu", "train", "--preset", "ours_resnet_ft", "--fixture",
+                      "--epochs", "1", "--save-dir", str(run)]) == 0
+    (pt,) = run.glob("snapshot/*.pt")
+    meta = tck.checkpoint_meta(str(pt))
+    assert meta["train_backbone"] is True and meta["backbone"] == "vgg16"
+    assert meta["model_config"]["compute_dtype"] == "bfloat16"
+    assert len(tck.load_backbone_group(str(pt), "vgg16")["convs"]) == 13
 
 
 @pytest.mark.parametrize("backbone", ["vgg16", "vit"])

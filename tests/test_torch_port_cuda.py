@@ -48,6 +48,7 @@ import torch
 
 from chip_smoke import (
     device_kernels,
+    norm_rel,
     scaled_err,
     stage_bar,
     stage_faults,
@@ -520,6 +521,57 @@ def test_train_hops_bwd_bf16_is_deterministic_and_counted(cuda_device):
     assert all(torch.equal(gw[k], gw2[k]) for k in gw)
 
 
+@pytest.mark.parametrize("B", [1, 19, 100])
+def test_train_hops_bwd_dfeats_matches_plain(cuda_device, B):
+    """The float32 backward with the features' gradient: dfeats and every
+    emission and grad against the plain version, norm-relative 1e-3; two
+    calls give the same bits; the emissions and grads are those of the call
+    without dfeats, bit for bit; each call counted in BWD_DFEATS_KERNEL
+    alone."""
+    args = _bwd_call(B, cuda_device, torch.float32)
+    k0, k1 = rau_train_hops.BWD_KERNEL, rau_train_hops.BWD_DFEATS_KERNEL
+    before = (k0.launches, k1.launches)
+    em, gw = rau_train_hops.train_hops_bwd(*args, dfeats=True)
+    em2, gw2 = rau_train_hops.train_hops_bwd(*args, dfeats=True)
+    assert (k0.launches, k1.launches) == (before[0], before[1] + 2)
+    em0, gw0 = rau_train_hops.train_hops_bwd(*args)
+    want_em, want_gw = rau_train_hops.train_hops_bwd_reference(*args, dfeats=True)
+    torch.cuda.synchronize()
+    df = rau_train_hops.DFEATS
+    assert gw[df].shape == args[3].shape and df not in gw0
+    for k in gw:
+        assert norm_rel(gw[k], want_gw[k]) <= 1e-3, k
+        assert torch.equal(gw[k], gw2[k]), k
+        assert k == df or torch.equal(gw[k], gw0[k]), k
+    for k in em:
+        assert norm_rel(em[k], want_em[k]) <= 1e-3, k
+        assert torch.equal(em[k], em0[k]), k
+
+
+@pytest.mark.parametrize("H,B", [(1, 19), (1, 100), (8, 100)])
+def test_train_hops_bwd_bf16_dfeats_at_the_bf16_bars(cuda_device, H, B):
+    """The bf16 backward's features gradient against its bf16 plain version
+    at the backward's bf16 bars: one hop within TRAIN_BF16_BARS' weights
+    bar, under half the float32 plain version's distance; eight hops within
+    train_bf16_deep_bar.  Two calls give the same bits."""
+    cfg = dataclasses.replace(TRAIN_CFG, compute_dtype="bfloat16", n_hops=H)
+    mp, _, _ = _train_inputs(B, cuda_device, seed=8)
+    readings = train_bf16_readings(rau_train_hops, cfg, mp, B, np.random.RandomState(9),
+                                   cuda_device, host=H > 1, dfeats=True)
+    r = readings["bwd"]["feats"]
+    if H > 1:
+        assert r["kernel"] <= train_bf16_deep_bar(r), r
+    else:
+        assert r["kernel"] <= train_bf16_bar("bwd", "feats") < 0.5 * r["float32"], r
+    args = _bwd_call(B, cuda_device, torch.bfloat16)
+    before = rau_train_hops.BWD_DFEATS_BF16_KERNEL.launches
+    _, gw = rau_train_hops.train_hops_bwd(*args, dfeats=True)
+    _, gw2 = rau_train_hops.train_hops_bwd(*args, dfeats=True)
+    torch.cuda.synchronize()
+    assert rau_train_hops.BWD_DFEATS_BF16_KERNEL.launches == before + 2
+    assert all(torch.equal(gw[k], gw2[k]) for k in gw)
+
+
 _BWD_WIDTHS = (CFG.cnn_spat, CFG.cnn_dim, CFG.multfeat_dim, CFG.attfeat_dim,
                CFG.att_state_dim, CFG.rnnout_dim)
 
@@ -544,14 +596,17 @@ def test_train_hops_bwd_raises_for_a_plan_it_cannot_run(cuda_device, change):
     assert rau_train_hops.BWD_KERNEL.launches == before
 
 
+@pytest.mark.parametrize("dfeats", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B", [1, 19, 37, 100])
-def test_bwd_plan_is_the_launchers(cuda_device, B, dtype):
+def test_bwd_plan_is_the_launchers(cuda_device, B, dtype, dfeats):
     """bwd_plan's phases are the launches the built C entry makes (a dry
-    run of it): the same count, the same grids, shared memory within the
-    plan's; a split it cannot run gives -1."""
-    plan = rau_train_hops.bwd_plan(B, *_BWD_WIDTHS, _n_sm(), dtype)
-    scratch, launches = rau_train_hops.launcher_plan(B, *_BWD_WIDTHS, dtype, plan.chunk_rows)
+    run of it), with the features' gradient and without: the same count,
+    the same grids, shared memory within the plan's; a split it cannot run
+    gives -1."""
+    plan = rau_train_hops.bwd_plan(B, *_BWD_WIDTHS, _n_sm(), dtype, dfeats)
+    scratch, launches = rau_train_hops.launcher_plan(B, *_BWD_WIDTHS, dtype, plan.chunk_rows,
+                                                     dfeats)
     assert scratch > 0
     assert [l[:3] for l in launches] == [ph.grid for ph in plan.phases]
     assert all(l[3] <= ph.smem for l, ph in zip(launches, plan.phases))

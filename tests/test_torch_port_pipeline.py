@@ -75,16 +75,17 @@ def test_extract_features_matches_jax(feat_norm):
 
 
 def test_extract_features_other_backbones_are_still_to_port():
-    """VGG16 and the ViT are ported (their parity tests follow); what stays
-    to port of them, their fine-tuning, names its item; an unknown backbone
-    is refused."""
+    """VGG16 and the ViT are ported (their parity tests follow), their
+    fine-tuning's remat too, which gives the features without it (the
+    grads: tests/test_torch_port_finetune.py); an unknown backbone is
+    refused."""
     _, bb, images, _, _ = setup(1)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5, fine-tuning"):
-        TV.vgg16_pool5_apply(params_from_jax(jax_vgg(0)), torch.zeros(1, 32, 32, 3),
-                             remat=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5, fine-tuning"):
-        TVT.vit_apply(params_from_jax(jax_vit(0)), TTINY, torch.zeros(1, 28, 28, 3),
-                      remat=True)
+    vgg, x = params_from_jax(jax_vgg(0)), torch.randn(1, 32, 32, 3) * 50
+    torch.testing.assert_close(TV.vgg16_pool5_apply(vgg, x, remat=True),
+                               TV.vgg16_pool5_apply(vgg, x), rtol=1e-6, atol=1e-6)
+    vit, x = params_from_jax(jax_vit(0)), torch.randn(1, 28, 28, 3)
+    torch.testing.assert_close(TVT.vit_apply(vit, TTINY, x, remat=True),
+                               TVT.vit_apply(vit, TTINY, x), rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="unknown backbone"):
         TP.extract_features("alexnet", params_from_jax(bb), torch.as_tensor(images))
 

@@ -226,7 +226,8 @@ def test_cli_precompute_features_vgg16(images, tmp_path, monkeypatch, capsys):
 def test_cli_precompute_features_vit_from_a_timm_state(images, tmp_path, monkeypatch):
     """``--backbone vit`` reads a timm state dict (.pth) into the ViT-L/14
     config (a tiny one here, in both packages) and writes JAX's rows; a size
-    other than the config's is refused."""
+    other than the config's is refused; a fine-tuned JAX snapshot holding
+    the same weights as its backbone group writes the same rows."""
     root, rel = images
     state = {k: torch.as_tensor(v) for k, v in
              _timm_state(np.random.RandomState(8), JTINY).items()}
@@ -246,9 +247,19 @@ def test_cli_precompute_features_vit_from_a_timm_state(images, tmp_path, monkeyp
     with pytest.raises(SystemExit):
         tcli.main(["--device", "cpu", "precompute-features", "--out", str(tmp_path / "bad"),
                    "--size", "448", *flags])
-    with pytest.raises(NotImplementedError, match="fine-tuning"):
-        tcli.main(["--device", "cpu", "precompute-features", "--out", str(tmp_path / "ft"),
-                   "--size", "28", *flags[:-6], "--backbone-state", "ft.msgpack"])
+    from rau_vqa_tpu.utils import checkpoint as jck
+    snap = jck.save_checkpoint(
+        str(tmp_path / "snap"), 1, 1.0,
+        {"params": {"embed": {"x": np.zeros(3)},
+                    "backbone": jax.tree.map(np.asarray, JVT.vit_from_timm_state(
+                        {k: v.numpy() for k, v in state.items()}, JTINY))},
+         "step": np.int32(1)},
+        extra={"train_backbone": True, "backbone": "vit"})
+    assert tcli.main(["--device", "cpu", "precompute-features", "--out", str(tmp_path / "ft"),
+                      "--size", "28", *flags[:-6], "--backbone-state", snap,
+                      *flags[-4:]]) == 0
+    np.testing.assert_array_equal(rows(PackedFeatureStore(str(tmp_path / "ft")), rel),
+                                  rows(got, rel))
 
 
 def test_the_decoder_that_ran_is_reported(images, tmp_path, monkeypatch):

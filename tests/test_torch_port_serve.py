@@ -543,7 +543,9 @@ def test_unported_options_are_refused(env, tmp_path, monkeypatch):
         meta = json.load(f)
     with open(str(tmp_path / "ft.json"), "w") as f:
         json.dump({**meta, "train_backbone": True, "backbone": "resnet101"}, f)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5, fine-tuning"):
+    # (its group is served since backbone fine-tuning was ported; a sidecar
+    # that claims one the snapshot lacks is refused)
+    with pytest.raises(ValueError, match="no 'backbone' parameter group"):
         RAUService(ck, env["vqa"], env["feat"], device="cpu")
     # a packed shard of RMS-normalized rows for a raw-trained head
     shard = str(tmp_path / "rms")
@@ -601,7 +603,9 @@ def test_cli_serve(env, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="--backbone-state"):
         tcli.main(["--device", "cpu", "serve", "--checkpoint", env["ck"],
                    "--backbone", "vit"])
-    with pytest.raises(NotImplementedError, match="fine-tun"):
+    # a snapshot as --backbone-state gives its fine-tuned group, which a
+    # head-only snapshot lacks
+    with pytest.raises(ValueError, match="no 'backbone' parameter group"):
         tcli.main(["--device", "cpu", "serve", "--checkpoint", env["ck"],
                    "--backbone", "resnet101", "--backbone-state", env["ck"]])
 

@@ -331,13 +331,19 @@ def test_make_train_step_defaults_to_cuda(monkeypatch):
         ttrainer.init_train_state(mcfg, 0)
 
 
-@pytest.mark.parametrize("mchange,tchange,kw", [
-    ({}, dict(train_backbone=True), {}),
-    ({}, {}, dict(img_repeat=2))])
-def test_make_train_step_refuses_unported_paths(mchange, tchange, kw):
+@pytest.mark.parametrize("mchange,tchange,kw,match", [
+    ({}, dict(train_backbone=True), {}, "train_backbone needs backbone="),
+    ({}, {}, dict(img_repeat=2), "img_repeat .* is a fine-tuning mode")])
+def test_make_train_step_refuses_unported_paths(mchange, tchange, kw, match):
+    """Fine-tuning without a backbone, and grouped images without
+    fine-tuning, are refused as the JAX package refuses them
+    (tests/test_torch_port_finetune.py runs the paths themselves)."""
     mcfg = port_model_cfg(JCFG, **mchange)
     tcfg = dataclasses.replace(tconfig.TrainConfig(), **tchange)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=match):
+        jtrainer.make_train_step(JCFG, dataclasses.replace(JaxTrainConfig(), **tchange),
+                                 **kw)
+    with pytest.raises(ValueError, match=match):
         ttrainer.make_train_step(mcfg, tcfg, device="cpu", **kw)
 
 

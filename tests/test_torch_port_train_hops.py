@@ -119,18 +119,18 @@ def test_fused_forward_on_cpu_is_the_plain_version(data):
 @pytest.mark.parametrize("bwd", ["kernel", "xla"])
 @pytest.mark.parametrize("rate", [0.5, 0.0])
 def test_backward_matches_jax_grad(data, bwd, rate):
-    """Every leaf of ``mult`` and dq against jax.grad of JAX's reference;
-    do_pred's weights get exactly zero, feats nothing."""
+    """Every leaf of ``mult``, dq and the features' gradient (F2: it was
+    none) against jax.grad of JAX's reference; do_pred's weights get
+    exactly zero."""
     params, q, feats, labels, *_ = data
     jcfg = dataclasses.replace(JCFG, mult_dropout=rate)
 
-    def jloss(mp, q_):
-        s = jth.rau_train_hops_reference(mp, jcfg, q_, jnp.asarray(feats),
-                                         jnp.int32(SEED))[0]
+    def jloss(mp, q_, f_):
+        s = jth.rau_train_hops_reference(mp, jcfg, q_, f_, jnp.int32(SEED))[0]
         return jax_loss(s, labels)
 
-    jl, (gmp, gq) = jax.value_and_grad(jloss, argnums=(0, 1))(
-        params["mult"], jnp.asarray(q))
+    jl, (gmp, gq, gf) = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+        params["mult"], jnp.asarray(q), jnp.asarray(feats))
 
     cfg = port_cfg(jcfg, fused_train_bwd=bwd)
     mp = map_tree(lambda w: w.requires_grad_(), params_from_jax(params["mult"]))
@@ -143,13 +143,14 @@ def test_backward_matches_jax_grad(data, bwd, rate):
     assert_tree_close(grads, gmp, rtol=2e-4, atol=1e-5)
     np.testing.assert_allclose(q_t.grad.numpy(), np.asarray(gq), rtol=2e-4, atol=1e-5)
     assert torch.all(grads["do_pred"]["w"] == 0) and torch.all(grads["do_pred"]["b"] == 0)
-    assert feats_t.grad is None
+    np.testing.assert_allclose(feats_t.grad.numpy(), np.asarray(gf), rtol=2e-4, atol=1e-5)
     assert grads["cls"]["w"].abs().max() > 0
 
 
 def test_hand_derived_backward_matches_autograd(data):
     """The backward kernel's plain version plus the outside products equal
-    autograd through the port's reference, leaf by leaf."""
+    autograd through the port's reference, leaf by leaf, the features'
+    gradient too."""
     params, q, feats, labels, *_ = data
     cfg = port_cfg(JCFG)
     mp = params_from_jax(params["mult"])
@@ -158,14 +159,20 @@ def test_hand_derived_backward_matches_autograd(data):
     scores, _, attprob, c_all, h_all = tth.train_hops_fwd(mp, cfg, q_t, feats_t, seed)
     s = scores.detach().requires_grad_()
     g_scores, = torch.autograd.grad(torch_loss(s, labels), s)
-    got, dq = tth._bwd_kernel(cfg, mp, q_t, feats_t, seed, c_all, h_all,
-                              attprob, g_scores)
-    want, dq_ref = tth._bwd_autograd(cfg, mp, q_t, feats_t, seed, g_scores)
+    got, dq, df = tth._bwd_kernel(cfg, mp, q_t, feats_t, seed, c_all, h_all,
+                                  attprob, g_scores, dfeats=True)
+    want, dq_ref, df_ref = tth._bwd_autograd(cfg, mp, q_t, feats_t, seed, g_scores,
+                                             dfeats=True)
     assert set(got) == set(want)
     for path in want:
         torch.testing.assert_close(got[path], want[path], rtol=2e-4, atol=1e-6,
                                    msg=str(path))
     torch.testing.assert_close(dq, dq_ref, rtol=2e-4, atol=1e-6)
+    torch.testing.assert_close(df, df_ref, rtol=2e-4, atol=1e-6)
+    got0, dq0, none = tth._bwd_kernel(cfg, mp, q_t, feats_t, seed, c_all, h_all,
+                                      attprob, g_scores)
+    assert none is None and torch.equal(dq0, dq)
+    assert all(torch.equal(got0[p], got[p]) for p in got)
 
 
 def test_dropout_is_live_and_seeded(data):

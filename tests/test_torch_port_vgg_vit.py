@@ -15,7 +15,7 @@ import torch
 
 from rau_vqa_tpu.models.backbones import vgg as JV
 from rau_vqa_tpu.models.backbones import vit as JVT
-from rau_vqa_tpu_torch.convert import params_from_jax, tree_leaves
+from rau_vqa_tpu_torch.convert import map_tree, params_from_jax, tree_leaves
 from rau_vqa_tpu_torch.models.backbones import vgg as TV
 from rau_vqa_tpu_torch.models.backbones import vit as TVT
 from tests.test_torch_port_backbone import assert_scaled_close
@@ -185,14 +185,23 @@ def test_bf16_trees_run_in_bf16():
 
 @pytest.mark.parametrize("backbone", ["vgg16", "vit"])
 def test_remat_names_the_fine_tuning_item(backbone):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md, queue 1, item 5, fine-tuning"):
-        if backbone == "vgg16":
-            TV.vgg16_pool5_apply(params_from_jax(jax_vgg(0)), torch.zeros(1, 32, 32, 3),
-                                 remat=True)
-        else:
-            TVT.vit_apply(TVT.vit_init(torch.Generator(), TTINY, device="cpu"), TTINY,
-                          torch.zeros(1, 28, 28, 3), remat=True)
+    """remat=True, once refused in the fine-tuning item's name, gives the
+    features of the forward without it, under autograd too."""
+    if backbone == "vgg16":
+        bb, x = params_from_jax(jax_vgg(0, 0.72)), torch.randn(2, 32, 32, 3) * 50
+
+        def apply(p, remat):
+            return TV.vgg16_pool5_apply(p, x, remat=remat)
+    else:
+        bb, x = TVT.vit_init(torch.Generator(), TTINY, device="cpu"), torch.randn(2, 28, 28, 3)
+
+        def apply(p, remat):
+            return TVT.vit_apply(p, TTINY, x, remat=remat)
+    want = apply(bb, False)
+    torch.testing.assert_close(apply(bb, True), want, rtol=1e-6, atol=1e-6)
+    got = apply(map_tree(lambda a: a.detach().requires_grad_(), bb), True)
+    assert got.requires_grad
+    torch.testing.assert_close(got.detach(), want, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("entry", ["vgg16_pool5_init", "vit_init"])

@@ -192,7 +192,34 @@ Phases, in order; any failure exits non-zero:
               448 px JPEGs through VGG16 in the 'imggroup' order, its sweep
               with the trained backbone, a snapshot that resumes to the same
               bits, and ``RAUService`` serving it through its own backbone as
-              ``answer_pixels`` answers.
+              ``answer_pixels`` answers;
+12. workflow — the paper's workflow through ``rau_vqa_tpu_torch.cli``'s
+              ``main`` (under a 600 s watchdog): fabricated official VQA v1
+              JSONs (two train2014 sources, ~6,000 questions on 300 images
+              over 12,604 words, Zipf-like answers over 1,100 strings;
+              val2014's 830 questions on 100 images with 10 raters, types
+              and 18 MultipleChoice candidates) and .t7 14x14x512 features;
+              ``prepro`` (the bundle written by data/hdf5.py: vocab 12,605
+              with UNK, 1000 answers, rows dropped, the h5 read back equal
+              to what was written), ``pack-features`` (each image's
+              datatype read from the bundle, its rows its own source's),
+              ``train --preset ours_ms`` as shipped for 2 epochs from the
+              bundle and the shard with ``--visatt --visatt-batches 1``
+              (the loss finite and falling, (nHop+2) x 83 224x224
+              grayscale PNGs an epoch, the OE and MC files), the sweep's ms
+              with and without the dumps, ``vqa-accuracy`` on hop 1's OE
+              file equal to 100 x the Trainer's testOEaccOfficial[0] within
+              1e-9, released-format tarballs of the last snapshot:
+              ``verify-released`` exits 0 at min_agree 1.0 and 1 where
+              mult's att_q and att_i trade places, ``diagnose-snapshot``
+              (against the run's .pt) finds every group's order on the
+              first and names the pair on the second; the fixture-learning
+              gate (the tiny fixture on disk, 30 epochs, the sweep through
+              the plain predict: the encoder kernel needs rnn_size in
+              multiples of 32) in float32, bf16, fused float32 and fused
+              bf16, each best OE > 0.5; each step's
+              seconds, prepro's questions/s, the bundle's bytes and read
+              time, the phase's seconds.
 
 Prints each number beside the card's name and power limit, a ``kernels``
 JSON line (the hop kernel's and the training kernels' entries also give
@@ -2283,6 +2310,507 @@ def finetune_phase(seed: int, card: str) -> dict:
                       "train_hops_bwd_dfeats_bf16": (b16_ms, b16_by)}}
 
 
+# phase 12's sizes: VQA v1's shapes at the scale a run of the smoke allows
+# (a CPU rehearsal patches them smaller)
+WF_TRAIN_IMAGES = 300          # train2014 images, two train sources by image
+WF_TEST_IMAGES = 100           # val2014 images
+WF_WORDS = 12604               # distinct words of the train questions (+ UNK: 12,605)
+WF_ANSWERS = 1100              # answer strings, Zipf-like; the top-1000 cut drops the tail
+WF_TRAIN_QUESTIONS = 6000      # about; the Zipf counts fix the exact number
+WF_TEST_QUESTIONS = 830        # 10 sweep batches of 83
+WF_MC = 18                     # MultipleChoice candidates a question
+WF_FEAT = (512, 14, 14)        # .t7 feature [D, W, H]
+WF_LEARN_EPOCHS = 30
+WF_DEVICE = "cuda"
+
+
+def png_shape(path: str):
+    """(width, height, bit depth, colour type) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(26)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise SystemExit(f"workflow: {path} is not a PNG")
+    return (int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big"),
+            head[24], head[25])
+
+
+def fabricate_vqa_v1(root: str, rs) -> dict:
+    """Official-format VQA v1 files under ``root``: two train2014 sources
+    (questions and annotations, split by image), val2014 questions with 10
+    rater answers each, answer and question types, and their
+    MultipleChoice questions JSON, and the .t7 features of every image (one
+    directory a train source; val2014's beside the first).  Train answers
+    are Zipf-like over ``WF_ANSWERS`` strings, every one at least once, so
+    that prepro's top-1000 cut drops the tail's rows; the
+    ``WF_WORDS`` distinct words each appear in a row whose answer occurs
+    twice or more, which that cut keeps.  Returns the paths and counts."""
+    from rau_vqa_tpu_torch.data import t7
+    from rau_vqa_tpu_torch.data.qa_utils import cocofeat_name
+
+    words = (["what", "is", "the", "color", "how", "many", "are", "there", "does",
+              "this"] + [f"w{i:05d}" for i in range(WF_WORDS)])[:WF_WORDS]
+    answers = (["yes", "no"] + [str(n) for n in range(20)]
+               + [f"answer{i:04d}" for i in range(WF_ANSWERS)])[:WF_ANSWERS]
+    # counts A/(rank), at least 1, the A that lands nearest the target
+    ranks = np.arange(1, WF_ANSWERS + 1)
+    best = min(range(1, 20 * WF_TRAIN_QUESTIONS),
+               key=lambda a: abs(np.maximum(1, a // ranks).sum() - WF_TRAIN_QUESTIONS))
+    counts = np.maximum(1, best // ranks)
+    labels = rs.permutation(np.repeat(np.arange(WF_ANSWERS), counts))
+    n_train = len(labels)
+    safe = np.flatnonzero(counts[labels] >= 2)   # rows the top-N cut keeps
+    if (counts >= 2).sum() > 1000 or len(safe) * 8 < WF_WORDS:
+        raise SystemExit("workflow: the fabricated counts do not fit the top-1000 cut")
+    qwords = [[] for _ in range(n_train)]
+    for k, w in enumerate(rs.permutation(WF_WORDS)):
+        qwords[safe[k % len(safe)]].append(words[w])
+    zipf_w = 1.0 / np.arange(1, 201)
+    zipf_w /= zipf_w.sum()
+    for q in qwords:
+        q.extend(words[int(j)] for j in rs.choice(200, rs.randint(2, 6), p=zipf_w))
+        rs.shuffle(q)
+    img_train = 1 + rs.randint(0, WF_TRAIN_IMAGES, n_train)
+    split_at = 2 * WF_TRAIN_IMAGES // 3       # source 1: images 1..split_at
+    out = {"n_train": n_train, "words": words, "answers": answers}
+    feat_dirs = [os.path.join(root, "feat_train_a"), os.path.join(root, "feat_train_b")]
+    for d in feat_dirs:
+        os.makedirs(d, exist_ok=True)
+    train_files = []
+    for s, pick in enumerate((img_train <= split_at, img_train > split_at)):
+        rows = np.flatnonzero(pick)
+        qs = [{"question_id": 1_000_000 + int(i), "image_id": int(img_train[i]),
+               "question": " ".join(qwords[i])} for i in rows]
+        an = [{"question_id": 1_000_000 + int(i), "image_id": int(img_train[i]),
+               "multiple_choice_answer": answers[labels[i]],
+               "answers": [{"answer": answers[labels[i]], "answer_confidence": "yes",
+                            "answer_id": 1}]} for i in rows]
+        qp, ap = (os.path.join(root, f"train_{s}_questions.json"),
+                  os.path.join(root, f"train_{s}_annotations.json"))
+        with open(qp, "w") as f:
+            json.dump({"questions": qs}, f)
+        with open(ap, "w") as f:
+            json.dump({"annotations": an}, f)
+        train_files.append((qp, ap))
+    # val2014: answers from the same Zipf law, 10 raters (7 agree), types
+    val_labels = rs.choice(WF_ANSWERS, WF_TEST_QUESTIONS, p=counts / counts.sum())
+    img_val = 1 + rs.randint(0, WF_TEST_IMAGES, WF_TEST_QUESTIONS)
+    vq, va, vmc = [], [], []
+    for i in range(WF_TEST_QUESTIONS):
+        toks = [words[int(j)] for j in rs.choice(200, rs.randint(3, 9), p=zipf_w)]
+        if i % 20 == 0:
+            toks.append(f"unseen{i}")              # a word prepro maps to UNK
+        qid, ans = 2_000_000 + i, answers[val_labels[i]]
+        atype = ("yes/no" if ans in ("yes", "no") else "number" if ans.isdigit()
+                 else "other")
+        raters = [ans] * 7 + [answers[int(j)] for j in rs.choice(WF_ANSWERS, 3)]
+        rs.shuffle(raters)
+        vq.append({"question_id": qid, "image_id": int(img_val[i]),
+                   "question": " ".join(toks)})
+        va.append({"question_id": qid, "image_id": int(img_val[i]),
+                   "question_type": " ".join(toks[:2]), "answer_type": atype,
+                   "multiple_choice_answer": ans,
+                   "answers": [{"answer": a, "answer_confidence": "yes", "answer_id": k + 1}
+                               for k, a in enumerate(raters)]})
+        choices = [ans] + [answers[int(j)] for j in rs.choice(WF_ANSWERS, WF_MC - 1,
+                                                              replace=False)]
+        rs.shuffle(choices)
+        vmc.append({**vq[-1], "multiple_choices": choices})
+    paths = {"train": train_files}
+    for name, key, rows in (("val_questions", "questions", vq),
+                            ("val_annotations", "annotations", va),
+                            ("val_mc_questions", "questions", vmc)):
+        paths[name] = os.path.join(root, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump({key: rows}, f)
+    # features: [D, W, H] float32 a unique image, in its source's directory
+    gen = np.random.default_rng(int(rs.randint(1 << 30)))
+    n_feat = 0
+    for split, ids, pick_dir in (
+            ("train2014", np.unique(img_train),
+             lambda i: feat_dirs[0] if i <= split_at else feat_dirs[1]),
+            ("val2014", np.unique(img_val), lambda i: feat_dirs[0])):
+        for i in ids:
+            t7.save_t7(os.path.join(pick_dir(int(i)), cocofeat_name(split, int(i))),
+                       gen.standard_normal(WF_FEAT, dtype=np.float32))
+            n_feat += 1
+    out.update(paths=paths, feat_dirs=feat_dirs, n_images=n_feat,
+               n_train_images=len(np.unique(img_train)), n_test_images=len(np.unique(img_val)),
+               n_source_b=int((img_train > split_at).sum()))
+    return out
+
+
+def workflow_phase(seed: int, card: str) -> dict:
+    """Phase 12: the paper's workflow through ``rau_vqa_tpu_torch.cli``'s
+    ``main`` on ``ours_ms`` at full width: fabricated official VQA v1 files
+    -> ``prepro`` (the bundle by data/hdf5.py) -> ``pack-features`` (each
+    image's datatype read from the bundle) -> ``train --visatt`` for 2
+    epochs -> ``vqa-accuracy`` on hop 1's OE file against the Trainer's own
+    official score -> released-format tarballs -> ``verify-released`` and
+    ``diagnose-snapshot`` on the true one and on one with mult's two (F, M)
+    attention projections swapped; then the fixture-learning gate in four
+    configurations.  Returns the launches of this phase's kernels."""
+    import glob
+    import io
+    import shutil
+    import tarfile
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from rau_vqa_tpu_torch import cli
+    from rau_vqa_tpu_torch.config import get_experiment
+    from rau_vqa_tpu_torch.data import prepro as prepro_mod
+    from rau_vqa_tpu_torch.data import t7
+    from rau_vqa_tpu_torch.data.features import (
+        PackedFeatureStore, T7DirFeatureSource, coco_feat_name)
+    from rau_vqa_tpu_torch.data.fixtures import FixtureSpec, generate_fixture
+    from rau_vqa_tpu_torch.data.loader import (
+        load_gt_annotations, load_vqa_data, read_prepro)
+    from rau_vqa_tpu_torch.eval.submission import write_results
+    from rau_vqa_tpu_torch.ops import lstm_encoder, rau_hops
+    from rau_vqa_tpu_torch.ops import rau_train_hops as rth
+    from rau_vqa_tpu_torch.train import trainer as trainer_mod
+    from rau_vqa_tpu_torch.train.trainer import Trainer, init_train_state
+    from rau_vqa_tpu_torch.utils import torch_convert as tc
+    from rau_vqa_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
+
+    t_phase = time.perf_counter()
+    counters = {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL,
+                "train_hops_fwd": rth.FWD_KERNEL, "train_hops_bwd": rth.BWD_KERNEL,
+                "train_hops_fwd_bf16": rth.FWD_BF16_KERNEL,
+                "train_hops_bwd_bf16": rth.BWD_BF16_KERNEL}
+    for k in counters.values():
+        k.launches = 0
+    rs = np.random.RandomState(seed + 1600)
+    steps = {}
+
+    def run(name, argv, quiet=False):
+        """One command through the CLI's main; its seconds and stdout."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(buf):
+            rc = cli.main(["--device", WF_DEVICE] + argv)
+        steps[name] = time.perf_counter() - t0
+        out = buf.getvalue()
+        if not quiet:
+            for line in out.strip().splitlines()[-12:]:
+                log(f"  {name}| {line}")
+        log(f"workflow {name}: exit {rc} in {steps[name]:.3f} s [{card}]")
+        return rc, out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_workflow_") as root:
+        # (a) the official-format files
+        t0 = time.perf_counter()
+        fab = fabricate_vqa_v1(os.path.join(root, "vqa_v1"), rs)
+        steps["fabricate"] = time.perf_counter() - t0
+        feat_mb = sum(os.path.getsize(os.path.join(d, f)) for d in fab["feat_dirs"]
+                      for f in os.listdir(d)) / 1e6
+        log(f"workflow fabricate: {fab['n_train']} train questions on "
+            f"{fab['n_train_images']} images ({fab['n_source_b']} in the second source), "
+            f"{WF_TEST_QUESTIONS} val on {fab['n_test_images']}, {len(fab['words'])} words, "
+            f"{len(fab['answers'])} answers, {fab['n_images']} .t7 features "
+            f"({feat_mb:.1f} MB) in {steps['fabricate']:.3f} s")
+        p = fab["paths"]
+        bundle = os.path.join(root, "bundle")
+        # (b) prepro, its h5 captured as written
+        written = {}
+        write_h5 = prepro_mod.write_h5
+
+        def capture(path, arrays):
+            written.update({k: v.copy() for k, v in arrays.items()})
+            write_h5(path, arrays)
+        prepro_mod.write_h5 = capture
+        try:
+            rc, out = run("prepro", ["prepro"]
+                          + [x for s, (q, a) in enumerate(p["train"])
+                             for x in ("--train", "train2014", q, a)]
+                          + ["--test", "val2014", p["val_questions"], "--test-annotations",
+                             p["val_annotations"], "--test-mc", p["val_mc_questions"],
+                             "--out", bundle])
+        finally:
+            prepro_mod.write_h5 = write_h5
+        if rc != 0:
+            raise SystemExit(f"workflow: prepro exited {rc}")
+        n_q = fab["n_train"] + WF_TEST_QUESTIONS
+        log(f"workflow prepro: {n_q / steps['prepro']:.1f} questions/s ({n_q} questions) "
+            f"[{card}]")
+        m = re.search(r": (\d+) train questions \((\d+) dropped outside the top-(\d+) "
+                      r"answers\), (\d+) test, vocab (\d+)", out)
+        kept, dropped, n_ans, n_test, vocab = (int(x) for x in m.groups())
+        h5_path = os.path.join(bundle, "data_prepro.h5")
+        t0 = time.perf_counter()
+        info, arrays = read_prepro(bundle)
+        read_s = time.perf_counter() - t0
+        same = (sorted(arrays) == sorted(written) and all(
+            arrays[k].dtype == written[k].dtype and np.array_equal(arrays[k], written[k])
+            for k in written))
+        log(f"workflow bundle: data_prepro.h5 {os.path.getsize(h5_path)} bytes "
+            f"({len(arrays)} datasets), read back by data/hdf5.py in {read_s * 1e3:.2f} ms, "
+            f"equal to what was written: {same}; data_prepro.json "
+            f"{os.path.getsize(os.path.join(bundle, 'data_prepro.json'))} bytes; vocab "
+            f"{vocab} (with UNK), {n_ans} answers, {kept} kept, {dropped} dropped, "
+            f"{n_test} test [{card}]")
+        if not (vocab == WF_WORDS + 1 and n_ans == 1000 and dropped > 0 and same
+                and len(info["ix_to_word"]) == vocab and n_test == WF_TEST_QUESTIONS
+                and kept + dropped == fab["n_train"]
+                and set(np.unique(arrays["datatype_train"])) == {1, 2}):
+            raise SystemExit(f"workflow: the bundle's gates failed: vocab {vocab}, answers "
+                             f"{n_ans}, dropped {dropped}, read back equal {same}")
+        shard = os.path.join(root, "shard")
+        rc, _ = run("pack-features", ["pack-features", "--vqa-dir", bundle, "--feat-dir",
+                                      fab["feat_dirs"][0], "--feat-dir", fab["feat_dirs"][1],
+                                      "--out", shard, "--cnnout-dim", str(WF_FEAT[0]),
+                                      "--cnnout-w", str(WF_FEAT[1]), "--cnnout-h",
+                                      str(WF_FEAT[2])])
+        # the second source's images are only in the second directory: each
+        # image took its datatype from the bundle, and its rows are its file's
+        store = PackedFeatureStore(shard)
+        rel = info["unique_img_train"]
+        dts = np.ones(len(rel), np.int64)
+        dts[arrays["img_pos_train"] - 1] = arrays["datatype_train"]
+        t7src = T7DirFeatureSource(fab["feat_dirs"], *WF_FEAT)
+        picks = [int(np.flatnonzero(dts == d)[0]) for d in (1, 2)]
+        names = [coco_feat_name(rel[i]) for i in picks]
+        got = np.asarray(store.get_batch(names, [1, 1]), np.float32)
+        want = np.asarray(t7src.get_batch(names, [int(dts[i]) for i in picks]), np.float32)
+        if rc != 0 or len(store.index) != fab["n_images"] or not np.array_equal(got, want):
+            raise SystemExit(f"workflow: pack-features exited {rc}, packed "
+                             f"{len(store.index)} of {fab['n_images']} images, rows equal "
+                             f"{np.array_equal(got, want)}")
+        log(f"workflow pack-features: {len(store.index)} images, datatypes from the bundle "
+            f"{ {int(k): int(v) for k, v in zip(*np.unique(dts, return_counts=True))} } "
+            f"(train images), rows of "
+            f"each source equal its .t7 file")
+
+        # (c) train, as shipped, from the bundle and the shard
+        work = os.path.join(root, "run")
+        made = []
+        init = trainer_mod.Trainer.__init__
+
+        def keep(self, *a, **kw):
+            init(self, *a, **kw)
+            made.append(self)
+        trainer_mod.Trainer.__init__ = keep
+        try:
+            rc, _ = run("train", ["train", "--preset", "ours_ms", "--vqa-dir", bundle,
+                                  "--feat-dir", shard, "--split", "val2014", "--gt-anno",
+                                  os.path.join(bundle, "gt_annotations.json"),
+                                  "--official-anno", p["val_annotations"], "--epochs", "2",
+                                  "--save-dir", work, "--visatt", "--visatt-batches", "1"])
+        finally:
+            trainer_mod.Trainer.__init__ = init
+        tr = made[0]
+        H2 = tr.mcfg.n_hops + 2
+        trows = tr.logger.read("train")
+        tests = tr.logger.read("test")
+        losses = [r["loss"] for r in trows]
+        log(f"workflow train: {tr.mcfg.n_hops} hops, vocab {tr.mcfg.vocab_size} (with "
+            f"ZEROPAD), {tr.mcfg.answer_size} answers, B={tr.tcfg.batch_size}, "
+            f"{tr.data.train_data.iter_per_epoch} steps an epoch; epoch losses "
+            + " ".join(f"{x:.5f}" for x in losses) + "; epoch s "
+            + " ".join(f"{r['sec']:.3f}" for r in trows) + "; trained q/s "
+            + " ".join(f"{r['examples_per_sec']:.1f}" for r in trows)
+            + f"; testOEacc {max(tests[-1][f'testOEacc_{h + 1:02d}'] for h in range(H2)):.4f} "
+            f"best hop [{card}]")
+        if rc != 0 or len(losses) != 2 or not all(np.isfinite(losses)) \
+                or not losses[1] < losses[0]:
+            raise SystemExit(f"workflow: train exited {rc}, epoch losses {losses}")
+        pngs = {}
+        for e in (1, 2):
+            pngs[e] = sorted(glob.glob(os.path.join(work, "figures", f"epoch_{e:03d}",
+                                                    "hop_*", "*.png")))
+        shapes = {png_shape(f) for e in pngs for f in pngs[e]}
+        side = (tr.mcfg.cnn_w * 16, tr.mcfg.cnn_h * 16)
+        log(f"workflow visatt: {[len(pngs[e]) for e in (1, 2)]} PNGs in epochs 1 and 2 "
+            f"(want {H2} x {tr.data.test_data.batch_size} each), (w, h, depth, colour) "
+            f"{sorted(shapes)}")
+        if any(len(pngs[e]) != H2 * tr.data.test_data.batch_size for e in pngs) \
+                or shapes != {side + (8, 0)}:
+            raise SystemExit(f"workflow: attention PNGs {[len(pngs[e]) for e in pngs]}, "
+                             f"shapes {shapes}")
+        results = os.path.join(work, "results")
+        files = {task: sorted(glob.glob(os.path.join(results, "hop_*",
+                                                     f"vqa_{task}_*-2.00_results.json")))
+                 for task in ("OpenEnded", "MultipleChoice")}
+        if any(len(v) != H2 for v in files.values()):
+            raise SystemExit(f"workflow: submission files {files}")
+        # the sweep with and without the dumps, on the trained Trainer
+        torch.cuda.synchronize()
+        sweep = {}
+        for dumps in (True, False, True, False):
+            tr.exp = tr.exp.replace(visatt=dumps)
+            t0 = time.perf_counter()
+            tr.evaluate(write_submissions=False)
+            torch.cuda.synchronize()
+            sweep.setdefault(dumps, []).append((time.perf_counter() - t0) * 1e3)
+        log(f"workflow sweep: {tr.data.test_data.num_examples} questions in batches of "
+            f"{tr.data.test_data.batch_size}: {min(sweep[False]):.2f} ms without the PNG "
+            f"dumps, {min(sweep[True]):.2f} ms with one batch's {H2 * tr.data.test_data.batch_size} "
+            f"(each the best of 2: {sweep}) [{card}]")
+
+        # (d) vqa-accuracy on hop 1's OE file against the Trainer's score
+        report = os.path.join(root, "vqa_accuracy.json")
+        hop1 = [f for f in files["OpenEnded"] if f"{os.sep}hop_01{os.sep}" in f][0]
+        rc, _ = run("vqa-accuracy", ["vqa-accuracy", "--results", hop1, "--annotations",
+                                     p["val_annotations"], "--out", report, "--precision",
+                                     "6"])
+        with open(report) as f:
+            overall = json.load(f)["overall"]
+        official = tests[-1]["testOEaccOfficial_01"]
+        log(f"workflow vqa-accuracy: overall {overall!r} vs the Trainer's "
+            f"testOEaccOfficial[0] x 100 = {100 * official!r} (bar 1e-9)")
+        if rc != 0 or abs(overall - 100 * official) > 1e-9:
+            raise SystemExit(f"workflow: vqa-accuracy {overall} vs {100 * official}")
+
+        # (e) released-format tarballs from the last snapshot
+        t0 = time.perf_counter()
+        snap_pt = latest_checkpoint(tr.ckpt_dir)
+        template = init_train_state(tr.mcfg, 0, device="cpu")._asdict()
+        tree, meta = load_checkpoint(snap_pt, template)
+        epoch = float(meta["epoch"])
+        rel_root = os.path.join(root, "released", "save_result_vqa_val2014")
+        os.makedirs(os.path.join(rel_root, "snapshot"))
+        snap_t7 = os.path.join(rel_root, "snapshot",
+                               f"snapshot_iter{int(meta['step']):06d}_epoch{epoch:.2f}.t7")
+        opt = {"nhop": float(tr.mcfg.n_hops), "alg_name": tr.exp.alg_name,
+               "cnnout_dim": float(tr.mcfg.cnn_dim), "cnnout_w": float(tr.mcfg.cnn_w),
+               "cnnout_h": float(tr.mcfg.cnn_h)}
+        tc.export_snapshot(snap_t7, tree["params"], tr.mcfg, it=int(meta["step"]),
+                           epoch=epoch, opt=opt)
+        for task, fs in files.items():
+            rows = []
+            for f in fs:
+                with open(f) as fh:
+                    rows.append(json.load(fh))
+            write_results(rel_root, task, "val2014", tr.exp.alg_name, epoch, rows)
+
+        def tar(src, path):
+            with tarfile.open(path, "w:gz", compresslevel=1) as tf:
+                tf.add(src, arcname=os.path.basename(src))
+        good = os.path.join(root, "released_good.tar.gz")
+        tar(rel_root, good)
+        # the swapped twin: att_q and att_i, both (F, M), trade places
+        layout = list(tc.GROUP_LAYOUTS["mult"](tr.mcfg))
+        pos = {e[0]: i for i, e in enumerate(layout)}
+        for leaf in ("w", "b"):
+            i, j = pos[("mult", "att_q", leaf)], pos[("mult", "att_i", leaf)]
+            layout[i], layout[j] = layout[j], layout[i]
+        snap = t7.load_t7(snap_t7)
+        flats = tc.flats_from_snapshot(snap)
+        flats[2] = tc.group_to_flat(tree["params"]["mult"], tr.mcfg, "mult", layout=layout)
+        swapped_root = os.path.join(root, "swapped", "save_result_vqa_val2014")
+        shutil.copytree(rel_root, swapped_root)
+        t7.save_t7(os.path.join(swapped_root, "snapshot", os.path.basename(snap_t7)),
+                   {"it": snap["it"], "epoch": snap["epoch"], "params": flats,
+                    "opt": snap["opt"]})
+        bad = os.path.join(root, "released_swapped.tar.gz")
+        tar(swapped_root, bad)
+        steps["tarballs"] = time.perf_counter() - t0
+        log(f"workflow tarballs: {os.path.getsize(good) / 1e6:.1f} MB and "
+            f"{os.path.getsize(bad) / 1e6:.1f} MB (snapshot .t7 "
+            f"{os.path.getsize(snap_t7) / 1e6:.1f} MB, float64) in {steps['tarballs']:.3f} s")
+        common = ["--preset", "ours_ms", "--vqa-dir", bundle, "--feat-dir", shard,
+                  "--split", "val2014", "--gt-anno", os.path.join(bundle, "gt_annotations.json"),
+                  "--official-anno", p["val_annotations"]]
+        reports = {}
+        for name, tb in (("verify-released", good), ("verify-released swapped", bad)):
+            wd = os.path.join(root, name.replace(" ", "_"))
+            rc, _ = run(name, ["verify-released", "--tarball", tb, "--save-dir", wd] + common)
+            with open(os.path.join(wd, "verify_released_report.json")) as f:
+                reports[name] = (rc, json.load(f))
+        (rc_good, rep_good), (rc_bad, rep_bad) = reports.values()
+        log(f"workflow verify-released: min_agree {rep_good['min_agree']!r} (exit {rc_good}); "
+            f"swapped pair {rep_bad['min_agree']!r} (exit {rc_bad})")
+        if rc_good != 0 or rep_good["min_agree"] != 1.0 or rc_bad != 1:
+            raise SystemExit(f"workflow: verify-released exits {rc_good} (min_agree "
+                             f"{rep_good['min_agree']}) and {rc_bad} on the swapped pair")
+        dims = ["--vocab-size", str(tr.mcfg.vocab_size), "--answer-size",
+                str(tr.mcfg.answer_size), "--seq-len", str(tr.mcfg.seq_len),
+                "--preset", "ours_ms", "--ref-checkpoint", snap_pt]
+        outs = {}
+        for name, s in (("diagnose-snapshot", snap_t7),
+                        ("diagnose-snapshot swapped",
+                         os.path.join(swapped_root, "snapshot", os.path.basename(snap_t7)))):
+            rc, outs[name] = run(name, ["diagnose-snapshot", "--input", s] + dims, quiet=True)
+            for line in outs[name].splitlines():
+                if line.startswith(("embed", "rnn", "mult", "  position")):
+                    log(f"  {name}| {line}")
+            if rc != 0:
+                raise SystemExit(f"workflow: {name} exited {rc}")
+        d_good, d_bad = outs.values()
+        if not (all(f"{g}: order matches GROUP_LAYOUTS" in d_good
+                    for g in ("embed", "rnn", "mult"))
+                and "mult: ORDER MISMATCH" in d_bad
+                and "ours mult/att_q/w vs snapshot mult/att_i/w" in d_bad
+                and all(f"{g}: order matches GROUP_LAYOUTS" in d_bad for g in ("embed", "rnn"))):
+            raise SystemExit("workflow: diagnose-snapshot did not find the order, or the pair")
+        main_path = {k: c.launches for k, c in counters.items()}
+        log(f"workflow launches in the commands: {main_path}")
+        if main_path["lstm_encode"] < 1 or main_path["rau_hops"] < 1 or any(
+                main_path[k] for k in counters if k.startswith("train_hops")):
+            raise SystemExit(f"workflow: the sweeps' kernels did not run as expected "
+                             f"(the preset trains unfused): {main_path}")
+
+        # (f) the fixture-learning gate, four configurations
+        fx = os.path.join(root, "fixture")
+        spec = FixtureSpec()
+        vqa_dir = generate_fixture(fx, spec)
+        gt = load_gt_annotations(os.path.join(vqa_dir, "gt_annotations.json"))
+        best = {}
+        for name, model in (("float32", {}), ("bf16", {"compute_dtype": "bfloat16"}),
+                            ("fused float32", {"fused_train": True}),
+                            ("fused bf16", {"fused_train": True,
+                                            "compute_dtype": "bfloat16"})):
+            t0 = time.perf_counter()
+            before = {k: c.launches for k, c in counters.items()}
+            exp = get_experiment("ours_ms")
+            exp = exp.replace(
+                model=dataclasses.replace(
+                    exp.model, n_hops=2, cnn_dim=spec.feat_dim, cnn_w=spec.feat_w,
+                    cnn_h=spec.feat_h, embed_dim=16, rnn_size=16, multfeat_dim=16,
+                    attfeat_dim=8, att_rnn_size=16, embed_dropout=0.0, rnn_dropout=0.0,
+                    mult_dropout=0.1, **model),
+                train=dataclasses.replace(
+                    exp.train, batch_size=16, learning_rate=1e-2, mult_learning_rate=1e-2,
+                    lr_decay=1.0, mult_lr_decay=1.0, noisy_eta=0.0, grad_clip=10.0,
+                    length_buckets=()),
+                data=dataclasses.replace(exp.data, split="val2014"),
+                # the sweep through the plain float32 predict on the card, as
+                # the JAX package's Trainer sweeps by default: the serving
+                # encoder kernel takes rnn_size in multiples of 32
+                # (ops/lstm_encoder.py lstm_plan), these widths are 16
+                fused_eval=False)
+            data = load_vqa_data(vqa_dir, 16, split="val2014", test_batch_size=8)
+            src = T7DirFeatureSource([os.path.join(fx, "feat")], spec.feat_dim,
+                                     spec.feat_w, spec.feat_h)
+            t = Trainer(exp, data, src, os.path.join(root, "learn", name.replace(" ", "_")),
+                        gt_anno=gt, device=WF_DEVICE)
+            t.fit(epochs=WF_LEARN_EPOCHS, eval_each=False)
+            oe = t.evaluate()["testOEacc"]
+            steps[f"learn {name}"] = time.perf_counter() - t0
+            rows = t.logger.read("train")
+            best[name] = max(oe)
+            ran = {k: c.launches - before[k] for k, c in counters.items()}
+            log(f"workflow learn {name}: best OE {best[name]:.4f} (per hop "
+                + " ".join(f"{a:.4f}" for a in oe) + f"), {len(rows)} train rows "
+                f"({sum(1 for r in rows if r.get('aborted'))} aborted by the guard), last "
+                f"loss {[r['loss'] for r in rows if 'loss' in r][-1]:.4f}, "
+                f"{time.perf_counter() - t0:.2f} s; launches {ran} [{card}]")
+            fused = "fused" in name
+            want = ("train_hops_fwd_bf16", "train_hops_bwd_bf16") if "bf16" in name \
+                else ("train_hops_fwd", "train_hops_bwd")
+            if fused and any(ran[k] < 1 for k in want):
+                raise SystemExit(f"workflow learn {name}: the training kernels did not run")
+            if not fused and any(ran[k] for k in ran if k.startswith("train_hops")):
+                raise SystemExit(f"workflow learn {name}: a training kernel ran unfused")
+        log(f"workflow learning gate: best OE {best} (bar > 0.5, chance 0.2) [{card}]")
+        if not all(v > 0.5 for v in best.values()):
+            raise SystemExit(f"workflow: the fixture was not learned: {best}")
+    total = {k: c.launches for k, c in counters.items()}
+    log("workflow steps s: " + ", ".join(f"{k} {v:.3f}" for k, v in steps.items())
+        + f"; the phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3393,6 +3921,10 @@ def main() -> int:
         ft = finetune_phase(args.seed, card)
     ft_launches = ft["launches"]
     log("phase finetune: ok")
+    # 12. the paper's workflow through the CLI: prepro to the official score
+    with watchdog(600, "the workflow phase"):
+        wf_launches = workflow_phase(args.seed, card)
+    log("phase workflow: ok")
 
     s2 = stage_ms[2]
     kernels = [
@@ -3400,19 +3932,22 @@ def main() -> int:
          "source": "rau_vqa_tpu_torch/csrc/lstm_encoder.cu",
          "replaces": "rau_vqa_tpu/ops/lstm_encoder.py:81",
          "launches": launches["lstm_encode"] + serve_launches["lstm_encode"]
-         + backbones_launches["lstm_encode"] + ft_launches["lstm_encode"],
+         + backbones_launches["lstm_encode"] + ft_launches["lstm_encode"]
+         + wf_launches["lstm_encode"],
          "max_abs_err": err["lstm_encode"],
          "ms": ms["lstm_encode"], "plain_ms": ms["lstm_plain"],
          "bound_ms": lb_ms, "bound_by": lb_by, "library_ms": ms["lstm_library"],
          "trainer_launches": trainer_launches["lstm_encode"],
          "serve_launches": serve_launches["lstm_encode"],
          "backbones_launches": backbones_launches["lstm_encode"],
-         "finetune_launches": ft_launches["lstm_encode"]},
+         "finetune_launches": ft_launches["lstm_encode"],
+         "workflow_launches": wf_launches["lstm_encode"]},
         {"name": "rau_hops", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_hops.cu",
          "replaces": "rau_vqa_tpu/ops/rau_hops.py:152",
          "launches": launches["rau_hops"] + serve_launches["rau_hops"]
-         + backbones_launches["rau_hops"] + ft_launches["rau_hops"],
+         + backbones_launches["rau_hops"] + ft_launches["rau_hops"]
+         + wf_launches["rau_hops"],
          "max_abs_err": err["rau_hops"],
          "ms": ms["rau_hops"], "plain_ms": ms["hops_plain"],
          "bound_ms": hb_ms, "bound_by": hb_by, "library_ms": None,
@@ -3420,11 +3955,13 @@ def main() -> int:
          "serve_launches": serve_launches["rau_hops"],
          "backbones_launches": backbones_launches["rau_hops"],
          "finetune_launches": ft_launches["rau_hops"],
+         "workflow_launches": wf_launches["rau_hops"],
          "device_kernels_a_call": hops_kernels[512]},
         {"name": "train_hops_fwd", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_fwd.cu",
          "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:358",
-         "launches": train_launches["train_hops_fwd"],
+         "launches": train_launches["train_hops_fwd"] + wf_launches["train_hops_fwd"],
+         "workflow_launches": wf_launches["train_hops_fwd"],
          "max_abs_err": err["train_hops_fwd"],
          "ms": tms["train_hops_fwd"], "plain_ms": tms["train_fwd_plain"],
          "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None,
@@ -3435,20 +3972,22 @@ def main() -> int:
         {"name": "train_hops_bwd", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_bwd.cu",
          "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:471",
-         "launches": train_launches["train_hops_bwd"],
+         "launches": train_launches["train_hops_bwd"] + wf_launches["train_hops_bwd"],
+         "workflow_launches": wf_launches["train_hops_bwd"],
          "max_abs_err": err["train_hops_bwd"],
          "ms": tms["train_hops_bwd"], "plain_ms": tms["train_bwd_plain"],
          "bound_ms": bb_ms, "bound_by": bb_by, "library_ms": None,
          "trainer_launches": trainer_launches["train_hops_bwd"],
          "device_kernels_a_call": bwd_kernels[torch.float32]},
         # the bf16 instantiations (compute_dtype "bfloat16"); launches: the
-        # bf16 fused step's 10; max_abs_err: the worst norm-relative error
+        # bf16 fused step's 10 and the workflow phase's; max_abs_err: the worst norm-relative error
         # against the bf16 plain version, the forward's over its outputs,
         # the backward's over the grad leaves
         {"name": "train_hops_fwd_bf16", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_fwd.cu",
          "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:358",
-         "launches": bf16_launches["train_hops_fwd_bf16"],
+         "launches": bf16_launches["train_hops_fwd_bf16"] + wf_launches["train_hops_fwd_bf16"],
+         "workflow_launches": wf_launches["train_hops_fwd_bf16"],
          "max_abs_err": err["train_hops_fwd_bf16"],
          "ms": tms16["train_hops_fwd_bf16"], "plain_ms": tms16["train_fwd_bf16_plain"],
          "bound_ms": fb16_ms, "bound_by": fb16_by, "library_ms": None,
@@ -3457,7 +3996,8 @@ def main() -> int:
         {"name": "train_hops_bwd_bf16", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_bwd.cu",
          "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:471",
-         "launches": bf16_launches["train_hops_bwd_bf16"],
+         "launches": bf16_launches["train_hops_bwd_bf16"] + wf_launches["train_hops_bwd_bf16"],
+         "workflow_launches": wf_launches["train_hops_bwd_bf16"],
          "max_abs_err": err["train_hops_bwd_bf16"],
          "ms": tms16["train_hops_bwd_bf16"], "plain_ms": tms16["train_bwd_bf16_plain"],
          "bound_ms": bb16_ms, "bound_by": bb16_by, "library_ms": None,

@@ -10,14 +10,20 @@
     python -m rau_vqa_tpu_torch.cli precompute-features --image-root ... --out ... --backbone vgg16 --backbone-state vgg16.pth
     python -m rau_vqa_tpu_torch.cli train --preset ours_ms --fixture --backbone vgg16
     python -m rau_vqa_tpu_torch.cli convert-snapshot --input snap.t7 --output snap.pt --vocab-size ...
+    python -m rau_vqa_tpu_torch.cli prepro --train train2014 q.json a.json --test val2014 vq.json --out bundle/
+    python -m rau_vqa_tpu_torch.cli vqa-accuracy --results OE.json --annotations val_annotations.json
+    python -m rau_vqa_tpu_torch.cli diagnose-snapshot --input snap.t7 --vocab-size ... --ref-checkpoint snap.pt
+    python -m rau_vqa_tpu_torch.cli verify-released --tarball released.tar.gz --vqa-dir ... --feat-dir ...
 
 Every command that runs the model runs on ``--device`` (``cuda`` by default;
 it raises without a card, ``--device cpu`` runs the kernels' plain
 versions).  ``eval``, ``ask`` and ``serve`` read the port's ``.pt``
 snapshots and the JAX package's ``.msgpack`` ones, and adopt the snapshot's
-model config.  ``--fixture`` builds the fixture in memory (no ``h5py``);
-``fixture`` and ``--vqa-dir`` read or write ``data_prepro.h5`` and need
-``h5py``.  ``train`` and ``eval`` read raw images with ``--image-root``
+model config.  ``--fixture`` builds the fixture in memory; ``fixture``,
+``prepro`` and ``--vqa-dir`` write or read ``data_prepro.h5`` through the
+port's own reader and writer, ``data/hdf5.py`` (no ``h5py``).  ``train
+--visatt`` dumps attention-map PNGs of the eval sweeps.  ``train`` and
+``eval`` read raw images with ``--image-root``
 through a frozen ``--backbone`` (vgg16, resnet101 or vit) loaded from
 ``--backbone-state``; with ``--fixture`` and no ``--image-root``,
 ``--backbone vgg16|resnet101`` writes the fixture's images at 64 px and
@@ -99,6 +105,11 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fused-train", action="store_true",
                    help="run the training hop loop through the fused "
                         "kernel pair")
+    p.add_argument("--visatt", action="store_true",
+                   help="dump attention-map PNGs during eval sweeps")
+    p.add_argument("--visatt-batches", type=int, default=None,
+                   help="eval batches to dump per epoch; -1 = every test "
+                        "question (reference semantics)")
     p.add_argument("--plain-eval", action="store_true",
                    help="eval sweeps through the plain float32 predict "
                         "instead of the serving kernels")
@@ -165,6 +176,10 @@ def _apply_overrides(exp, args):
         m["fused_train"] = True
     if args.plain_eval:
         exp = exp.replace(fused_eval=False)
+    if args.visatt:
+        exp = exp.replace(visatt=True)
+    if args.visatt_batches is not None:
+        exp = exp.replace(visatt=True, visatt_batches=args.visatt_batches)
     if args.backbone_feat_norm:
         # whether or not the backbone trains: the interface a backbone makes
         t["backbone_feat_norm"] = True
@@ -681,33 +696,23 @@ def cmd_pack_features(args) -> int:
     indexes its feature paths by each question's datatype
     (vqa_prepro_loader.lua:876), so a mixed train2014+val2014 split reads
     images from different directories.  Test images use datatype 1
-    (vqa_prepro_loader.lua:1378).  Without ``data_prepro.h5``, or without
-    ``h5py`` to read it, every image takes datatype 1, which only one
-    feature directory can serve."""
+    (vqa_prepro_loader.lua:1378).  Without ``data_prepro.h5`` every image
+    takes datatype 1, which only one feature directory can serve."""
     import numpy as np
 
     from rau_vqa_tpu_torch.data.features import pack_feature_dir
+    from rau_vqa_tpu_torch.data.hdf5 import h5_names, read_h5
 
     with open(os.path.join(args.vqa_dir, "data_prepro.json")) as f:
         info = json.load(f)
     imgs = list(info.get("unique_img_train", []))
     dts = np.ones(len(imgs), np.int32)
     h5_path = os.path.join(args.vqa_dir, "data_prepro.h5")
-    if imgs and os.path.exists(h5_path):
-        try:
-            import h5py
-        except ImportError:
-            if len(args.feat_dir) > 1:
-                raise SystemExit(
-                    f"{h5_path} holds each image's datatype, which needs "
-                    f"h5py to read; with one --feat-dir every image is "
-                    f"datatype 1") from None
-        else:
-            with h5py.File(h5_path, "r") as h5:
-                if "datatype_train" in h5:
-                    # per-question datatype -> per image (img_pos 1-based)
-                    pos = np.asarray(h5["img_pos_train"], np.int64)
-                    dts[pos - 1] = np.asarray(h5["datatype_train"], np.int32)
+    if imgs and os.path.exists(h5_path) and "datatype_train" in h5_names(h5_path):
+        # per-question datatype -> per image (img_pos 1-based)
+        h5 = read_h5(h5_path, ["img_pos_train", "datatype_train"])
+        pos = np.asarray(h5["img_pos_train"], np.int64)
+        dts[pos - 1] = np.asarray(h5["datatype_train"], np.int32)
     dts = dts.tolist()
     for p in info.get("unique_img_test", []):
         imgs.append(p)
@@ -837,6 +842,189 @@ def cmd_convert_snapshot(args) -> int:
     return 0
 
 
+def cmd_vqa_accuracy(args) -> int:
+    """Score an OE submission with the official VQA metric locally, the
+    evaluation the reference leaves to the VQA server (it only writes the
+    result JSONs, Ours_SS/...lua:1171-1186)."""
+    from rau_vqa_tpu_torch.eval.vqa_accuracy import evaluate_files
+
+    rep = evaluate_files(args.results, args.annotations,
+                         precision=args.precision)
+    print(f"overall: {rep['overall']:.{args.precision}f}  "
+          f"(n={rep['n']}, unannotated result rows: {rep['missing']})")
+    for section in ("per_answer_type", "per_question_type"):
+        rows = rep[section]
+        if section == "per_question_type" and not args.question_types:
+            continue
+        print(section + ":")
+        for k, v in rows.items():
+            print(f"  {k}: {v:.{args.precision}f}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(rep, f, indent=1)
+        print(f"report -> {args.out}")
+    return 0
+
+
+def cmd_prepro(args) -> int:
+    """Build data_prepro.{json,h5} from the official VQA v1 release JSONs,
+    the preprocessing the reference only downloads (data/get_vqa_prepro.sh);
+    the h5 is written by ``data/hdf5.py``."""
+    from rau_vqa_tpu_torch.data.prepro import PreproConfig, build_prepro, join_split
+
+    train_sources = []
+    for split, qjson, ajson in args.train:
+        train_sources.append((split, join_split(qjson, ajson, split)))
+    test_split, test_q = args.test
+    test_entries = join_split(test_q, args.test_annotations, test_split)
+    if args.test_mc:
+        # overlay multiple_choices from the MC-task questions file
+        mc_entries = {e.question_id: e.multiple_choices
+                      for e in join_split(args.test_mc, None, test_split)}
+        for e in test_entries:
+            e.multiple_choices = mc_entries.get(e.question_id,
+                                                e.multiple_choices)
+    cfg = PreproConfig(num_answers=args.num_answers,
+                       max_length=args.max_length,
+                       word_threshold=args.word_threshold)
+    summary = build_prepro(train_sources, test_entries, args.out, cfg)
+    print(f"prepro -> {args.out}: {summary['n_train']} train questions "
+          f"({summary['n_dropped']} dropped outside the top-"
+          f"{summary['n_answers']} answers), {summary['n_test']} test, "
+          f"vocab {summary['vocab_size']}"
+          + (f", gt map {summary['gt_annotations']}"
+             if summary["gt_annotations"] else ""))
+    return 0
+
+
+def cmd_diagnose_snapshot(args) -> int:
+    """Diagnose a reference Torch snapshot's flat-vector layout against the
+    reconstructed order (``utils/layout_diag.py``): size segmentation,
+    ambiguity classes, and, given a trusted snapshot (``--ref-checkpoint``,
+    the port's .pt or the JAX package's .msgpack), the order recovered by
+    content with a repair diff."""
+    from rau_vqa_tpu_torch.config import get_experiment
+    from rau_vqa_tpu_torch.train.trainer import init_train_state
+    from rau_vqa_tpu_torch.utils import layout_diag as ld
+    from rau_vqa_tpu_torch.utils import torch_convert as tc
+    from rau_vqa_tpu_torch.utils.checkpoint import load_checkpoint
+
+    exp = _apply_overrides(get_experiment(args.preset), args)
+    mcfg = dataclasses.replace(exp.model, vocab_size=args.vocab_size,
+                               answer_size=args.answer_size,
+                               seq_len=args.seq_len)
+    flats = tc.snapshot_flats(args.input)
+    print(ld.layout_report(mcfg))
+    ok = True
+    for group, flat in zip(("embed", "rnn", "mult"), flats):
+        want = tc.group_size(mcfg, group)
+        status = "OK" if flat.size == want else "MISMATCH"
+        ok = ok and flat.size == want
+        print(f"{group}: snapshot {flat.size} vs config {want} elements "
+              f"[{status}]")
+    if not ok:
+        print("size mismatch: fix model dims before diagnosing order")
+        return 1
+    if args.ref_checkpoint:
+        template = init_train_state(mcfg, 0, device="cpu")._asdict()
+        tree, _ = load_checkpoint(args.ref_checkpoint, template)
+        params = tree["params"]
+        for group, flat in zip(("embed", "rnn", "mult"), flats):
+            rec = ld.align_flat_by_content(flat, mcfg, group, params[group])
+            diff = ld.layout_diff(mcfg, group, rec)
+            if diff:
+                print(f"{group}: ORDER MISMATCH —")
+                for d in diff:
+                    print(f"  {d}")
+            else:
+                print(f"{group}: order matches GROUP_LAYOUTS")
+    return 0
+
+
+def cmd_verify_released(args) -> int:
+    """Released-snapshot parity in one command (``eval/released.py``):
+    extract the reference tarball, convert its snapshot, run the eval sweep
+    on ``--device``, diff against the result JSONs the tarball ships.
+    Exits 1 when a compared hop agrees below ``--min-agree``."""
+    from rau_vqa_tpu_torch.config import get_experiment
+    from rau_vqa_tpu_torch.data import t7
+    from rau_vqa_tpu_torch.data.loader import load_gt_annotations, load_vqa_data
+    from rau_vqa_tpu_torch.eval.released import (
+        adopt_snapshot_opt,
+        extract_tarball,
+        pick_snapshot,
+        verify_released,
+    )
+    from rau_vqa_tpu_torch.utils.checkpoint import model_config_from_meta
+
+    exp = _apply_overrides(get_experiment(args.preset), args)
+    if args.model_json:
+        with open(args.model_json) as f:
+            cfg_dict = json.load(f)
+        exp = exp.replace(model=model_config_from_meta(
+            cfg_dict.get("model", cfg_dict), from_jax=True))
+    workdir = args.save_dir or f"save_result_verify_{exp.data.split}"
+    os.makedirs(workdir, exist_ok=True)
+
+    if args.tarball:
+        root = extract_tarball(args.tarball, os.path.join(workdir, "released"))
+    else:
+        root = args.extracted
+    # the snapshot's own dims before the feature source is built (a ResNet
+    # tarball sets cnn_dim 2048 here)
+    snap_epoch, snap_path = pick_snapshot(root, args.epoch)
+    snap = t7.load_t7(snap_path)     # parsed once; handed to the harness
+    if isinstance(snap, dict) and "opt" in snap:
+        exp = adopt_snapshot_opt(exp, snap["opt"])
+    data = load_vqa_data(
+        exp.data.vqa_dir, exp.train.batch_size, split=exp.data.split,
+        test_batch_size=exp.data.resolved_test_batch_size(),
+        valid_ratio=exp.data.valid_ratio, seed=exp.train.seed)
+    source = _make_feature_source(exp.data.feat_dir, exp.model,
+                                  ship_int8=bool(args.ship_int8))
+    gt = None
+    if exp.data.gt_anno and os.path.exists(exp.data.gt_anno):
+        gt = load_gt_annotations(exp.data.gt_anno)
+
+    report = verify_released(root, exp, data, source, workdir,
+                             epoch=args.epoch, gt_anno=gt,
+                             official_anno=_checked_official_anno(exp),
+                             snapshot=(snap_epoch, snap_path, snap),
+                             device=args.device)
+    out_path = os.path.join(workdir, "verify_released_report.json")
+    with open(out_path, "w") as f:
+        json.dump(report, f, indent=2)
+    if report.get("error") == "layout":
+        print("LAYOUT MISMATCH — flat-vector sizes disagree with the "
+              "config:")
+        for g, sz in report["sizes"].items():
+            print(f"  {g}: snapshot {sz['snapshot']} vs config {sz['config']}")
+        print(f"full segmentation report in {out_path}; run "
+              f"`diagnose-snapshot` for order recovery")
+        return 1
+    if report.get("error") == "no_result_jsons":
+        print(f"snapshot evaluated (epoch {report['epoch']}) but the "
+              f"tarball ships no result JSONs to diff against")
+        return 1
+    for h, hr in sorted(report["hops"].items(), key=lambda kv: int(kv[0])):
+        line = f"hop {int(h):02d}:"
+        for task in ("oe", "mc"):
+            if task in hr:
+                d = hr[task]
+                line += (f"  {task.upper()} agree "
+                         f"{d['agree'] * 100:.3f}% ({d['n_common']} qs"
+                         + (", QID SET MISMATCH" if d["qid_mismatch"]
+                            else "") + ")")
+                if "official_ours" in d:
+                    line += (f" official {d['official_ours'] * 100:.2f}"
+                             f" vs released "
+                             f"{d['official_released'] * 100:.2f}")
+        print(line)
+    print(f"min agreement {report['min_agree'] * 100:.3f}% "
+          f"(threshold {args.min_agree * 100:.1f}%); report: {out_path}")
+    return 0 if report["min_agree"] >= args.min_agree else 1
+
+
 def cmd_fixture(args) -> int:
     from rau_vqa_tpu_torch.data.fixtures import generate_fixture
 
@@ -887,8 +1075,8 @@ def main(argv=None) -> int:
         _add_common_data_flags(p)
         # also after the command; the top-level value stands when absent
         _add_device_flag(p, argparse.SUPPRESS)
-    p_fix = sub.add_parser("fixture", help="write the tiny test fixture "
-                                           "(needs h5py)")
+    p_fix = sub.add_parser("fixture", help="write the tiny test fixture (its "
+                                           "h5 by data/hdf5.py)")
     p_fix.add_argument("--out", required=True)
 
     p_pack = sub.add_parser("pack-features",
@@ -953,12 +1141,89 @@ def main(argv=None) -> int:
     _add_train_flags(p_conv)
     _add_common_data_flags(p_conv)
 
+    p_pp = sub.add_parser(
+        "prepro",
+        help="build data_prepro.{json,h5} from the official VQA v1 release "
+             "JSONs (the preprocessing the reference only downloads)")
+    p_pp.add_argument("--train", nargs=3, action="append", required=True,
+                      metavar=("SPLIT", "QUESTIONS", "ANNOTATIONS"),
+                      help="a train source; repeat for mixed layouts "
+                           "(order defines the 1-based datatype index), "
+                           "e.g. --train train2014 q.json a.json "
+                           "--train val2014 q2.json a2.json")
+    p_pp.add_argument("--test", nargs=2, required=True,
+                      metavar=("SPLIT", "QUESTIONS"),
+                      help="the eval split, e.g. --test val2014 q.json")
+    p_pp.add_argument("--test-annotations", default=None,
+                      help="annotations for an annotated eval split; also "
+                           "emits the comprehend-format gt_annotations.json")
+    p_pp.add_argument("--test-mc", default=None,
+                      help="MultipleChoice questions json for the eval "
+                           "split (fills MC_ans_test)")
+    p_pp.add_argument("--out", required=True)
+    p_pp.add_argument("--num-answers", type=int, default=1000,
+                      help="top-N answer vocabulary (train rows outside it "
+                           "are dropped, like the published prepro)")
+    p_pp.add_argument("--max-length", type=int, default=26)
+    p_pp.add_argument("--word-threshold", type=int, default=0,
+                      help="words with count <= threshold become UNK")
+
+    p_acc = sub.add_parser(
+        "vqa-accuracy",
+        help="score an OE submission with the official VQA metric "
+             "(10-rater consensus + official normalization) locally")
+    p_acc.add_argument("--results", required=True,
+                       help="OE result JSON (what train/eval write: "
+                            "[{question_id, answer}, ...])")
+    p_acc.add_argument("--annotations", required=True,
+                       help="official VQA v1 annotations JSON for the "
+                            "evaluated split")
+    p_acc.add_argument("--out", default=None,
+                       help="also write the full report JSON here")
+    p_acc.add_argument("--precision", type=int, default=2)
+    p_acc.add_argument("--question-types", action="store_true",
+                       help="print the (long) per-question-type table")
+
+    p_diag = sub.add_parser("diagnose-snapshot",
+                            help="diagnose a Torch snapshot's flat-vector "
+                                 "layout (sizes, ambiguity classes, order)")
+    p_diag.add_argument("--input", required=True, help="snapshot .t7")
+    p_diag.add_argument("--ref-checkpoint", default=None,
+                        help="trusted snapshot (.pt, or the JAX package's "
+                             ".msgpack) for content-based order recovery")
+    p_diag.add_argument("--vocab-size", type=int, required=True)
+    p_diag.add_argument("--answer-size", type=int, default=1000)
+    p_diag.add_argument("--seq-len", type=int, default=26)
+    _add_train_flags(p_diag)
+    _add_common_data_flags(p_diag)
+
+    p_ver = sub.add_parser("verify-released",
+                           help="released-snapshot parity: convert a "
+                                "reference tarball's snapshot, evaluate it, "
+                                "diff against its own result JSONs")
+    group = p_ver.add_mutually_exclusive_group(required=True)
+    group.add_argument("--tarball", help="released .tar.gz (a local file)")
+    group.add_argument("--extracted", help="already-extracted tarball root")
+    p_ver.add_argument("--epoch", type=float, default=None,
+                       help="snapshot epoch to verify (default: highest)")
+    p_ver.add_argument("--min-agree", type=float, default=0.999,
+                       help="per-hop answer agreement threshold for exit 0")
+    p_ver.add_argument("--model-json", default=None,
+                       help="model-config json overriding preset dims "
+                            "(dims the snapshot opt table doesn't carry)")
+    _add_train_flags(p_ver)
+    _add_common_data_flags(p_ver)
+    _add_device_flag(p_ver, argparse.SUPPRESS)
+
     args = parser.parse_args(argv)
     return {"train": cmd_train, "eval": cmd_eval, "ask": cmd_ask,
             "fixture": cmd_fixture, "serve": cmd_serve,
             "pack-features": cmd_pack_features,
             "precompute-features": cmd_precompute_features,
-            "convert-snapshot": cmd_convert_snapshot}[args.command](args)
+            "convert-snapshot": cmd_convert_snapshot,
+            "prepro": cmd_prepro, "vqa-accuracy": cmd_vqa_accuracy,
+            "diagnose-snapshot": cmd_diagnose_snapshot,
+            "verify-released": cmd_verify_released}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -196,8 +196,7 @@ class DataConfig:
 class ExperimentConfig:
     """One experiment: model, optimization, data and the host loop's
     observability knobs (the JAX package's, without its device mesh and
-    the fields the port never reads: ``DataConfig.prefetch``, which the
-    JAX package does not read either, and ``visatt_batches``)."""
+    ``DataConfig.prefetch``, which the JAX package does not read either)."""
 
     name: str = "ours_ss"
     alg_name: str = "LstmAttCtrlGradNoiseDontSelectSingleHopBalance448Pool5"
@@ -205,7 +204,11 @@ class ExperimentConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
     save_dir: str = "save_result_vqa"
-    visatt: bool = False          # attention-map PNGs: not ported (needs PIL)
+    # observability (reference VISUALIZATION group, :57-62)
+    visatt: bool = False          # dump attention-map PNGs during eval
+    # eval batches to dump per epoch: 1 bounds the file count (default);
+    # -1 = every test question, the reference's semantics (:926-932)
+    visatt_batches: int = 1
     graph_interval: int = 10      # epochs between curve renders (:59)
     profile_dir: str = ""         # non-empty => torch.profiler trace of epoch 1
     # the eval sweep through ``make_predict_step`` (the two serving kernels

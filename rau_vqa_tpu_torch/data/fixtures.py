@@ -12,10 +12,10 @@ question is a deterministic function of its first token and its image's mean
 feature, so a few epochs of training must push accuracy well above chance.
 
 The port's own copy of ``rau_vqa_tpu/data/fixtures.py``: ``generate_fixture``
-writes the same files from the same seed.  ``fixture_bundle`` makes the same
-bundle in memory (the JSON info and the h5 arrays, the features written as
-``.t7`` files), for ``data.loader.build_vqa_data`` on a machine without
-``h5py``.
+writes the same files from the same seed, the h5 through the port's own
+writer (``data/hdf5.py``).  ``fixture_bundle`` makes the same bundle in
+memory (the JSON info and the h5 arrays, the features written as ``.t7``
+files), for ``data.loader.build_vqa_data``.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Dict, List, NamedTuple
 import numpy as np
 
 from rau_vqa_tpu_torch.data import t7
+from rau_vqa_tpu_torch.data.hdf5 import write_h5
 
 
 @dataclass(frozen=True)
@@ -85,17 +86,15 @@ def generate_fixture(root: str, spec: FixtureSpec = FixtureSpec(), *,
                      uniform_img_assign: bool = False,
                      image_mode: str = "gray") -> str:
     """Write the fixture bundle under ``root`` (data_prepro.{json,h5}, the
-    .t7 features, gt_annotations.json; ``h5py`` needed); returns the vqa_dir.
+    .t7 features, gt_annotations.json; the h5 by ``data/hdf5.py``); returns
+    the vqa_dir.
     Arguments as ``fixture_bundle``'s."""
     bundle = fixture_bundle(root, spec, images=images, image_size=image_size,
                             uniform_img_assign=uniform_img_assign,
                             image_mode=image_mode)
     vqa_dir = os.path.join(root, "vqa_prepro")
     os.makedirs(vqa_dir, exist_ok=True)
-    import h5py
-    with h5py.File(os.path.join(vqa_dir, "data_prepro.h5"), "w") as h5:
-        for k, v in bundle.arrays.items():
-            h5[k] = v
+    write_h5(os.path.join(vqa_dir, "data_prepro.h5"), bundle.arrays)
     with open(os.path.join(vqa_dir, "data_prepro.json"), "w") as f:
         json.dump(bundle.info, f)
     # comprehend-style fast-val ground truth for the test split

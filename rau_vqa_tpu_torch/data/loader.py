@@ -24,10 +24,10 @@ executor double-buffers the feature gather; with a ``PackedFeatureStore`` the
 gather itself is a single mmap fancy-index.
 
 The port's own copy of ``rau_vqa_tpu/data/loader.py``.  The bundle is read
-in two steps: ``read_prepro`` reads the files (``h5py`` is imported there
-and only there), ``build_vqa_data`` builds the splits from the JSON info
-and the arrays, so an in-memory bundle (``data/fixtures.py``) needs no
-``h5py``.
+in two steps: ``read_prepro`` reads the files (the h5 through the port's
+own reader, ``data/hdf5.py``: no ``h5py``), ``build_vqa_data`` builds the
+splits from the JSON info and the arrays, so an in-memory bundle
+(``data/fixtures.py``) works as well.
 """
 
 from __future__ import annotations
@@ -422,21 +422,16 @@ PREPRO_ARRAYS = ("ques_train", "ques_length_train", "img_pos_train",
 
 def read_prepro(vqa_dir: str) -> Tuple[Dict, Dict[str, np.ndarray]]:
     """The data_prepro.{json,h5} bundle as (JSON info, {dataset: array}),
-    the h5 values unchanged (``datatype_train`` included when present)."""
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(
-            f"reading {os.path.join(vqa_dir, 'data_prepro.h5')} needs h5py, "
-            f"which this Python lacks; the in-memory bundle "
-            f"(data/fixtures.py fixture_bundle) needs none") from e
+    the h5 values unchanged, in their stored types (``datatype_train``
+    included when present); the h5 read by ``data/hdf5.py``."""
+    from rau_vqa_tpu_torch.data.hdf5 import h5_names, read_h5
     with open(os.path.join(vqa_dir, "data_prepro.json")) as f:
         info = json.load(f)
-    with h5py.File(os.path.join(vqa_dir, "data_prepro.h5"), "r") as h5:
-        arrays = {k: np.asarray(h5[k]) for k in PREPRO_ARRAYS}
-        if "datatype_train" in h5:
-            arrays["datatype_train"] = np.asarray(h5["datatype_train"])
-    return info, arrays
+    path = os.path.join(vqa_dir, "data_prepro.h5")
+    names = list(PREPRO_ARRAYS)
+    if "datatype_train" in h5_names(path):
+        names.append("datatype_train")
+    return info, read_h5(path, names)
 
 
 def load_vqa_data(vqa_dir: str, batch_size: int, *, split: str = "val2014",

@@ -68,8 +68,8 @@ class RAUService:
 
     ``checkpoint`` is the port's ``.pt`` snapshot or the JAX package's
     ``.msgpack`` one; its model config is adopted.  The vocabulary and
-    answers come from ``vqa_dir`` (``data_prepro.{json,h5}``, needs
-    ``h5py``) or from ``data``, a ``VQAData`` built in memory.  ``fused``
+    answers come from ``vqa_dir`` (``data_prepro.{json,h5}``, the h5
+    read by ``data/hdf5.py``) or from ``data``, a ``VQAData`` built in memory.  ``fused``
     runs the serving kernels through ``make_predict_step`` with length
     ``buckets`` ((8, 16) when None); ``fused=False`` the plain float32
     ``predict``.  ``backbone`` (``"vgg16"``, ``"resnet101"`` or ``"vit"``,

@@ -349,9 +349,6 @@ class Trainer:
                 "differentiates through the pixels (--image-root)")
         if (backbone is None) != (bb_params is None):
             raise ValueError("pass backbone and bb_params together")
-        if exp.visatt:
-            raise NotImplementedError(
-                "visatt (attention-map PNGs) is not ported: it needs PIL")
         self.device = pick_device(device, "Trainer")
         # model dims come from the dataset (reference :204, :222)
         self.mcfg = dataclasses.replace(
@@ -747,6 +744,10 @@ class Trainer:
         H2 = self.mcfg.n_hops + 2
         oe_chunks, mc_chunks, qid_chunks = [], [], []
         params = head_params(self.state.params)
+        n_eval_batches = (test.iter_per_epoch
+                          + (1 if test.num_examples % test.batch_size else 0))
+        visatt_left = (self.exp.visatt_batches if self.exp.visatt_batches >= 0
+                       else n_eval_batches)
         for batch in test.batches(self.source, include_tail=True,
                                   finish=self._pinning(self._eval_ladder)):
             orig_b = len(batch.qids)
@@ -754,9 +755,20 @@ class Trainer:
             dev = self._put_batch(
                 padded, max_t=self._bucket_t(self._eval_ladder, padded.lengths))
             # host lengths: the step reads them without a device sync
-            tab_pred, _ = self.predict_step(params, dev["tokens"],
-                                            np.asarray(padded.lengths),
-                                            dev["feats"])
+            tab_pred, tab_att = self.predict_step(params, dev["tokens"],
+                                                  np.asarray(padded.lengths),
+                                                  dev["feats"])
+            if self.exp.visatt and visatt_left > 0:
+                # attention PNG dumps of the first visatt_batches batches
+                # (the reference dumps every test question, :926-932): the
+                # batch's attention, its padded tail dropped, copied to the
+                # host once
+                from rau_vqa_tpu_torch.utils.visatt import dump_attention_maps
+                dump_attention_maps(
+                    os.path.join(self.workdir, "figures"), float(self.epoch),
+                    tab_att[:, :orig_b].float().cpu().numpy(), batch.qids.tolist(),
+                    self.mcfg.cnn_w, self.mcfg.cnn_h)
+                visatt_left -= 1
             mc = (None if batch.mc_answers is None
                   else self._put(batch.mc_answers))
             oe_ans, mc_ans = compute_answers(tab_pred[:, :orig_b], mc)

@@ -149,10 +149,13 @@ def group_size(cfg: ModelConfig, group: str) -> int:
     return sum(int(np.prod(shape)) for _, shape, _ in GROUP_LAYOUTS[group](cfg))
 
 
-def flat_to_group(flat: np.ndarray, cfg: ModelConfig, group: str) -> Dict:
+def flat_to_group(flat: np.ndarray, cfg: ModelConfig, group: str,
+                  layout: List[Entry] = None) -> Dict:
     """Slice one torch flat vector into the ``group`` subtree of the port's
-    params, as float32 CPU tensors."""
-    layout = GROUP_LAYOUTS[group](cfg)
+    params, as float32 CPU tensors.  ``layout`` overrides the reconstructed
+    ``GROUP_LAYOUTS`` order (one recovered by ``utils.layout_diag`` when a
+    real snapshot's nngraph ``parameters()`` order disagrees)."""
+    layout = GROUP_LAYOUTS[group](cfg) if layout is None else layout
     want = sum(int(np.prod(s)) for _, s, _ in layout)
     if flat.size != want:
         raise ValueError(
@@ -175,10 +178,11 @@ def _float64(x) -> np.ndarray:
     return np.asarray(x, np.float64)
 
 
-def group_to_flat(params: Dict, cfg: ModelConfig, group: str) -> np.ndarray:
+def group_to_flat(params: Dict, cfg: ModelConfig, group: str,
+                  layout: List[Entry] = None) -> np.ndarray:
     """Inverse: the ``group`` subtree (tensors or arrays) -> the torch flat
-    vector, float64."""
-    layout = GROUP_LAYOUTS[group](cfg)
+    vector, float64, in ``layout``'s order (``GROUP_LAYOUTS``' when None)."""
+    layout = GROUP_LAYOUTS[group](cfg) if layout is None else layout
     chunks = []
     for path, shape, transpose in layout:
         arr = _float64(_get({group: params}, path))

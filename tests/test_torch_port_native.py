@@ -193,8 +193,8 @@ def test_two_processes_build_one_library(tmp_path):
 
 def test_cli_pack_features_writes_the_jax_shard(fixture, tmp_path, monkeypatch):
     """``pack-features`` of each CLI gives the same files; without h5py the
-    port's reads every image as datatype 1, which one --feat-dir serves and
-    two refuse."""
+    port's reads each image's datatype from the bundle all the same
+    (data/hdf5.py), with one --feat-dir or two (it once refused two)."""
     from rau_vqa_tpu import cli as jcli
     from rau_vqa_tpu_torch import cli as tcli
 
@@ -211,6 +211,11 @@ def test_cli_pack_features_writes_the_jax_shard(fixture, tmp_path, monkeypatch):
         for f in sorted(os.listdir(tmp_path / "jax")):
             assert (tmp_path / d / f).read_bytes() == \
                 (tmp_path / "jax" / f).read_bytes(), (d, f)
-    with pytest.raises(SystemExit, match="h5py"):
-        tcli.main(args + ["--feat-dir", os.path.join(root, "feat"), "--out",
-                          str(tmp_path / "two")])
+    two = args + ["--feat-dir", os.path.join(root, "feat")]
+    monkeypatch.delitem(sys.modules, "h5py")
+    assert jcli.main(two + ["--out", str(tmp_path / "jax_two")]) == 0
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    assert tcli.main(two + ["--out", str(tmp_path / "two")]) == 0
+    for f in sorted(os.listdir(tmp_path / "jax_two")):
+        assert (tmp_path / "two" / f).read_bytes() == \
+            (tmp_path / "jax_two" / f).read_bytes(), f

@@ -522,9 +522,9 @@ def test_trainer_device_rule_and_unported_options(fixture_root, tmp_path,
         ttrainer.Trainer(exp, data, src, str(tmp_path), backbone="vgg16", device="cpu")
     with pytest.raises(ValueError, match="train_backbone needs backbone="):
         ttrainer.make_train_step(exp.model, ft.train, device="cpu")
-    with pytest.raises(NotImplementedError, match="PIL"):
-        ttrainer.Trainer(exp.replace(visatt=True), data, src, str(tmp_path),
-                         device="cpu")
+    # attention dumps are ported: visatt is no longer refused
+    assert ttrainer.Trainer(exp.replace(visatt=True), data, src, str(tmp_path),
+                            device="cpu").exp.visatt
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrainer.Trainer(exp, data, src, str(tmp_path))

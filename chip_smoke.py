@@ -219,7 +219,27 @@ Phases, in order; any failure exits non-zero:
               multiples of 32) in float32, bf16, fused float32 and fused
               bf16, each best OE > 0.5; each step's
               seconds, prepro's questions/s, the bundle's bytes and read
-              time, the phase's seconds.
+              time, the phase's seconds;
+13. export_bench — export, the benches and the rig tools through the
+              user's entry points (under a 400 s watchdog): ``export`` of a
+              full-width ``ours_ms`` ``.pt`` snapshot with ladder 8/16/26
+              (the serving kernels as the ``rau_vqa::`` custom ops in
+              ``torch.export`` programs), loaded and run at B in {1, 83,
+              512}, one bucket each: per-hop answers equal to
+              ``PredictStep``'s and scores within the service's bar (rtol
+              1e-3, atol 1e-4), the encoder's and the hop loop's launches
+              rising by one a call; an ``ours_resnet`` pixels artifact (a
+              folded bf16 ResNet-101 from the seed baked in, 448 px) at B=7
+              against ``answer_pixels``: the same answers, attention within
+              the bar, 4 stage launches a call; the two benches at their
+              defaults, live and from an ``--artifact``, their JSON lines
+              printed, each with ``mfu``, ``device``, ``power_limit_w`` and
+              the canary; the bench's q/s at B=512 within 15% of this
+              phase's own ``PredictStep`` timing; ``profile`` of 3 fused
+              float32 train steps (whether ``key_averages()`` shows device
+              time and the trace names the training kernels' phases);
+              ``doctor --canary`` healthy, the canary beside the 989 TFLOP/s
+              peak and the power limit; the phase's seconds.
 
 Prints each number beside the card's name and power limit, a ``kernels``
 JSON line (the hop kernel's and the training kernels' entries also give
@@ -244,10 +264,20 @@ import time
 import numpy as np
 import torch
 
-H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM
-H100_F32_FLOPS = 67e12        # float32 outside the tensor cores, H100 SXM
-H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM
-H100_INT32_OPS = 33.5e12      # 64 int32 lanes a SM a clock, half the f32 rate
+from rau_vqa_tpu_torch.utils.flops import (  # noqa: E402 (the one count)
+    H100_BF16_FLOPS,
+    H100_BYTES_PER_S,
+    H100_F32_FLOPS,
+    H100_INT32_OPS,
+    bound,
+    hops_bound,
+    lstm_bound,
+    nbytes,
+    stage_bound,
+    train_hop_flops,
+    vgg_flops,
+    vit_flops,
+)
 
 
 def log(msg: str) -> None:
@@ -395,57 +425,6 @@ def make_batch(cfg, B, max_len, rs, dev):
     feats = np.abs(rs.randn(B, cfg.cnn_spat, cfg.cnn_dim)).astype(np.float32)
     return (torch.as_tensor(tokens, device=dev), torch.as_tensor(lengths, device=dev),
             torch.as_tensor(feats, device=dev))
-
-
-def nbytes(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(nbytes(v) for v in tree.values())
-    if isinstance(tree, list):
-        return sum(nbytes(v) for v in tree)
-    return tree.numel() * tree.element_size()
-
-
-def bound(n_bytes: float, n_ops: float, peak_flops: float):
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_ops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def lstm_bound(cfg, enc, lengths, T):
-    """Least time for the encoder: inputs (emb, lengths, the kernel's weight
-    slabs and biases) read once, output written once; bf16 dots for each
-    row's real tokens only."""
-    B, E, R, L = lengths.shape[0], cfg.embed_dim, cfg.rnn_size, cfg.rnn_layers
-    n_bytes = (B * T * E * 4 + B * 4 + nbytes(enc["slabs"]) + nbytes(enc["bias"])
-               + B * 2 * L * R * 4)
-    per_step = 2 * 4 * R * (E + R) + (L - 1) * 2 * 4 * R * (R + R)
-    n_ops = per_step * int(lengths.long().sum())
-    return bound(n_bytes, n_ops, H100_BF16_FLOPS)
-
-
-def hops_bound(cfg, hw, B):
-    """Least time for the hop loop: q, ifeat, iatt and the weights read once,
-    the three outputs written once; the dots and the pooling in bf16 terms."""
-    Q, S, M, F = cfg.rnnout_dim, cfg.cnn_spat, cfg.multfeat_dim, cfg.attfeat_dim
-    R, A, H = cfg.att_rnn_size, cfg.answer_size, cfg.n_hops
-    n_bytes = (B * Q * 4 + B * S * (M + F) * 2 + nbytes(hw)
-               + H * B * (A + 1 + S) * 4)
-    per_hop = 2 * (R * M + M * F + S * F + R * S + S * M + S * M
-                   + M * 4 * R + R * 4 * R + R * M + M * A + M)
-    n_ops = B * (2 * Q * M + H * per_hop)
-    return bound(n_bytes, n_ops, H100_BF16_FLOPS)
-
-
-def train_hop_flops(cfg):
-    """Multiply-adds x 2 of one training hop's forward for one row (the
-    classifier included), and of its backward without the remat."""
-    Q, S, Dc, M, F = cfg.rnnout_dim, cfg.cnn_spat, cfg.cnn_dim, cfg.multfeat_dim, cfg.attfeat_dim
-    R, A = cfg.att_rnn_size, cfg.answer_size
-    fwd = 2 * (Q * M + R * M + S * Dc * M + S * M * F + M * F + S * F + R * S
-               + S * M + S * M + M * 4 * R + R * 4 * R + R * M + M * A + M)
-    bwd = 2 * (M * R + 4 * R * M + 4 * R * R + M * S + S * M + S * R + S * F
-               + F * M + M * R + M * S * F + S * F * M + S * Dc * M)
-    return fwd, bwd
 
 
 def _operand_size_and_peak(dtype):
@@ -629,15 +608,6 @@ def train_bf16_readings(rth, cfg, mp, B, rs, dev, host=False, dfeats=False):
         bwd[name] = {k: norm_rel(v[path], grads["plain"][path])
                      for k, v in grads.items() if k != "plain"}
     return {"fwd": fwd, "bwd": bwd}
-
-
-def stage_bound(B, H, W, C, Cw, N):
-    """Least time for one identity-stage call: x read once, the output
-    written once, the stacked bf16 weights read once; the three products of
-    each block in bf16 tensor-core terms."""
-    n_bytes = 2 * B * H * W * C * 2 + N * (2 * C * Cw + 9 * Cw * Cw + 2 * Cw + C) * 2
-    n_ops = 2 * B * N * H * W * (2 * C * Cw + 9 * Cw * Cw)
-    return bound(n_bytes, n_ops, H100_BF16_FLOPS)
 
 
 def old_stage_weight_bytes(B, H, W, C, Cw, N):
@@ -1447,29 +1417,6 @@ def serve_phase(seed: int, card: str) -> dict:
 # at its 224 px) and the images its precomputation sweeps
 BACKBONE_SIDES = {"vgg16": 448, "vit": 224}
 PRECOMPUTE_IMAGES = 300
-
-
-def vgg_flops(size: int) -> float:
-    """VGG16's 13 convolutions at ``size`` px: 2 x 9 x C_in x C_out a pixel
-    of each conv's output map, an image."""
-    from rau_vqa_tpu_torch.models.backbones.vgg import VGG16_CFG
-    flops, c_in, side = 0.0, 3, size
-    for v in VGG16_CFG:
-        if v == "M":
-            side //= 2
-        else:
-            flops += 2.0 * 9 * c_in * v * side * side
-            c_in = v
-    return flops
-
-
-def vit_flops(cfg) -> float:
-    """A ViT's products an image: the patch embedding, then each block's qkv,
-    the two attention products, the projection and the two MLP layers."""
-    S, D, P = cfg.seq, cfg.dim, cfg.patch
-    M = int(D * cfg.mlp_ratio)
-    block = 2.0 * S * D * (3 * D + D + 2 * M) + 2 * 2.0 * S * S * D
-    return 2.0 * S * P * P * 3 * D + cfg.depth * block
 
 
 def pixels_gates(name, cfg, calls, plain, head, f32_feats, predict_plain, gen, failed,
@@ -2811,6 +2758,207 @@ def workflow_phase(seed: int, card: str) -> dict:
     return total
 
 
+EXPORT_LADDER = (8, 16)          # with seq_len 26: the service's buckets
+EXPORT_BATCHES = ((1, 8), (83, 16), (512, 26))   # (B, longest question): each bucket
+SERVE_BAR = dict(rtol=1e-3, atol=1e-4)            # the service's bar (tests)
+BENCH_AGREE = 0.15               # the bench's q/s against the smoke's step timing
+EB_DEVICE = "cuda"               # a CPU rehearsal sets "cpu" (and the sizes below)
+EB_SIDE = 448                    # the pixels artifact's images (ours_resnet's 14x14 grid)
+EB_STEP_B = 512                  # the batch of (d)'s PredictStep timing
+EB_PIXELS_ARGS = []              # the pixels bench's flags: its defaults
+
+
+def _run_cli_json(main, argv):
+    """``main(argv)`` in this process with its standard output captured:
+    (exit code, its last line as JSON or None, the whole output)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    try:
+        line = json.loads(out.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        line = None
+    return rc, line, out
+
+
+def export_bench_phase(seed: int, card: str) -> dict:
+    """13. export_bench: the serving kernels as the rau_vqa:: custom ops in a
+    torch.export artifact, the two benches, profile and doctor, through the
+    user's entry points; returns each kernel's launches in the phase."""
+    import tempfile
+
+    from rau_vqa_tpu_torch import bench, bench_pixels, cli
+    from rau_vqa_tpu_torch.config import get_preset
+    from rau_vqa_tpu_torch.convert import map_tree
+    from rau_vqa_tpu_torch.eval import export as E
+    from rau_vqa_tpu_torch.eval.predict import make_predict_step
+    from rau_vqa_tpu_torch.models import pipeline
+    from rau_vqa_tpu_torch.models.backbones import resnet
+    from rau_vqa_tpu_torch.models.rau import init_params
+    from rau_vqa_tpu_torch.ops import fused_resnet, lstm_encoder, rau_hops
+    from rau_vqa_tpu_torch.ops import rau_train_hops as rth
+    from rau_vqa_tpu_torch.train.trainer import init_train_state
+    from rau_vqa_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    dev = torch.device(EB_DEVICE)
+    dev_flag = ["--device", EB_DEVICE]
+    counters = {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL,
+                "fused_identity_stage": fused_resnet.KERNEL,
+                "train_hops_fwd": rth.FWD_KERNEL, "train_hops_bwd": rth.BWD_KERNEL}
+    start = {k: c.launches for k, c in counters.items()}
+    failed = []
+    rs = np.random.RandomState(seed + 13)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as root:
+        # (a) the predict artifact of a .pt snapshot at full width, ladder 8/16/26
+        cfg = get_preset("ours_ms")
+        state = init_train_state(cfg, seed, device="cpu")._asdict()
+        snap = save_checkpoint(os.path.join(root, "snap"), 1, 1.0, state,
+                               extra={"model_config": dataclasses.asdict(cfg)})
+        art = os.path.join(root, "predict")
+        t0 = time.perf_counter()
+        rc, _, out = _run_cli_json(cli.main, dev_flag + [
+            "export", "--checkpoint", snap, "--out", art, "--eval-buckets", "8,16"])
+        export_s = time.perf_counter() - t0
+        mb = sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art)) / 1e6
+        log(f"export: rc {rc}, {export_s:.2f} s for 3 programs, {mb:.1f} MB "
+            f"({out.strip().splitlines()[-1]}) [{card}]")
+        run = E.load_exported(art)
+        params = map_tree(lambda x: x.to(dev), state["params"])
+        step = make_predict_step(cfg, buckets=EXPORT_LADDER, device=dev)
+        for B, max_len in EXPORT_BATCHES:
+            tokens, lengths, feats = make_batch(cfg, B, max_len, rs, dev)
+            with torch.no_grad():
+                want = step(params, tokens, lengths, feats)
+                k0 = (lstm_encoder.KERNEL.launches, rau_hops.KERNEL.launches)
+                t0 = time.perf_counter()
+                got = run(tokens, lengths, feats)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                rose = (lstm_encoder.KERNEL.launches - k0[0], rau_hops.KERNEL.launches - k0[1])
+            diff = max((g - w).abs().max().item() for g, w in zip(got, want))
+            agree = bool(torch.equal(got[0].argmax(-1), want[0].argmax(-1)))
+            log(f"export predict B={B} T<={max_len}: max |artifact - PredictStep| {diff:.3e} "
+                f"(bar rtol 1e-3 atol 1e-4), per-hop answers equal {agree}, launches "
+                f"{rose} (want (1, 1)), first call {first_s:.3f} s [{card}]")
+            try:
+                for g, w in zip(got, want):
+                    torch.testing.assert_close(g, w, **SERVE_BAR)
+            except AssertionError as e:
+                failed.append(f"(a) B={B}: {str(e).splitlines()[0]}")
+            if not agree or rose != (1, 1):
+                failed.append(f"(a) B={B}: answers equal {agree}, launches {rose}")
+
+        # (b) the pixels artifact of ours_resnet, a folded bf16 ResNet-101, 448 px
+        cfg_r = dataclasses.replace(get_preset("ours_resnet"), cnn_w=EB_SIDE // 32,
+                                    cnn_h=EB_SIDE // 32)
+        params_r = init_params(cfg_r, torch.Generator().manual_seed(seed), dev)
+        bb = resnet.fold_batchnorm(resnet.resnet101_init(
+            torch.Generator(dev).manual_seed(seed + 1), torch.bfloat16, dev))
+        pix = os.path.join(root, "pixels")
+        t0 = time.perf_counter()
+        E.export_pixels_predict(params_r, cfg_r, "resnet101", bb, pix, image_size=EB_SIDE,
+                                device=dev)
+        pix_s = time.perf_counter() - t0
+        B = 7
+        images = torch.as_tensor(
+            rs.randint(0, 256, (B, EB_SIDE, EB_SIDE, 3)).astype(np.uint8), device=dev)
+        tokens, lengths, _ = make_batch(cfg_r, B, cfg_r.seq_len, rs, dev)
+        with torch.no_grad():
+            ids, att = pipeline.answer_pixels(params_r, bb, cfg_r, "resnet101", images,
+                                              tokens, lengths, device=dev)
+            k0 = {k: counters[k].launches for k in ("lstm_encode", "rau_hops",
+                                                    "fused_identity_stage")}
+            tab_p, att_p = E.load_exported(pix)(images, tokens, lengths)
+            torch.cuda.synchronize()
+        rose = {k: counters[k].launches - v for k, v in k0.items()}
+        diff = (att_p - att).abs().max().item()
+        agree = bool(torch.equal(tab_p.argmax(-1), ids))
+        log(f"export pixels B={B}: export {pix_s:.2f} s; per-hop answers equal to "
+            f"answer_pixels {agree}, max |attention diff| {diff:.3e} (bar rtol 1e-3 atol "
+            f"1e-4), launches {rose} (want 1, 1, 4) [{card}]")
+        if not agree or rose != {"lstm_encode": 1, "rau_hops": 1, "fused_identity_stage": 4}:
+            failed.append(f"(b) answers equal {agree}, launches {rose}")
+        try:
+            torch.testing.assert_close(att_p, att, **SERVE_BAR)
+        except AssertionError as e:
+            failed.append(f"(b) attention: {str(e).splitlines()[0]}")
+
+        # (d) the smoke's own timing of PredictStep at B=512, T=26
+        tokens, lengths, feats = make_batch(cfg, EB_STEP_B, cfg.seq_len, rs, dev)
+        with torch.no_grad():
+            step_ms = time_ms(lambda: step(params, tokens, lengths, feats), iters=10)
+        smoke_qps = EB_STEP_B / step_ms * 1e3
+        log(f"export_bench PredictStep B={EB_STEP_B} T=26: {step_ms:.4f} ms, "
+            f"{smoke_qps:.1f} questions/s [{card}]")
+
+        # (c) the two benches at their defaults, live and from an artifact
+        lines = {}
+        for name, main, argv in (
+                ("bench", bench.main, dev_flag),
+                ("bench --artifact", bench.main,
+                 dev_flag + ["--artifact", os.path.join(root, "chain")]),
+                ("bench-pixels", bench_pixels.main, dev_flag + EB_PIXELS_ARGS),
+                ("bench-pixels --artifact", bench_pixels.main,
+                 dev_flag + EB_PIXELS_ARGS + ["--artifact", os.path.join(root, "pchain")])):
+            t0 = time.perf_counter()
+            rc, line, _ = _run_cli_json(main, argv)
+            print(json.dumps(line), flush=True)
+            log(f"{name}: rc {rc}, {time.perf_counter() - t0:.1f} s [{card}]")
+            keys = ("metric", "value", "mfu", "device", "power_limit_w", "compile_s",
+                    "rig_canary_tflops", "rig_canary_frac_peak")
+            if rc != 0 or line is None or any(line.get(k) is None for k in keys) \
+                    or "vs_baseline" in line:
+                failed.append(f"(c) {name}: rc {rc}, line {line}")
+            lines[name] = line or {}
+        bench_qps = lines["bench"].get("value", 0.0)
+        off = abs(bench_qps / smoke_qps - 1)
+        log(f"export_bench: the bench's {bench_qps:.1f} q/s against the smoke's "
+            f"{smoke_qps:.1f} at B=512: {off * 100:.1f}% apart (bar {BENCH_AGREE * 100:.0f}%); "
+            f"from the artifact {lines['bench --artifact'].get('value')} q/s [{card}]")
+        if not off <= BENCH_AGREE:
+            failed.append(f"(d) the bench's q/s is {off * 100:.1f}% from the smoke's")
+
+        # (e) profile: 3 fused float32 train steps of ours_ms
+        prof_dir = os.path.join(root, "profile")
+        t0 = time.perf_counter()
+        rc, _, out = _run_cli_json(cli.main, dev_flag + [
+            "profile", "--preset", "ours_ms", "--out", prof_dir, "--steps", "3",
+            "--fused-train"])
+        with open(os.path.join(prof_dir, "trace.json")) as f:
+            trace = f.read()
+        named = {k: k in trace for k in ("rows_fwd_kernel", "softmax_bwd_kernel",
+                                         "cell_bwd_kernel")}
+        tail = out.strip().splitlines()[-1]
+        log(f"profile: rc {rc}, {time.perf_counter() - t0:.1f} s; key_averages {tail!r}; "
+            f"the trace names the training kernels' phases {named} [{card}]")
+        if rc != 0:
+            failed.append(f"(e) profile rc {rc}")
+
+        # (f) doctor --canary
+        t0 = time.perf_counter()
+        rc, report, _ = _run_cli_json(cli.main, ["doctor", "--canary"])
+        report = report or {}
+        c = report.get("canary", {})
+        log(f"doctor --canary: rc {rc} healthy {report.get('healthy')} in "
+            f"{time.perf_counter() - t0:.1f} s; canary {c.get('tflops')} TFLOP/s bf16 "
+            f"against the 989 TFLOP/s dense peak ({c.get('frac_of_peak')}) on "
+            f"{c.get('device')} at {c.get('power_limit_w')} W; native_images "
+            f"{report.get('native_images', {}).get('status')} [{card}]")
+        for k in ("device", "cpu", "build", "native_features", "native_images"):
+            log(f"doctor {k}: {report.get(k)}")
+        if rc != 0 or not report.get("healthy") or c.get("status") != "ok":
+            failed.append(f"(f) doctor rc {rc}, healthy {report.get('healthy')}")
+    launches = {k: c.launches - start[k] for k, c in counters.items()}
+    log(f"export_bench launches {launches}; export_bench_phase_s="
+        f"{time.perf_counter() - t_phase:.1f} [{card}]")
+    if failed:
+        raise SystemExit("export_bench: " + "; ".join(failed))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3925,6 +4073,10 @@ def main() -> int:
     with watchdog(600, "the workflow phase"):
         wf_launches = workflow_phase(args.seed, card)
     log("phase workflow: ok")
+    # 13. export, the benches, profile and doctor through the user's entry points
+    with watchdog(400, "the export_bench phase"):
+        eb_launches = export_bench_phase(args.seed, card)
+    log("phase export_bench: ok")
 
     s2 = stage_ms[2]
     kernels = [
@@ -3933,7 +4085,7 @@ def main() -> int:
          "replaces": "rau_vqa_tpu/ops/lstm_encoder.py:81",
          "launches": launches["lstm_encode"] + serve_launches["lstm_encode"]
          + backbones_launches["lstm_encode"] + ft_launches["lstm_encode"]
-         + wf_launches["lstm_encode"],
+         + wf_launches["lstm_encode"] + eb_launches["lstm_encode"],
          "max_abs_err": err["lstm_encode"],
          "ms": ms["lstm_encode"], "plain_ms": ms["lstm_plain"],
          "bound_ms": lb_ms, "bound_by": lb_by, "library_ms": ms["lstm_library"],
@@ -3941,13 +4093,14 @@ def main() -> int:
          "serve_launches": serve_launches["lstm_encode"],
          "backbones_launches": backbones_launches["lstm_encode"],
          "finetune_launches": ft_launches["lstm_encode"],
-         "workflow_launches": wf_launches["lstm_encode"]},
+         "workflow_launches": wf_launches["lstm_encode"],
+         "export_bench_launches": eb_launches["lstm_encode"]},
         {"name": "rau_hops", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_hops.cu",
          "replaces": "rau_vqa_tpu/ops/rau_hops.py:152",
          "launches": launches["rau_hops"] + serve_launches["rau_hops"]
          + backbones_launches["rau_hops"] + ft_launches["rau_hops"]
-         + wf_launches["rau_hops"],
+         + wf_launches["rau_hops"] + eb_launches["rau_hops"],
          "max_abs_err": err["rau_hops"],
          "ms": ms["rau_hops"], "plain_ms": ms["hops_plain"],
          "bound_ms": hb_ms, "bound_by": hb_by, "library_ms": None,
@@ -3956,12 +4109,15 @@ def main() -> int:
          "backbones_launches": backbones_launches["rau_hops"],
          "finetune_launches": ft_launches["rau_hops"],
          "workflow_launches": wf_launches["rau_hops"],
+         "export_bench_launches": eb_launches["rau_hops"],
          "device_kernels_a_call": hops_kernels[512]},
         {"name": "train_hops_fwd", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_fwd.cu",
          "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:358",
-         "launches": train_launches["train_hops_fwd"] + wf_launches["train_hops_fwd"],
+         "launches": train_launches["train_hops_fwd"] + wf_launches["train_hops_fwd"]
+         + eb_launches["train_hops_fwd"],
          "workflow_launches": wf_launches["train_hops_fwd"],
+         "export_bench_launches": eb_launches["train_hops_fwd"],
          "max_abs_err": err["train_hops_fwd"],
          "ms": tms["train_hops_fwd"], "plain_ms": tms["train_fwd_plain"],
          "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": None,
@@ -3972,8 +4128,10 @@ def main() -> int:
         {"name": "train_hops_bwd", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_bwd.cu",
          "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:471",
-         "launches": train_launches["train_hops_bwd"] + wf_launches["train_hops_bwd"],
+         "launches": train_launches["train_hops_bwd"] + wf_launches["train_hops_bwd"]
+         + eb_launches["train_hops_bwd"],
          "workflow_launches": wf_launches["train_hops_bwd"],
+         "export_bench_launches": eb_launches["train_hops_bwd"],
          "max_abs_err": err["train_hops_bwd"],
          "ms": tms["train_hops_bwd"], "plain_ms": tms["train_bwd_plain"],
          "bound_ms": bb_ms, "bound_by": bb_by, "library_ms": None,
@@ -4043,8 +4201,9 @@ def main() -> int:
          "source": "rau_vqa_tpu_torch/csrc/fused_resnet.cu",
          "replaces": "rau_vqa_tpu/ops/fused_resnet.py:129",
          "launches": pix_launches["fused_identity_stage"]
-         + serve_launches["fused_identity_stage"],
+         + serve_launches["fused_identity_stage"] + eb_launches["fused_identity_stage"],
          "serve_launches": serve_launches["fused_identity_stage"],
+         "export_bench_launches": eb_launches["fused_identity_stage"],
          "max_abs_err": stage_err[2][1], "scaled_err": stage_err[2][0],
          "ms": s2["ms"], "plain_ms": s2["plain_ms"],
          "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],

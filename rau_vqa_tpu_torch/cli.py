@@ -14,6 +14,13 @@
     python -m rau_vqa_tpu_torch.cli vqa-accuracy --results OE.json --annotations val_annotations.json
     python -m rau_vqa_tpu_torch.cli diagnose-snapshot --input snap.t7 --vocab-size ... --ref-checkpoint snap.pt
     python -m rau_vqa_tpu_torch.cli verify-released --tarball released.tar.gz --vqa-dir ... --feat-dir ...
+    python -m rau_vqa_tpu_torch.cli export --checkpoint snap.pt --out art/ [--backbone resnet101 --backbone-state x.pth]
+    python -m rau_vqa_tpu_torch.cli serve --artifact art/ --vqa-dir ... --feat-dir ...
+    python -m rau_vqa_tpu_torch.cli bench [--batch 512] [--artifact [DIR]]
+    python -m rau_vqa_tpu_torch.cli bench-pixels [--backbone resnet101] [--batch 120] [--artifact [DIR]]
+    python -m rau_vqa_tpu_torch.cli profile --preset ours_ms --out trace_dir [--steps 10] [--fused-train]
+    python -m rau_vqa_tpu_torch.cli doctor [--canary] [--watch]
+    python -m rau_vqa_tpu_torch.cli dashboard --workdir <run dir> [--port 8000]
 
 Every command that runs the model runs on ``--device`` (``cuda`` by default;
 it raises without a card, ``--device cpu`` runs the kernels' plain
@@ -34,6 +41,12 @@ parameter group; ``--backbone-state`` also takes a fine-tuned snapshot
 
     python -m rau_vqa_tpu_torch.cli train --preset ours_ms --fixture --train-backbone
     python -m rau_vqa_tpu_torch.cli train --preset ours_resnet_ft --image-root ... --backbone resnet101 --backbone-state resnet101.pth
+
+``export`` writes a snapshot's serving program as ``torch.export`` programs
+(``eval/export.py``) that ``serve --artifact`` serves; ``bench`` and
+``bench-pixels`` pass their flags to ``rau_vqa_tpu_torch/bench.py`` and
+``bench_pixels.py``; ``profile`` traces train steps with ``torch.profiler``;
+``doctor`` probes the rig; ``dashboard`` serves a run directory's metrics.
 """
 
 from __future__ import annotations
@@ -538,6 +551,173 @@ def cmd_serve(args) -> int:
     finally:
         server.server_close()
         svc.close()
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Export a snapshot's serving program to an artifact directory
+    (``eval/export.py``): the parameters baked in, a symbolic batch, one
+    program per token-length bucket, on ``--device``.  The default program is
+    the service's (``predict_fused``, the serving kernels as custom ops);
+    ``--no-fused-eval`` the plain float32 ``predict``; ``--backbone`` the
+    whole from-pixels program with its backbone baked in."""
+    from rau_vqa_tpu_torch.config import get_experiment
+    from rau_vqa_tpu_torch.devices import pick_device
+    from rau_vqa_tpu_torch.eval.export import export_pixels_predict, export_predict
+    from rau_vqa_tpu_torch.train.trainer import init_train_state
+    from rau_vqa_tpu_torch.utils.checkpoint import checkpoint_meta, load_checkpoint
+
+    device = pick_device(args.device, "export")
+    mcfg = _adopt_snapshot(get_experiment(args.preset), args.checkpoint).model
+    if args.bf16:
+        mcfg = dataclasses.replace(mcfg, compute_dtype="bfloat16")
+    meta = checkpoint_meta(args.checkpoint)
+    # a snapshot whose shapes differ from the config (a metadata-less one
+    # under another --preset) is refused here, not baked in
+    tree, _ = load_checkpoint(args.checkpoint,
+                              init_train_state(mcfg, 0, device="cpu")._asdict())
+    params = {g: tree["params"][g] for g in ("embed", "rnn", "mult")}
+    if args.eval_buckets is None:
+        # each from-pixels bucket's program bakes the whole backbone in
+        args.eval_buckets = "none" if args.backbone else "8,16"
+    buckets = _parse_buckets(args.eval_buckets) or ()
+    fused = not args.no_fused_eval
+    feat_norm = bool(meta.get("backbone_feat_norm", False))
+    extra = {"source_checkpoint": os.path.abspath(args.checkpoint), "preset": args.preset,
+             "step": meta.get("step"), "epoch": meta.get("epoch"),
+             # a features-only artifact beside a separate backbone needs it too
+             "backbone_feat_norm": feat_norm}
+    if args.backbone:
+        import torch
+        if args.backbone == "vit":
+            vcfg = _vit_cfg("vit")
+            args.image_size = args.image_size or vcfg.image_size
+            _validate_backbone_image_size("vit", args.image_size, "--image-size")
+            if vcfg.seq != mcfg.cnn_spat:
+                raise SystemExit(f"ViT-L/14 yields {vcfg.grid}x{vcfg.grid}={vcfg.seq} tokens "
+                                 f"but the snapshot was trained on cnn_spat={mcfg.cnn_spat} "
+                                 f"({mcfg.cnn_w}x{mcfg.cnn_h})")
+        else:
+            # the conv backbones are stride 32: the feature grid sets the side
+            args.image_size = args.image_size or mcfg.cnn_w * 32
+            if args.image_size % 32:
+                raise SystemExit(f"--image-size {args.image_size} is not a multiple of 32 "
+                                 f"(the conv backbones are stride-32): use --image-size "
+                                 f"{mcfg.cnn_w * 32}")
+            grid = args.image_size // 32
+            if grid * grid != mcfg.cnn_spat:
+                raise SystemExit(f"--image-size {args.image_size} gives a {grid}x{grid}="
+                                 f"{grid * grid} feature grid but the snapshot was trained on "
+                                 f"cnn_spat={mcfg.cnn_spat} ({mcfg.cnn_w}x{mcfg.cnn_h}): use "
+                                 f"--image-size {mcfg.cnn_w * 32}")
+        # bf16 for the service's program (the stage kernel's type) and --bf16
+        bb_dtype = torch.bfloat16 if fused or args.bf16 else torch.float32
+        bb_params = _load_backbone_state(args.backbone, args.backbone_state, device, bb_dtype)
+        if feat_norm:
+            print("snapshot uses the RMS-normalized feature interface "
+                  "(backbone_feat_norm): baked into the artifact")
+        paths = export_pixels_predict(params, mcfg, args.backbone, bb_params, args.out,
+                                      image_size=args.image_size, buckets=buckets,
+                                      fused=fused, vit_cfg=_vit_cfg(args.backbone),
+                                      feat_norm=feat_norm, device=device, extra_meta=extra)
+    else:
+        paths = export_predict(params, mcfg, args.out, buckets=buckets, fused=fused,
+                               device=device, extra_meta=extra)
+    for T, p in sorted(paths.items()):
+        print(f"T={T:02d}: {p} ({os.path.getsize(p) / 1e6:.1f} MB)")
+    print(f"exported {len(paths)} program(s) to {args.out} "
+          f"({'the serving kernels' if fused else 'the plain predict'}, on {device.type})")
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """``torch.profiler`` over ``--steps`` train steps of the preset on
+    random inputs (the first step runs outside the trace): a Chrome trace
+    under ``--out`` and the ops by time.  ``--fused-train`` traces the
+    training kernels."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rau_vqa_tpu_torch.config import get_experiment
+    from rau_vqa_tpu_torch.devices import pick_device
+    from rau_vqa_tpu_torch.train.trainer import init_train_state, make_train_step
+
+    device = pick_device(args.device, "profile")
+    exp = _apply_overrides(get_experiment(args.preset), args)
+    mcfg, tcfg = exp.model, exp.train
+    state = init_train_state(mcfg, tcfg.seed, device=device)
+    step = make_train_step(mcfg, tcfg, device=device)
+    rs = np.random.RandomState(0)
+    B = tcfg.batch_size
+    batch = [torch.as_tensor(a, device=device) for a in (
+        rs.randint(1, mcfg.vocab_size, (B, mcfg.seq_len)).astype(np.int32),
+        rs.randint(1, mcfg.seq_len + 1, B).astype(np.int32),
+        rs.randn(B, mcfg.cnn_spat, mcfg.cnn_dim).astype(np.float32),
+        rs.randint(0, mcfg.answer_size, B).astype(np.int32))]
+    hop_scale = torch.ones(mcfg.n_hops, device=device)
+    lr, mult_lr = tcfg.learning_rate, tcfg.mult_learning_rate
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    state, m = step(state, *batch, hop_scale, lr, mult_lr)    # outside the trace
+    sync()
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        for _ in range(args.steps):
+            state, m = step(state, *batch, hop_scale, lr, mult_lr)
+        sync()
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, "trace.json")
+    prof.export_chrome_trace(path)
+    averages = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in averages
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    print(averages.table(sort_by="self_device_time_total" if device.type == "cuda"
+                         else "self_cpu_time_total", row_limit=15))
+    print(f"traced {args.steps} steps (loss {float(m['loss']):.4f}) -> {path}; "
+          + (f"device time {device_ms:.3f} ms" if device_ms > 0
+             else "no device time recorded"))
+    return 0
+
+
+def cmd_doctor(args) -> int:
+    """Rig health: the card, the CPU path, nvcc and a kernel's build, the
+    native libraries, optionally the data directory and the bf16 canary;
+    each probe in a subprocess with a timeout.  ``--watch`` polls until
+    healthy."""
+    import time
+
+    from rau_vqa_tpu_torch.utils import doctor
+
+    deadline = (time.monotonic() + args.watch_timeout
+                if args.watch and args.watch_timeout > 0 else None)
+    while True:
+        report = doctor.run_doctor(vqa_dir=args.vqa_dir, canary=args.canary,
+                                   device_timeout_s=args.device_timeout)
+        if not args.watch or report["healthy"]:
+            print(doctor.format_report(report), file=sys.stderr)
+            print(json.dumps(report))
+            return 0 if report["healthy"] else 1
+        failing = ", ".join(f"{k}={c.get('status')}" for k, c in report.items()
+                            if isinstance(c, dict) and c.get("status") not in (None, "ok"))
+        print(f"doctor --watch: unhealthy ({failing or 'see report'}); next poll in "
+              f"{args.watch_interval:.0f}s", file=sys.stderr)
+        if deadline is not None and time.monotonic() >= deadline:
+            print("doctor --watch: timeout, giving up", file=sys.stderr)
+            print(json.dumps(report))
+            return 1
+        time.sleep(args.watch_interval)
+
+
+def cmd_dashboard(args) -> int:
+    from rau_vqa_tpu_torch.utils.dashboard import serve_dashboard
+
+    serve_dashboard(args.workdir, args.port, args.nhop)
     return 0
 
 
@@ -1054,7 +1234,8 @@ def main(argv=None) -> int:
     p_serve.add_argument("--checkpoint",
                          help="snapshot (.pt, or the JAX package's .msgpack)")
     p_serve.add_argument("--artifact",
-                         help="an exported artifact (not ported: refused)")
+                         help="an artifact directory from `export`, in place of "
+                              "--checkpoint (its model config, ladder and program)")
     p_serve.add_argument("--port", type=int, default=8080)
     p_serve.add_argument("--max-batch", type=int, default=16,
                          help="micro-batching group cap")
@@ -1215,7 +1396,82 @@ def main(argv=None) -> int:
     _add_common_data_flags(p_ver)
     _add_device_flag(p_ver, argparse.SUPPRESS)
 
-    args = parser.parse_args(argv)
+    p_exp = sub.add_parser("export", help="export a snapshot's serving program as "
+                                          "torch.export programs (.pt2)")
+    p_exp.add_argument("--checkpoint", required=True,
+                       help="snapshot (.pt, or the JAX package's .msgpack)")
+    p_exp.add_argument("--out", required=True, help="artifact directory")
+    p_exp.add_argument("--preset", default="ours_ms",
+                       help="the config where the snapshot records none")
+    p_exp.add_argument("--eval-buckets", default=None,
+                       help="token-length bucket ladder ('none' = seq_len only); default "
+                            "8,16, and none with --backbone (every bucket's program bakes "
+                            "the whole backbone in)")
+    p_exp.add_argument("--bf16", action="store_true",
+                       help="compute_dtype bfloat16 in the plain program (--no-fused-eval) "
+                            "and a bf16 backbone; the fused program's kernels are bf16 "
+                            "already")
+    p_exp.add_argument("--no-fused-eval", action="store_true",
+                       help="export the plain float32 predict (the JAX artifact's program) "
+                            "instead of the serving kernels")
+    p_exp.add_argument("--backbone", default=None, choices=["vgg16", "resnet101", "vit"],
+                       help="export the from-pixels program (uint8 images + tokens -> "
+                            "answers, the backbone baked in)")
+    p_exp.add_argument("--backbone-state", default=None,
+                       help="the backbone's weights (.pth state dict, or a fine-tuned "
+                            "snapshot .pt / .msgpack)")
+    p_exp.add_argument("--image-size", type=int, default=None,
+                       help="input side of a --backbone artifact (default: the snapshot's "
+                            "grid, cnn_w * 32; the ViT's 224)")
+    _add_device_flag(p_exp, argparse.SUPPRESS)
+
+    sub.add_parser("bench", add_help=False,
+                   help="serving throughput bench (one JSON line); flags pass through "
+                        "to rau_vqa_tpu_torch/bench.py")
+    sub.add_parser("bench-pixels", add_help=False,
+                   help="from-pixels bench (one JSON line); flags pass through to "
+                        "rau_vqa_tpu_torch/bench_pixels.py")
+
+    p_prof = sub.add_parser("profile", help="trace N train steps with torch.profiler")
+    p_prof.add_argument("--out", required=True, help="trace output directory")
+    p_prof.add_argument("--steps", type=int, default=10)
+    _add_train_flags(p_prof)
+    _add_common_data_flags(p_prof)
+    _add_device_flag(p_prof, argparse.SUPPRESS)
+
+    p_doc = sub.add_parser("doctor", help="rig health: the card, nvcc, the native "
+                                          "libraries, each probe with a timeout")
+    p_doc.add_argument("--vqa-dir", default=None, help="also check the data bundle's files")
+    p_doc.add_argument("--canary", action="store_true",
+                       help="run the chained bf16 matmul canary on the card")
+    p_doc.add_argument("--device-timeout", type=float, default=180.0,
+                       help="seconds before a device probe is declared hung")
+    p_doc.add_argument("--watch", action="store_true",
+                       help="poll until healthy, then exit 0")
+    p_doc.add_argument("--watch-interval", type=float, default=120.0,
+                       help="seconds between --watch polls")
+    p_doc.add_argument("--watch-timeout", type=float, default=0.0,
+                       help="give up (exit 1) after this many seconds; 0 = wait forever")
+
+    p_dash = sub.add_parser("dashboard", help="live HTTP dashboard over a run directory")
+    p_dash.add_argument("--workdir", required=True)
+    p_dash.add_argument("--port", type=int, default=8000)
+    p_dash.add_argument("--nhop", type=int, default=8)
+
+    raw = list(sys.argv[1:] if argv is None else argv)
+    # the benches own their flags: pass everything after the command through,
+    # with a leading --device
+    lead = raw[:2] if raw[:1] == ["--device"] else raw[:1] if raw[:1] and \
+        raw[0].startswith("--device=") else []
+    rest = raw[len(lead):]
+    if rest[:1] == ["bench"]:
+        from rau_vqa_tpu_torch.bench import main as bench_main
+        return bench_main(lead + rest[1:])
+    if rest[:1] == ["bench-pixels"]:
+        from rau_vqa_tpu_torch.bench_pixels import main as bench_pixels_main
+        return bench_pixels_main(lead + rest[1:])
+
+    args = parser.parse_args(raw)
     return {"train": cmd_train, "eval": cmd_eval, "ask": cmd_ask,
             "fixture": cmd_fixture, "serve": cmd_serve,
             "pack-features": cmd_pack_features,
@@ -1223,7 +1479,9 @@ def main(argv=None) -> int:
             "convert-snapshot": cmd_convert_snapshot,
             "prepro": cmd_prepro, "vqa-accuracy": cmd_vqa_accuracy,
             "diagnose-snapshot": cmd_diagnose_snapshot,
-            "verify-released": cmd_verify_released}[args.command](args)
+            "verify-released": cmd_verify_released, "export": cmd_export,
+            "profile": cmd_profile, "doctor": cmd_doctor,
+            "dashboard": cmd_dashboard}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,11 @@ weights come as the JAX package's stacked ``[N, ...]`` tree
 (``stack_identity_blocks``); the bf16 kernel reads K-major copies of them
 (``pack_stage_weights``).  ``stage_plan`` chooses the kernel's CTA tile and
 ring depth for a shape, and reckons its shared memory and the weight bytes
-its CTAs read from L2.  ``KERNEL.launches`` counts one per stage call.
+its CTAs read from L2.  ``KERNEL.launches`` counts one per stage call.  The
+wrapper reaches the kernel and the plain version through the custom op
+``rau_vqa::fused_identity_stage`` (a CPU and a CUDA implementation and a
+shape function), so that ``torch.export`` keeps the call in an exported
+graph.
 """
 
 from __future__ import annotations
@@ -235,7 +239,8 @@ def fused_identity_stage_reference(x: torch.Tensor, stack: Dict) -> torch.Tensor
 def fused_identity_stage(x: torch.Tensor, stack: Dict, *, block_b: int = 2,
                          plan: Optional[StagePlan] = None,
                          kernel: Kernel = KERNEL) -> torch.Tensor:
-    """Run the N stacked identity blocks of ``stack`` over x [B, H, W, C].
+    """Run the N stacked identity blocks of ``stack`` over x [B, H, W, C],
+    through the ``rau_vqa::fused_identity_stage`` op.
 
     A CUDA ``x`` launches the kernel (or raises), in bf16 with ``plan`` or
     ``stage_plan``'s for this shape and card, reading the stack's K-major
@@ -244,16 +249,47 @@ def fused_identity_stage(x: torch.Tensor, stack: Dict, *, block_b: int = 2,
     JAX wrapper's batch tile; it must divide B, as there, and is otherwise
     unused: the CUDA kernel tiles each image's pixels its own way.
     ``kernel`` is ``KERNEL`` or a probe build of the same launcher
-    (``bench_torch_stage.py``)."""
-    B, H, W, C = x.shape
+    (``bench_torch_stage.py``), which is launched directly, not through the
+    op."""
+    B = x.shape[0]
     if B % block_b:
         raise ValueError(f"batch {B} not divisible by block_b {block_b}")
-    if x.device.type == "cpu":
-        return fused_identity_stage_reference(x, stack)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_identity_stage: unsupported device {x.device}")
+    kmaj = []
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        kmaj = stack if all(k in stack for k in _KMAJOR) else pack_stage_weights(stack)
+        kmaj = [kmaj[k] for k in _KMAJOR]
+    args = (x, [stack[k] for k in _KEYS], kmaj,
+            [plan.th, plan.tw, plan.nb, plan.ring] if plan else [])
+    if kernel is not KERNEL:
+        return _stage_cuda(*args, kernel=kernel)
+    return torch.ops.rau_vqa.fused_identity_stage(*args)
+
+
+@torch.library.custom_op("rau_vqa::fused_identity_stage", mutates_args=(),
+                         device_types="cpu")
+def _stage_op(x: torch.Tensor, weights: List[torch.Tensor],
+              kmajor: List[torch.Tensor], plan: List[int]) -> torch.Tensor:
+    """The op on the CPU: ``fused_identity_stage_reference``.  ``weights``:
+    w1, b1, w2, b2, w3, b3; ``kmajor``: w1t, w2t, w3t for the bf16 kernel
+    (empty for float32; unused here); ``plan``: (th, tw, nb, ring), or empty for
+    ``stage_plan``'s."""
+    return fused_identity_stage_reference(x, dict(zip(_KEYS, weights)))
+
+
+@_stage_op.register_fake
+def _(x, weights, kmajor, plan):
+    return torch.empty_like(x)
+
+
+def _stage_cuda(x, weights, kmajor, plan, kernel: Kernel = KERNEL) -> torch.Tensor:
+    """The op on the card (and a probe build's launch): one launch of
+    ``kernel``'s C entry on the current stream."""
+    B, H, W, C = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32) or not x.is_contiguous():
         raise ValueError("fused_identity_stage: x must be contiguous bf16 or float32 NHWC")
+    stack = dict(zip(_KEYS, weights))
     N, _, Cw = stack["w1"].shape
     if C % 128 or Cw % 64 or not 64 <= Cw <= 512:
         raise ValueError(f"fused_identity_stage: the kernel takes C % 128 == 0 and Cw in "
@@ -266,20 +302,23 @@ def fused_identity_stage(x: torch.Tensor, stack: Dict, *, block_b: int = 2,
                 or w.device != x.device):
             raise ValueError(f"fused_identity_stage: {k} must be contiguous {x.dtype} "
                              f"{shape} on {x.device}")
-    weights = [stack[k] for k in _KEYS]
+    weights = list(weights)
     knobs = (0,) * 4
     if x.dtype == torch.bfloat16:
-        kmaj = stack if all(k in stack for k in _KMAJOR) else pack_stage_weights(stack)
+        if not kmajor:
+            raise ValueError("fused_identity_stage: the bf16 kernel needs the K-major "
+                             "weights; pack_stage_weights makes them")
         want_t = {"w1t": (N, Cw, C), "w2t": (N, 9 * Cw, Cw), "w3t": (N, C, Cw)}
-        for k, shape in want_t.items():
-            w = kmaj[k]
+        for (k, shape), w in zip(want_t.items(), kmajor):
             if (w.dtype != x.dtype or tuple(w.shape) != shape or not w.is_contiguous()
                     or w.device != x.device):
                 raise ValueError(f"fused_identity_stage: {k} must be contiguous {x.dtype} "
                                  f"{shape} on {x.device}; pack_stage_weights makes it")
-        weights[0], weights[2], weights[4] = (kmaj[k] for k in _KMAJOR)
-        plan = plan or stage_plan(B, H, W, C, Cw, _sm_count(x.device.index or 0))
-        knobs = (plan.th, plan.tw, plan.nb, plan.ring)
+        weights[0], weights[2], weights[4] = kmajor
+        if not plan:
+            p = stage_plan(B, H, W, C, Cw, _sm_count(x.device.index or 0))
+            plan = (p.th, p.tw, p.nb, p.ring)
+        knobs = tuple(plan)
     out = torch.empty_like(x)
     scratch = torch.empty_like(x) if N > 1 else out
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -287,3 +326,6 @@ def fused_identity_stage(x: torch.Tensor, stack: Dict, *, block_b: int = 2,
                   *(w.data_ptr() for w in weights),
                   B, H, W, C, Cw, N, int(x.dtype == torch.bfloat16), *knobs, stream)
     return out
+
+
+_stage_op.register_kernel("cuda", _stage_cuda)

@@ -9,7 +9,9 @@ layer's stacked ``[wi; wh]`` laid out unit by unit, ``[R][4 gates][K]``, so
 that the CTA owning units ``[u0, u0 + U)`` reads one contiguous block.
 ``lstm_plan`` chooses, from the batch and the card's SM count, how the grid
 splits the units and rows (about one CTA per SM at every B) and how much
-shared memory a CTA takes.
+shared memory a CTA takes.  The wrapper reaches both through the custom op
+``rau_vqa::lstm_encode`` (a CPU and a CUDA implementation and a shape
+function), so that ``torch.export`` keeps the call in an exported graph.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -166,9 +168,13 @@ def lstm_encode_reference(rnn: Dict, cfg: ModelConfig, emb: torch.Tensor,
     """Plain version: emb [B, T, E] (after the embedding tanh), lengths [B]
     -> packed state [B, 2*n*R] at each row's last token, the rows whose
     length is outside [1, T] left at zero (``_kernel`` :57-77)."""
+    return _reference(rnn["layers"], cfg.rnn_size, emb, lengths, dot_dtype)
+
+
+def _reference(layers, R: int, emb: torch.Tensor, lengths: torch.Tensor,
+               dot_dtype: torch.dtype) -> torch.Tensor:
     B, T, _ = emb.shape
-    R = cfg.rnn_size
-    layers = map_tree(lambda w: w.float(), rnn["layers"])
+    layers = map_tree(lambda w: w.float(), layers)
     state = emb.new_zeros(B, 2 * R * len(layers), dtype=torch.float32)
     out = torch.zeros_like(state)
     lengths = lengths.to(emb.device)
@@ -191,26 +197,53 @@ def lstm_encode_reference(rnn: Dict, cfg: ModelConfig, emb: torch.Tensor,
     return out
 
 
+# the order of a layer's tensors in the op's flat ``layers`` list
+_LAYER_KEYS = ("wi", "wh", "bi", "bh")
+
+
 def lstm_encode(enc: Dict, cfg: ModelConfig, emb: torch.Tensor,
                 lengths: torch.Tensor, *,
                 plan: Optional[LstmPlan] = None) -> torch.Tensor:
-    """The encoder scan.  ``enc`` comes from ``pack_encoder_weights``.
+    """The encoder scan, through the ``rau_vqa::lstm_encode`` op.  ``enc``
+    comes from ``pack_encoder_weights``.
 
     A CUDA ``emb`` launches the kernel once (or raises), with ``plan`` or
-    ``lstm_plan``'s for this batch and card; a CPU ``emb`` runs
-    ``lstm_encode_reference`` with bf16 dots, the kernel's arithmetic."""
-    if emb.device.type == "cpu":
-        return lstm_encode_reference(enc, cfg, emb, lengths,
-                                     dot_dtype=torch.bfloat16)
-    if emb.device.type != "cuda":
+    ``lstm_plan``'s for this batch and card; a CPU ``emb`` runs the plain
+    version with bf16 dots, the kernel's arithmetic."""
+    if emb.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm_encode: unsupported device {emb.device}")
-    B, T, E = emb.shape
-    R, n = cfg.rnn_size, cfg.rnn_layers
-    if len(enc["layers"]) != n:
+    if len(enc["layers"]) != cfg.rnn_layers:
         raise ValueError(f"lstm_encode: {len(enc['layers'])} layers of weights "
-                         f"for rnn_layers {n}")
+                         f"for rnn_layers {cfg.rnn_layers}")
+    layers = [lp[k] for lp in enc["layers"] for k in _LAYER_KEYS]
+    return torch.ops.rau_vqa.lstm_encode(
+        emb, lengths, layers, list(enc["slabs"]), enc["bias"], cfg.rnn_size,
+        list(dataclasses.astuple(plan)) if plan else [])
+
+
+@torch.library.custom_op("rau_vqa::lstm_encode", mutates_args=(), device_types="cpu")
+def _lstm_encode_op(emb: torch.Tensor, lengths: torch.Tensor, layers: List[torch.Tensor],
+                    slabs: List[torch.Tensor], bias: torch.Tensor, rnn_size: int,
+                    plan: List[int]) -> torch.Tensor:
+    """The op on the CPU: the plain version with bf16 dots (``slabs``,
+    ``bias`` and ``plan`` are the kernel's and unused here).  ``layers``:
+    each layer's wi, wh, bi, bh in turn."""
+    tree = [dict(zip(_LAYER_KEYS, layers[i:i + 4])) for i in range(0, len(layers), 4)]
+    return _reference(tree, rnn_size, emb, lengths, torch.bfloat16)
+
+
+@_lstm_encode_op.register_fake
+def _(emb, lengths, layers, slabs, bias, rnn_size, plan):
+    return emb.new_empty(emb.shape[0], 2 * len(slabs) * rnn_size, dtype=torch.float32)
+
+
+@_lstm_encode_op.register_kernel("cuda")
+def _lstm_encode_cuda(emb, lengths, layers, slabs, bias, rnn_size, plan):
+    """The op on the card: one cooperative launch on the current stream."""
+    B, T, E = emb.shape
+    R, n = rnn_size, len(slabs)
     n_sm, smem_limit = _card(emb.device.index or 0)
-    plan = plan or lstm_plan(B, E, R, n, n_sm, smem_limit)
+    plan = LstmPlan(*plan) if plan else lstm_plan(B, E, R, n, n_sm, smem_limit)
     if emb.dtype != torch.float32 or not emb.is_contiguous():
         raise ValueError("lstm_encode: emb must be contiguous float32")
     if lengths.shape != (B,) or lengths.dtype != torch.int32 \
@@ -218,8 +251,8 @@ def lstm_encode(enc: Dict, cfg: ModelConfig, emb: torch.Tensor,
         raise ValueError("lstm_encode: lengths must be int32 [B] on emb's device")
     E16 = _ceil(E, 16) * 16
     want = [(w, (R, 4, (E16 + R) if L == 0 else 2 * R), torch.bfloat16, f"slab {L}")
-            for L, w in enumerate(enc["slabs"])]
-    want.append((enc["bias"], (n, R, 4), torch.float32, "bias"))
+            for L, w in enumerate(slabs)]
+    want.append((bias, (n, R, 4), torch.float32, "bias"))
     for w, shape, dtype, name in want:
         if (w.dtype != dtype or tuple(w.shape) != shape
                 or not w.is_contiguous() or w.device != emb.device):
@@ -230,10 +263,9 @@ def lstm_encode(enc: Dict, cfg: ModelConfig, emb: torch.Tensor,
     xbuf = torch.empty(T * rows * E16, device=dev, dtype=torch.bfloat16)
     hbuf = torch.empty(n * 2 * rows * R, device=dev, dtype=torch.bfloat16)
     out = torch.empty(B, 2 * n * R, device=dev, dtype=torch.float32)
-    slabs = enc["slabs"]
     stream = torch.cuda.current_stream(dev).cuda_stream
     KERNEL.launch(emb.data_ptr(), lengths.data_ptr(), slabs[0].data_ptr(),
-                  slabs[-1].data_ptr() if n > 1 else 0, enc["bias"].data_ptr(),
+                  slabs[-1].data_ptr() if n > 1 else 0, bias.data_ptr(),
                   xbuf.data_ptr(), hbuf.data_ptr(), out.data_ptr(),
                   B, T, E, R, n, plan.units, plan.row_groups, plan.splits,
                   plan.rows, plan.smem, stream)

@@ -9,7 +9,10 @@ PyTorch) for CPU tensors.  The entry enqueues each hop as batch-wide phases
 score, softmax and pooling, and the training forward's cell kernel.  The
 image embeddings ``ifeat`` / ``iatt`` are computed outside, as in the JAX
 package.  The kernel takes its weights in bf16, cast once by
-``pack_hop_weights``.
+``pack_hop_weights``.  The wrapper reaches the kernel and the plain version
+through the custom op ``rau_vqa::rau_hops`` (a CPU and a CUDA implementation
+and a shape function), so that ``torch.export`` keeps the call in an exported
+graph.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -33,7 +36,7 @@ from rau_vqa_tpu_torch.ops.rau_train_hops import (
     _describe,
     _phase_makers,
 )
-from rau_vqa_tpu_torch.ops.treeflat import mult_shapes, pluck
+from rau_vqa_tpu_torch.ops.treeflat import mult_shapes, pluck, rebuild
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -226,28 +229,85 @@ def hops_launcher_plan(B: int, Q: int, S: int, M: int, F: int, R: int, A: int):
 
 def rau_hops(hw: Dict, cfg: ModelConfig, q: torch.Tensor, ifeat: torch.Tensor,
              iatt: torch.Tensor):
-    """The hop loop.  ``hw`` comes from ``pack_hop_weights``; ``ifeat`` and
-    ``iatt`` are bf16, as the Pallas wrapper casts them.
+    """The hop loop, through the ``rau_vqa::rau_hops`` op.  ``hw`` comes from
+    ``pack_hop_weights``; ``ifeat`` and ``iatt`` are bf16, as the Pallas
+    wrapper casts them.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors run
+    CUDA tensors launch the kernel (or raises); CPU tensors run
     ``rau_hops_reference`` with bf16 dots, the kernel's arithmetic."""
-    if q.device.type == "cpu":
-        return rau_hops_reference(hw, cfg, q, ifeat, iatt,
-                                  dot_dtype=torch.bfloat16)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rau_hops: unsupported device {q.device}")
+    if cfg.att_rnn_layers != 1:
+        raise ValueError("rau_hops: the kernel runs a 1-layer ATTLSTM, as the "
+                         "Pallas kernel does")
+    return torch.ops.rau_vqa.rau_hops(q, ifeat, iatt,
+                                      [pluck(hw, path) for path in WEIGHT_ORDER],
+                                      cfg.n_hops)
+
+
+@dataclass(frozen=True)
+class _Widths:
+    """The widths ``hops_plan`` and ``mult_shapes`` read, from the op's
+    operands (the op takes tensors and ints, not a ModelConfig)."""
+    rnnout_dim: int
+    cnn_spat: int
+    cnn_dim: int
+    multfeat_dim: int
+    attfeat_dim: int
+    att_rnn_size: int
+    answer_size: int
+    n_hops: int
+    att_rnn_layers: int = 1
+
+    @property
+    def att_state_dim(self) -> int:
+        return self.att_rnn_size
+
+
+def _widths_of(q, ifeat, iatt, weights, n_hops) -> _Widths:
+    w = dict(zip(WEIGHT_ORDER, weights))
+    return _Widths(rnnout_dim=q.shape[1], cnn_spat=ifeat.shape[1], cnn_dim=0,
+                   multfeat_dim=ifeat.shape[2], attfeat_dim=iatt.shape[2],
+                   att_rnn_size=w[("attlstm", "layers", 0, "wh")].shape[0],
+                   answer_size=w[("cls", "w")].shape[1], n_hops=n_hops)
+
+
+@torch.library.custom_op("rau_vqa::rau_hops", mutates_args=(), device_types="cpu")
+def _rau_hops_op(q: torch.Tensor, ifeat: torch.Tensor, iatt: torch.Tensor,
+                 weights: List[torch.Tensor], n_hops: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op on the CPU: ``rau_hops_reference`` with bf16 dots.  ``weights``
+    in ``WEIGHT_ORDER``."""
+    return rau_hops_reference(rebuild(WEIGHT_ORDER, weights),
+                              _widths_of(q, ifeat, iatt, weights, n_hops), q, ifeat,
+                              iatt, dot_dtype=torch.bfloat16)
+
+
+@_rau_hops_op.register_fake
+def _(q, ifeat, iatt, weights, n_hops):
+    B, S = ifeat.shape[0], ifeat.shape[1]
+    A = weights[WEIGHT_ORDER.index(("cls", "w"))].shape[1]
+    f32 = torch.float32
+    return (q.new_empty(n_hops, B, A, dtype=f32), q.new_empty(n_hops, B, dtype=f32),
+            q.new_empty(n_hops, B, S, dtype=f32))
+
+
+@_rau_hops_op.register_kernel("cuda")
+def _rau_hops_cuda(q, ifeat, iatt, weights, n_hops):
+    """The op on the card: one call of the C entry on the current stream."""
+    cfg = _widths_of(q, ifeat, iatt, weights, n_hops)
     B = q.shape[0]
     hops_plan(B, cfg)
     w = _widths(cfg)
     scratch_floats, _ = hops_launcher_plan(B, *(w[k] for k in "QSMFRA"))
     if scratch_floats < 0:
         raise ValueError(f"rau_hops: the launcher cannot run batch {B} at these widths")
-    return _launch(hw, cfg, q, ifeat, iatt, scratch_floats)
+    return _launch(rebuild(WEIGHT_ORDER, weights), cfg, q, ifeat, iatt, scratch_floats)
 
 
-def _launch(hw: Dict, cfg: ModelConfig, q: torch.Tensor, ifeat: torch.Tensor,
+def _launch(hw: Dict, cfg, q: torch.Tensor, ifeat: torch.Tensor,
             iatt: torch.Tensor, scratch_floats: int):
-    """``rau_hops`` on CUDA tensors with this much scratch; raises where the
+    """The kernel on CUDA tensors with this much scratch; raises where the
     launcher refuses it."""
     w = _widths(cfg)
     B = q.shape[0]

@@ -26,6 +26,9 @@ thread runs the backbone for them, one image at a time (a ResNet's identity
 runs in the stage kernel); a host LRU keeps those features, and concurrent requests
 for one image wait for one backbone run.
 
+``RAUService(artifact=)`` (``serve --artifact``) serves an exported artifact
+(``eval/export.py``) in place of a snapshot.
+
 The port's counterpart of ``rau_vqa_tpu/serve.py``.
 """
 
@@ -39,6 +42,7 @@ import io
 import json
 import threading
 import time
+import warnings
 from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -52,12 +56,7 @@ from rau_vqa_tpu_torch.data.features import QuantFeats, check_feat_interface
 from rau_vqa_tpu_torch.devices import pick_device
 from rau_vqa_tpu_torch.eval.predict import make_predict_step, predict
 from rau_vqa_tpu_torch.models import pipeline
-from rau_vqa_tpu_torch.roadmap import still_to_port
 
-NOT_PORTED = {
-    "artifact": still_to_port("serving from an exported artifact (eval/export.py)",
-                              "export"),
-}
 PAD_BUCKETS = (1, 4, 8)   # then max_batch: the group sizes a dispatch pads to
 
 
@@ -79,7 +78,17 @@ class RAUService:
     for the ViT (``rau_vqa_tpu/serve.py:176-181``).  A fine-tuned snapshot
     (its sidecar's ``train_backbone``) serves images through its own trained
     backbone group, as stored, unless ``bb_params`` is given
-    (``rau_vqa_tpu/serve.py:150-165``)."""
+    (``rau_vqa_tpu/serve.py:150-165``).
+
+    ``artifact`` (in place of ``checkpoint``) serves an exported artifact
+    directory (``eval/export.py``; ``rau_vqa_tpu/serve.py:55-140``): the
+    service adopts its model config and ladder, and its program is baked
+    (``fused`` and ``buckets`` are the artifact's).  A ``pixels_predict``
+    artifact bakes its backbone in: requests send ``image_b64``, decoded at
+    its ``image_size``.  A ``predict`` artifact carries the head's
+    ``backbone_feat_norm`` for image requests through a separate
+    ``backbone``.  The benches' chain kinds are refused.  The artifact pins
+    its device: ``device`` must be the one it was exported on."""
 
     def __init__(self, checkpoint: Optional[str], vqa_dir: Optional[str],
                  feat_dirs, *, preset: str = "ours_ms",
@@ -94,18 +103,27 @@ class RAUService:
         from rau_vqa_tpu_torch.config import get_experiment
         from rau_vqa_tpu_torch.data.loader import load_vqa_data
         from rau_vqa_tpu_torch.train.trainer import init_train_state, trained_backbone
-        from rau_vqa_tpu_torch.utils.checkpoint import checkpoint_meta, load_checkpoint
+        from rau_vqa_tpu_torch.utils.checkpoint import (
+            checkpoint_meta,
+            load_checkpoint,
+            model_config_from_meta,
+        )
 
-        if artifact is not None:
-            raise NotImplementedError(NOT_PORTED["artifact"])
-        if checkpoint is None:
-            raise ValueError("pass a checkpoint: the port's .pt snapshot or "
-                             "the JAX package's .msgpack one")
+        if (checkpoint is None) == (artifact is None):
+            raise ValueError("pass exactly one of checkpoint (the port's .pt snapshot or "
+                             "the JAX package's .msgpack one) / artifact")
         if backbone not in (None,) + pipeline.BACKBONES:
             raise ValueError(f"unknown backbone {backbone!r}")
-        meta = checkpoint_meta(checkpoint)
         self.device = pick_device(device, "RAUService")
-        exp = _adopt_snapshot(get_experiment(preset), checkpoint)
+        runner = None
+        if artifact is not None:
+            runner = self._load_artifact(artifact, buckets, backbone)
+            exp = get_experiment(preset).replace(
+                model=model_config_from_meta(runner.meta["model_config"]))
+            meta = {"backbone_feat_norm": runner.meta.get("backbone_feat_norm", False)}
+        else:
+            meta = checkpoint_meta(checkpoint)
+            exp = _adopt_snapshot(get_experiment(preset), checkpoint)
         if data is None:
             if not vqa_dir:
                 raise ValueError("pass vqa_dir or data")
@@ -115,33 +133,49 @@ class RAUService:
         self.mcfg = dataclasses.replace(
             exp.model, vocab_size=data.vocab_size,
             answer_size=data.answer_size, seq_len=data.seq_len)
-        template = init_train_state(self.mcfg, 0, device="cpu")._asdict()
-        # the head's three groups, and a fine-tuned snapshot's own backbone
-        # where none is given, computing in the type it was trained in
-        own_bb = bb_params is None and meta.get("train_backbone") and meta.get("backbone")
-        if own_bb:
-            backbone = meta["backbone"]
-        tree, _ = load_checkpoint(checkpoint, template, backbone=backbone if own_bb else None)
-        if own_bb:
-            bb_params = trained_backbone(self.mcfg, map_tree(
-                lambda x: x.to(self.device), tree["params"].pop("backbone")))
-        self.params = map_tree(lambda x: x.to(self.device), tree["params"])
         # the head's feature interface (RMS-normalized or raw), which image
         # requests featurize to and a packed shard must carry
         self.feat_norm = bool(meta.get("backbone_feat_norm", False))
-        self.fused = bool(fused)
-        self.predict = (make_predict_step(
-            self.mcfg, buckets=(8, 16) if buckets is None else tuple(buckets),
-            device=self.device) if self.fused else self._plain_predict)
+        self.pixels_artifact = runner is not None and runner.kind == "pixels_predict"
+        if runner is not None:
+            if self.mcfg != exp.model:
+                m = exp.model
+                raise ValueError(
+                    f"the artifact was exported for vocab/answer/seq_len "
+                    f"{(m.vocab_size, m.answer_size, m.seq_len)} but the data provides "
+                    f"{(data.vocab_size, data.answer_size, data.seq_len)}")
+            self.params = None
+            self.fused = bool(runner.meta["fused"])
+            self.predict = ((lambda p, t, l, imgs: runner(imgs, t, l)) if self.pixels_artifact
+                            else (lambda p, t, l, f: runner(t, l, f)))
+        else:
+            template = init_train_state(self.mcfg, 0, device="cpu")._asdict()
+            # the head's three groups, and a fine-tuned snapshot's own backbone
+            # where none is given, computing in the type it was trained in
+            own_bb = bb_params is None and meta.get("train_backbone") and meta.get("backbone")
+            if own_bb:
+                backbone = meta["backbone"]
+            tree, _ = load_checkpoint(checkpoint, template,
+                                      backbone=backbone if own_bb else None)
+            if own_bb:
+                bb_params = trained_backbone(self.mcfg, map_tree(
+                    lambda x: x.to(self.device), tree["params"].pop("backbone")))
+            self.params = map_tree(lambda x: x.to(self.device), tree["params"])
+            self.fused = bool(fused)
+            self.predict = (make_predict_step(
+                self.mcfg, buckets=(8, 16) if buckets is None else tuple(buckets),
+                device=self.device) if self.fused else self._plain_predict)
         self.backbone = backbone
         self.bb_params = bb_params
         self.vit_cfg = vit_cfg
-        # the decode size follows the snapshot's feature grid: the conv
-        # backbones are stride 32, ViT-L/14's patches 14 px
-        self.image_size = self.mcfg.cnn_w * (14 if backbone == "vit" else 32)
+        # the decode size: a pixels artifact's own input side, else the
+        # head's feature grid (the conv backbones are stride 32, ViT-L/14's
+        # patches 14 px)
+        self.image_size = (int(runner.meta["image_size"]) if self.pixels_artifact
+                           else self.mcfg.cnn_w * (14 if backbone == "vit" else 32))
         self.source = (_make_feature_source(",".join(feat_dirs), self.mcfg)
                        if feat_dirs else None)
-        if self.source is not None:
+        if self.source is not None and not self.pixels_artifact:
             check_feat_interface(self.source, self.feat_norm, "serve")
 
         self.lock = threading.Lock()
@@ -172,6 +206,31 @@ class RAUService:
         # a thread on the H100's host, PERF.md)
         self._backbone_pool = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="rau-serve-backbone")
+
+    def _load_artifact(self, artifact: str, buckets, backbone):
+        """The artifact's runner, refusing the benches' chain programs and
+        an artifact of another device; warns where flags cannot apply."""
+        from rau_vqa_tpu_torch.eval.export import load_exported
+        from rau_vqa_tpu_torch.eval.predict import bucket_ladder
+
+        runner = load_exported(artifact)
+        if runner.chain:
+            raise ValueError(
+                f"artifact kind {runner.kind!r} is a benchmark chain program, not a "
+                f"serving program: export one with `python -m rau_vqa_tpu_torch.cli "
+                f"export` (kind 'predict' or 'pixels_predict')")
+        if runner.device.type != self.device.type:
+            raise ValueError(f"the artifact was exported on {runner.device.type} and "
+                             f"serves only there; this service runs on {self.device}")
+        seq_len = runner.meta["model_config"]["seq_len"]
+        if buckets is not None and bucket_ladder(seq_len, buckets) != runner.ladder:
+            warnings.warn(f"serving from an artifact: buckets {tuple(buckets)} ignored; "
+                          f"the artifact's ladder is {runner.ladder} (export again with "
+                          f"--eval-buckets to change it)")
+        if runner.kind == "pixels_predict" and backbone is not None:
+            warnings.warn("serving from a pixels artifact: the backbone given is ignored "
+                          "(the program bakes its own)")
+        return runner
 
     def _plain_predict(self, params, tokens, lengths, feats):
         """The plain float32 path (``fused=False``) on the device."""
@@ -220,7 +279,10 @@ class RAUService:
     def _extract(self, pixels: np.ndarray) -> np.ndarray:
         """uint8 [1, size, size, 3] -> host float32 [1, S, D] features:
         the backbone on the device (a ResNet's identity runs in the stage
-        kernel), in the service's backbone thread."""
+        kernel), in the service's backbone thread.  A pixels artifact runs
+        its own backbone: the pixels are what it takes."""
+        if self.pixels_artifact:
+            return pixels
         return self._backbone_pool.submit(self._run_backbone, pixels).result(
             self._wait_s())
 
@@ -237,7 +299,7 @@ class RAUService:
         """The host LRU: features [1, S, D] of an encoded image, by its
         sha256, computed once however many requests ask at once.  A
         failure releases the waiters; the next of them tries again."""
-        if self.backbone is None or self.bb_params is None:
+        if not self.pixels_artifact and (self.backbone is None or self.bb_params is None):
             raise ValueError("no visual backbone configured; send feat_name")
         key = key or hashlib.sha256(image_bytes).hexdigest()
         while True:
@@ -335,8 +397,9 @@ class RAUService:
             tokens[i] = item["tokens"]
             lengths[i] = item["length"]
         if self._zero_feat is None:
-            self._zero_feat = torch.zeros(
-                (self.mcfg.cnn_spat, self.mcfg.cnn_dim), device=self.device)
+            shape = ((self.image_size, self.image_size, 3) if self.pixels_artifact
+                     else (self.mcfg.cnn_spat, self.mcfg.cnn_dim))
+            self._zero_feat = torch.zeros(shape, dtype=self._feat_dtype(), device=self.device)
         fs = [item["feats"] for item in group]
         fs += [self._zero_feat] * (bucket - n)
         with self.lock:
@@ -356,6 +419,11 @@ class RAUService:
                 item["att"] = att[:, i]
             item["done"].set()
 
+    def _feat_dtype(self) -> torch.dtype:
+        """What a request's visual operand is on the device: a pixels
+        artifact's uint8 image, else float32 features."""
+        return torch.uint8 if self.pixels_artifact else torch.float32
+
     def _device_feats(self, key: tuple, load) -> torch.Tensor:
         """The device feature LRU: a hit uploads nothing; a miss uploads
         ``load()``'s host array with a blocking copy."""
@@ -365,7 +433,7 @@ class RAUService:
                 self._dev_feat_cache.move_to_end(key)
                 return hit
         with self._on_device():
-            arr = torch.tensor(load(), dtype=torch.float32, device=self.device)
+            arr = torch.tensor(load(), dtype=self._feat_dtype(), device=self.device)
         with self._feat_cache_lock:
             self._dev_feat_cache[key] = arr
             while len(self._dev_feat_cache) > self.feat_cache_size:
@@ -374,6 +442,9 @@ class RAUService:
 
     def _feats_for(self, feat_name: Optional[str], image_b64: Optional[str],
                    datatype: int = 1) -> torch.Tensor:
+        if self.pixels_artifact and feat_name is not None:
+            raise ValueError("this service runs a from-pixels artifact (its backbone "
+                             "baked into the program): send image_b64, not feat_name")
         if feat_name is not None:
             if self.source is None:
                 raise ValueError(
@@ -489,7 +560,7 @@ class RAUService:
             "max_batch_seen": int(max(sizes)) if sizes else 0,
             "feat_cache_entries": cache_entries,
             "device_feat_cache_entries": dev_cache_entries,
-            "pixels_artifact": False,
+            "pixels_artifact": bool(self.pixels_artifact),
             "image_size": int(self.image_size),
             "max_batch": self.max_batch,
             "max_wait_ms": self.max_wait_ms,

@@ -1,5 +1,5 @@
 """The port stands alone: no module of rau_vqa_tpu_torch, and neither
-chip_smoke.py, bench_torch_serving.py nor bench_torch_stage.py, imports JAX, Flax or anything of the JAX package (checked on
+chip_smoke.py nor a root bench_torch*.py script, imports JAX, Flax or anything of the JAX package (checked on
 the source, so lazy imports inside functions count too), nor torchvision or
 timm: their state dicts are read as dicts from local files.  The packages the
 card's machine lacks are imported only inside the functions that need them."""
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "rau_vqa_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "bench_torch_serving.py", ROOT / "bench_torch_stage.py"]
+    ROOT / "chip_smoke.py", *sorted(ROOT.glob("bench_torch*.py"))]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rau_vqa_tpu", "torchvision", "timm")
 
 
@@ -38,7 +38,10 @@ def test_sources_found():
             "msgpack_flax.py", "cli.py", "serve.py", "native.py",
             "images.py", "torch_convert.py", "vgg.py", "vit.py", "precompute.py",
             "rigcheck.py", "roadmap.py", "hdf5.py", "prepro.py", "released.py",
-            "layout_diag.py", "visatt.py"} <= names
+            "layout_diag.py", "visatt.py", "export.py", "chain.py", "benchparams.py",
+            "doctor.py", "dashboard.py", "file_utils.py", "flops.py", "bench.py",
+            "bench_pixels.py", "bench_torch.py", "bench_torch_pixels.py",
+            "bench_torch_train_hops.py"} <= names
     assert (ROOT / "rau_vqa_tpu_torch" / "models" / "backbones" / "__init__.py") in SOURCES
 
 

@@ -528,10 +528,85 @@ def test_http_status_codes(http, env):
     assert code == 200 and body["requests_served"] >= 3
 
 
+def export_artifact(env, out, *extra):
+    """The port's artifact of the env's snapshot (``export``, on the CPU)."""
+    from rau_vqa_tpu_torch import cli as tcli
+    assert tcli.main(["--device", "cpu", "export", "--checkpoint", env["ck"],
+                      "--out", str(out), *extra]) == 0
+    return str(out)
+
+
+def test_artifact_service_answers_as_the_checkpoint_service(env, tmp_path):
+    """RAUService(artifact=): the snapshot exported (the serving kernels'
+    plain versions through the custom ops, ladder 8/16) answers every
+    request as the checkpoint's service does, attention included."""
+    art = export_artifact(env, tmp_path / "art")
+    svc = RAUService(None, env["vqa"], env["feat"], artifact=art, device="cpu")
+    want = port_service(env)
+    try:
+        assert svc.params is None and svc.fused and svc.mcfg == want.mcfg
+        for name, qs in ((env["names"][0], QUESTIONS[:1]), (env["names"][1], QUESTIONS)):
+            kw = dict(feat_name=name, topk=4, attention=True)
+            assert svc.answer_many(qs, **kw) == want.answer_many(qs, **kw)
+        assert svc.stats()["pixels_artifact"] is False
+    finally:
+        svc.close()
+        want.close()
+
+
+def test_pixels_artifact_service_answers_images(image_envs, tmp_path, monkeypatch):
+    """A pixels artifact bakes its backbone in: image_b64 requests decode at
+    its image_size and answer as the checkpoint's service with the same
+    backbone (the serving bars: the artifact runs the backbone on the
+    padded micro-batch); feat_name requests are refused."""
+    from rau_vqa_tpu_torch import cli as tcli
+    from rau_vqa_tpu_torch.convert import params_from_jax
+    env = image_envs["vgg16"]
+    bb = params_from_jax(env["bb"])
+    monkeypatch.setattr(tcli, "_load_backbone_state", lambda *a, **k: bb)
+    art = export_artifact(env, tmp_path / "pix", "--backbone", "vgg16",
+                          "--backbone-state", "x")
+    svc = RAUService(None, env["vqa"], [], artifact=art, device="cpu")
+    want = port_service(env, backbone="vgg16", bb_params=bb)
+    try:
+        assert svc.pixels_artifact and svc.image_size == 64
+        assert svc.stats()["pixels_artifact"] is True
+        with open(os.path.join(env["images"], "val2014/COCO_val2014_000000000003.jpg"),
+                  "rb") as f:
+            b64 = base64.b64encode(f.read()).decode()
+        kw = dict(image_b64=b64, topk=4, attention=True)
+        for g, w in zip(svc.answer_many(QUESTIONS[:2], **kw),
+                        want.answer_many(QUESTIONS[:2], **kw)):
+            assert_same_answer(g, w, FUSED_BAR)
+        with pytest.raises(ValueError, match="send image_b64"):
+            svc.answer(QUESTIONS[0], feat_name="x.t7")
+    finally:
+        svc.close()
+        want.close()
+
+
 def test_unported_options_are_refused(env, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="queue 1, item 8, export"):
-        RAUService(None, env["vqa"], env["feat"], artifact=str(tmp_path),
-                   device="cpu")
+    # an artifact is served (test_artifact_service_answers_as_the_checkpoint_
+    # service); a bench's chain program, a JAX artifact, or both a snapshot
+    # and an artifact are refused
+    from rau_vqa_tpu.eval import export as jexport
+    from rau_vqa_tpu_torch.eval import export as texport
+    svc = port_service(env)
+    try:
+        chain = str(tmp_path / "chain")
+        texport.export_serve_chain(svc.params, svc.mcfg, chain, batch=2, chain=1,
+                                   device="cpu")
+    finally:
+        svc.close()
+    with pytest.raises(ValueError, match="benchmark chain program"):
+        RAUService(None, env["vqa"], env["feat"], artifact=chain, device="cpu")
+    jart = str(tmp_path / "jax_art")
+    jsvc = jax_service(env)
+    jexport.export_predict(jsvc.params, jsvc.mcfg, jart)
+    with pytest.raises(ValueError, match="JAX package's artifact"):
+        RAUService(None, env["vqa"], env["feat"], artifact=jart, device="cpu")
+    with pytest.raises(ValueError, match="exactly one of checkpoint"):
+        RAUService(env["ck"], env["vqa"], env["feat"], artifact=chain, device="cpu")
     # the three backbones are ported (test_backbone_image_requests_match_jax)
     with pytest.raises(ValueError, match="unknown backbone"):
         port_service(env, backbone="alexnet")
@@ -562,19 +637,15 @@ def test_unported_options_are_refused(env, tmp_path, monkeypatch):
         RAUService(env["ck"], env["vqa"], env["feat"])
 
 
-def test_cli_serve(env, tmp_path, monkeypatch):
-    """``serve --fixture`` builds the fixture's data in memory and answers
-    over HTTP; the unported options are refused."""
+def cli_answer(monkeypatch, args, payload):
+    """Run ``serve`` through the CLI in a thread, send one /answer, stop it;
+    returns (the service, the response body)."""
     from rau_vqa_tpu_torch import cli as tcli
     from rau_vqa_tpu_torch import serve as tserve
 
     started = []
-    real_serve = tserve.serve
     monkeypatch.setattr(tserve, "serve", lambda svc, port: started.append(
-        (svc, real_serve(svc, port, host="127.0.0.1"))) or started[-1][1])
-    args = ["--device", "cpu", "serve", "--checkpoint", env["ck"], "--fixture",
-            "--save-dir", str(tmp_path), "--port", "0", "--plain-eval",
-            "--max-wait-ms", "1", "--eval-buckets", "4"]
+        (svc, serve(svc, port, host="127.0.0.1"))) or started[-1][1])
     rc = []
     t = threading.Thread(target=lambda: rc.append(tcli.main(args)), daemon=True)
     t.start()
@@ -583,23 +654,41 @@ def test_cli_serve(env, tmp_path, monkeypatch):
         time.sleep(0.02)
     svc, server = started[0]
     try:
-        assert svc.fused is False and svc.max_wait_ms == 1.0
-        code, body = request(server.server_address[1], "/answer",
-                             {"question": "w01 w02",
-                              "feat_name": env["names"][0]})
+        code, body = request(server.server_address[1], "/answer", payload)
         assert code == 200 and body["answers"]
-        want = port_service(env, fused=False)
-        try:
-            assert body == want.answer("w01 w02", feat_name=env["names"][0])
-        finally:
-            want.close()
     finally:
         server.shutdown()
         t.join(WAIT)
     assert not t.is_alive() and rc == [0]
-    with pytest.raises(NotImplementedError, match="item 8, export"):
-        tcli.main(["--device", "cpu", "serve", "--checkpoint", env["ck"],
-                   "--artifact", str(tmp_path)])
+    return svc, body
+
+
+def test_cli_serve(env, tmp_path, monkeypatch):
+    """``serve --fixture`` builds the fixture's data in memory and answers
+    over HTTP; ``serve --artifact`` answers as the snapshot's service."""
+    from rau_vqa_tpu_torch import cli as tcli
+
+    payload = {"question": "w01 w02", "feat_name": env["names"][0]}
+    svc, body = cli_answer(monkeypatch, [
+        "--device", "cpu", "serve", "--checkpoint", env["ck"], "--fixture",
+        "--save-dir", str(tmp_path), "--port", "0", "--plain-eval",
+        "--max-wait-ms", "1", "--eval-buckets", "4"], payload)
+    assert svc.fused is False and svc.max_wait_ms == 1.0
+    want = port_service(env, fused=False)
+    try:
+        assert body == want.answer("w01 w02", feat_name=env["names"][0])
+    finally:
+        want.close()
+    art = export_artifact(env, tmp_path / "art")
+    svc, body = cli_answer(monkeypatch, [
+        "--device", "cpu", "serve", "--artifact", art, "--fixture", "--save-dir",
+        str(tmp_path), "--port", "0", "--max-wait-ms", "1"], payload)
+    assert svc.params is None and svc.fused
+    want = port_service(env)
+    try:
+        assert body == want.answer("w01 w02", feat_name=env["names"][0])
+    finally:
+        want.close()
     with pytest.raises(SystemExit, match="--backbone-state"):
         tcli.main(["--device", "cpu", "serve", "--checkpoint", env["ck"],
                    "--backbone", "vit"])

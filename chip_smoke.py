@@ -241,6 +241,31 @@ Phases, in order; any failure exits non-zero:
               ``doctor --canary`` healthy, the canary beside the 989 TFLOP/s
               peak and the power limit; the phase's seconds.
 
+14. mesh    — ``parallel/mesh.py`` (under a 400 s watchdog): (a) a world of
+              1 on NCCL: ``make_sharded_train_step`` on mesh (1, 1), fused
+              float32, B=100, 3 steps with the preset's dropout and noise,
+              bit for bit ``make_train_step``'s (loss and every parameter),
+              ``make_sharded_predict`` at B=512 equal to ``PredictStep``;
+              the training kernels at row0 = 50 on rows 50-99 against
+              their plain versions and the whole batch's rows;
+              (b) 2 ranks of this script on the one card over gloo against
+              one process on the same inputs: DP (2, 1) fused float32 and
+              the unfused preset, TP (1, 2) fused (cls.w (M, A / 2) a
+              rank), 3 steps at B=100, the last loss within rtol 2e-4 and
+              cls.w within rtol 2e-4 / atol 2e-5; sharded predict at B=512
+              and sharded ``answer_pixels`` for ``ours_resnet`` at B=120,
+              448 px (the stage kernel 4 times a rank): scores within the
+              serving bars, and the answers one process's but where its two
+              leading scores lie within twice the row's score difference
+              (the ranks' smaller batches round bf16 sums apart);
+              (c) ``train --mesh-data 2`` on the fixture and
+              ``precompute-features --mesh-data 2`` under ``python -m
+              torch.distributed.run`` against one process (steps, head bias
+              within 1e-4 / 1e-6, the sweep's OE; the shard byte for byte
+              at the same rows a device); (d) the 2-rank step's ms beside
+              one process's, one all-reduce of the gradient's size over
+              NCCL at world 1 and over gloo on 2 ranks.
+
 Prints each number beside the card's name and power limit, a ``kernels``
 JSON line (the hop kernel's and the training kernels' entries also give
 their device kernels a call, as recorded), and as the last line
@@ -2959,10 +2984,491 @@ def export_bench_phase(seed: int, card: str) -> dict:
     return launches
 
 
+MESH_DEVICE = "cuda"       # a CPU rehearsal sets "cpu" (and the sizes below)
+MESH_B = 100               # the train step's global batch: 50 rows a rank on (2, 1)
+MESH_STEPS = 3
+MESH_PREDICT_B = 512
+MESH_PIXELS_B = 120        # ours_resnet from 448 px images: 60 a rank
+MESH_SIDE = 448
+MESH_PRECOMPUTE = (16, 224, 8)   # images, side, the single process's batch (a rank's)
+MESH_TRAIN = (("dp_fused", (2, 1), False, True), ("dp_unfused", (2, 1), False, False),
+              ("tp_fused", (1, 2), True, True))   # (name, mesh, tp, fused_train)
+MESH_BAR = dict(rtol=2e-4, atol=2e-5)             # tests/test_parallel.py's, on cls.w
+
+
+def mesh_inputs(seed: int, dev) -> dict:
+    """The inputs of mesh_phase, the same in every process from ``seed``:
+    ``ours_ms`` at full width (the preset's dropout and gradient noise; B
+    rows and labels), its params, a predict batch, and ``ours_resnet``'s head
+    with a folded bf16 ResNet-101 and 448 px images."""
+    from rau_vqa_tpu_torch.config import get_preset, get_train_preset
+    from rau_vqa_tpu_torch.models.backbones import resnet
+    from rau_vqa_tpu_torch.models.rau import init_params
+    from rau_vqa_tpu_torch.train.trainer import init_train_state
+    rs = np.random.RandomState(seed + 14)
+    cfg, tcfg = get_train_preset("ours_ms")
+    state = init_train_state(cfg, seed, device=dev)
+    tokens, lengths, feats = make_batch(cfg, MESH_B, cfg.seq_len, rs, dev)
+    labels = torch.as_tensor(rs.randint(0, cfg.answer_size, MESH_B), device=dev)
+    predict = make_batch(cfg, MESH_PREDICT_B, cfg.seq_len, rs, dev)
+    cfg_r = dataclasses.replace(get_preset("ours_resnet"), cnn_w=MESH_SIDE // 32,
+                                cnn_h=MESH_SIDE // 32)
+    head_r = init_params(cfg_r, torch.Generator().manual_seed(seed + 2), dev)
+    bb = resnet.fold_batchnorm(resnet.resnet101_init(
+        torch.Generator().manual_seed(seed + 3), torch.bfloat16, dev))
+    p_tokens, p_lengths, _ = make_batch(cfg_r, MESH_PIXELS_B, cfg_r.seq_len, rs, dev)
+    images = torch.as_tensor(rs.randint(0, 256, (MESH_PIXELS_B, MESH_SIDE, MESH_SIDE, 3),
+                                        dtype=np.uint8), device=dev)
+    return {"cfg": cfg, "tcfg": tcfg, "state": state,
+            "batch": (tokens, lengths, feats, labels), "predict": predict,
+            "cfg_r": cfg_r, "head_r": head_r, "bb": bb,
+            "pixels": (images, p_tokens, p_lengths)}
+
+
+def _mesh_counters():
+    from rau_vqa_tpu_torch.ops import fused_resnet, lstm_encoder, rau_hops
+    from rau_vqa_tpu_torch.ops import rau_train_hops as rth
+    return {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL,
+            "train_hops_fwd": rth.FWD_KERNEL, "train_hops_bwd": rth.BWD_KERNEL,
+            "fused_identity_stage": fused_resnet.KERNEL}
+
+
+def _mesh_train(inp, name, mesh, tp, fused, pm=None):
+    """3 steps of the named configuration: through ``make_sharded_train_step``
+    on ``mesh`` (pm: parallel.mesh) on this rank's rows, or ``make_train_step``
+    on the whole batch; (losses, whole cls.w, local cls.w shape, ms a step
+    over steps 2 and 3, the state)."""
+    from rau_vqa_tpu_torch.train.trainer import make_train_step
+    cfg = dataclasses.replace(inp["cfg"], fused_train=fused)
+    hop_scale = torch.ones(cfg.n_hops, device=inp["state"].params["mult"]["cls"]["w"].device)
+    state = inp["state"]
+    if pm is None:
+        step = make_train_step(cfg, inp["tcfg"], device=hop_scale.device)
+        batch = inp["batch"]
+    else:
+        step = pm.make_sharded_train_step(cfg, inp["tcfg"], mesh, state, tp=tp)
+        shardings = pm.state_shardings(mesh, state, tp=tp)
+        state = pm.place_state(mesh, state, tp=tp)
+        batch = pm.shard_batch(mesh, *inp["batch"])
+    local = tuple(state.params["mult"]["cls"]["w"].shape)
+    losses, t = [], []
+    for i in range(MESH_STEPS):
+        sync(hop_scale.device)
+        t0 = time.perf_counter()
+        state, metrics = step(state, *batch, hop_scale, inp["tcfg"].learning_rate,
+                              inp["tcfg"].mult_learning_rate)
+        losses.append(float(metrics["loss"]))
+        t.append((time.perf_counter() - t0) * 1e3)
+    cls_w = state.params["mult"]["cls"]["w"]
+    if pm is not None:
+        cls_w = pm.gather_state(state, shardings).params["mult"]["cls"]["w"]
+    return losses, cls_w.float().cpu(), local, float(np.mean(t[1:])), state
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _allreduce_ms(pm, mesh, n: int, iters: int = 5) -> float:
+    """Host ms of one sum of ``n`` float32 over the world (synchronised)."""
+    t = torch.ones(n, device=mesh.device)
+    pm.all_reduce_(mesh, t, None)
+    sync(mesh.device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pm.all_reduce_(mesh, t, None)
+    sync(mesh.device)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def mesh_answer_readings(tab, ref_tab, att, ref_att):
+    """(max |score diff|, answers that differ, the largest of one process's
+    top-2 score gaps among them, max |attention diff|) of a sharded table
+    against one process's at the whole batch: a reading of the kernels'
+    batch-size dependence (other tile plans, other bf16 sums, other cuDNN
+    algorithms), not of the sharding, which the rows' exact check holds."""
+    tab, ref_tab = tab.float().cpu(), ref_tab.float().cpu()
+    top2 = ref_tab.topk(2, -1).values
+    diff = tab.argmax(-1) != ref_tab.argmax(-1)
+    gaps = (top2[..., 0] - top2[..., 1])[diff]
+    return ((tab - ref_tab).abs().max().item(), int(diff.sum()),
+            gaps.max().item() if gaps.numel() else 0.0,
+            (att.float().cpu() - ref_att.float().cpu()).abs().max().item())
+
+
+def mesh_rows_exact(got, key: str) -> bool:
+    """Whether both ranks gathered the same tables, and each rank's rows of
+    them are bit for bit what that rank's own single-process call on those
+    rows gave (``own``): the sharding and the gather order, exactly."""
+    tab, att = got[0][key]["tab"], got[0][key]["att"]
+    ok = all(torch.equal(g[key]["tab"], tab) and torch.equal(g[key]["att"], att)
+             for g in got)
+    for g in got:
+        a, b = g["rows"][key]
+        ok = ok and torch.equal(tab[:, a:b], g[key]["own_tab"]) \
+            and torch.equal(att[:, a:b], g[key]["own_att"])
+    return ok
+
+
+def mesh_rank_main(workdir: str, seed: int) -> int:
+    """One rank of mesh_phase (b), on the one card beside the other (gloo):
+    the train configurations of MESH_TRAIN, sharded predict and sharded
+    answer_pixels on this rank's rows, the gloo all-reduce of the gradient's
+    size; its readings and kernel launches to ``workdir/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from rau_vqa_tpu_torch.convert import tree_leaves
+    from rau_vqa_tpu_torch.parallel import mesh as pm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = pm.init_distributed(device=MESH_DEVICE)
+    inp = mesh_inputs(seed, dev)
+    meshes = {(2, 1): pm.make_mesh(2, 1), (1, 2): pm.make_mesh(1, 2)}
+    counters = _mesh_counters()
+    for k in counters.values():
+        k.launches = 0
+    out = {}
+    for name, shape, tp, fused in MESH_TRAIN:
+        losses, cls_w, local, ms, _ = _mesh_train(inp, name, meshes[shape], tp, fused, pm)
+        out[name] = {"losses": losses, "cls_w": cls_w, "local": local, "ms": ms}
+    dp = meshes[(2, 1)]
+    fn, placed = pm.make_sharded_predict(inp["cfg"], dp, inp["state"].params)
+    tab, att = fn(placed, *pm.shard_batch(dp, *inp["predict"]))
+    out["predict"] = {"tab": tab.cpu(), "att": att.float().cpu()}
+    stage0 = counters["fused_identity_stage"].launches
+    fn = pm.make_sharded_pixels_predict(inp["cfg_r"], dp, inp["head_r"], "resnet101")
+    tab, att = fn(inp["head_r"], inp["bb"], *pm.shard_batch(dp, *inp["pixels"]))
+    out["pixels"] = {"tab": tab.cpu(), "att": att.float().cpu(),
+                     "stage_launches": counters["fused_identity_stage"].launches - stage0}
+    sync(dev)
+    out["launches"] = {k: c.launches for k, c in counters.items()}
+    # the references, not counted: this rank's rows through PredictStep and
+    # pixels_tables in this process alone
+    from rau_vqa_tpu_torch.eval.predict import make_predict_step
+    from rau_vqa_tpu_torch.models import pipeline
+    rows = pm.rank_rows(dp, MESH_PREDICT_B), pm.rank_rows(dp, MESH_PIXELS_B)
+    out["rows"] = {"predict": (rows[0].start, rows[0].stop),
+                   "pixels": (rows[1].start, rows[1].stop)}
+    tab, att = make_predict_step(inp["cfg"], device=dev)(
+        inp["state"].params, *pm.shard_batch(dp, *inp["predict"]))
+    out["predict"].update(own_tab=tab.cpu(), own_att=att.float().cpu())
+    tab, att = pipeline.pixels_tables(inp["head_r"], inp["bb"], inp["cfg_r"], "resnet101",
+                                      *pm.shard_batch(dp, *inp["pixels"]), device=dev)
+    out["pixels"].update(own_tab=tab.cpu(), own_att=att.float().cpu())
+    n = sum(t.numel() for t in tree_leaves(inp["state"].params))
+    out["allreduce"] = {"n": n, "ms": _allreduce_ms(pm, dp, n)}
+    out["backend"] = dist.get_backend()
+    torch.save(out, os.path.join(workdir, f"rank{dist.get_rank()}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn(cmd, n_env: int = 0, port: str = "", timeout: float = 300.0):
+    """Start ``cmd`` (as rank i of n_env when n_env) in its own session."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = []
+    for r in range(n_env or 1):
+        if n_env:
+            env = dict(env, RANK=str(r), WORLD_SIZE=str(n_env), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(n_env), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=port)
+        procs.append(subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True,
+                                      start_new_session=True))
+    return procs
+
+
+def _finish(procs, what: str, timeout: float) -> list:
+    """Wait for ``procs``; on a failure or past ``timeout`` kill every one
+    of them (their sessions) and raise."""
+    outs, failed = [], []
+    deadline = time.time() + timeout
+    try:
+        for i, p in enumerate(procs):
+            out, _ = p.communicate(timeout=max(deadline - time.time(), 1))
+            outs.append(out)
+            if p.returncode != 0:
+                failed.append(f"{what} process {i} exited {p.returncode}:\n{out[-3000:]}")
+    except subprocess.TimeoutExpired:
+        failed.append(f"{what} outlasted {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    if failed:
+        raise SystemExit("mesh: " + "\n".join(failed))
+    return outs
+
+
+def _free_port() -> str:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return str(s.getsockname()[1])
+
+
+def _torchrun(args, n: int = 2):
+    return _spawn([sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                   "--nproc-per-node", str(n), "--master-addr", "127.0.0.1",
+                   "--master-port", _free_port(), "-m", "rau_vqa_tpu_torch.cli"] + args)
+
+
+def _run_summary(workdir: str) -> dict:
+    """A train run's step count, head bias and last sweep (from its last
+    snapshot and its log)."""
+    from rau_vqa_tpu_torch.utils.checkpoint import latest_checkpoint
+    snap = torch.load(latest_checkpoint(os.path.join(workdir, "snapshot")),
+                      map_location="cpu", weights_only=True)
+    with open(os.path.join(workdir, "training_log", "metrics.jsonl")) as f:
+        tests = [r for r in map(json.loads, f) if r.get("kind") == "test"]
+    oe = {k: v for k, v in tests[-1].items() if k.startswith("testOEacc")}
+    return {"step": int(snap["step"]), "cls_b": snap["params"]["mult"]["cls"]["b"].float(),
+            "oe": oe, "sweeps": len(tests)}
+
+
+def mesh_phase(seed: int, card: str) -> dict:
+    """14. mesh: parallel/mesh.py's DP and TP on the card.  (a) a world of 1
+    on NCCL: the sharded step on mesh (1, 1) bit for bit make_train_step's,
+    sharded predict PredictStep's; (b) 2 ranks on the one card over gloo
+    (subprocesses of this script) against one process on the same inputs;
+    (c) ``train --mesh-data 2`` and ``precompute-features --mesh-data 2``
+    under ``torch.distributed.run`` against one process; (d) times.  Returns
+    the kernels' launches in the phase's main path ((a) and (b)) and its
+    readings."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rau_vqa_tpu_torch.convert import tree_leaves
+    from rau_vqa_tpu_torch.data.features import PackedFeatureStore
+    from rau_vqa_tpu_torch.eval.predict import make_predict_step
+    from rau_vqa_tpu_torch.models import pipeline
+    from rau_vqa_tpu_torch.models.backbones import vgg
+    from rau_vqa_tpu_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    # TF32 off here, as main() and the ranks set it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if MESH_DEVICE == "cuda":
+        # built once here before the ranks load them (a no-op after phase 2)
+        from rau_vqa_tpu_torch.ops import _build
+        _build.build_all(["lstm_encoder", "rau_hops", "rau_train_hops_fwd",
+                          "rau_train_hops_bwd", "fused_resnet"])
+    counters = _mesh_counters()
+    failed = []
+    readings = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
+        # (b) starts first: its ranks load while (a) runs here
+        ranks = _spawn([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                        "--mesh-rank", root], n_env=2, port=_free_port())
+        # (a) a world of 1 on NCCL; the single-process references first
+        dev = pm.init_distributed(device=MESH_DEVICE)
+        backend = dist.get_backend()
+        inp = mesh_inputs(seed, dev)
+        one = pm.make_mesh(1, 1)
+        ref = _mesh_train(inp, "dp_fused", None, False, True)
+        want = make_predict_step(inp["cfg"], device=dev)(inp["state"].params, *inp["predict"])
+        # the mesh path's launches: the sharded runs here and on the ranks
+        for k in counters.values():
+            k.launches = 0
+        got = _mesh_train(inp, "dp_fused", one, False, True, pm)
+        fn, placed = pm.make_sharded_predict(inp["cfg"], one, inp["state"].params)
+        have = fn(placed, *pm.shard_batch(one, *inp["predict"]))
+        sync(dev)
+        main_launches = {k: c.launches for k, c in counters.items()}
+        equal = ref[0] == got[0] and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(ref[4].params),
+                                              tree_leaves(got[4].params)))
+        log(f"mesh (a) world 1 on {backend}: make_sharded_train_step on (1, 1), fused "
+            f"float32, B={MESH_B}, {MESH_STEPS} steps: losses {got[0]} against "
+            f"make_train_step's {ref[0]}; loss and every parameter bit-equal: {equal}")
+        if not equal or backend != ("nccl" if MESH_DEVICE == "cuda" else "gloo"):
+            failed.append(f"(a) world 1: bit-equal {equal}, backend {backend}")
+        # the training kernels on a rank's rows: rows 50..99 of the batch at
+        # row0 = 50 against their plain versions there, and against the
+        # whole batch's rows (the global row keys the masks)
+        from rau_vqa_tpu_torch.ops import rau_train_hops as rth
+        cfg_f = dataclasses.replace(inp["cfg"], fused_train=True)
+        mp = inp["state"].params["mult"]
+        feats = inp["batch"][2]
+        q = torch.as_tensor(0.5 * np.random.RandomState(seed + 15).randn(
+            MESH_B, cfg_f.rnnout_dim).astype(np.float32), device=dev)
+        seed_t = torch.tensor([1234], dtype=torch.int32, device=dev)
+        h = MESH_B // 2
+        whole = rth.train_hops_fwd(mp, cfg_f, q, feats, seed_t)
+        half = rth.train_hops_fwd(mp, cfg_f, q[h:].contiguous(), feats[h:].contiguous(),
+                                  seed_t, row0=h)
+        plain = rth.train_hops_fwd_reference(mp, cfg_f, q[h:], feats[h:], seed_t, row0=h)
+        f_err = max((a - b).abs().max().item() for a, b in zip(half, plain))
+        w_err = max((a[:, h:] - b).abs().max().item() for a, b in zip(whole[:3], half[:3]))
+        gm = 1e-3 * torch.randn(cfg_f.n_hops, MESH_B - h, cfg_f.multfeat_dim, device=dev,
+                                generator=torch.Generator(dev).manual_seed(seed))
+        args = (mp, cfg_f, q[h:].contiguous(), feats[h:].contiguous(), seed_t, half[3],
+                half[4], gm)
+        em, g = rth.train_hops_bwd(*args, row0=h)
+        em_r, g_r = rth.train_hops_bwd_reference(*args, row0=h)
+        b_err = max([norm_rel(em[k].float(), em_r[k].float()) for k in em]
+                    + [norm_rel(g[k], g_r[k]) for k in g])
+        log(f"mesh (a) training kernels at row0={h} on rows {h}..{MESH_B - 1}: forward "
+            f"against its plain version max |diff| {f_err:.3e} (bar 1e-4), against the "
+            f"whole batch's rows {w_err:.3e} (bar 1e-4); backward worst norm-relative "
+            f"{b_err:.3e} (bar 1e-3)")
+        if not (f_err <= 1e-4 and w_err <= 1e-4 and b_err <= 1e-3):
+            failed.append(f"(a) training kernels at row0: forward {f_err:.3e} / {w_err:.3e}, "
+                          f"backward {b_err:.3e}")
+        p_equal = all(torch.equal(a, b) for a, b in zip(have, want))
+        log(f"mesh (a) make_sharded_predict on (1, 1) at B={MESH_PREDICT_B}: tables equal "
+            f"PredictStep's: {p_equal}")
+        if not p_equal:
+            failed.append("(a) sharded predict differs from PredictStep at world 1")
+        # (d) one all-reduce of the gradient's size over NCCL at world 1
+        n_grad = sum(t.numel() for t in tree_leaves(inp["state"].params))
+        readings["nccl_allreduce_ms"] = _allreduce_ms(pm, one, n_grad, iters=20)
+        log(f"mesh (d) all-reduce of {n_grad} float32 ({n_grad * 4 / 1e6:.1f} MB) over "
+            f"{backend} at world 1: {readings['nccl_allreduce_ms']:.4f} ms [{card}]")
+        dist.destroy_process_group()
+
+        # (b) the single-process references on the same inputs
+        refs = {name: _mesh_train(inp, name, None, tp, fused)
+                for name, _, tp, fused in MESH_TRAIN}
+        px_tab, px_att = pipeline.pixels_tables(inp["head_r"], inp["bb"], inp["cfg_r"],
+                                                "resnet101", *inp["pixels"], device=dev)
+        sync(dev)
+        outs = _finish(ranks, "the 2-rank mesh", 600)
+        got = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+               for r in range(2)]
+        M, A = inp["cfg"].multfeat_dim, inp["cfg"].answer_size
+        for name, shape, tp, fused in MESH_TRAIN:
+            r0 = got[0][name]
+            losses, cls_w = refs[name][0], refs[name][1]
+            loss_ok = np.allclose(r0["losses"][-1], losses[-1], rtol=2e-4, atol=0)
+            w_err = (r0["cls_w"] - cls_w).abs().max().item()
+            w_ok = torch.allclose(r0["cls_w"], cls_w, **MESH_BAR)
+            same = torch.equal(got[1][name]["cls_w"], r0["cls_w"])
+            want_local = (M, A // 2) if tp else (M, A)
+            log(f"mesh (b) {name} on {shape} over {got[0]['backend']}: losses {r0['losses']} "
+                f"against one process's {losses} (last within rtol 2e-4: {loss_ok}); cls.w "
+                f"max |diff| {w_err:.3e} (bar rtol 2e-4 atol 2e-5: {w_ok}); ranks equal "
+                f"{same}; cls.w a rank {r0['local']} (want {want_local})")
+            if not (loss_ok and w_ok and same and r0["local"] == want_local
+                    and got[1][name]["local"] == want_local):
+                failed.append(f"(b) {name}: loss {loss_ok}, cls.w {w_ok}, ranks {same}, "
+                              f"local {r0['local']}")
+        # the answers: each rank's rows of the gathered tables are bit for
+        # bit its own single-process call's on those rows; against one
+        # process at the whole batch, a reading (the ranks' smaller batches
+        # take other tile plans, bf16 sums and cuDNN algorithms)
+        for what, key, ref_tab, ref_att in (("predict", "predict", want[0], want[1]),
+                                            ("answer_pixels", "pixels", px_tab, px_att)):
+            exact = mesh_rows_exact(got, key)
+            tab, att = got[0][key]["tab"], got[0][key]["att"]
+            d, n_diff, gap, a_err = mesh_answer_readings(tab, ref_tab, att, ref_att)
+            log(f"mesh (b) sharded {what} at B={tab.shape[1]}: each rank's rows of the "
+                f"gathered tables and attention bit-equal to its own call on those rows, "
+                f"the same on both ranks: {exact}; against one process at B={tab.shape[1]} "
+                f"(a reading): {n_diff} of {tab.shape[0] * tab.shape[1]} answers differ, "
+                f"their largest top-2 gap {gap:.3e}, scores max |diff| {d:.3e}, attention "
+                f"{a_err:.3e}")
+            if not exact:
+                failed.append(f"(b) sharded {what}: a rank's rows differ from its own call's")
+        stage = [g["pixels"]["stage_launches"] for g in got]
+        log(f"mesh (b) stage-kernel launches a rank in its answer_pixels call: {stage}")
+        if min(stage) < 4:
+            failed.append(f"(b) sharded answer_pixels: stage launches {stage}")
+        launches = {k: main_launches[k] + got[0]["launches"][k] + got[1]["launches"][k]
+                    for k in counters}
+        log(f"mesh launches (the sharded runs of (a) here and of (b) on 2 ranks): "
+            f"{launches}")
+        if min(launches.values()) < 1:
+            failed.append(f"a kernel of the mesh path never launched: {launches}")
+
+        # (d) the 2-rank step against the single step; gloo's all-reduce
+        readings["step_ms"] = {"single": refs["dp_fused"][3],
+                               "two_ranks": got[0]["dp_fused"]["ms"]}
+        readings["gloo_allreduce_ms"] = got[0]["allreduce"]["ms"]
+        log(f"mesh (d) fused float32 step B={MESH_B}: one process {refs['dp_fused'][3]:.2f} "
+            f"ms, 2 ranks on one card over gloo {got[0]['dp_fused']['ms']:.2f} ms; "
+            f"all-reduce of {got[0]['allreduce']['n']} float32 over gloo (2 ranks, one "
+            f"card) {readings['gloo_allreduce_ms']:.3f} ms [{card}]")
+        del outs
+
+        # (c) the user's entry points under torch.distributed.run against one
+        # process of the same command (the CLI's own defaults, TF32 included),
+        # all four at once
+        n_img, side, batch = MESH_PRECOMPUTE
+        img_root = os.path.join(root, "images")
+        os.makedirs(os.path.join(img_root, "val2014"))
+        rs = np.random.RandomState(seed + 140)
+        rel = []
+        for i in range(n_img):
+            p = f"val2014/COCO_val2014_{i:012d}.png"
+            with open(os.path.join(img_root, p), "wb") as f:
+                f.write(png_bytes(rs.randint(0, 256, (side, side, 3)).astype(np.uint8)))
+            rel.append(p)
+        tree = vgg.vgg16_pool5_init(torch.Generator().manual_seed(seed + 141), device="cpu")
+        pth = os.path.join(root, "vgg16.pth")
+        torch.save({f"features.{i}.{k}": (c["w"].permute(3, 2, 0, 1) if k == "weight"
+                                          else c["b"])
+                    for i, c in zip(vgg.TORCH_CONV_INDICES, tree["convs"])
+                    for k in ("weight", "bias")}, pth)
+        dev_flag = ["--device", MESH_DEVICE]
+        train = ["train", "--preset", "ours_ms", "--fixture", "--epochs", "2",
+                 "--plain-eval"]
+        pre = ["precompute-features", "--image-root", img_root, "--backbone", "vgg16",
+               "--backbone-state", pth, "--size", str(side), "--backend", "pil"]
+        t0 = time.perf_counter()
+        one_cli = [sys.executable, "-m", "rau_vqa_tpu_torch.cli"] + dev_flag
+        runs = (_torchrun(dev_flag + train + ["--save-dir", os.path.join(root, "t2"),
+                                              "--mesh-data", "2"])
+                + _torchrun(dev_flag + pre + ["--out", os.path.join(root, "p2"),
+                                              "--batch", str(2 * batch), "--mesh-data", "2"])
+                + _spawn(one_cli + train + ["--save-dir", os.path.join(root, "t1")])
+                + _spawn(one_cli + pre + ["--out", os.path.join(root, "p1"),
+                                          "--batch", str(batch)]))
+        outs = _finish(runs[:2], "train under torch.distributed.run", 300)
+        _finish(runs[2:4], "precompute-features under torch.distributed.run", 300)
+        _finish(runs[4:], "the single-process train and precompute-features", 300)
+        c_s = time.perf_counter() - t0
+        one, two = _run_summary(os.path.join(root, "t1")), _run_summary(os.path.join(root, "t2"))
+        b_ok = torch.allclose(two["cls_b"], one["cls_b"], rtol=1e-4, atol=1e-6)
+        oe_ok = one["oe"].keys() == two["oe"].keys() and all(
+            abs(two["oe"][k] - one["oe"][k]) <= 1e-6 for k in one["oe"])
+        gloo = "backend gloo" in outs[0]
+        log(f"mesh (c) train --mesh-data 2 under torch.distributed.run (gloo: {gloo}) "
+            f"against one process: steps {two['step']} / {one['step']}, head bias within "
+            f"1e-4/1e-6: {b_ok}, sweeps {two['sweeps']} / {one['sweeps']}, OE equal: {oe_ok}")
+        if not (gloo and b_ok and oe_ok and two["step"] == one["step"] > 0
+                and two["sweeps"] == one["sweeps"]):
+            failed.append(f"(c) train: steps {two['step']}/{one['step']}, bias {b_ok}, "
+                          f"OE {oe_ok}")
+        names = sorted(os.listdir(os.path.join(root, "p1")))
+        byte_equal = sorted(os.listdir(os.path.join(root, "p2"))) == names and all(
+            open(os.path.join(root, "p1", n), "rb").read()
+            == open(os.path.join(root, "p2", n), "rb").read() for n in names)
+        n_rows = len(PackedFeatureStore(os.path.join(root, "p2")).index)
+        log(f"mesh (c) precompute-features --mesh-data 2 --batch {2 * batch} ({n_rows} images, "
+            f"{side} px) against one process at --batch {batch}: shard byte-equal "
+            f"{byte_equal}; (c) took {c_s:.1f} s")
+        if not byte_equal or n_rows != n_img:
+            failed.append(f"(c) precompute-features: byte-equal {byte_equal}, rows {n_rows}")
+    readings["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh_phase_s={readings['phase_s']:.1f} [{card}]")
+    if failed:
+        raise SystemExit("mesh: " + "; ".join(failed))
+    return {"launches": launches, "readings": readings}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh-rank", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_rank:
+        # one rank of the mesh phase's 2-rank world (it starts them itself)
+        return mesh_rank_main(args.mesh_rank, args.seed)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4078,6 +4584,11 @@ def main() -> int:
         eb_launches = export_bench_phase(args.seed, card)
     log("phase export_bench: ok")
 
+    with watchdog(400, "the mesh phase"):
+        mesh = mesh_phase(args.seed, card)
+    mesh_launches = mesh["launches"]
+    log("phase mesh: ok")
+
     s2 = stage_ms[2]
     kernels = [
         {"name": "lstm_encode", "route": "cuda",
@@ -4209,6 +4720,10 @@ def main() -> int:
          "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],
          "library_ms": s2["library_ms"]},
     ]
+    # the mesh phase's launches: (a) here and (b) on its 2 ranks
+    for k in kernels:
+        k["mesh_launches"] = mesh_launches.get(k["name"], 0)
+        k["launches"] += k["mesh_launches"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -172,12 +172,14 @@ def main(argv=None) -> int:
         flops = (B * backbone_flops(args.backbone, size, vit_cfg)
                  + serve_step_flops(cfg, B * Q, int(h_lengths.sum())))
         line = result_line(METRIC, K * B * Q, times, K, flops, device, canary,
-                           images_per_sec=round(K * B / float(np.median(times)), 1),
                            questions_per_image=Q, backbone=args.backbone,
                            fused_stages=list(stages), batch=B, chain=K, rounds=args.rounds,
                            compile_s=None if compile_s is None else round(compile_s, 3),
                            compile_first_s=round(t_first, 3),
                            operand_upload_s=round(t_up, 3), **extra)
+        # images/s from the line's own q/s: rounded apart, the two would
+        # disagree by a few percent at the CPU's few questions a second
+        line["images_per_sec"] = round(line["value"] / Q, 4)
         log(f"bench_pixels: {line['step_ms']} ms a step of {B} images (median of "
             f"{args.rounds}, spread {line['spread'] * 100:.1f}%); mfu {line['mfu']}")
         return line

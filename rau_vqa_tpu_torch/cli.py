@@ -47,6 +47,12 @@ parameter group; ``--backbone-state`` also takes a fine-tuned snapshot
 ``bench-pixels`` pass their flags to ``rau_vqa_tpu_torch/bench.py`` and
 ``bench_pixels.py``; ``profile`` traces train steps with ``torch.profiler``;
 ``doctor`` probes the rig; ``dashboard`` serves a run directory's metrics.
+
+``train --mesh-data/--mesh-model/--tp`` and ``precompute-features
+--mesh-data`` run over a device mesh (``parallel/mesh.py``), one process a
+device, under ``torch.distributed.run``; rank 0 writes the run's files:
+
+    python -m torch.distributed.run --nproc-per-node 2 -m rau_vqa_tpu_torch.cli train --preset ours_ms --fixture --mesh-data 2
 """
 
 from __future__ import annotations
@@ -98,6 +104,15 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--noisy-gamma", type=float, default=None)
     p.add_argument("--grad-accum", type=int, default=None)
     p.add_argument("--nhop", type=int, default=None)
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="size of the 'data' (DP) mesh axis; -1 = the world "
+                        "size / --mesh-model (one process a device, under "
+                        "python -m torch.distributed.run)")
+    p.add_argument("--mesh-model", type=int, default=None,
+                   help="size of the 'model' (TP) mesh axis")
+    p.add_argument("--tp", action="store_true",
+                   help="shard the classifier + LSTM gate projections over "
+                        "the 'model' axis (implies --mesh-model 2 unless set)")
     p.add_argument("--cnnout-dim", type=int, default=None)
     p.add_argument("--cnnout-w", type=int, default=None)
     p.add_argument("--cnnout-h", type=int, default=None)
@@ -193,6 +208,17 @@ def _apply_overrides(exp, args):
         exp = exp.replace(visatt=True)
     if args.visatt_batches is not None:
         exp = exp.replace(visatt=True, visatt_batches=args.visatt_batches)
+    me = {}
+    if args.mesh_data is not None:
+        me["data_axis"] = args.mesh_data
+    if args.mesh_model is not None:
+        me["model_axis"] = args.mesh_model
+    if args.tp:
+        me["shard_params_tp"] = True
+        me.setdefault("model_axis", max(exp.mesh.model_axis, 2))
+    if me:
+        me["enabled"] = True
+        exp = exp.replace(mesh=dataclasses.replace(exp.mesh, **me))
     if args.backbone_feat_norm:
         # whether or not the backbone trains: the interface a backbone makes
         t["backbone_feat_norm"] = True
@@ -368,6 +394,38 @@ def _adopt_snapshot(exp, checkpoint: str):
     return exp
 
 
+def _world_size() -> int:
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def _train_mesh(exp, device):
+    """The mesh of ``train``: joins the world and lays it out when a mesh
+    is asked for or the command runs under ``torch.distributed.run``
+    (WORLD_SIZE > 1); None otherwise."""
+    if not (exp.mesh.enabled or _world_size() > 1):
+        return None
+    from rau_vqa_tpu_torch.parallel.mesh import init_distributed, mesh_from_config
+    init_distributed(device=device)
+    mesh = mesh_from_config(exp.mesh)
+    print(f"mesh: {dict(mesh.shape)}"
+          + (" (TP weight sharding)" if exp.mesh.shard_params_tp else ""))
+    return mesh
+
+
+def _in_turn(mesh, fn):
+    """``fn()`` on each rank of the mesh in turn (``--fixture``: each rank
+    writes the fixture's files alike, never while another reads them)."""
+    if mesh is None:
+        return fn()
+    from rau_vqa_tpu_torch.parallel.mesh import barrier
+    out = None
+    for r in range(mesh.devices.size):
+        if r == mesh.rank:
+            out = fn()
+        barrier(mesh)
+    return out
+
+
 def cmd_train(args) -> int:
     from rau_vqa_tpu_torch.config import get_experiment
     from rau_vqa_tpu_torch.train.trainer import Trainer
@@ -375,6 +433,7 @@ def cmd_train(args) -> int:
     exp = _apply_overrides(get_experiment(args.preset), args)
     workdir = args.save_dir or f"{exp.save_dir}_{exp.data.split}"
     os.makedirs(workdir, exist_ok=True)
+    mesh = _train_mesh(exp, args.device)
     # train_backbone from the flag or the preset (ours_resnet_ft)
     wants_ft = exp.train.train_backbone
     if wants_ft and not args.fixture and not args.image_root:
@@ -386,8 +445,8 @@ def cmd_train(args) -> int:
         # backbone (VGG16 unless named)
         args.backbone = args.backbone or "vgg16"
     images_backbone = _fixture_images(args)
-    exp, data, source, gt = _load_data(exp, args, workdir,
-                                       images_backbone=images_backbone)
+    exp, data, source, gt = _in_turn(mesh if args.fixture else None, lambda: _load_data(
+        exp, args, workdir, images_backbone=images_backbone))
     if wants_ft and images_backbone:
         # a random backbone: the raw interface saturates the tanh head, the
         # RMS-normalized one lets the run learn the images
@@ -396,16 +455,17 @@ def cmd_train(args) -> int:
         args, exp, source, workdir, adopt_feat_norm=not args.backbone_feat_norm)
     trainer = Trainer(exp, data, source, workdir, gt_anno=gt,
                       official_anno=_checked_official_anno(exp),
-                      device=args.device, backbone=backbone,
-                      bb_params=bb_params, vit_cfg=_vit_cfg(backbone))
+                      device=args.device if mesh is None else None, mesh=mesh,
+                      backbone=backbone, bb_params=bb_params, vit_cfg=_vit_cfg(backbone))
     if args.init_from:
         trainer.restore(args.init_from)
         print(f"resumed from {args.init_from} at epoch {trainer.epoch}")
-    with open(os.path.join(workdir, "config.json"), "w") as f:
-        # the resolved model config (vocab/answer/seq_len from the data)
-        cfg_out = dataclasses.asdict(exp)
-        cfg_out["model"] = dataclasses.asdict(trainer.mcfg)
-        json.dump(cfg_out, f, indent=2, default=str)
+    if trainer.writer:
+        with open(os.path.join(workdir, "config.json"), "w") as f:
+            # the resolved model config (vocab/answer/seq_len from the data)
+            cfg_out = dataclasses.asdict(exp)
+            cfg_out["model"] = dataclasses.asdict(trainer.mcfg)
+            json.dump(cfg_out, f, indent=2, default=str)
     epochs = args.epochs or exp.train.max_epochs
     print(f"training {exp.name} ({trainer.mcfg.n_hops} hops) for {epochs} "
           f"epochs, {data.train_data.iter_per_epoch} iters/epoch on "
@@ -914,11 +974,17 @@ def cmd_precompute_features(args) -> int:
     import torch
 
     from rau_vqa_tpu_torch.devices import pick_device
-    from rau_vqa_tpu_torch.precompute import MESH, precompute_features, scan_image_dir
+    from rau_vqa_tpu_torch.precompute import precompute_features, scan_image_dir
     from rau_vqa_tpu_torch.utils.rigcheck import StallWatchdog
 
-    if args.mesh_data:
-        raise NotImplementedError(MESH)
+    mesh = None
+    if args.mesh_data or _world_size() > 1:
+        # the extraction batch sharded over a 'data' mesh of the world
+        from rau_vqa_tpu_torch.parallel.mesh import init_distributed, make_mesh
+        init_distributed(device=args.device)
+        mesh = make_mesh(n_data=args.mesh_data or -1, n_model=1)
+        print(f"mesh: {dict(mesh.shape)}")
+        args.device = str(mesh.device)
     if args.vqa_dir:
         with open(os.path.join(args.vqa_dir, "data_prepro.json")) as f:
             info = json.load(f)
@@ -951,7 +1017,7 @@ def cmd_precompute_features(args) -> int:
             args.image_root, rel, args.out, args.backbone, bb_params,
             size=args.size, batch_size=args.batch, dtype=args.dtype,
             backend=args.backend, compute_dtype="bfloat16" if args.bf16 else None,
-            vit_cfg=_vit_cfg(args.backbone), progress=progress, device=device)
+            vit_cfg=_vit_cfg(args.backbone), progress=progress, device=device, mesh=mesh)
     finally:
         watchdog.cancel()
     print(f"precomputed {len(store.index)} images -> {args.out} "
@@ -1304,7 +1370,9 @@ def main(argv=None) -> int:
                        help="host image decoder (native: libjpeg/libpng, "
                             "PIL where it cannot be built)")
     p_pre.add_argument("--mesh-data", type=int, default=0,
-                       help="a device mesh (refused: still to port)")
+                       help="shard the extraction batch over a 'data' mesh of "
+                            "this many ranks (the world, under python -m "
+                            "torch.distributed.run); --batch must divide by it")
     _add_device_flag(p_pre, argparse.SUPPRESS)
 
     p_conv = sub.add_parser("convert-snapshot",

@@ -193,9 +193,28 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Parallelism layout (``parallel/mesh.py``): DP over 'data' is the
+    primary strategy for this model size; TP over 'model' optionally shards
+    the classifier and the LSTM gate projections.  One process a device:
+    the mesh spans the whole ``torch.distributed`` world."""
+
+    enabled: bool = False             # construct a mesh for the Trainer
+    data_axis: int = -1               # -1 => the world size / model_axis
+    model_axis: int = 1
+    axis_names: Tuple[str, str] = ("data", "model")   # fixed: the JAX config's keys
+    shard_params_tp: bool = False     # enable TP weight sharding rules
+
+    def __post_init__(self):
+        if tuple(self.axis_names) != ("data", "model"):
+            raise ValueError(f"MeshConfig.axis_names is ('data', 'model'), "
+                             f"not {tuple(self.axis_names)!r}")
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
-    """One experiment: model, optimization, data and the host loop's
-    observability knobs (the JAX package's, without its device mesh and
+    """One experiment: model, optimization, data, the device mesh and the
+    host loop's observability knobs (the JAX package's, without
     ``DataConfig.prefetch``, which the JAX package does not read either)."""
 
     name: str = "ours_ss"
@@ -203,6 +222,7 @@ class ExperimentConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     save_dir: str = "save_result_vqa"
     # observability (reference VISUALIZATION group, :57-62)
     visatt: bool = False          # dump attention-map PNGs during eval

@@ -53,11 +53,14 @@ struct Dims {
   int B, Q, S, Dc, M, F, R, A, H;
 };
 
-// the hop loop's dropout: one seed, one rate for all three sites
+// the hop loop's dropout: one seed, one rate for all three sites; row0 is
+// the call's first row in the global batch, so that each element's mask is
+// keyed by its global index whichever rank or microbatch holds the row
 struct Dropout {
   uint32_t seed, thresh;
   float scale;
   bool on;
+  uint32_t row0;
   __device__ maskgen::Site site(int hop, int which) const {
     return {maskgen::site_salt(seed, hop, which), thresh, scale, on};
   }

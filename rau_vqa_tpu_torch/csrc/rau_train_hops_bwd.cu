@@ -298,7 +298,7 @@ int bwd_launch(const void* q, const void* feats, const void* seed_p, const void*
                void* work, void* const* emits, void* const* grads, float* dfeats,
                bool want_dfeats, void* scratch, int B, int Q, int S, int Dc, int M, int F,
                int R, int H, int chunk_rows, long long scratch_floats, uint32_t thresh,
-               float scale, int use_mask, void* stream, rth::Rec* rec = nullptr) {
+               float scale, int use_mask, int row0, void* stream, rth::Rec* rec = nullptr) {
   if (B <= 0 || H <= 0 || S <= 0 || Dc <= 0 || M <= 0 || F <= 0 || R <= 0 || Q <= 0)
     return (int)cudaErrorInvalidValue;
   const int P = B * S;
@@ -312,7 +312,7 @@ int bwd_launch(const void* q, const void* feats, const void* seed_p, const void*
   Scratch::carve(static_cast<float*>(scratch), d, sizeof(T), chunks, &sc);
   const cudaStream_t st = (cudaStream_t)stream;
   const int* seed = static_cast<const int*>(seed_p);
-  const Dropout dr{0u, thresh, scale, use_mask != 0};
+  const Dropout dr{0u, thresh, scale, use_mask != 0, (uint32_t)row0};
   const void* const* W = weights;  // in T
   float* ifeat = static_cast<float*>(work);
   float* addfeat = ifeat + (size_t)P * M;
@@ -448,6 +448,7 @@ int bwd_launch(const void* q, const void* feats, const void* seed_p, const void*
     if (want_dfeats) {
       Epi e = eq.epi(tg::DFEATS, dfeats);
       e.hop = hop;
+      e.mask_base = dr.row0 * (uint32_t)(S * Dc);
       eq.template gemm<DfC>(tg::Problem{E::rows(E::pick(dpre_i, sc.xb), M),
                                         E::rows(W[rth::I_W], M), P, Dc, M, M, e});
     }
@@ -500,11 +501,11 @@ int bwd_launch(const void* q, const void* feats, const void* seed_p, const void*
                       void* const* grads, void* dfeats, void* scratch, int B, int Q,   \
                       int S, int Dc, int M, int F, int R, int H, int chunk_rows,       \
                       long long scratch_floats, uint32_t thresh, float scale,          \
-                      int use_mask, void* stream) {                                    \
+                      int use_mask, int row0, void* stream) {                          \
     return bwd_launch<T>(q, feats, seed, c_all, h_all, gmerge, weights, work, emits,   \
                          grads, static_cast<float*>(dfeats), dfeats != nullptr,        \
                          scratch, B, Q, S, Dc, M, F, R, H, chunk_rows, scratch_floats, \
-                         thresh, scale, use_mask, stream);                             \
+                         thresh, scale, use_mask, row0, stream);                       \
   }
 TRAIN_HOPS_BWD_ENTRY(train_hops_bwd_launch, float)
 TRAIN_HOPS_BWD_ENTRY(train_hops_bwd_bf16_launch, __nv_bfloat16)
@@ -534,12 +535,12 @@ extern "C" int train_hops_bwd_describe(int B, int Q, int S, int Dc, int M, int F
       t_bytes == 4
           ? bwd_launch<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, weights,
                               nullptr, emits, grads, nullptr, dfeats != 0, nullptr, B, Q, S,
-                              Dc, M, F, R, 1, chunk_rows, (long long)n, 0u, 1.f, 0, nullptr,
+                              Dc, M, F, R, 1, chunk_rows, (long long)n, 0u, 1.f, 0, 0, nullptr,
                               &rec)
           : bwd_launch<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                       weights, nullptr, emits, grads, nullptr, dfeats != 0,
                                       nullptr, B, Q, S, Dc, M, F, R, 1, chunk_rows,
-                                      (long long)n, 0u, 1.f, 0, nullptr, &rec);
+                                      (long long)n, 0u, 1.f, 0, 0, nullptr, &rec);
   *n_launches = rec.n;
   return err == 0 ? (int)n : -1;
 }

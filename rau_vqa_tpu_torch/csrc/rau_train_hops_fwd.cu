@@ -98,7 +98,7 @@ int fwd_launch(const void* q, const void* feats, const void* seed_p,
                const void* const* weights, void* work, void* scratch, void* scores,
                void* dopred, void* attprob, void* c_all, void* h_all, int B, int Q, int S,
                int Dc, int M, int F, int R, int A, int H, long long scratch_floats,
-               uint32_t thresh, float scale, int use_mask, void* stream,
+               uint32_t thresh, float scale, int use_mask, int row0, void* stream,
                rth::Rec* rec = nullptr) {
   if (B <= 0 || H <= 0 || S <= 0 || Dc <= 0 || M <= 0 || F <= 0 || R <= 0 || Q <= 0 ||
       A <= 0)
@@ -110,7 +110,7 @@ int fwd_launch(const void* q, const void* feats, const void* seed_p,
     return (int)cudaErrorInvalidValue;
   Scratch::carve(static_cast<float*>(scratch), d, sizeof(T), &sc);
   const cudaStream_t st = (cudaStream_t)stream;
-  const rth::Dropout dr{0u, thresh, scale, use_mask != 0};
+  const rth::Dropout dr{0u, thresh, scale, use_mask != 0, (uint32_t)row0};
   const void* const* W = weights;  // in T
   float* c = static_cast<float*>(c_all);
   float* h = static_cast<float*>(h_all);
@@ -183,10 +183,10 @@ int fwd_launch(const void* q, const void* feats, const void* seed_p,
                       void* dopred, void* attprob, void* c_all, void* h_all,           \
                       void* scratch, int B, int Q, int S, int Dc, int M, int F, int R, \
                       int A, int H, long long scratch_floats, uint32_t thresh,         \
-                      float scale, int use_mask, void* stream) {                       \
+                      float scale, int use_mask, int row0, void* stream) {             \
     return fwd_launch<T>(q, feats, seed, weights, work, scratch, scores, dopred,       \
                          attprob, c_all, h_all, B, Q, S, Dc, M, F, R, A, H,            \
-                         scratch_floats, thresh, scale, use_mask, stream);             \
+                         scratch_floats, thresh, scale, use_mask, row0, stream);       \
   }
 TRAIN_HOPS_FWD_ENTRY(train_hops_fwd_launch, float)
 TRAIN_HOPS_FWD_ENTRY(train_hops_fwd_bf16_launch, __nv_bfloat16)
@@ -211,10 +211,10 @@ extern "C" int train_hops_fwd_describe(int B, int Q, int S, int Dc, int M, int F
       t_bytes == 4
           ? fwd_launch<float>(nullptr, nullptr, nullptr, weights, nullptr, nullptr, nullptr,
                               nullptr, nullptr, nullptr, nullptr, B, Q, S, Dc, M, F, R, A, 1,
-                              (long long)n, 0u, 1.f, 0, nullptr, &rec)
+                              (long long)n, 0u, 1.f, 0, 0, nullptr, &rec)
           : fwd_launch<__nv_bfloat16>(nullptr, nullptr, nullptr, weights, nullptr, nullptr,
                                       nullptr, nullptr, nullptr, nullptr, nullptr, B, Q, S, Dc,
-                                      M, F, R, A, 1, (long long)n, 0u, 1.f, 0, nullptr, &rec);
+                                      M, F, R, A, 1, (long long)n, 0u, 1.f, 0, 0, nullptr, &rec);
   *n_launches = rec.n;
   return err == 0 ? (int)n : -1;
 }

@@ -132,10 +132,12 @@ struct Enqueuer {
 };
 
 // q_d = q qmask and feats_d = feats fmask, in T (every reader is a
-// product), and h in T where hb is set
+// product), and h in T where hb is set; q_base / f_base: the global mask
+// index of the call's first q and feats element (row0 times a row's elements)
 template <class T>
 __global__ void prep_kernel(size_t nq, size_t nf, size_t nh, const int* seed, int hop,
-                            Dropout dr, const T* __restrict__ q, const T* __restrict__ feats,
+                            Dropout dr, uint32_t q_base, uint32_t f_base,
+                            const T* __restrict__ q, const T* __restrict__ feats,
                             const float* __restrict__ h, T* __restrict__ qd,
                             T* __restrict__ fd, T* __restrict__ hb) {
   dr.seed = (uint32_t)seed[0];
@@ -145,10 +147,10 @@ __global__ void prep_kernel(size_t nq, size_t nf, size_t nh, const int* seed, in
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < nq + nf + nh;
        i += stride) {
     if (i < nq) {
-      stf(qd, i, qm.apply(ldf(q, i), (uint32_t)i));
+      stf(qd, i, qm.apply(ldf(q, i), q_base + (uint32_t)i));
     } else if (i < nq + nf) {
       const size_t j = i - nq;
-      stf(fd, j, fm.apply(ldf(feats, j), (uint32_t)j));
+      stf(fd, j, fm.apply(ldf(feats, j), f_base + (uint32_t)j));
     } else {
       stf(hb, i - nq - nf, h[i - nq - nf]);
     }
@@ -265,7 +267,8 @@ void hop_forward_phases(E& eq, const Dims& d, const Dropout& dr, const void* con
     const size_t nq = (size_t)B * Q, nf = (size_t)P * Dc, nh = E::f32 ? 0 : (size_t)B * R;
     const int blocks = (int)std::min<size_t>((nq + nf + nh + ew - 1) / ew, 4096);
     if (!eq.dry(blocks, 0)) {
-      prep_kernel<T><<<blocks, ew, 0, eq.st>>>(nq, nf, nh, eq.seed, hop, dr, b.q, b.feats, b.h,
+      prep_kernel<T><<<blocks, ew, 0, eq.st>>>(nq, nf, nh, eq.seed, hop, dr, dr.row0 * Q,
+                                              dr.row0 * (uint32_t)(S * Dc), b.q, b.feats, b.h,
                                               b.qd, b.fd, b.hb);
       eq.check(cudaGetLastError());
     }
@@ -333,6 +336,7 @@ void hop_forward_phases(E& eq, const Dims& d, const Dropout& dr, const void* con
     e.emit = E::copy(b.dmergeb);
     e.emit2 = b.merge_d;
     e.hop = hop;
+    e.mask_base = dr.row0 * M;
     eq.small(E::rows(E::pick(b.hn, b.hnb), R), E::kmaj(W[MG_W], M), B, M, R, e);
   }
 }

@@ -112,6 +112,7 @@ struct Epi {
   uint32_t thresh;
   float scale;
   int mask_on;
+  uint32_t mask_base;  // the global mask index of the problem's element 0
 };
 
 struct Problem {
@@ -141,14 +142,14 @@ __device__ __forceinline__ void epilogue(const Problem& pr, int m, int n, float 
   if constexpr (kDfOps) {
     // [B*S, Dc] rows: o is the element's index in feats, as the mask's
     if (e.op == DFEATS) {
-      e.out[o] += mask_site(e, maskgen::SITE_FEATS).apply(acc, (uint32_t)o);
+      e.out[o] += mask_site(e, maskgen::SITE_FEATS).apply(acc, e.mask_base + (uint32_t)o);
       return;
     }
   }
   if constexpr (kFwdOps) {
     if (e.op == MERGE_D) {
       put(static_cast<T*>(e.emit2), o,
-          merge_site(e).apply((e.v0[o] + acc) + to_f(b0[n]), (uint32_t)o));
+          merge_site(e).apply((e.v0[o] + acc) + to_f(b0[n]), e.mask_base + (uint32_t)o));
       return;
     }
     if (e.op == SIGMOID_BIAS) {
@@ -181,8 +182,9 @@ __device__ __forceinline__ void epilogue(const Problem& pr, int m, int n, float 
       break;
     case MERGE: {
       const maskgen::Site mm = merge_site(e);
-      put(static_cast<T*>(e.emit2), o, mm.apply((e.v0[o] + acc) + to_f(b0[n]), (uint32_t)o));
-      v = mm.apply(e.v1[o], (uint32_t)o);
+      const uint32_t gi = e.mask_base + (uint32_t)o;
+      put(static_cast<T*>(e.emit2), o, mm.apply((e.v0[o] + acc) + to_f(b0[n]), gi));
+      v = mm.apply(e.v1[o], gi);
       break;
     }
     case ADD:

@@ -28,8 +28,8 @@ With a released tarball on local disk:
         --feat-dir data/vqa_VGG16Conv_pool5_448/feat_448x448
 
 The port's own copy of ``rau_vqa_tpu/eval/released.py``: the converted
-groups are loaded into the port ``Trainer``'s parameters on its device; a
-device mesh stays refused (``roadmap.py``, item 7).
+groups are loaded into the port ``Trainer``'s parameters on its device, or
+placed on its device mesh (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -149,8 +149,9 @@ def verify_released(extracted_root: str, exp, data, source, workdir: str, *,
     (official VQA annotations JSON for the split), every hop additionally
     gets BOTH answer sets scored with the official 10-rater metric —
     'ours' vs 'released' accuracy side by side, the paper's "within 0.1%"
-    claim as numbers.  ``device`` is the Trainer's (cuda when None); a
-    ``mesh`` is refused, as the Trainer refuses it.
+    claim as numbers.  ``device`` is the Trainer's (cuda when None); with a
+    ``mesh`` every rank runs it, the parameters placed on the mesh (TP
+    leaves cut with ``exp.mesh.shard_params_tp``) and the sweep sharded.
     """
     from rau_vqa_tpu_torch.convert import map_tree
     from rau_vqa_tpu_torch.data import t7
@@ -187,9 +188,17 @@ def verify_released(extracted_root: str, exp, data, source, workdir: str, *,
     params = {g: tc.flat_to_group(f, mcfg, g)
               for g, f in zip(("embed", "rnn", "mult"), flats)}
     # the converted groups into the Trainer's parameters, on its device and
-    # in their types (the float64 snapshot rounds to float32 as it loads)
-    trainer.state = trainer.state._replace(params=map_tree(
-        lambda t, s: s.to(t.device, t.dtype), trainer.state.params, params))
+    # in their types (the float64 snapshot rounds to float32 as it loads);
+    # on a mesh, the whole state placed again
+    if trainer.mesh is not None:
+        from rau_vqa_tpu_torch.parallel.mesh import gather_state, place_state
+        whole = gather_state(trainer.state, trainer._shardings)
+        whole = whole._replace(params=map_tree(
+            lambda t, s: s.to(t.device, t.dtype), whole.params, params))
+        trainer.state = place_state(trainer.mesh, whole, tp=trainer.tp)
+    else:
+        trainer.state = trainer.state._replace(params=map_tree(
+            lambda t, s: s.to(t.device, t.dtype), trainer.state.params, params))
     # keep the FRACTIONAL epoch (snapshot_iter%06d_epoch%.2f, e.g. 3.54):
     # evaluate() names submissions/attention dumps by it, and int() would
     # misname them vs the released files this harness diffs against

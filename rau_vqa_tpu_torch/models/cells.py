@@ -12,7 +12,11 @@ Two cells with the reference's two gate conventions:
   (ATTLSTM.lua:52).
 
 Weights are ``[in, out]`` (``x @ W``), as in the JAX package.  Dropout masks
-come from an explicit ``torch.Generator`` on the tensors' device.
+come from an explicit ``torch.Generator`` on the tensors' device.  A call on
+some rows of a larger batch (a rank's rows of a sharded step, a microbatch's)
+passes ``rows = (first, total)``: each mask is drawn for the whole batch of
+``total`` rows and the call keeps its own, so that every row gets the masks
+one call on the whole batch would give it.
 """
 
 from __future__ import annotations
@@ -24,11 +28,22 @@ import torch
 Params = Dict
 
 
+Rows = Optional[Tuple[int, int]]
+
+
 def keep_mask(shape, rate: float, generator: Optional[torch.Generator],
-              device) -> torch.Tensor:
+              device, rows: Rows = None, dim: int = 0) -> torch.Tensor:
     """Where inverted dropout at ``rate`` keeps an element: a bool tensor of
-    ``shape``, drawn from ``generator``."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    ``shape``, drawn from ``generator``; with ``rows = (first, total)``,
+    ``shape[dim]`` rows from ``first`` of the mask of a batch of ``total``
+    along ``dim``."""
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    first, total = rows
+    whole = list(shape)
+    whole[dim] = total
+    keep = torch.rand(whole, generator=generator, device=device) < 1.0 - rate
+    return keep.narrow(dim, first, shape[dim])
 
 
 def apply_keep(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
@@ -38,11 +53,12 @@ def apply_keep(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-            train: bool) -> torch.Tensor:
-    """Inverted dropout (scale at train time), torch nn.Dropout semantics."""
+            train: bool, rows: Rows = None) -> torch.Tensor:
+    """Inverted dropout (scale at train time), torch nn.Dropout semantics;
+    ``x``'s dim 0 the batch (``rows`` as ``keep_mask``'s)."""
     if not train or rate <= 0.0:
         return x
-    return apply_keep(x, keep_mask(x.shape, rate, generator, x.device), rate)
+    return apply_keep(x, keep_mask(x.shape, rate, generator, x.device, rows), rate)
 
 
 def _uniform(gen: torch.Generator, shape, scale: float, device) -> torch.Tensor:
@@ -108,7 +124,7 @@ def deep_lstm_cell(params: Params, x: torch.Tensor, state: torch.Tensor, *,
 def att_lstm_cell(params: Params, x: torch.Tensor, prev_c: torch.Tensor,
                   prev_h: torch.Tensor, *, rnn_size: int,
                   dropout_rate: float = 0.0, train: bool = False,
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None, rows: Rows = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One step of the answering-unit LSTM with separate (c, h) state."""
     R = rnn_size
@@ -118,7 +134,7 @@ def att_lstm_cell(params: Params, x: torch.Tensor, prev_c: torch.Tensor,
     for L, lp in enumerate(params["layers"]):
         c = prev_c[:, L * R:(L + 1) * R]
         h = prev_h[:, L * R:(L + 1) * R]
-        inp = dropout(inp, dropout_rate, generator, train)
+        inp = dropout(inp, dropout_rate, generator, train, rows)
         gates = (inp @ lp["wi"] + lp["bi"]) + (h @ lp["wh"] + lp["bh"])
         i_g = torch.sigmoid(gates[:, :R])
         g_t = torch.tanh(gates[:, R:2 * R])

@@ -70,6 +70,23 @@ def pixels_forward(params: Dict, bb_params: Dict, cfg: ModelConfig, backbone: st
     return rau_forward(params, cfg, tokens, lengths, feats.float(), train=False)
 
 
+def pixels_tables(params: Dict, bb_params: Dict, cfg: ModelConfig, backbone: str,
+                  images_u8, tokens, lengths, *, vit_cfg=None, device=None,
+                  feat_norm: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``answer_pixels``' tables before the argmax: (tab_pred [H+2, B, A],
+    tab_att [H+2, B, S]), as ``eval.predict.predict`` gives them; with
+    ``feat_norm`` the features RMS-normalized (a fine-tuned head's
+    interface)."""
+    device = pick_device(device, "answer_pixels")
+    images_u8 = torch.as_tensor(images_u8, device=device)
+    tokens = torch.as_tensor(tokens, device=device)
+    lengths = torch.as_tensor(lengths, device=device)
+    with torch.no_grad():
+        feats = extract_features(backbone, bb_params, images_u8, vit_cfg,
+                                 fused_stages=SERVING_STAGES, feat_norm=feat_norm).float()
+        return predict_fused(params, _head_weights(params), cfg, tokens, lengths, feats)
+
+
 def answer_pixels(params: Dict, bb_params: Dict, cfg: ModelConfig, backbone: str,
                   images_u8, tokens, lengths, *, vit_cfg=None, device=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -84,13 +101,6 @@ def answer_pixels(params: Dict, bb_params: Dict, cfg: ModelConfig, backbone: str
     run in the stage kernel; the features of every backbone reach the head
     as float32.  The head's bf16 kernel weights are cast once per parameter
     set."""
-    device = pick_device(device, "answer_pixels")
-    images_u8 = torch.as_tensor(images_u8, device=device)
-    tokens = torch.as_tensor(tokens, device=device)
-    lengths = torch.as_tensor(lengths, device=device)
-    with torch.no_grad():
-        feats = extract_features(backbone, bb_params, images_u8, vit_cfg,
-                                 fused_stages=SERVING_STAGES).float()
-        tab_pred, tab_att = predict_fused(params, _head_weights(params), cfg,
-                                          tokens, lengths, feats)
+    tab_pred, tab_att = pixels_tables(params, bb_params, cfg, backbone, images_u8, tokens,
+                                      lengths, vit_cfg=vit_cfg, device=device)
     return tab_pred.argmax(-1), tab_att

@@ -26,6 +26,7 @@ from rau_vqa_tpu_torch.config import ModelConfig
 from rau_vqa_tpu_torch.convert import map_tree
 from rau_vqa_tpu_torch.devices import pick_device
 from rau_vqa_tpu_torch.models.cells import (
+    Rows,
     _uniform,
     apply_keep,
     att_lstm_cell,
@@ -98,8 +99,8 @@ def embed_question(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def encode_question(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     lengths: torch.Tensor, *, train: bool = False,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    rows: Rows = None) -> torch.Tensor:
     """tokens [B, T] (0 = ZEROPAD), lengths [B] in [1, T] -> the packed
     (c, h) LSTM state at each question's last token, [B, rnnout_dim].
 
@@ -109,7 +110,8 @@ def encode_question(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     embedding's first, and cut to T: a timestep's masks, and every draw
     after the encoder's, do not depend on T (as the JAX package keys each
     timestep's masks by its index, rau_vqa_tpu/models/rau.py:123-143), so
-    a batch cut to any T >= its longest question trains alike."""
+    a batch cut to any T >= its longest question trains alike.  ``rows``:
+    these rows' place in a larger batch (``cells.keep_mask``)."""
     B, T = tokens.shape
     in_keep = None
     if train:
@@ -119,14 +121,14 @@ def encode_question(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         dev = tokens.device
         if cfg.embed_dropout > 0.0:
             keep = keep_mask((B, cfg.seq_len, cfg.embed_dim), cfg.embed_dropout,
-                             generator, dev)[:, :T]
+                             generator, dev, rows)[:, :T]
             raw = params["embed"]["lookup"][tokens.long()]
             emb = torch.tanh(apply_keep(raw, keep, cfg.embed_dropout))
         else:
             emb = embed_question(params, tokens)
         if cfg.rnn_dropout > 0.0 and cfg.rnn_layers > 1:
             in_keep = keep_mask((cfg.seq_len, cfg.rnn_layers - 1, B, cfg.rnn_size),
-                                cfg.rnn_dropout, generator, dev)
+                                cfg.rnn_dropout, generator, dev, rows, dim=2)
     else:
         emb = embed_question(params, tokens)
     l1 = params["rnn"]["layers"][0]
@@ -147,13 +149,13 @@ def encode_question(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def embed_image(mp: Params, feats: torch.Tensor, *, dropout_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, rows: Rows = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[i_embed] + the image half of [attbycontent] (reference :238-249):
     feats [B, S, Dc] -> (ifeat [B, S, M], iatt [B, S, F]).  In training the
     features are dropped first, at ``mult_dropout``
     (rau_vqa_tpu/models/rau.py:171-172)."""
-    feats = dropout(feats, dropout_rate, generator, True)
+    feats = dropout(feats, dropout_rate, generator, True, rows)
     ifeat = torch.tanh(feats @ mp["i_embed"]["w"] + mp["i_embed"]["b"])
     iatt = ifeat @ mp["att_i"]["w"] + mp["att_i"]["b"]
     return ifeat, iatt
@@ -163,7 +165,7 @@ def answering_unit(mp: Params, cfg: ModelConfig, q: torch.Tensor,
                    ifeat: torch.Tensor, iatt: torch.Tensor, c: torch.Tensor,
                    h: torch.Tensor, *, train: bool = False,
                    generator: Optional[torch.Generator] = None,
-                   q_proj_pre: Optional[torch.Tensor] = None):
+                   q_proj_pre: Optional[torch.Tensor] = None, rows: Rows = None):
     """One recurrent answering unit (reference :291-307).
 
     Returns (score [B, A], do_pred [B], attprob [B, S], next_c, next_h).
@@ -173,7 +175,7 @@ def answering_unit(mp: Params, cfg: ModelConfig, q: torch.Tensor,
     (``att_rnn_dropout``) and the merged feature, as the JAX package's
     (rau_vqa_tpu/models/rau.py:199, :219-229; cells.py:150-152)."""
     if q_proj_pre is None:
-        q_in = dropout(q, cfg.mult_dropout, generator, train)
+        q_in = dropout(q, cfg.mult_dropout, generator, train, rows)
         q_proj_pre = q_in @ mp["q_proj"]["w"] + mp["q_proj"]["b"]
     qfeat = torch.tanh(q_proj_pre + h @ mp["h_proj"]["w"] + mp["h_proj"]["b"])
 
@@ -189,10 +191,10 @@ def answering_unit(mp: Params, cfg: ModelConfig, q: torch.Tensor,
     next_c, next_h = att_lstm_cell(mp["attlstm"], join, c, h,
                                    rnn_size=cfg.att_rnn_size,
                                    dropout_rate=cfg.att_rnn_dropout, train=train,
-                                   generator=generator)
-    lstmfeat = dropout(next_h, cfg.att_rnn_dropout, generator, train)
+                                   generator=generator, rows=rows)
+    lstmfeat = dropout(next_h, cfg.att_rnn_dropout, generator, train, rows)
     merge = join + lstmfeat @ mp["merge"]["w"] + mp["merge"]["b"]
-    merge = dropout(merge, cfg.mult_dropout, generator, train)
+    merge = dropout(merge, cfg.mult_dropout, generator, train, rows)
     score = merge @ mp["cls"]["w"] + mp["cls"]["b"]
     do_pred = torch.sigmoid(merge @ mp["do_pred"]["w"] + mp["do_pred"]["b"])[:, 0]
     return score, do_pred, attprob, next_c, next_h
@@ -202,7 +204,7 @@ def rau_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 lengths: torch.Tensor, feats: torch.Tensor, *,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                hop_seed=None) -> RAUOutput:
+                hop_seed=None, rows: Rows = None) -> RAUOutput:
     """End-to-end forward: tokens [B, T], lengths [B], feats [B, S, Dc].
 
     The params and ``feats`` are cast to ``cfg.compute_dtype`` first, under
@@ -211,14 +213,17 @@ def rau_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     loop runs fused, its counter-hash masks seeded by ``hop_seed`` (an
     int32 in [0, 2^31 - 1); drawn from ``generator`` when None).
     ``do_pred``, ``attprob`` and the final state of the fused path carry no
-    gradient (the reference zeroes d_do_pred, :565-567)."""
+    gradient (the reference zeroes d_do_pred, :565-567).  ``rows = (first,
+    total)``: the batch is rows [first, first + B) of one of ``total`` rows
+    (a rank's of a sharded step), and every mask is that whole batch's, as
+    the JAX package's GSPMD step gives each row of a global batch."""
     cdt = dot_dtype(cfg)
     if cdt != torch.float32:
         params = map_tree(lambda x: x.to(cdt), params)
     feats = feats.to(cdt)
     if train:
         return _train_forward(params, cfg, tokens, lengths, feats,
-                              generator, hop_seed)
+                              generator, hop_seed, rows)
     B = tokens.shape[0]
     mp = params["mult"]
     q = encode_question(params, cfg, tokens, lengths)
@@ -239,7 +244,8 @@ def rau_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _train_forward(params: Params, cfg: ModelConfig, tokens, lengths, feats,
-                   generator: Optional[torch.Generator], hop_seed) -> RAUOutput:
+                   generator: Optional[torch.Generator], hop_seed,
+                   rows: Rows = None) -> RAUOutput:
     needs_gen = max(cfg.embed_dropout, cfg.rnn_dropout, cfg.mult_dropout,
                     cfg.att_rnn_dropout) > 0.0
     if cfg.fused_train:   # the hop loop's masks come from hop_seed
@@ -249,21 +255,21 @@ def _train_forward(params: Params, cfg: ModelConfig, tokens, lengths, feats,
         raise ValueError("rau_forward(train=True) with dropout enabled "
                          "requires a generator")
     q = encode_question(params, cfg, tokens, lengths, train=True,
-                        generator=generator)
+                        generator=generator, rows=rows)
     if not cfg.fused_train:
-        return _unfused_hops(params["mult"], cfg, q, feats, generator)
+        return _unfused_hops(params["mult"], cfg, q, feats, generator, rows)
     if hop_seed is None:
         hop_seed = (torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                                   device=generator.device, dtype=torch.int32)
                     if generator is not None else 0)
     scores, do_pred, attprob, fc, fh = rau_train_hops(params["mult"], cfg, q, feats,
-                                                      hop_seed)
+                                                      hop_seed, rows[0] if rows else 0)
     return RAUOutput(scores, do_pred.detach(), attprob.detach(), fc.detach(),
                      fh.detach())
 
 
 def _unfused_hops(mp: Params, cfg: ModelConfig, q, feats,
-                  generator: Optional[torch.Generator]) -> RAUOutput:
+                  generator: Optional[torch.Generator], rows: Rows = None) -> RAUOutput:
     """The unfused training hop loop (rau_vqa_tpu/models/rau.py:305-346):
     each hop re-embeds the features and runs the answering unit under its
     own dropout masks, drawn from ``generator``.
@@ -285,8 +291,10 @@ def _unfused_hops(mp: Params, cfg: ModelConfig, q, feats,
             g = torch.Generator(device=generator.device)
             g.set_state(state)
             copies.append(g)
-        ifeat, iatt = embed_image(mp, feats, dropout_rate=cfg.mult_dropout, generator=g)
-        return answering_unit(mp, cfg, q, ifeat, iatt, c, h, train=True, generator=g)
+        ifeat, iatt = embed_image(mp, feats, dropout_rate=cfg.mult_dropout, generator=g,
+                                  rows=rows)
+        return answering_unit(mp, cfg, q, ifeat, iatt, c, h, train=True, generator=g,
+                              rows=rows)
 
     c = q.new_zeros(B, cfg.att_state_dim)
     h = q.new_zeros(B, cfg.att_state_dim)

@@ -97,7 +97,7 @@ _SITE_FEATS, _SITE_Q, _SITE_MERGE = 0, 1, 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_DROPOUT_ARGS = [ctypes.c_uint32, ctypes.c_float, _I, _P]
+_DROPOUT_ARGS = [ctypes.c_uint32, ctypes.c_float, _I, _I, _P]
 _FWD_ARGS = ([_P, _P, _P, ctypes.POINTER(_P)] + [_P] * 7 + [_I] * 9 + [ctypes.c_longlong]
              + _DROPOUT_ARGS)
 _BWD_ARGS = ([_P] * 6 + [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), ctypes.POINTER(_P), _P,
@@ -179,16 +179,17 @@ def _seed_tensor(seed, device) -> torch.Tensor:
     return torch.as_tensor(seed, dtype=torch.int32, device=device).reshape(1)
 
 
-def _masks(cfg: ModelConfig, shapes, seed, hop: int):
-    """The three per-hop dropout scale masks (feats, q, merge) of the whole
-    batch; ``None`` without dropout."""
+def _masks(cfg: ModelConfig, shapes, seed, hop: int, row0: int = 0):
+    """The three per-hop dropout scale masks (feats, q, merge) of the call's
+    rows, the first of them global row ``row0``; ``None`` without
+    dropout."""
     rate = cfg.mult_dropout
     if rate <= 0.0:
         return None, None, None
     (B, S, Dc), (_, Q), (_, M) = shapes
-    fm = dropout_scale_mask((B, S, Dc), 0, site_salt(seed, hop, _SITE_FEATS), rate)
-    qm = dropout_scale_mask((B, Q), 0, site_salt(seed, hop, _SITE_Q), rate)
-    mm = dropout_scale_mask((B, M), 0, site_salt(seed, hop, _SITE_MERGE), rate)
+    fm = dropout_scale_mask((B, S, Dc), row0, site_salt(seed, hop, _SITE_FEATS), rate)
+    qm = dropout_scale_mask((B, Q), row0, site_salt(seed, hop, _SITE_Q), rate)
+    mm = dropout_scale_mask((B, M), row0, site_salt(seed, hop, _SITE_MERGE), rate)
     return fm, qm, mm
 
 
@@ -329,17 +330,18 @@ def _shapes(cfg: ModelConfig, q, feats):
     return (B, S, Dc), (B, q.shape[1]), (B, cfg.multfeat_dim)
 
 
-def train_hops_fwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed):
+def train_hops_fwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed, row0: int = 0):
     """Plain version of the forward kernel: (scores [H, B, A], do_pred
     [H, B], attprob [H, B, S], c_all [H+1, B, R], h_all [H+1, B, R]), all
-    float32, with the products in ``cfg.compute_dtype``."""
+    float32, with the products in ``cfg.compute_dtype``; the rows are the
+    global batch's from ``row0`` on, which keys their masks."""
     dd = dot_dtype(cfg)
     B = q.shape[0]
     c = torch.zeros(B, cfg.att_state_dim, device=q.device)
     h = torch.zeros(B, cfg.att_state_dim, device=q.device)
     scores, dopreds, attprobs, cs, hs = [], [], [], [c], [h]
     for hop in range(cfg.n_hops):
-        fm, qm, mm = _masks(cfg, _shapes(cfg, q, feats), seed, hop)
+        fm, qm, mm = _masks(cfg, _shapes(cfg, q, feats), seed, hop, row0)
         t = _hop_fwd_core(mp, q, feats, c, h, fm, qm, mm, dd)
         dopreds.append(torch.sigmoid(_dot(t["merge_d"], mp["do_pred"]["w"], dd)[:, 0]
                                      + mp["do_pred"]["b"].float()[0]))
@@ -352,7 +354,7 @@ def train_hops_fwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed):
             torch.stack(cs), torch.stack(hs))
 
 
-def rau_train_hops_reference(mp: Dict, cfg: ModelConfig, q, feats, seed):
+def rau_train_hops_reference(mp: Dict, cfg: ModelConfig, q, feats, seed, row0: int = 0):
     """The training hop loop with the fused path's exact masks, in plain
     PyTorch and differentiable by autograd: (scores, do_pred, attprob,
     final_c, final_h).  In bfloat16 its gradient is JAX's autodiff of its
@@ -360,12 +362,12 @@ def rau_train_hops_reference(mp: Dict, cfg: ModelConfig, q, feats, seed):
     check_fused_config(cfg)
     seed = _seed_tensor(seed, q.device)
     scores, do_pred, attprob, c_all, h_all = train_hops_fwd_reference(
-        mp, cfg, q, feats, seed)
+        mp, cfg, q, feats, seed, row0)
     return scores, do_pred, attprob, c_all[-1], h_all[-1]
 
 
 def train_hops_bwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed,
-                             c_all, h_all, gmerge, dfeats: bool = False):
+                             c_all, h_all, gmerge, dfeats: bool = False, row0: int = 0):
     """Plain version of the backward kernel: the hops in reverse from the
     saved carries.  Returns (emissions {name: [H, B, width]}, the feats-path
     grads {path: tensor}, float32); with ``dfeats`` the grads also hold the
@@ -379,7 +381,7 @@ def train_hops_bwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed,
     ems = [None] * H
     gw_in: Dict[Tuple, torch.Tensor] = {}
     for hop in reversed(range(H)):
-        fm, qm, mm = _masks(cfg, shapes, seed, hop)
+        fm, qm, mm = _masks(cfg, shapes, seed, hop, row0)
         t = _hop_fwd_core(mp, q, feats, c_all[hop], h_all[hop], fm, qm, mm, dd)
         ems[hop], gw, dc, dh = _hop_bwd_core(mp, t, gmerge[hop], dc, dh, mm, dd, fm, dfeats)
         for path, g in gw.items():
@@ -388,7 +390,7 @@ def train_hops_bwd_reference(mp: Dict, cfg: ModelConfig, q, feats, seed,
     return em, gw_in
 
 
-def _outside_grads(cfg: ModelConfig, mp, q, seed, h_all, attprob, g_scores, em):
+def _outside_grads(cfg: ModelConfig, mp, q, seed, h_all, attprob, g_scores, em, row0=0):
     """The weight grads of the non-feats path, and dq, float32, as products
     over the emissions stacked ``[H*B, *]`` (``_outside_grads``, :539-595):
     float32 ``matmul``s on operands rounded to the product type."""
@@ -406,7 +408,7 @@ def _outside_grads(cfg: ModelConfig, mp, q, seed, h_all, attprob, g_scores, em):
     h_out = h_all[1:]                      # state leaving each hop
     if rate > 0.0:
         qmask = torch.stack([
-            dropout_scale_mask((B, Q), 0, site_salt(seed, h, _SITE_Q), rate)
+            dropout_scale_mask((B, Q), row0, site_salt(seed, h, _SITE_Q), rate)
             for h in range(H)])            # [H, B, Q]
         q_d = q.float()[None] * qmask
     else:
@@ -671,11 +673,12 @@ def _check_cuda(name: str, cfg: ModelConfig, mp, q, feats, seed, extra=()):
     return d
 
 
-def _dropout_args(cfg: ModelConfig):
+def _dropout_args(cfg: ModelConfig, row0: int):
+    """(threshold, scale, on, row0) of the kernels' dropout."""
     rate = cfg.mult_dropout
     if rate <= 0.0:
-        return (0, 1.0, 0)
-    return (mask_threshold(rate), mask_scale(rate), 1)
+        return (0, 1.0, 0, row0)
+    return (mask_threshold(rate), mask_scale(rate), 1, row0)
 
 
 def _weight_ptrs(mp):
@@ -691,13 +694,14 @@ def _on_cuda(name: str, q) -> bool:
     return True
 
 
-def train_hops_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed):
+def train_hops_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed, row0: int = 0):
     """The forward kernel: (scores [H, B, A], do_pred [H, B], attprob
     [H, B, S], c_all [H+1, B, R], h_all [H+1, B, R]), float32.  ``q``,
     ``feats`` and the weights in ``cfg.compute_dtype``; ``seed`` one int32
-    on ``q``'s device.  CPU tensors run ``train_hops_fwd_reference``."""
+    on ``q``'s device; ``row0`` the global batch's row of ``q``'s first,
+    which keys the masks.  CPU tensors run ``train_hops_fwd_reference``."""
     if not _on_cuda("train_hops_fwd", q):
-        return train_hops_fwd_reference(mp, cfg, q, feats, seed)
+        return train_hops_fwd_reference(mp, cfg, q, feats, seed, row0)
     dd = dot_dtype(cfg)
     widths = (q.shape[0], cfg.cnn_spat, cfg.cnn_dim, cfg.multfeat_dim, cfg.attfeat_dim,
               cfg.att_state_dim, cfg.rnnout_dim, cfg.answer_size)
@@ -706,10 +710,11 @@ def train_hops_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed):
     if scratch_floats < 0:
         raise ValueError(f"train_hops_fwd: the launcher cannot run batch {widths[0]} "
                          f"at these widths")
-    return _launch_fwd(mp, cfg, q, feats, seed, scratch_floats)
+    return _launch_fwd(mp, cfg, q, feats, seed, scratch_floats, row0)
 
 
-def _launch_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed, scratch_floats: int):
+def _launch_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed, scratch_floats: int,
+                row0: int = 0):
     """``train_hops_fwd`` on CUDA tensors with this much scratch; raises
     where the launcher refuses it."""
     d = _check_cuda("train_hops_fwd", cfg, mp, q, feats, seed)
@@ -727,23 +732,23 @@ def _launch_fwd(mp: Dict, cfg: ModelConfig, q, feats, seed, scratch_floats: int)
         q.data_ptr(), feats.data_ptr(), seed.data_ptr(), _weight_ptrs(mp),
         work.data_ptr(), scores.data_ptr(), do_pred.data_ptr(), attprob.data_ptr(),
         c_all.data_ptr(), h_all.data_ptr(), scratch.data_ptr(), B, d["Q"], S, d["Dc"], M,
-        F, R, A, H, scratch_floats, *_dropout_args(cfg), stream)
+        F, R, A, H, scratch_floats, *_dropout_args(cfg, row0), stream)
     return scores, do_pred, attprob, c_all, h_all
 
 
 def train_hops_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all, gmerge,
-                   dfeats: bool = False):
+                   dfeats: bool = False, row0: int = 0):
     """The backward kernel: (emissions {name: [H, B, width]}, the feats-path
     grads {path: tensor} summed over the rows and hops, float32); with
     ``dfeats`` the grads also hold the features' gradient [B, S, Dc] under
     ``DFEATS``, float32, and the launch counts in ``BWD_DFEATS_KERNEL`` /
     ``BWD_DFEATS_BF16_KERNEL``.  ``q``, ``feats`` and the weights in
     ``cfg.compute_dtype``; ``gmerge`` is the score cotangent times
-    ``cls_w^T``, [H, B, M] float32.  CPU tensors run
-    ``train_hops_bwd_reference``."""
+    ``cls_w^T``, [H, B, M] float32; ``row0`` as ``train_hops_fwd``'s.
+    CPU tensors run ``train_hops_bwd_reference``."""
     if not _on_cuda("train_hops_bwd", q):
         return train_hops_bwd_reference(mp, cfg, q, feats, seed, c_all, h_all,
-                                        gmerge, dfeats)
+                                        gmerge, dfeats, row0)
     B, S = feats.shape[:2]
     dd = dot_dtype(cfg)
     plan = bwd_plan(B, S, cfg.cnn_dim, cfg.multfeat_dim, cfg.attfeat_dim, cfg.att_state_dim,
@@ -754,11 +759,11 @@ def train_hops_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all, gme
     if scratch_floats < 0:
         raise ValueError(f"train_hops_bwd: the launcher cannot run batch {B} at these widths")
     return _launch_bwd(mp, cfg, q, feats, seed, c_all, h_all, gmerge, plan.chunk_rows,
-                       scratch_floats, dfeats)
+                       scratch_floats, dfeats, row0)
 
 
 def _launch_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all, gmerge,
-                chunk_rows: int, scratch_floats: int, dfeats: bool = False):
+                chunk_rows: int, scratch_floats: int, dfeats: bool = False, row0: int = 0):
     """``train_hops_bwd`` on CUDA tensors with this split of the weight
     grads' rows and this much scratch; raises where the launcher refuses
     them."""
@@ -791,7 +796,8 @@ def _launch_bwd(mp: Dict, cfg: ModelConfig, q, feats, seed, c_all, h_all, gmerge
         q.data_ptr(), feats.data_ptr(), seed.data_ptr(), c_all.data_ptr(),
         h_all.data_ptr(), gmerge.data_ptr(), _weight_ptrs(mp), work.data_ptr(),
         em_ptrs, grad_ptrs, None if df is None else df.data_ptr(), scratch.data_ptr(),
-        B, Q, S, Dc, M, F, R, H, chunk_rows, scratch_floats, *_dropout_args(cfg), stream)
+        B, Q, S, Dc, M, F, R, H, chunk_rows, scratch_floats, *_dropout_args(cfg, row0),
+        stream)
     if df is not None:
         gw_in[DFEATS] = df
     return em, gw_in
@@ -848,7 +854,8 @@ def _kernel_operands(cfg: ModelConfig, mp, q, feats):
     return mp_k, q.to(dd), feats.to(dd)
 
 
-def _bwd_kernel(cfg, mp, q, feats, seed, c_all, h_all, attprob, g_scores, dfeats=False):
+def _bwd_kernel(cfg, mp, q, feats, seed, c_all, h_all, attprob, g_scores, dfeats=False,
+                row0=0):
     """The hand-derived backward: the backward kernel (or its plain version)
     plus the outside products.  Returns ({path: grad} for _DIFF_WEIGHTS, dq,
     the features' gradient or None), float32."""
@@ -858,13 +865,13 @@ def _bwd_kernel(cfg, mp, q, feats, seed, c_all, h_all, attprob, g_scores, dfeats
               @ _rnd(mp["cls"]["w"], dd).T).reshape(H, B, -1)
     mp_k, q_k, feats_k = _kernel_operands(cfg, mp, q, feats)
     em, gw_in = train_hops_bwd(mp_k, cfg, q_k, feats_k, seed, c_all, h_all,
-                               gmerge.contiguous(), dfeats)
-    gw_out, dq = _outside_grads(cfg, mp, q, seed, h_all, attprob, g_scores, em)
+                               gmerge.contiguous(), dfeats, row0)
+    gw_out, dq = _outside_grads(cfg, mp, q, seed, h_all, attprob, g_scores, em, row0)
     return ({p: (gw_in[p] if p in gw_in else gw_out[p]) for p in _DIFF_WEIGHTS}, dq,
             gw_in.get(DFEATS))
 
 
-def _bwd_autograd(cfg, mp, q, feats, seed, g_scores, dfeats=False):
+def _bwd_autograd(cfg, mp, q, feats, seed, g_scores, dfeats=False, row0=0):
     """The ``"xla"`` backward: autograd through the plain version, which
     regenerates the same masks; the features' gradient too with
     ``dfeats``."""
@@ -875,24 +882,25 @@ def _bwd_autograd(cfg, mp, q, feats, seed, g_scores, dfeats=False):
         q_ = q.detach().requires_grad_()
         f_ = feats.detach().requires_grad_(dfeats)
         inputs = leaves + [q_] + ([f_] if dfeats else [])
-        scores = rau_train_hops_reference(mp_, cfg, q_, f_, seed)[0]
+        scores = rau_train_hops_reference(mp_, cfg, q_, f_, seed, row0)[0]
         grads = torch.autograd.grad(scores, inputs, g_scores)
     n = len(_DIFF_WEIGHTS)
     return dict(zip(_DIFF_WEIGHTS, grads[:n])), grads[n], grads[n + 1] if dfeats else None
 
 
 class _FusedTrainHops(torch.autograd.Function):
-    """(cfg, seed, q, feats, *weights in _FWD_WEIGHTS order) -> (scores,
-    do_pred, attprob, final_c, final_h); only ``scores`` is differentiable,
-    in the weights, ``q`` and, where they require grad, the features.  Each
-    grad comes back in its input's type."""
+    """(cfg, row0, seed, q, feats, *weights in _FWD_WEIGHTS order) ->
+    (scores, do_pred, attprob, final_c, final_h); only ``scores`` is
+    differentiable, in the weights, ``q`` and, where they require grad, the
+    features.  Each grad comes back in its input's type."""
 
     @staticmethod
-    def forward(ctx, cfg, seed, q, feats, *weights):
+    def forward(ctx, cfg, row0, seed, q, feats, *weights):
         mp_k, q_k, feats_k = _kernel_operands(cfg, rebuild(_FWD_WEIGHTS, weights), q, feats)
         scores, do_pred, attprob, c_all, h_all = train_hops_fwd(
-            mp_k, cfg, q_k, feats_k, seed)
+            mp_k, cfg, q_k, feats_k, seed, row0)
         ctx.cfg = cfg
+        ctx.row0 = row0
         ctx.save_for_backward(seed, q, feats, c_all, h_all, attprob, *weights)
         fc, fh = c_all[-1].clone(), h_all[-1].clone()
         ctx.mark_non_differentiable(do_pred, attprob, fc, fh)
@@ -904,25 +912,29 @@ class _FusedTrainHops(torch.autograd.Function):
         seed, q, feats, c_all, h_all, attprob, *weights = ctx.saved_tensors
         mp = rebuild(_FWD_WEIGHTS, weights)
         g_scores = g_scores.contiguous()
-        want = ctx.needs_input_grad[3]
+        want = ctx.needs_input_grad[4]
         if cfg.fused_train_bwd == "xla":
-            grads, dq, df = _bwd_autograd(cfg, mp, q, feats, seed, g_scores, want)
+            grads, dq, df = _bwd_autograd(cfg, mp, q, feats, seed, g_scores, want, ctx.row0)
         else:
             grads, dq, df = _bwd_kernel(cfg, mp, q, feats, seed, c_all, h_all,
-                                        attprob, g_scores, want)
+                                        attprob, g_scores, want, ctx.row0)
         dw = [grads[p].to(w.dtype) if p in grads else torch.zeros_like(w)
               for p, w in zip(_FWD_WEIGHTS, weights)]
-        return (None, None, dq.to(q.dtype), None if df is None else df.to(feats.dtype), *dw)
+        return (None, None, None, dq.to(q.dtype),
+                None if df is None else df.to(feats.dtype), *dw)
 
 
-def rau_train_hops(mp: Dict, cfg: ModelConfig, q, feats, seed):
+def rau_train_hops(mp: Dict, cfg: ModelConfig, q, feats, seed, row0: int = 0):
     """The fused training hop loop: (scores [H, B, A], do_pred [H, B],
     attprob [H, B, S], final_c, final_h), float32.  Differentiable through
     ``scores`` only: in ``mp``, ``q`` and, where they require grad, in
     ``feats`` (backbone fine-tuning), as JAX's autodiff of its plain loop.
     ``seed``: an int or an int32 tensor; the masks of hop h are those of
-    ``site_salt(seed, h, site)``.  Products in ``cfg.compute_dtype``."""
+    ``site_salt(seed, h, site)`` at each element's global index: ``q``'s
+    rows are the global batch's from ``row0`` on (a rank's or a
+    microbatch's rows of a sharded step).  Products in
+    ``cfg.compute_dtype``."""
     check_fused_config(cfg)
     seed = _seed_tensor(seed, q.device)
     weights = [pluck(mp, p) for p in _FWD_WEIGHTS]
-    return _FusedTrainHops.apply(cfg, seed, q, feats, *weights)
+    return _FusedTrainHops.apply(cfg, int(row0), seed, q, feats, *weights)

@@ -10,7 +10,9 @@ into the packed shard that ``PackedFeatureStore`` and ``--feat-dir`` read.
 One host thread decodes the next batch while the device runs the current
 one; the last batch is padded to the batch size, so every call has one
 shape.  The storage type is made on the device: float16 by a cast, int8 by
-``quantize_feats_device``, so only the stored bytes cross to the host.
+``quantize_feats_device``, so only the stored bytes cross to the host.  On a
+device mesh each data rank decodes and featurizes its rows of each batch, the
+rows are gathered in order, and rank 0 writes the shard.
 """
 
 from __future__ import annotations
@@ -27,10 +29,8 @@ from rau_vqa_tpu_torch.data.features import PackedFeatureStore, PackedShardWrite
 from rau_vqa_tpu_torch.data.images import ImageDirSource
 from rau_vqa_tpu_torch.devices import pick_device
 from rau_vqa_tpu_torch.models.pipeline import extract_features
-from rau_vqa_tpu_torch.roadmap import still_to_port
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png")
-MESH = still_to_port("precompute_features over a device mesh", "multi-device")
 STORAGE = {"float32": torch.float32, "float16": torch.float16}
 
 
@@ -88,11 +88,27 @@ def precompute_features(image_root: str, rel_paths: Sequence[str], out_dir: str,
     ``"bfloat16"``) casts the backbone's floating leaves.  Runs on
     ``device``: ``cuda`` when None, raising without a card; ``"cpu"`` runs
     there.  The returned store's ``decoder`` says which host decoders made
-    the images (``ImageDirSource.decoders``)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH)
+    the images (``ImageDirSource.decoders``; on a mesh, this rank's).
+
+    With a ``mesh`` (``parallel/mesh.py``; every rank calls it alike) each
+    batch's images shard over the 'data' axis, the backbone whole on every
+    rank; ``batch_size`` must divide by the data axis.  Rank 0 writes the
+    shard the single-process sweep writes; every rank returns it, opened
+    once it is written."""
     if dtype not in ("float32", "float16", "int8"):
         raise ValueError(f"unknown storage dtype {dtype!r}")
+    if mesh is not None:
+        from rau_vqa_tpu_torch.parallel.mesh import Mesh
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), got "
+                            f"{type(mesh).__name__}")
+        if batch_size % mesh.n_data:
+            raise ValueError(f"batch_size {batch_size} must divide by the mesh's "
+                             f"data axis ({mesh.n_data})")
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"precompute_features: device {device} is not the mesh's "
+                             f"{mesh.device}")
+        device = mesh.device
     device = pick_device(device, "precompute_features")
     names, paths = unique_by_feat_name(rel_paths)
     if not names:
@@ -107,20 +123,31 @@ def precompute_features(image_root: str, rel_paths: Sequence[str], out_dir: str,
     bb_params = map_tree(place, bb_params)   # once, not per batch
     quant8 = dtype == "int8"
 
+    def gather(t):
+        if mesh is None:
+            return t
+        from rau_vqa_tpu_torch.parallel.mesh import gather_rows
+        return gather_rows(mesh, t)
+
     def extract(images: np.ndarray):
         with torch.no_grad():
             feats = extract_features(backbone, bb_params, torch.from_numpy(images).to(device),
                                      vit_cfg, feat_norm=feat_norm)
             if quant8:
                 q, s = quantize_feats_device(feats)
-                return q.cpu().numpy(), s.cpu().numpy()
-            return feats.float().to(STORAGE[dtype]).cpu().numpy(), None
+                return gather(q).cpu().numpy(), gather(s).cpu().numpy()
+            return gather(feats.float().to(STORAGE[dtype])).cpu().numpy(), None
 
     chunks = [paths[i:i + batch_size] for i in range(0, len(paths), batch_size)]
 
     def load(chunk: List[str]) -> np.ndarray:
-        # padded to the batch size: one shape for every call
-        return src.get_batch(chunk + [chunk[-1]] * (batch_size - len(chunk)))
+        # padded to the batch size: one shape for every call; on a mesh this
+        # rank's rows of it
+        padded = chunk + [chunk[-1]] * (batch_size - len(chunk))
+        if mesh is not None:
+            from rau_vqa_tpu_torch.parallel.mesh import rank_rows
+            padded = padded[rank_rows(mesh, batch_size)]
+        return src.get_batch(padded)
 
     pool = ThreadPoolExecutor(max_workers=1)
     try:
@@ -132,10 +159,12 @@ def precompute_features(image_root: str, rel_paths: Sequence[str], out_dir: str,
                 fut = pool.submit(load, chunks[ci + 1])
             feats, scales = extract(images)
             feats = feats[:len(chunk)]
-            if writer is None:
+            if writer is None and (mesh is None or mesh.writer):
                 writer = PackedShardWriter(out_dir, len(paths), feats.shape[1],
                                            feats.shape[2], dtype=dtype, feat_norm=feat_norm)
-            if quant8:
+            if writer is None:
+                pass   # a rank other than the mesh's writer
+            elif quant8:
                 writer.write_quantized(row, feats, scales[:len(chunk)])
             else:
                 writer.write(row, feats)
@@ -144,6 +173,10 @@ def precompute_features(image_root: str, rel_paths: Sequence[str], out_dir: str,
                 progress(row, len(paths))
     finally:
         pool.shutdown(wait=False, cancel_futures=True)
-    store = writer.finish(names)
+    store = writer.finish(names) if writer is not None else None
+    if mesh is not None:
+        from rau_vqa_tpu_torch.parallel.mesh import barrier
+        barrier(mesh)
+        store = store or PackedFeatureStore(out_dir)
     store.decoder = src.decoders()
     return store

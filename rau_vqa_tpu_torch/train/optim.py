@@ -32,38 +32,59 @@ def tree_norm(tree: Tree) -> torch.Tensor:
 
 
 def add_gradient_noise(grads: Tree, generator: torch.Generator, step,
-                       eta: float, gamma: float) -> Tree:
+                       eta: float, gamma: float, shard: Tree = None) -> Tree:
     """grad += N(0, sqrt(eta / ((step+1) * gamma))) elementwise (reference
     :597-605; ``step`` is the 1-based iteration counter).  The draws come
-    from ``generator``, leaf by leaf in tree order."""
+    from ``generator``, leaf by leaf in tree order.  ``shard``, a tree like
+    ``grads`` of None or ``(dim, part, parts)``: that leaf is part ``part``
+    of ``parts`` along ``dim`` of a whole leaf, whose noise is drawn whole
+    and cut, so each element gets the noise of the whole leaf's draw."""
     std = (eta / ((float(step) + 1.0) * gamma)) ** 0.5
-    return map_tree(
-        lambda x: x + std * torch.randn(x.shape, generator=generator,
-                                        device=x.device, dtype=x.dtype),
-        grads)
+
+    def noisy(x, cut=None):
+        if cut is None:
+            return x + std * torch.randn(x.shape, generator=generator,
+                                         device=x.device, dtype=x.dtype)
+        dim, part, parts = cut
+        shape = list(x.shape)
+        shape[dim] *= parts
+        z = torch.randn(shape, generator=generator, device=x.device, dtype=x.dtype)
+        return x + std * z.narrow(dim, part * x.shape[dim], x.shape[dim])
+
+    if shard is None:
+        return map_tree(noisy, grads)
+    return map_tree(noisy, grads, shard)
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float
+def clip_by_global_norm(grads: Tree, max_norm: float, norm=None
                         ) -> Tuple[Tree, torch.Tensor]:
     """Scale the whole group so its L2 norm is <= max_norm (reference
-    :607-629, per parameter group).  Returns (clipped, pre-clip norm)."""
-    norm = tree_norm(grads)
+    :607-629, per parameter group).  Returns (clipped, pre-clip norm).
+    ``norm``: the group's norm where the caller has it (a group split over
+    devices), else ``tree_norm(grads)``."""
+    norm = tree_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-20), max=1.0)
     return map_tree(lambda x: x * scale.to(x.dtype), grads), norm
 
 
-def trust_ratio_cap(new_params: Tree, old_params: Tree, tau: float) -> Tree:
+def leaf_norms(tree: Tree) -> Tree:
+    """Each leaf's L2 norm, in float32, as a tree like ``tree``."""
+    return map_tree(lambda x: torch.sqrt(torch.sum(torch.square(x.float()))), tree)
+
+
+def trust_ratio_cap(new_params: Tree, old_params: Tree, tau: float,
+                    norms=leaf_norms) -> Tree:
     """Per-leaf update cap (LARS/LAMB style): the step ``u = new - old`` is
-    scaled so that ``||u|| <= tau * (||old|| + 1e-3)``; norms in float32."""
-    def cap(n, o):
-        u = n - o
-        un = torch.sqrt(torch.sum(torch.square(u.float())))
-        wn = torch.sqrt(torch.sum(torch.square(o.float())))
+    scaled so that ``||u|| <= tau * (||old|| + 1e-3)``; norms in float32,
+    each leaf's by ``norms`` (a leaf split over devices spans them)."""
+    u = map_tree(torch.sub, new_params, old_params)
+
+    def cap(o, u_, un, wn):
         scale = torch.clamp(tau * (wn + 1e-3) / torch.clamp(un, min=1e-20),
                             max=1.0)
-        return o + u * scale.to(u.dtype)
+        return o + u_ * scale.to(u_.dtype)
 
-    return map_tree(cap, new_params, old_params)
+    return map_tree(cap, old_params, u, norms(u), norms(old_params))
 
 
 def _zeros(params: Tree) -> Tree:

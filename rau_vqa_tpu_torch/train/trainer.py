@@ -71,6 +71,8 @@ from rau_vqa_tpu_torch.train.optim import (
     adam_update,
     add_gradient_noise,
     clip_by_global_norm,
+    leaf_norms,
+    tree_norm,
     trust_ratio_cap,
 )
 from rau_vqa_tpu_torch.utils.checkpoint import (
@@ -81,7 +83,6 @@ from rau_vqa_tpu_torch.utils.checkpoint import (
     save_checkpoint,
     to_host,
 )
-from rau_vqa_tpu_torch.roadmap import still_to_port
 from rau_vqa_tpu_torch.utils.logging import MetricsLogger, per_hop_record
 
 PARAM_GROUPS = ("embed", "rnn", "mult")
@@ -135,18 +136,19 @@ def head_params(params: Dict) -> Dict:
 def loss_and_grads(mcfg: ModelConfig, params: Dict, tokens, lengths, feats,
                    labels, hop_scale, *,
                    generator: Optional[torch.Generator] = None,
-                   hop_seed=None, featurize=None) -> Tuple[Dict, Dict]:
+                   hop_seed=None, featurize=None, rows=None) -> Tuple[Dict, Dict]:
     """The joint loss's gradient with respect to every parameter, as a tree
     like ``params``, and the metrics of ``joint_loss_and_metrics``.  With
     ``featurize`` (fine-tuning), ``feats`` are images and
     ``featurize(params["backbone"], feats)`` makes the features inside the
-    differentiated function."""
+    differentiated function.  ``rows``: the batch's place in a larger one
+    (``rau_forward``)."""
     with torch.enable_grad():
         p = map_tree(lambda x: x.detach().requires_grad_(), params)
         if featurize is not None:
             feats = featurize(p["backbone"], feats)
         out = rau_forward(head_params(p), mcfg, tokens, lengths, feats, train=True,
-                          generator=generator, hop_seed=hop_seed)
+                          generator=generator, hop_seed=hop_seed, rows=rows)
         loss, metrics = joint_loss_and_metrics(out.scores, out.do_pred,
                                                labels, hop_scale)
         flat = iter(torch.autograd.grad(loss, tree_leaves(p), allow_unused=True,
@@ -180,8 +182,38 @@ def featurizer(mcfg: ModelConfig, tcfg: TrainConfig, backbone: str, vit_cfg=None
     return featurize
 
 
+class StepReductions:
+    """What a train step reduces over its devices, and how: this class is
+    the single-process step's, one device holding every row and every leaf
+    whole.  ``parallel/mesh.py``'s ``ShardedReductions`` runs the same step
+    over a mesh: its rows are part ``rank`` of ``n`` of each (micro)batch,
+    and it gathers, reduces and cuts what spans the devices."""
+
+    rank, n = 0, 1
+
+    def full_params(self, params):
+        """The whole parameters the forward computes on."""
+        return params
+
+    def reduce(self, grads, metrics):
+        """The batch's gradients (cut to the state's leaves) and metrics."""
+        return grads, metrics
+
+    def noise(self, group: str, grads, generator, step, eta, gamma):
+        return add_gradient_noise(grads, generator, step, eta, gamma)
+
+    def norm(self, group: str, tree) -> torch.Tensor:
+        """The L2 norm of a group's tree."""
+        return tree_norm(tree)
+
+    def leaf_norms(self, group: str, tree):
+        """Each leaf's L2 norm, as a tree."""
+        return leaf_norms(tree)
+
+
 def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
-                    backbone: Optional[str] = None, vit_cfg=None, img_repeat: int = 1):
+                    backbone: Optional[str] = None, vit_cfg=None, img_repeat: int = 1,
+                    reductions: Optional[StepReductions] = None):
     """The train step on ``device``: ``cuda`` when None, and then it raises
     without a card; only an explicit ``device="cpu"`` runs the plain
     versions.
@@ -200,8 +232,12 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
     each of the B / g unique images and repeats each image's features to its
     g consecutive questions (the ``imggroup`` order): exact, the backbone's
     gradient summing its questions' (``rau_vqa_tpu/train/trainer.py:83-233``).
+
+    ``reductions`` (``StepReductions``): ``parallel/mesh.py`` passes its
+    own to run the step over a mesh (``make_sharded_train_step``).
     """
     device = pick_device(device, "make_train_step")
+    red = reductions or StepReductions()
     train_bb = bool(tcfg.train_backbone)
     if train_bb and not backbone:
         raise ValueError("train_backbone needs backbone= (the step's feats "
@@ -216,11 +252,17 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
     groups = PARAM_GROUPS + ("backbone",) if train_bb else PARAM_GROUPS
     fz = featurizer(mcfg, tcfg, backbone, vit_cfg, img_repeat) if train_bb else None
 
+    def rows(b: int):
+        """A (micro)batch's place in the global one: part red.rank of
+        red.n, each of b rows."""
+        return None if red.n == 1 else (red.rank * b, red.n * b)
+
     def grads_and_metrics(params, tokens, lengths, feats, labels, hop_scale,
                           generator):
         if accum == 1:
             return loss_and_grads(mcfg, params, tokens, lengths, feats,
-                                  labels, hop_scale, generator=generator, featurize=fz)
+                                  labels, hop_scale, generator=generator, featurize=fz,
+                                  rows=rows(tokens.shape[0]))
         B = tokens.shape[0]
         if B % accum:
             raise ValueError(f"batch_size {B} must divide by grad_accum {accum}")
@@ -234,10 +276,10 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
         fb = feats.shape[0] // accum
         grads = metrics = None
         for i in range(accum):
-            rows = slice(i * mb, (i + 1) * mb)
-            g, m = loss_and_grads(mcfg, params, tokens[rows], lengths[rows],
-                                  feats[i * fb:(i + 1) * fb], labels[rows], hop_scale,
-                                  generator=generator, featurize=fz)
+            rows_i = slice(i * mb, (i + 1) * mb)
+            g, m = loss_and_grads(mcfg, params, tokens[rows_i], lengths[rows_i],
+                                  feats[i * fb:(i + 1) * fb], labels[rows_i], hop_scale,
+                                  generator=generator, featurize=fz, rows=rows(mb))
             grads = g if grads is None else map_tree(torch.add, grads, g)
             metrics = m if metrics is None else {
                 k: metrics[k] + m[k] for k in metrics}
@@ -255,8 +297,9 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
         hop_scale = torch.as_tensor(hop_scale, device=device,
                                     dtype=torch.float32)
         grads, metrics = grads_and_metrics(
-            state.params, tokens, lengths, feats, labels, hop_scale,
+            red.full_params(state.params), tokens, lengths, feats, labels, hop_scale,
             _generator(device, state.seed, state.step, 0))
+        grads, metrics = red.reduce(grads, metrics)
         lrs = {"embed": lr, "rnn": lr, "mult": mult_lr,
                "backbone": lr * float(tcfg.backbone_lr_scale)}
         new_params, new_opt = {}, {}
@@ -265,23 +308,23 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
             if g == "backbone":
                 # the zero-signal test on the gradient before its noise: the
                 # noise alone would keep a dead backbone's norm above 0
-                alive = (sum(torch.sum(torch.square(x.float())) for x in tree_leaves(gg))
-                         > 0).float()
+                alive = (red.norm(g, gg) > 0).float()
             if g != "backbone" or tcfg.backbone_grad_noise:
                 # state.step counts completed steps; the noise schedule takes
                 # the 1-based iteration (the reference's `it`, :598)
-                gg = add_gradient_noise(
-                    gg, _generator(device, state.seed, state.step, 1 + i),
+                gg = red.noise(
+                    g, gg, _generator(device, state.seed, state.step, 1 + i),
                     state.step + 1, tcfg.noisy_eta, tcfg.noisy_gamma)
-            gg, norm = clip_by_global_norm(gg, tcfg.grad_clip)
+            gg, norm = clip_by_global_norm(gg, tcfg.grad_clip, norm=red.norm(g, gg))
             new_params[g], new_opt[g] = adam_update(
                 state.params[g], gg, lrs[g], state.opt[g],
                 beta1=tcfg.adam_beta1, beta2=tcfg.adam_beta2,
                 epsilon=tcfg.adam_epsilon)
             if g == "backbone":
                 if tcfg.backbone_trust_ratio > 0:
-                    new_params[g] = trust_ratio_cap(new_params[g], state.params[g],
-                                                    tcfg.backbone_trust_ratio)
+                    new_params[g] = trust_ratio_cap(
+                        new_params[g], state.params[g], tcfg.backbone_trust_ratio,
+                        norms=lambda t, g=g: red.leaf_norms(g, t))
                 # the zero-signal freeze: an exactly-zero backbone gradient
                 # (a saturated head) moves nothing, stale momentum included
                 new_params[g] = map_tree(lambda n, o: o + (n - o) * alive.to(n.dtype),
@@ -331,7 +374,16 @@ class Trainer:
     state as the ``"backbone"`` group, the train step takes the raw uint8
     batches, and the eval sweep featurizes with the trained group; under the
     ``imggroup`` order each batch carries its unique images alone and the
-    step repeats their features (``img_repeat``, the order's group size)."""
+    step repeats their features (``img_repeat``, the order's group size).
+
+    With ``mesh`` (``parallel/mesh.py``; every rank of the world builds its
+    Trainer alike) the state is placed on the mesh (TP leaves as this rank's
+    slice with ``exp.mesh.shard_params_tp``), each batch's rows of this rank
+    alone go to its device, the step is ``make_sharded_train_step`` and the
+    eval sweep ``make_sharded_predict_fn`` (its batches padded to the data
+    axis); rank 0 alone writes the logs, the submissions, the attention PNGs
+    and the checkpoints, which hold whole leaves
+    (``rau_vqa_tpu/train/trainer.py:243-350, 474-536, 685-1005``)."""
 
     def __init__(self, exp: ExperimentConfig, data: VQAData,
                  source: FeatureSource, workdir: str, *,
@@ -340,7 +392,16 @@ class Trainer:
                  mesh=None, backbone: Optional[str] = None, bb_params=None,
                  vit_cfg=None):
         if mesh is not None:
-            raise NotImplementedError(still_to_port("a device mesh", "multi-device"))
+            from rau_vqa_tpu_torch.parallel.mesh import Mesh
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), got "
+                                f"{type(mesh).__name__}")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"Trainer: device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
+        self.tp = bool(mesh is not None and exp.mesh.shard_params_tp)
+        self.writer = mesh is None or mesh.writer
         self.train_backbone = bool(exp.train.train_backbone)
         if self.train_backbone and (backbone is None or bb_params is None):
             raise ValueError(
@@ -395,6 +456,15 @@ class Trainer:
                     f"imggroup fine-tuning: batch_size {self.tcfg.batch_size} "
                     f"must divide by the questions-per-image group size {g} "
                     f"(batches must start on image-group boundaries)")
+            if mesh is not None:
+                n_data = mesh.n_data
+                per_shard = self.tcfg.batch_size // n_data
+                if self.tcfg.batch_size % n_data or per_shard % g:
+                    raise ValueError(
+                        f"imggroup fine-tuning on a mesh: the per-shard "
+                        f"batch ({self.tcfg.batch_size}/{n_data}) must be "
+                        f"a multiple of the group size {g} so feature "
+                        f"repeats never cross shard boundaries")
             self.img_repeat = g
         # host copy of the initial state (the backbone group too): the guard
         # falls back to it when a loss explodes before the first checkpoint
@@ -402,13 +472,25 @@ class Trainer:
             map_tree(to_host, self.state.params),
             map_tree(to_host, self.state.opt),
             self.state.step, self.state.seed)
-        self.train_step = make_train_step(
-            self.mcfg, self.tcfg, device=self.device,
-            backbone=backbone if self.train_backbone else None, vit_cfg=vit_cfg,
-            img_repeat=self.img_repeat)
-        # buckets=(): the trainer dispatches its own buckets, as in JAX
-        self.predict_step = (make_predict_step(self.mcfg, device=self.device)
-                             if exp.fused_eval else self._plain_predict)
+        step_kw = dict(backbone=backbone if self.train_backbone else None,
+                       vit_cfg=vit_cfg, img_repeat=self.img_repeat)
+        if mesh is not None:
+            # DP (+ TP) over the mesh: the state's whole leaves decide the
+            # specs, then the state is cut to this rank's
+            from rau_vqa_tpu_torch.parallel import mesh as pm
+            self._shardings = pm.state_shardings(mesh, self.state, tp=self.tp)
+            self.train_step = pm.make_sharded_train_step(
+                self.mcfg, self.tcfg, mesh, self.state, tp=self.tp, **step_kw)
+            self.predict_step = pm.make_sharded_predict_fn(
+                self.mcfg, mesh, head_params(self.state.params), tp=self.tp,
+                fused=exp.fused_eval)
+            self.state = pm.place_state(mesh, self.state, tp=self.tp)
+        else:
+            self.train_step = make_train_step(self.mcfg, self.tcfg, device=self.device,
+                                              **step_kw)
+            # buckets=(): the trainer dispatches its own buckets, as in JAX
+            self.predict_step = (make_predict_step(self.mcfg, device=self.device)
+                                 if exp.fused_eval else self._plain_predict)
         # smallest bucket covering a batch's longest question wins; the full
         # seq_len is always the top rung
         self._eval_ladder = bucket_ladder(self.mcfg.seq_len,
@@ -548,6 +630,36 @@ class Trainer:
             lengths=p(batch.lengths), labels=p(batch.labels),
             mc_answers=p(batch.mc_answers), qids=p(batch.qids))
 
+    def _pad_batch_for_mesh(self, batch):
+        """An eval batch padded to the mesh's 'data' axis multiple (the
+        reference's test batch sizes, 83 and 57, do not divide meshes)."""
+        if self.mesh is None:
+            return batch
+        b = len(batch.qids)
+        return self._pad_batch_to(batch, b + (-b) % self.mesh.n_data)
+
+    def _shard(self, batch, accum: int = 1):
+        """This rank's rows of a batch (``parallel.mesh.take_rows``, which
+        raises where they do not split evenly over 'data' and ``accum``),
+        each array cut by its own length (grouped fine-tuning carries the
+        unique images alone); the batch itself without a mesh."""
+        if self.mesh is None:
+            return batch
+        from rau_vqa_tpu_torch.parallel.mesh import take_rows
+
+        def rows(a):
+            return None if a is None else take_rows(self.mesh, a, accum)
+
+        feats = batch.feats
+        if isinstance(feats, QuantFeats):
+            feats = QuantFeats(values=rows(feats.values), scales=rows(feats.scales))
+        else:
+            feats = rows(feats)
+        return dataclasses.replace(
+            batch, feats=feats, tokens=rows(batch.tokens), lengths=rows(batch.lengths),
+            labels=rows(batch.labels), mc_answers=rows(batch.mc_answers),
+            qids=rows(batch.qids))
+
     # ------------------------------------------------------------------
     def train_epoch(self) -> Dict[str, Any]:
         """One epoch over the train split; returns averaged metrics.
@@ -622,7 +734,8 @@ class Trainer:
                 self.source, finish=self._pinning(self._train_ladder),
                 image_stride=self.img_repeat):
             dev = self._put_batch(
-                batch, max_t=self._bucket_t(self._train_ladder, batch.lengths),
+                self._shard(batch, self.tcfg.grad_accum),
+                max_t=self._bucket_t(self._train_ladder, batch.lengths),
                 featurize=not self.train_backbone)
             self.state, metrics = self.train_step(
                 self.state, dev["tokens"], dev["lengths"], dev["feats"],
@@ -653,7 +766,8 @@ class Trainer:
             td.reorder()
             record = {"epoch": self.epoch, "steps": n_steps,
                       "exploded": exploded, "aborted": True, "sec": dt}
-            self.logger.log(record, kind="train")
+            if self.writer:
+                self.logger.log(record, kind="train")
             return record
         self.epoch += 1
         self._abort_streak = 0          # a completed epoch clears the guard
@@ -677,7 +791,8 @@ class Trainer:
         for k in _SCALAR_METRICS:
             if k in out:
                 record[k] = out[k]
-        self.logger.log(record, kind="train")
+        if self.writer:   # one writer on a mesh
+            self.logger.log(record, kind="train")
 
         # exponential LR decay per epoch (reference :1211-1220)
         if (self.tcfg.lr_decay < 1.0
@@ -701,6 +816,17 @@ class Trainer:
                 0.9 * self.loss_ema + 0.1 * loss)
             return True
         path = latest_checkpoint(self.ckpt_dir)
+        if self.mesh is not None:
+            # the restore decision must be uniform across ranks: one that
+            # restores while another does not would leave replicated params
+            # differing from rank to rank
+            from rau_vqa_tpu_torch.parallel.mesh import world_sum
+            have = world_sum(self.mesh, [path is not None])[0]
+            if 0 < have < self.mesh.devices.size:
+                raise RuntimeError(
+                    "loss-explosion restore needs the checkpoint dir "
+                    "on a SHARED filesystem: some processes see "
+                    f"{self.ckpt_dir!r}, others don't")
         if path is not None:
             self.restore(path)
         else:
@@ -710,6 +836,9 @@ class Trainer:
             to_dev = lambda x: x.to(self.device, copy=True)   # noqa: E731
             self.state = TrainState(map_tree(to_dev, fb.params),
                                     map_tree(to_dev, fb.opt), fb.step, fb.seed)
+            if self.mesh is not None:
+                from rau_vqa_tpu_torch.parallel.mesh import place_state
+                self.state = place_state(self.mesh, self.state, tp=self.tp)
             # the EMA tracked the poisoned run's losses; the initial params
             # give init-scale losses again, which a stale EMA would reject
             self.loss_ema = None
@@ -751,23 +880,27 @@ class Trainer:
         for batch in test.batches(self.source, include_tail=True,
                                   finish=self._pinning(self._eval_ladder)):
             orig_b = len(batch.qids)
-            padded = self._pad_batch_to(batch, test.batch_size)
+            padded = self._pad_batch_for_mesh(self._pad_batch_to(batch, test.batch_size))
+            local = self._shard(padded)
+            # the bucket of the whole batch's lengths: every rank alike
             dev = self._put_batch(
-                padded, max_t=self._bucket_t(self._eval_ladder, padded.lengths))
-            # host lengths: the step reads them without a device sync
+                local, max_t=self._bucket_t(self._eval_ladder, padded.lengths))
+            # host lengths: the step reads them without a device sync; on a
+            # mesh the outputs are the whole batch's, gathered in row order
             tab_pred, tab_att = self.predict_step(params, dev["tokens"],
-                                                  np.asarray(padded.lengths),
+                                                  np.asarray(local.lengths),
                                                   dev["feats"])
             if self.exp.visatt and visatt_left > 0:
                 # attention PNG dumps of the first visatt_batches batches
                 # (the reference dumps every test question, :926-932): the
                 # batch's attention, its padded tail dropped, copied to the
-                # host once
-                from rau_vqa_tpu_torch.utils.visatt import dump_attention_maps
-                dump_attention_maps(
-                    os.path.join(self.workdir, "figures"), float(self.epoch),
-                    tab_att[:, :orig_b].float().cpu().numpy(), batch.qids.tolist(),
-                    self.mcfg.cnn_w, self.mcfg.cnn_h)
+                # host once, by the one writer
+                if self.writer:
+                    from rau_vqa_tpu_torch.utils.visatt import dump_attention_maps
+                    dump_attention_maps(
+                        os.path.join(self.workdir, "figures"), float(self.epoch),
+                        tab_att[:, :orig_b].float().cpu().numpy(), batch.qids.tolist(),
+                        self.mcfg.cnn_w, self.mcfg.cnn_h)
                 visatt_left -= 1
             mc = (None if batch.mc_answers is None
                   else self._put(batch.mc_answers))
@@ -792,7 +925,7 @@ class Trainer:
         rows_oe = [make_rows(oe_strs[h]) for h in range(H2)]
         rows_mc = ([make_rows(mc_strs[h]) for h in range(H2)]
                    if mc_strs is not None else [[]] * H2)
-        if write_submissions:
+        if write_submissions and self.writer:
             write_results(self.workdir, "OpenEnded", self.exp.data.split,
                           self.exp.alg_name, epoch_f, rows_oe)
             if rows_mc[0]:
@@ -837,7 +970,7 @@ class Trainer:
                 result["testMCaccOfficial"] = [
                     sc.score(rows_mc[h])["overall"] / 100.0
                     for h in range(H2)]
-        if len(result) > 1:
+        if len(result) > 1 and self.writer:
             self.logger.log(
                 {"epoch": epoch_f,
                  **per_hop_record({k: v for k, v in result.items()
@@ -852,10 +985,25 @@ class Trainer:
     def save(self, *, background: bool = False) -> str:
         """Write a snapshot; ``background=True`` copies the state to the
         host here and leaves serialization and disk IO to the writer
-        thread.  The guard and the end of ``fit`` flush pending writes."""
+        thread.  The guard and the end of ``fit`` flush pending writes.
+
+        On a mesh every rank calls it: TP leaves are gathered collectively,
+        rank 0 writes the whole state (a single-process run loads it) and
+        returns its path, the others "", and no rank leaves before the file
+        is written (the guard's restore decision reads the directory)."""
+        state = self.state
+        if self.mesh is not None:
+            from rau_vqa_tpu_torch.parallel.mesh import barrier, gather_state
+            state = gather_state(state, self._shardings)
+            path = self._write(state, background=False) if self.writer else ""
+            barrier(self.mesh)
+            return path
+        return self._write(state, background=background)
+
+    def _write(self, state: TrainState, *, background: bool) -> str:
         return save_checkpoint(
-            self.ckpt_dir, self.state.step, float(self.epoch),
-            self.state._asdict(), background=background,
+            self.ckpt_dir, state.step, float(self.epoch),
+            state._asdict(), background=background,
             keep_last=self.tcfg.keep_last_checkpoints or None,
             extra={"lr": self.lr, "mult_lr": self.mult_lr,
                    "loss_ema": self.loss_ema,
@@ -880,8 +1028,13 @@ class Trainer:
         features or a frozen backbone) is a warm start: its three head
         groups are restored, and the current backbone group, fresh Adam
         moments, step, seed, LRs and epoch are kept (``rau_vqa_tpu/train/
-        trainer.py:935-989``)."""
-        template = self.state._asdict()
+        trainer.py:935-989``).  On a mesh every rank calls it, and the whole
+        leaves are cut to each rank's again."""
+        state = self.state
+        if self.mesh is not None:
+            from rau_vqa_tpu_torch.parallel.mesh import gather_state
+            state = gather_state(state, self._shardings)
+        template = state._asdict()
         if self.train_backbone and not has_backbone_group(path):
             head = {**template, "params": head_params(template["params"]),
                     "opt": {g: template["opt"][g] for g in PARAM_GROUPS}}
@@ -897,6 +1050,9 @@ class Trainer:
         self.state = TrainState(params=map_tree(to_dev, tree["params"]),
                                 opt=map_tree(to_dev, tree["opt"]),
                                 step=int(tree["step"]), seed=int(tree["seed"]))
+        if self.mesh is not None:
+            from rau_vqa_tpu_torch.parallel.mesh import place_state
+            self.state = place_state(self.mesh, self.state, tp=self.tp)
         if "lr" in meta:
             self.lr = meta["lr"]
             self.mult_lr = meta["mult_lr"]
@@ -920,6 +1076,8 @@ class Trainer:
             acts.append(ProfilerActivity.CUDA)
         with profile(activities=acts) as prof:
             record = self.train_epoch()
+        if not self.writer:
+            return record
         os.makedirs(self.exp.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
             self.exp.profile_dir, f"epoch{self.epoch:03d}_trace.json"))
@@ -947,7 +1105,7 @@ class Trainer:
                 if (self.tcfg.checkpoint_interval > 0
                         and self.epoch % self.tcfg.checkpoint_interval == 0):
                     self.save(background=True)
-                if (self.exp.graph_interval > 0
+                if (self.exp.graph_interval > 0 and self.writer
                         and self.epoch % self.exp.graph_interval == 0):
                     from rau_vqa_tpu_torch.utils.plots import render_curves
                     render_curves(

@@ -58,7 +58,7 @@ from chip_smoke import (
     train_bf16_readings,
 )
 from rau_vqa_tpu_torch.config import get_preset, get_train_preset
-from rau_vqa_tpu_torch.convert import map_tree
+from rau_vqa_tpu_torch.convert import map_tree, tree_leaves
 from rau_vqa_tpu_torch.eval.predict import (
     _aggregate,
     compute_answers,
@@ -959,3 +959,95 @@ def test_precompute_on_the_card_is_extract_features(cuda_device, tmp_path):
     host.write(0, np.asarray(store.mmap))
     np.testing.assert_array_equal(np.asarray(q8.mmap), np.asarray(host.arr))
     np.testing.assert_array_equal(q8.scales, host.scales)
+
+
+# ---------------------------------------------------------------------------
+# the device mesh (parallel/mesh.py) on the card
+# ---------------------------------------------------------------------------
+
+def _mesh_case(B, dev):
+    """ours_ms at full width, fused float32 with the preset's dropout and
+    noise: its config, initial params (host) and a batch (host)."""
+    from rau_vqa_tpu_torch.train.trainer import init_train_state
+    cfg, tcfg = get_train_preset("ours_ms")
+    cfg = dataclasses.replace(cfg, fused_train=True)
+    params = init_train_state(cfg, 0, device="cpu").params
+    rs = np.random.RandomState(3)
+    lengths = rs.randint(1, cfg.seq_len + 1, B).astype(np.int32)
+    tokens = np.zeros((B, cfg.seq_len), np.int64)
+    for k in range(B):
+        tokens[k, :lengths[k]] = rs.randint(1, cfg.vocab_size, lengths[k])
+    feats = np.abs(rs.randn(B, cfg.cnn_spat, cfg.cnn_dim)).astype(np.float32)
+    labels = rs.randint(0, cfg.answer_size, B)
+    return cfg, tcfg, params, (tokens, lengths, feats, labels)
+
+
+def _single_steps(cfg, tcfg, params, batch, dev, n):
+    from rau_vqa_tpu_torch.train.trainer import TrainState, make_train_step
+    from rau_vqa_tpu_torch.train.optim import adam_init
+    p = map_tree(lambda x: x.to(dev), params)
+    state = TrainState(p, {g: adam_init(p[g]) for g in p}, 0, 0)
+    step = make_train_step(cfg, tcfg, device=dev)
+    losses = []
+    for _ in range(n):
+        state, m = step(state, *batch, torch.ones(cfg.n_hops, device=dev),
+                        tcfg.learning_rate, tcfg.mult_learning_rate)
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+def test_mesh_world_of_one_is_the_single_step_bit_for_bit(cuda_device):
+    """A world of 1 on NCCL: make_sharded_train_step on mesh (1, 1), 2
+    steps at B=19, equals make_train_step's loss and every parameter bit for
+    bit."""
+    import torch.distributed as dist
+
+    from rau_vqa_tpu_torch.parallel import mesh as pm
+    from rau_vqa_tpu_torch.train.optim import adam_init
+    from rau_vqa_tpu_torch.train.trainer import TrainState
+    cfg, tcfg, params, batch = _mesh_case(19, cuda_device)
+    want, want_losses = _single_steps(cfg, tcfg, params, batch, cuda_device, 2)
+    dev = pm.init_distributed()
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = pm.make_mesh(1, 1)
+        p = map_tree(lambda x: x.to(dev), params)
+        state = TrainState(p, {g: adam_init(p[g]) for g in p}, 0, 0)
+        step = pm.make_sharded_train_step(cfg, tcfg, mesh, state)
+        state = pm.place_state(mesh, state)
+        local = pm.shard_batch(mesh, *batch)
+        losses = []
+        for _ in range(2):
+            state, m = step(state, *local, torch.ones(cfg.n_hops, device=dev),
+                            tcfg.learning_rate, tcfg.mult_learning_rate)
+            losses.append(float(m["loss"]))
+    finally:
+        dist.destroy_process_group()
+    assert losses == want_losses
+    for a, b in zip(tree_leaves(state.params), tree_leaves(want.params)):
+        assert torch.equal(a, b)
+
+
+def test_two_rank_dp_step_on_one_card(cuda_device, tmp_path):
+    """2 ranks sharing the card over gloo (tests/torch_mesh_worker.py), DP
+    (2, 1), 2 fused float32 steps at B=40 with dropout and noise on: the
+    last loss within rtol 2e-4 and cls.w within rtol 2e-4 / atol 2e-5 of
+    one process's steps on the whole batch."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_mesh_worker as W
+    cfg, tcfg, params, batch = _mesh_case(40, cuda_device)
+    want, want_losses = _single_steps(cfg, tcfg, params, batch, cuda_device, 2)
+    torch.save({"model": dataclasses.asdict(cfg), "train": dataclasses.asdict(tcfg),
+                "params": params, "batch": batch,
+                "scenarios": [{"name": "dp", "mesh": (2, 1), "tp": False, "steps": 2,
+                               "lrs": (tcfg.learning_rate, tcfg.mult_learning_rate)}]},
+               str(tmp_path / "inputs.pt"))
+    outs = W.launch("scenarios", str(tmp_path), 2, timeout=300,
+                    extra_env={"MESH_WORKER_DEVICE": "cuda"})
+    assert "backend gloo" in outs[0]
+    got = torch.load(str(tmp_path / "rank0.pt"), weights_only=False)["dp"]
+    np.testing.assert_allclose(got["losses"][-1], want_losses[-1], rtol=2e-4)
+    torch.testing.assert_close(got["params"]["mult"]["cls"]["w"].cpu(),
+                               want.params["mult"]["cls"]["w"].cpu(), rtol=2e-4, atol=2e-5)

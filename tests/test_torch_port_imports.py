@@ -41,8 +41,9 @@ def test_sources_found():
             "layout_diag.py", "visatt.py", "export.py", "chain.py", "benchparams.py",
             "doctor.py", "dashboard.py", "file_utils.py", "flops.py", "bench.py",
             "bench_pixels.py", "bench_torch.py", "bench_torch_pixels.py",
-            "bench_torch_train_hops.py"} <= names
+            "bench_torch_train_hops.py", "mesh.py"} <= names
     assert (ROOT / "rau_vqa_tpu_torch" / "models" / "backbones" / "__init__.py") in SOURCES
+    assert (ROOT / "rau_vqa_tpu_torch" / "parallel" / "__init__.py") in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -172,7 +172,7 @@ def test_refusals_and_the_device_rule(images, tmp_path, monkeypatch):
     root, rel = images
     bb = params_from_jax(jax_vgg(0))
     args = (os.path.join(root, "imgs"), rel, str(tmp_path / "s"), "vgg16", bb)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7, multi-device"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         TPC.precompute_features(*args, size=32, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="no images"):
         TPC.precompute_features(args[0], [], *args[2:], size=32, device="cpu")
@@ -218,9 +218,15 @@ def test_cli_precompute_features_vgg16(images, tmp_path, monkeypatch, capsys):
     assert tcli.main(["--device", "cpu", "precompute-features", "--out",
                       str(tmp_path / "t2"), "--vqa-dir", str(vqa), *flags]) == 0
     assert len(PackedFeatureStore(str(tmp_path / "t2")).index) == 3
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tcli.main(["--device", "cpu", "precompute-features", "--out",
-                   str(tmp_path / "t3"), "--mesh-data", "2", *flags])
+    # a mesh of 2 needs a world of 2 (tests/test_torch_port_mesh_trainer.py
+    # runs it under torch.distributed.run)
+    try:
+        with pytest.raises(ValueError, match="need 2 devices, have 1"):
+            tcli.main(["--device", "cpu", "precompute-features", "--out",
+                       str(tmp_path / "t3"), "--mesh-data", "2", *flags])
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 def test_cli_precompute_features_vit_from_a_timm_state(images, tmp_path, monkeypatch):

@@ -193,7 +193,7 @@ def test_verify_released_detects_wrong_weights(released, tmp_path):
                    "opt": snap["opt"]})
     report = _verify_with(released, bad_root, str(tmp_path / "w"), port_exp())
     assert report["min_agree"] < 1.0
-    with pytest.raises(NotImplementedError, match="item 7, multi-device"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         verify_released(bad_root, port_exp(), None, None, str(tmp_path / "m"),
                         device="cpu", mesh=object())
 

@@ -184,10 +184,13 @@ def test_plan_rejects_shapes_the_kernel_does_not_take(change, match):
 # The phase decomposition in plain PyTorch
 # ---------------------------------------------------------------------------
 
-def phase_backward(mp, cfg, q, feats, seed, c_all, h_all, gmerge, chunk_rows=None):
+def phase_backward(mp, cfg, q, feats, seed, c_all, h_all, gmerge, dfeats=False, row0=0,
+                   chunk_rows=None):
     """The backward kernel's phases (``bwd_plan``'s, hops in reverse) on
-    CPU tensors: (emissions, feats-path grads), as ``train_hops_bwd``;
+    CPU tensors: (emissions, feats-path grads), as ``train_hops_bwd`` (the
+    rows' masks from global row ``row0``; without the features' gradient);
     ``chunk_rows`` another split of the weight grads' rows than the plan's."""
+    assert not dfeats
     dd = tth.dot_dtype(cfg)
     H = cfg.n_hops
     Bq, S, Dc = feats.shape
@@ -231,7 +234,7 @@ def phase_backward(mp, cfg, q, feats, seed, c_all, h_all, gmerge, chunk_rows=Non
 
     shapes = ((Bq, S, Dc), (Bq, Q), (Bq, M))
     for hop in reversed(range(H)):
-        masks = tth._masks(cfg, shapes, seed, hop)
+        masks = tth._masks(cfg, shapes, seed, hop, row0)
         mmask = masks[2]
         c = c_all[hop]
         x = HopInputs(mp, dd, q, feats, c, h_all[hop], masks, ifeat, addfeat)

@@ -175,8 +175,8 @@ def test_each_hop_draws_its_own_masks(monkeypatch):
     drawn = []
     plain_dropout = tcells.dropout
 
-    def recording(x, rate, generator, train):
-        y = plain_dropout(x, rate, generator, train)
+    def recording(x, rate, generator, train, rows=None):
+        y = plain_dropout(x, rate, generator, train, rows)
         if train and rate > 0.0:
             drawn.append((tuple(x.shape), rate, y != 0))
         return y

@@ -502,14 +502,15 @@ def test_pinning_casts_and_cuts_each_batch(fixture_root, tmp_path, monkeypatch,
 
 def test_trainer_device_rule_and_unported_options(fixture_root, tmp_path,
                                                   monkeypatch):
-    """What stays to port is refused in its item's name; fine-tuning, ported
-    since, refuses what the JAX package refuses: training a backbone with
-    none given, and the 'imggroup' order over images of uneven question
-    counts (tests/test_torch_port_finetune.py runs the path itself)."""
+    """A mesh that is not ``parallel.mesh.Mesh`` is a TypeError (the mesh
+    itself runs in tests/test_torch_port_mesh_trainer.py); fine-tuning
+    refuses what the JAX package refuses: training a backbone with none
+    given, and the 'imggroup' order over images of uneven question counts
+    (tests/test_torch_port_finetune.py runs the path itself)."""
     exp = tiny(get_experiment("ours_ms"))
     data, src, _ = _inputs((tload, tfeat), fixture_root, exp, 8)
     bb = {"convs": [{"w": torch.zeros(3, 3, 3, 4), "b": torch.zeros(4)}]}
-    with pytest.raises(NotImplementedError, match="item 7, multi-device"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         ttrainer.Trainer(exp, data, src, str(tmp_path), mesh=object(), device="cpu")
     ft = exp.replace(train=dataclasses.replace(exp.train, train_backbone=True))
     for e, kw, match in (

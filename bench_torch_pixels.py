@@ -4,6 +4,7 @@ questions -> answers through a backbone and the head's kernels, one JSON line
 
     python3 bench_torch_pixels.py [--backbone resnet101|vgg16|vit] [--batch 120]
                                   [--qpi 3] [--chain 10] [--artifact [DIR]] [--device cpu]
+                                  [--s2d | --int8]
 """
 
 import sys

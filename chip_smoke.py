@@ -266,6 +266,28 @@ Phases, in order; any failure exits non-zero:
               one process's, one all-reduce of the gradient's size over
               NCCL at world 1 and over gloo on 2 ranks.
 
+15. variants — the image transforms, the space-to-depth stem and the int8
+              ResNet-101 (under a 300 s watchdog): (a) 120 uint8 480x640
+              images scaled to [0, 1]: the eval chain (``scale_shorter_side``
+              then ``center_crop`` to 448), the training chain
+              (``random_sized_crop(448)``, ``color_jitter(0.4, 0.4, 0.4)``,
+              ``lighting(0.1)``, ``horizontal_flip``), ``rotation(10)``,
+              ``random_scale_crop(448, 512, 448)`` and ``ten_crop(448)`` at
+              B=16, each against the same apply on a CPU copy of its first 8
+              rows with those rows' draws within 1e-4 (TF32 off), with its
+              ms; (b) ``answer_pixels`` for ``ours_resnet`` at B=120 on the
+              s2d tree of the pixels phase's bf16 ResNet-101 (4 stage
+              launches) at the pixels phase's bf16 gates against the 7x7
+              tree, the stem alone in float32 against conv1 at rtol 1e-4 /
+              atol 1e-5, both stems' ms; (c) int8: each conv shape class at
+              448-px shapes, B=2, its int32 accumulators bit-equal to the
+              CPU's; the JAX test's shrunk net (one block a stage, 64 px)
+              against float32 at corr > 0.995 and rel < 0.1; the full
+              ResNet-101 at B=120 (corr, rel, ms beside the bf16 and float32
+              folded trees, peak memory: readings); (d)
+              ``bench_torch_pixels.py --s2d`` and ``--int8`` (``--chain 2
+              --rounds 2``), each its JSON line and exit 0.
+
 Prints each number beside the card's name and power limit, a ``kernels``
 JSON line (the hop kernel's and the training kernels' entries also give
 their device kernels a call, as recorded), and as the last line
@@ -3461,6 +3483,262 @@ def mesh_phase(seed: int, card: str) -> dict:
     return {"launches": launches, "readings": readings}
 
 
+VAR_DEVICE = "cuda"        # a CPU rehearsal sets "cpu" (and the sizes below)
+VAR_B = 120                # the transforms' and the s2d / int8 backbones' batch
+VAR_SRC = (480, 640)       # COCO's usual image size, the transforms' source
+VAR_SIDE = 448             # ours_resnet's input side: 14x14 features
+VAR_TEN_B = 16             # ten_crop's batch
+VAR_CHECK = 8              # rows of each transform held against the CPU copy
+VAR_INT8_B = 2             # the int8 shape classes' batch
+VAR_SHRUNK_SIDE = 64       # the shrunk int8 net's input (the JAX test's)
+VAR_BENCH_ARGS = ["--chain", "2", "--rounds", "2"]
+TRANSFORM_BAR = 1e-4       # the card against the CPU copy, TF32 off, absolute
+STEM_BAR = dict(rtol=1e-4, atol=1e-5)   # the JAX package's for the s2d stem
+
+
+def variants_phase(seed: int, card: str) -> dict:
+    """15. variants: (a) the image transforms at VAR_B 480x640 images against
+    the same function on a CPU copy of their first rows, on the same draws;
+    (b) ``answer_pixels`` for ``ours_resnet`` on the s2d tree of the pixels
+    phase's folded bf16 ResNet-101, at the pixels phase's bf16 gates against
+    the 7x7 tree, and the stem alone in float32 at JAX's bar; (c) the int8
+    mode: each conv shape class's int32 accumulators on the card bit-equal to
+    the CPU's, the shrunk net against float32 at JAX's bars, the full
+    ResNet-101's readings; (d) ``bench_torch_pixels.py --s2d`` and
+    ``--int8``.  Returns the kernels' launches in (b) and (d)."""
+    from rau_vqa_tpu_torch import bench_pixels
+    from rau_vqa_tpu_torch.config import get_preset
+    from rau_vqa_tpu_torch.convert import map_tree
+    from rau_vqa_tpu_torch.eval.predict import predict, predict_fused
+    from rau_vqa_tpu_torch.models import pipeline
+    from rau_vqa_tpu_torch.models.backbones import resnet
+    from rau_vqa_tpu_torch.models.rau import init_params
+    from rau_vqa_tpu_torch.ops import fused_resnet, lstm_encoder, rau_hops
+    from rau_vqa_tpu_torch.ops import transforms as T
+
+    t_phase = time.perf_counter()
+    dev, cpu, bf16 = torch.device(VAR_DEVICE), torch.device("cpu"), torch.bfloat16
+    rs = np.random.RandomState(seed + 15)
+    kernels = {"fused_identity_stage": fused_resnet.KERNEL, "lstm_encode": lstm_encoder.KERNEL,
+               "rau_hops": rau_hops.KERNEL}
+    launches = dict.fromkeys(kernels, 0)
+    failed = []
+    B, side, n = VAR_B, VAR_SIDE, VAR_CHECK
+
+    # (a) the transforms: each public function on the card (draw, then
+    # apply), its ms, and its apply on the CPU copy of the first rows with
+    # those rows' draws
+    u8 = torch.as_tensor(rs.randint(0, 256, (B, *VAR_SRC, 3), dtype=np.uint8), device=dev)
+    img = u8.float() / 255.0
+    gen = torch.Generator(dev).manual_seed(seed)
+    cases = (
+        ("scale_shorter_side", lambda x, g: (), lambda x: T.scale_shorter_side(x, side)),
+        ("center_crop", lambda x, g: (), lambda x: T.center_crop(x, side)),
+        ("random_sized_crop", lambda x, g: T.random_sized_crop_draw(x, g),
+         lambda x, *d: T.random_sized_crop_at(x, *d, side)),
+        ("color_jitter", lambda x, g: T.color_jitter_draw(x, g),
+         lambda x, order, alphas: T.color_jitter_at(x, order, alphas)),
+        ("lighting", lambda x, g: (T.lighting_draw(x, g, 0.1),), T.lighting_at),
+        ("horizontal_flip", lambda x, g: (T.horizontal_flip_draw(x, g),),
+         T.horizontal_flip_at),
+        ("rotation", lambda x, g: (T.rotation_draw(x, g, 10.0),), T.rotation_at),
+        ("random_scale_crop", lambda x, g: T.random_scale_crop_draw(x, g, side, 512, side),
+         lambda x, *d: T.random_scale_crop_at(x, *d, side)),
+    )
+    public = {"random_sized_crop": lambda x, g: T.random_sized_crop(x, g, side),
+              "color_jitter": lambda x, g: T.color_jitter(x, g, brightness_var=0.4,
+                                                          contrast_var=0.4,
+                                                          saturation_var=0.4),
+              "lighting": lambda x, g: T.lighting(x, g, 0.1),
+              "horizontal_flip": T.horizontal_flip,
+              "rotation": lambda x, g: T.rotation(x, g, 10.0),
+              "random_scale_crop": lambda x, g: T.random_scale_crop(x, g, side, 512, side)}
+    # the eval chain (scale, centre crop), the training chain (sized crop,
+    # jitter, lighting, flip), then rotation and the scale-and-crop on the
+    # source images
+    inputs = {"scale_shorter_side": img, "random_sized_crop": img, "rotation": img,
+              "random_scale_crop": img}
+    x = img
+    t_ms = {}
+    with torch.no_grad():
+        for name, draw, apply in cases:
+            x = inputs.get(name, x)
+            d = draw(x, gen)
+            y = apply(x, *d)
+            # the first n rows' draws (color_jitter's: its order, alphas [3, B])
+            cut = (d[0], d[1][:, :n].to(cpu)) if name == "color_jitter" else \
+                tuple(v[:n].to(cpu) for v in d)
+            err = (y[:n].to(cpu) - apply(x[:n].to(cpu), *cut)).abs().max().item()
+            fn = public.get(name)
+            t_ms[name] = time_ms((lambda: fn(x, gen)) if fn else (lambda: apply(x, *d)),
+                                 iters=5, warmup=1)
+            log(f"variants (a) {name}: {tuple(x.shape)} -> {tuple(y.shape)}, card against "
+                f"the CPU on {n} rows max_abs_err {err:.3e} (bar {TRANSFORM_BAR}), "
+                f"{t_ms[name]:.4f} ms B={B} [{card}]")
+            if not (torch.isfinite(y).all() and err <= TRANSFORM_BAR):
+                failed.append(f"(a) {name}: max_abs_err {err:.3e}")
+            if name in ("center_crop", "horizontal_flip"):
+                log(f"variants (a) the {'eval' if name == 'center_crop' else 'training'} "
+                    f"chain ends in {tuple(y.shape)}")
+            x = y
+        x = img[:VAR_TEN_B]
+        y = T.ten_crop(x, side)
+        err = (y.to(cpu) - T.ten_crop(x.to(cpu), side)).abs().max().item()
+        t_ms["ten_crop"] = time_ms(lambda: T.ten_crop(x, side), iters=5, warmup=1)
+        log(f"variants (a) ten_crop: {tuple(x.shape)} -> {tuple(y.shape)}, max_abs_err "
+            f"{err:.3e}, {t_ms['ten_crop']:.4f} ms B={VAR_TEN_B} [{card}]")
+        if tuple(y.shape) != (10, VAR_TEN_B, side, side, 3) or err > TRANSFORM_BAR:
+            failed.append(f"(a) ten_crop: {tuple(y.shape)}, max_abs_err {err:.3e}")
+        del u8, img, x, y, inputs
+
+    # (b) the s2d stem on the pixels phase's tree (the same seeds)
+    cfg = dataclasses.replace(get_preset("ours_resnet"), cnn_w=side // 32, cnn_h=side // 32)
+    params = init_params(cfg, torch.Generator().manual_seed(seed), dev)
+    bb = resnet.fold_batchnorm(resnet.resnet101_init(
+        torch.Generator().manual_seed(seed + 1), bf16, dev))
+    bb_f32 = map_tree(lambda t: t.float(), bb)
+    s2d = resnet.space_to_depth_stem(bb)
+    images = torch.as_tensor(rs.randint(0, 256, (B, side, side, 3), dtype=np.uint8),
+                             device=dev)
+    tokens, lengths, _ = make_batch(cfg, B, cfg.seq_len, rs, dev)
+    for k in kernels.values():
+        k.launches = 0
+    out = pipeline.answer_pixels(params, s2d, cfg, "resnet101", images, tokens, lengths,
+                                 device=dev)
+    sync(dev)
+    got = {name: k.launches for name, k in kernels.items()}
+    log(f"variants (b) answer_pixels on the s2d tree: launches {got}")
+    if got != {"fused_identity_stage": 4, "lstm_encode": 1, "rau_hops": 1}:
+        failed.append(f"(b) answer_pixels on the s2d tree launched {got}")
+    for name in launches:
+        launches[name] += got[name]
+    head_w = pipeline._head_weights(params)
+    f32_cache = {}
+
+    def f32_feats(im):
+        if "f" not in f32_cache:
+            with torch.no_grad():
+                f32_cache["f"] = pipeline.extract_features("resnet101", bb_f32, im)
+        return f32_cache["f"]
+
+    pooled = {"ids": 0, "plain_f32": 0, "ref_f32": 0}
+    pixels_gates(
+        "variants (b) s2d", cfg, [(out, (images, tokens, lengths))],
+        plain=lambda im, t, ln: (pipeline.pixels_forward(params, bb, cfg, "resnet101", im, t,
+                                                         ln),
+                                 pipeline.extract_features("resnet101", bb, im).float()),
+        head=lambda t, ln, f: predict_fused(params, head_w, cfg, t, ln, f),
+        f32_feats=f32_feats,
+        predict_plain=lambda t, ln, f: predict(params, cfg, t, ln, f),
+        gen=torch.Generator(dev).manual_seed(seed), failed=failed, pooled=pooled)
+    a_f32, r_f32 = pooled["plain_f32"] / pooled["ids"], pooled["ref_f32"] / pooled["ids"]
+    log(f"variants (b) s2d, {pooled['ids']} ids: agreement with the float32 tree, "
+        f"answer_pixels on the s2d tree {a_f32:.4f}, pixels_forward on the 7x7 tree "
+        f"{r_f32:.4f} (bar: no less, less 0.03)")
+    if a_f32 < r_f32 - 0.03:
+        failed.append(f"(b) s2d agrees {a_f32:.4f} with the float32 tree, the 7x7 tree "
+                      f"{r_f32:.4f}")
+    with torch.no_grad():
+        x32 = T.color_normalize(images.float() / 255.0)
+        s2d_f32 = resnet.space_to_depth_stem(bb_f32)
+        want = resnet._stem(x32, bb_f32, resnet._prepared(bb_f32))
+        got_stem = resnet._stem(x32, s2d_f32, resnet._prepared(s2d_f32))
+        excess = ((got_stem - want).abs()
+                  - (STEM_BAR["atol"] + STEM_BAR["rtol"] * want.abs())).max().item()
+        stem_err = (got_stem - want).abs().max().item()
+        del want, got_stem
+        x16 = x32.to(bf16)
+        stem_ms = {name: time_ms(lambda t=tree: resnet._stem(x16, t, resnet._prepared(t)),
+                                 iters=5)
+                   for name, tree in (("7x7/2", bb), ("s2d 4x4/1", s2d))}
+    log(f"variants (b) the s2d stem against conv1 in float32 (TF32 off): max_abs_err "
+        f"{stem_err:.3e}, worst excess over rtol 1e-4 / atol 1e-5 {excess:.3e} (bar <= 0)")
+    if excess > 0:
+        failed.append(f"(b) the s2d stem is off conv1 by {stem_err:.3e}")
+    log(f"variants (b) stem ms in bf16, conv + bias + ReLU at B={B}: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in stem_ms.items()) + f" [{card}]")
+
+    # (c) int8: each shape class of the 448-px path at B=VAR_INT8_B, its int32
+    # accumulators on the card against the CPU's on the same codes
+    classes = (("stem 7x7/2", 7, 2, side, 3, 64), ("1x1", 1, 1, side // 4, 256, 64),
+               ("3x3/1", 3, 1, side // 4, 64, 64), ("3x3/2", 3, 2, side // 4, 128, 128),
+               ("down 1x1/2", 1, 2, side // 4, 256, 512))
+    g = torch.Generator(dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, k, stride, hw, ci, co in classes:
+            x = torch.randn((VAR_INT8_B, hw, hw, ci), generator=g, device=dev)
+            w = torch.randn((k, k, ci, co), generator=g, device=dev) * 0.05
+            p = resnet.quantize_resnet({"conv1": {"w": w, "b": torch.zeros(co, device=dev)},
+                                        "stages": []})["conv1"]
+            xq, xs = resnet._quantize_act(x)
+            xq_c, xs_c = resnet._quantize_act(x.to(cpu))
+            acc = resnet._conv_int8_acc(xq, p["wq"], stride)
+            acc_c = resnet._conv_int8_acc(xq.to(cpu), p["wq"].to(cpu), stride)
+            same = acc.dtype == torch.int32 and torch.equal(acc.to(cpu), acc_c)
+            conv_ms = time_ms(lambda: resnet._conv_int8(x, p, stride), iters=5)
+            log(f"variants (c) int8 {name} {tuple(x.shape)} -> {tuple(acc.shape)}: int32 "
+                f"accumulators bit-equal to the CPU's: {same}; codes equal: "
+                f"{torch.equal(xq.to(cpu), xq_c)}, scale equal: {xs.item() == xs_c.item()}; "
+                f"_conv_int8 {conv_ms:.4f} ms [{card}]")
+            if not same:
+                failed.append(f"(c) int8 {name}: accumulators differ from the CPU's")
+        # the JAX test's shrunk net: one block a stage, at VAR_SHRUNK_SIDE px
+        net = resnet.resnet101_init(torch.Generator().manual_seed(seed + 5), device=dev)
+        net["stages"] = [blocks[:1] for blocks in net["stages"]]
+        net = resnet.fold_batchnorm(net)
+        xs_ = torch.rand((2, VAR_SHRUNK_SIDE, VAR_SHRUNK_SIDE, 3), generator=g, device=dev)
+        ref = resnet.resnet101_apply(net, xs_).flatten()
+        got8 = resnet.resnet101_apply_int8(resnet.quantize_resnet(net), xs_).flatten()
+        corr = torch.corrcoef(torch.stack([ref, got8]))[0, 1].item()
+        rel = ((got8 - ref).norm() / (ref.norm() + 1e-9)).item()
+        log(f"variants (c) int8 shrunk net (one block a stage, {VAR_SHRUNK_SIDE} px): corr "
+            f"{corr:.5f} (bar > 0.995), rel {rel:.4f} (bar < 0.1)")
+        if not (corr > 0.995 and rel < 0.1):
+            failed.append(f"(c) int8 shrunk net: corr {corr:.5f}, rel {rel:.4f}")
+        # the full ResNet-101 at B=VAR_B: readings
+        q8 = resnet.quantize_resnet(bb)
+        sync(dev)
+        held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        f8 = resnet.resnet101_apply_int8(q8, x32)
+        sync(dev)
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e6 if dev.type == "cuda" else 0
+        f32 = f32_feats(images)
+        corr = torch.corrcoef(torch.stack([f32.flatten(), f8.flatten()]))[0, 1].item()
+        rel = ((f8 - f32).norm() / f32.norm()).item()
+        ms8 = time_ms(lambda: resnet.resnet101_apply_int8(q8, x32), iters=3, warmup=1)
+        ms16 = time_ms(lambda: resnet.resnet101_apply(bb, x16), iters=3, warmup=1)
+        ms32 = time_ms(lambda: resnet.resnet101_apply(bb_f32, x32), iters=3, warmup=1)
+    log(f"variants (c) int8 ResNet-101 B={B} {side} px against the float32 folded tree: "
+        f"corr {corr:.5f}, rel {rel:.4f} (readings); ms int8 {ms8:.4f}, bf16 folded "
+        f"{ms16:.4f}, float32 folded {ms32:.4f} (TF32 off); int8 peak {peak:.1f} MB above "
+        f"the {held / 1e6:.1f} MB held [{card}]")
+    del f8, q8, x32, x16, bb_f32, f32_cache
+
+    # (d) the bench's variants, each its JSON line
+    dev_flag = [] if dev.type == "cuda" else ["--device", "cpu"]
+    for flag in ("--s2d", "--int8"):
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        rc, line, _ = _run_cli_json(bench_pixels.main, dev_flag + [flag] + VAR_BENCH_ARGS)
+        print(json.dumps(line), flush=True)
+        log(f"variants (d) bench_torch_pixels.py {flag}: rc {rc}, "
+            f"{time.perf_counter() - t0:.1f} s, launches "
+            f"{ {name: k.launches for name, k in kernels.items()} } [{card}]")
+        for name, k in kernels.items():
+            launches[name] += k.launches
+        if rc != 0 or line is None or "error" in line or line.get(flag[2:]) is not True:
+            failed.append(f"(d) bench_torch_pixels.py {flag}: rc {rc}, line {line}")
+    log(f"variants_phase_s={time.perf_counter() - t_phase:.1f} [{card}]")
+    if failed:
+        raise SystemExit("variants phase failed: " + "; ".join(failed))
+    return {"launches": launches, "transforms_ms": t_ms, "stem_ms": stem_ms,
+            "int8": {"corr": corr, "rel": rel, "ms": ms8, "bf16_ms": ms16,
+                     "f32_ms": ms32, "peak_mb": peak}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4588,6 +4866,10 @@ def main() -> int:
         mesh = mesh_phase(args.seed, card)
     mesh_launches = mesh["launches"]
     log("phase mesh: ok")
+    # 15. the transforms, the s2d stem and the int8 ResNet-101
+    with watchdog(300, "the variants phase"):
+        variants = variants_phase(args.seed, card)
+    log("phase variants: ok")
 
     s2 = stage_ms[2]
     kernels = [
@@ -4723,7 +5005,8 @@ def main() -> int:
     # the mesh phase's launches: (a) here and (b) on its 2 ranks
     for k in kernels:
         k["mesh_launches"] = mesh_launches.get(k["name"], 0)
-        k["launches"] += k["mesh_launches"]
+        k["variants_launches"] = variants["launches"].get(k["name"], 0)
+        k["launches"] += k["mesh_launches"] + k["variants_launches"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ steps).  ``fused=False`` runs the JAX chain's own program, the plain
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -73,7 +73,8 @@ def make_serve_chain(cfg, K: int, n_acc: int = 8, fused: bool = True) -> Callabl
 
 
 def make_pixels_chain(cfg, backbone: str, K: int, qpi: int, n_acc: int, *,
-                      vit_cfg=None, fused_stages=(), fused_block_b: int = 0,
+                      apply_override: Optional[Callable] = None, vit_cfg=None,
+                      fused_stages=(), fused_block_b: int = 0,
                       feat_norm: bool = False, fused: bool = True) -> Callable:
     """bench_torch_pixels.py's program: K chained images+questions -> answers
     steps, ``qpi`` questions an image.
@@ -81,10 +82,21 @@ def make_pixels_chain(cfg, backbone: str, K: int, qpi: int, n_acc: int, *,
     Returns ``fn(bb, params, images [B, s, s, 3] uint8, tokens [B*qpi, T],
     lengths [B*qpi], salt0) -> (salt, acc [H+2, min(n_acc, B*qpi)])``.  The
     images are salted too (uint8, wrapping mod 256).  ``fused_stages`` sends
-    those ResNet stages' identity runs through the stage kernel.  The fused
-    head takes the features in float32, as ``answer_pixels`` does; the plain
-    one in ``cfg.compute_dtype``, as the JAX chain's ``predict``."""
+    those ResNet stages' identity runs through the stage kernel.
+    ``apply_override(bb, x)`` (the int8 backbone) takes the place of
+    ``extract_features``: it gets ``color_normalize(images / 255)``, as in the
+    JAX chain; variants that live in the tree's structure (BN folding, the
+    s2d stem) need none.  The fused head takes the features in float32, as
+    ``answer_pixels`` does; the plain one in ``cfg.compute_dtype``, as the
+    JAX chain's ``predict``."""
     from rau_vqa_tpu_torch.models.pipeline import extract_features
+    from rau_vqa_tpu_torch.ops.transforms import color_normalize
+
+    def features(bb, imgs):
+        if apply_override is not None:
+            return apply_override(bb, color_normalize(imgs.float() / 255.0))
+        return extract_features(backbone, bb, imgs, vit_cfg, fused_stages=fused_stages,
+                                fused_block_b=fused_block_b, feat_norm=feat_norm)
 
     feat_dt = (torch.float32 if fused or cfg.compute_dtype != "bfloat16"
                else torch.bfloat16)
@@ -95,9 +107,7 @@ def make_pixels_chain(cfg, backbone: str, K: int, qpi: int, n_acc: int, *,
         salt, acc = _start(cfg, tokens, salt0, na)
         for _ in range(K):
             imgs = images + salt.to(torch.uint8)
-            feats = extract_features(backbone, bb, imgs, vit_cfg, fused_stages=fused_stages,
-                                     fused_block_b=fused_block_b, feat_norm=feat_norm)
-            feats = feats.repeat_interleave(qpi, dim=0).to(feat_dt)
+            feats = features(bb, imgs).repeat_interleave(qpi, dim=0).to(feat_dt)
             ans = _step_answers(params, kw, cfg, _salted(tokens, salt, cfg.vocab_size),
                                 lengths, feats)
             salt, acc = _advance(salt, acc, ans, na)

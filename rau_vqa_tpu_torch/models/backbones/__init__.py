@@ -1,12 +1,16 @@
 """Image backbones of the from-pixels path: ResNet-101, VGG16 through pool5
 and the ViT, each with its initialiser, forward and converter of a
-torchvision or timm state dict."""
+torchvision or timm state dict; ResNet-101 also with its space-to-depth
+stem and its int8 mode."""
 
 from rau_vqa_tpu_torch.models.backbones.resnet import (  # noqa: F401
     fold_batchnorm,
+    quantize_resnet,
     resnet101_apply,
+    resnet101_apply_int8,
     resnet101_init,
     resnet_from_torch_state,
+    space_to_depth_stem,
 )
 from rau_vqa_tpu_torch.models.backbones.vgg import (  # noqa: F401
     VGG16_CFG,

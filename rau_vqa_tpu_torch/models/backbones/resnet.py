@@ -14,7 +14,10 @@ copy), with the weights permuted to OIHW once per parameter set.  On a
 ``fold_batchnorm`` tree ``fused_stages`` sends a stage's run of identity
 blocks through ``ops.fused_resnet.fused_identity_stage`` (a CUDA kernel on the
 card); the stem, the maxpool and each stage's opening downsample block stay
-``F.conv2d``, as they stay XLA in the JAX package.
+``F.conv2d``, as they stay XLA in the JAX package.  ``space_to_depth_stem``
+rewrites a folded tree's stem; ``quantize_resnet`` and
+``resnet101_apply_int8`` are the int8 mode (s8 x s8 -> s32 products on the
+card's ``torch._int_mm``).
 """
 
 from __future__ import annotations
@@ -29,14 +32,10 @@ from rau_vqa_tpu_torch.convert import MemoRecent
 from rau_vqa_tpu_torch.devices import pick_device
 from rau_vqa_tpu_torch.ops.fused_resnet import (
     fused_identity_stage, pack_stage_weights, stack_identity_blocks)
-from rau_vqa_tpu_torch.roadmap import still_to_port
 
 RESNET101_BLOCKS = (3, 4, 23, 3)
 STAGE_WIDTH = (64, 128, 256, 512)   # bottleneck inner widths; out = 4x
 BN_EPS = 1e-5
-
-S2D_STEM = still_to_port("the space-to-depth stem", "transforms")
-INT8 = still_to_port("the int8 serving mode", "transforms")
 
 _CONVS = ("conv1", "conv2", "conv3", "down")
 
@@ -201,16 +200,168 @@ def fold_batchnorm(params: Dict) -> Dict:
     return out
 
 
-def space_to_depth_stem(params: Dict) -> Dict:
-    raise NotImplementedError(S2D_STEM)
+# ---------------------------------------------------------------------------
+# the space-to-depth stem
+# ---------------------------------------------------------------------------
 
+def space_to_depth_stem(params: Dict) -> Dict:
+    """A folded tree whose conv1 (7x7/2 on 3 channels) is rewritten as the
+    exactly equivalent 4x4/1 conv over a 2x2 space-to-depth input (12
+    channels), the standard TPU ResNet stem.  The 7 taps pad to 8 (a zero
+    at offset -4, the symmetric pad-3 layout); with ky = 2a + dy - 4,
+    out(i) = sum_a w8[2a + dy] x[2(i + a - 2) + dy] is a 4-tap stride-1 conv
+    over the s2d grid padded (2, 1).  A pure rearrangement, in float32, cast
+    back to conv1's type (bit-exact for bf16).  ``resnet101_apply`` knows the
+    stem by conv1's 4x4x12 shape."""
+    conv1 = params["conv1"]
+    if "b" not in conv1 or "bn1" in params:
+        raise ValueError("space_to_depth_stem expects a fold_batchnorm tree")
+    if tuple(conv1["w"].shape[:3]) != (7, 7, 3):
+        raise ValueError(f"the stem transform expects the 7x7x3 conv1, got "
+                         f"{tuple(conv1['w'].shape)}")
+    w = conv1["w"].float()
+    co = w.shape[3]
+    w8 = torch.zeros((8, 8, 3, co), dtype=torch.float32, device=w.device)
+    w8[1:, 1:] = w                                    # offset -4 row and column: 0
+    # [a, dy, b, dx, c, co] -> [a, b, (dy, dx, c), co]: channel dy*6 + dx*3 + c,
+    # as _s2d lays the input out
+    ws = w8.reshape(4, 2, 4, 2, 3, co).permute(0, 2, 1, 3, 4, 5).reshape(4, 4, 12, co)
+    dt = conv1["w"].dtype
+    out = dict(params)
+    out["conv1"] = {"w": ws.to(dt), "b": conv1["b"].float().to(dt)}
+    return out
+
+
+def _s2d(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B, H/2, W/2, 4C], channel (dy, dx, c)."""
+    B, H, W, C = x.shape
+    if H % 2 or W % 2:
+        raise ValueError(f"the space-to-depth stem needs even H and W, got {H}x{W}")
+    x = x.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H // 2, W // 2, 4 * C)
+
+
+def _stem(x: torch.Tensor, params: Dict, prep: Dict) -> torch.Tensor:
+    """conv1 (+ BN) and ReLU: the 7x7/2 conv, or the s2d stem's 4x4/1 conv
+    over ``_s2d(x)`` with the asymmetric (2, 1) padding."""
+    if "bn1" in params:
+        return torch.relu(_bn(_conv_p(x, prep["conv1"], stride=2), params["bn1"]))
+    if tuple(params["conv1"]["w"].shape[:3]) == (4, 4, 12):
+        xs = F.pad(_nchw(_s2d(x)), (2, 1, 2, 1))
+        return torch.relu(_nhwc(F.conv2d(xs, prep["conv1"]["w"], prep["conv1"]["b"])))
+    return torch.relu(_conv_p(x, prep["conv1"], stride=2))
+
+
+# ---------------------------------------------------------------------------
+# the int8 mode: weights per output channel, activations per tensor (the
+# whole batch), s8 x s8 -> s32 products, the dequantization in the epilogue;
+# the residual adds stay float
+# ---------------------------------------------------------------------------
 
 def quantize_resnet(folded: Dict) -> Dict:
-    raise NotImplementedError(INT8)
+    """fold_batchnorm tree -> int8 tree: each conv's weights quantized
+    symmetrically per output channel (``wq`` int8, ``wscale`` float32 [co],
+    the scale max|w| / 127, 1 where a channel is all zero), its bias kept in
+    float32.  Bit-equal to the JAX package's numpy quantization."""
+    if "bn1" in folded or "w" not in folded["conv1"] or "b" not in folded["conv1"]:
+        raise ValueError("quantize_resnet expects a fold_batchnorm tree")
+
+    def q(conv):
+        w = conv["w"].float()
+        absmax = w.abs().reshape(-1, w.shape[-1]).amax(0)
+        scale = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0),
+                            torch.ones_like(absmax))
+        wq = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+        return {"wq": wq, "wscale": scale, "b": conv["b"].float()}
+
+    out: Dict = {"conv1": q(folded["conv1"]), "stages": []}
+    for blocks in folded["stages"]:
+        out["stages"].append([{k: q(blk[k]) for k in _CONVS if k in blk} for blk in blocks])
+    return out
+
+
+def _int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] x int8 [K, N] -> exact int32 [M, N] by ``torch._int_mm``
+    (cuBLASLt's s8 x s8 -> s32 GEMM on the card; it has no float path and
+    raises on what it does not take).  The card wants more than 16 rows and
+    K and N in multiples of 8, so each is padded with zeros (the stem's K is
+    7 * 7 * 3 = 147 -> 152) and the result cut back."""
+    M, K = a.shape
+    N = b.shape[1]
+    pm, pk, pn = max(0, 17 - M), -K % 8, -N % 8
+    if pm or pk:
+        a = F.pad(a, (0, pk, 0, pm))
+    if pk or pn:
+        b = F.pad(b, (0, pn, 0, pk))
+    return torch._int_mm(a.contiguous(), b.contiguous())[:M, :N]
+
+
+def _im2col(x: torch.Tensor, kh: int, kw: int, stride: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, Ho, Wo, kh * kw * C] with (k - 1) // 2 of zero
+    padding on each side, patches ordered (ky, kx, c) as
+    ``wq.reshape(kh * kw * ci, co)``: strided slices of the padded tensor
+    (``F.unfold`` takes no int8).  A 1x1 conv needs none."""
+    if kh == kw == 1:
+        return x[:, ::stride, ::stride]
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    B, H, W, C = x.shape
+    Ho, Wo = (H + 2 * ph - kh) // stride + 1, (W + 2 * pw - kw) // stride + 1
+    xp = F.pad(x, (0, 0, pw, pw, ph, ph))
+    cols = [xp[:, ky:ky + stride * (Ho - 1) + 1:stride, kx:kx + stride * (Wo - 1) + 1:stride]
+            for ky in range(kh) for kx in range(kw)]
+    return torch.stack(cols, 3).reshape(B, Ho, Wo, kh * kw * C)
+
+
+def _conv_int8_acc(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """The int32 accumulators [B, Ho, Wo, co] of an int8 conv: int8
+    activations ``xq`` [B, H, W, ci] against HWIO ``wq``, torch-style
+    symmetric padding, exact (the JAX package's ``conv_general_dilated``
+    with ``preferred_element_type=int32``)."""
+    kh, kw, ci, co = wq.shape
+    cols = _im2col(xq, kh, kw, stride)
+    B, Ho, Wo, K = cols.shape
+    acc = _int8_mm(cols.reshape(B * Ho * Wo, K), wq.reshape(K, co))
+    return acc.reshape(B, Ho, Wo, co)
+
+
+def _quantize_act(x: torch.Tensor):
+    """(xq int8, xscale float32 []): x over max|x| / 127 of the WHOLE
+    tensor (so an example's codes depend on the batch around it), rounded
+    half to even, clipped to +-127.  Both divisions divide by tensors on
+    x's device (CUDA's division by a Python number misses by an ulp)."""
+    ax = x.abs().amax()
+    xscale = torch.clamp(ax / torch.full_like(ax, 127.0), min=1e-8)
+    xq = torch.clamp(torch.round(x / xscale), -127, 127).to(torch.int8)
+    return xq, xscale
+
+
+def _conv_int8(x: torch.Tensor, p: Dict, stride: int = 1) -> torch.Tensor:
+    """float32 activations -> per-tensor int8 -> s8 x s8 -> s32 conv ->
+    ``acc * (xscale * wscale) + b`` in float32."""
+    xq, xscale = _quantize_act(x.float())
+    acc = _conv_int8_acc(xq, p["wq"], stride)
+    return acc.float() * (xscale * p["wscale"]) + p["b"].float()
+
+
+def _bottleneck_int8(x: torch.Tensor, blk: Dict, stride: int) -> torch.Tensor:
+    y = torch.relu(_conv_int8(x, blk["conv1"]))
+    y = torch.relu(_conv_int8(y, blk["conv2"], stride))
+    y = _conv_int8(y, blk["conv3"])
+    if "down" in blk:
+        x = _conv_int8(x, blk["down"], stride)
+    return torch.relu(x + y)
 
 
 def resnet101_apply_int8(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(INT8)
+    """The int8 twin of ``resnet101_apply`` over a ``quantize_resnet`` tree:
+    x [B, H, W, 3] (taken as float32) -> [B, (H/32)*(W/32), 2048] float32."""
+    x = torch.relu(_conv_int8(x.float(), params["conv1"], stride=2))
+    x = _maxpool(x)
+    for stage, blocks in enumerate(params["stages"]):
+        for b, blk in enumerate(blocks):
+            x = _bottleneck_int8(x, blk, 2 if (stage > 0 and b == 0) else 1)
+    B, h, w, c = x.shape
+    return x.reshape(B, h * w, c)
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +402,9 @@ def resnet101_apply(params: Dict, x: torch.Tensor,
                     remat: bool = False) -> torch.Tensor:
     """x [B, H, W, 3] (ImageNet-normalized RGB) -> pre-avgpool features
     [B, (H/32)*(W/32), 2048].  Takes the plain (conv + BN) tree or a
-    ``fold_batchnorm`` tree, in the type its weights have (x is cast to it).
+    ``fold_batchnorm`` tree, in the type its weights have (x is cast to it);
+    a ``space_to_depth_stem`` tree runs its stem as the 4x4/1 conv over the
+    s2d input (H and W even).
 
     ``fused_stages`` (folded trees only) runs those stages' identity blocks
     through ``fused_identity_stage``.  ``fused_block_b`` is kept only so
@@ -271,16 +424,11 @@ def resnet101_apply(params: Dict, x: torch.Tensor,
                          "stage kernel is a serving path)")
     if fused_stages and not folded:
         raise ValueError("fused_stages requires a fold_batchnorm tree")
-    if tuple(params["conv1"]["w"].shape[:3]) == (4, 4, 12):
-        raise NotImplementedError(S2D_STEM)
     if fused_stages and fused_block_b and x.shape[0] % fused_block_b:
         raise ValueError(f"fused_block_b {fused_block_b} does not divide "
                          f"batch {x.shape[0]} (use 0 for auto)")
     prep = _prepared(params)
-    x = x.to(params["conv1"]["w"].dtype)
-    x = _conv_p(x, prep["conv1"], stride=2)
-    x = torch.relu(x if folded else _bn(x, params["bn1"]))
-    x = _maxpool(x)
+    x = _maxpool(_stem(x.to(params["conv1"]["w"].dtype), params, prep))
     for stage, blocks in enumerate(params["stages"]):
         stride = 2 if stage > 0 else 1
         if stage in fused_stages and len(blocks) > 1:

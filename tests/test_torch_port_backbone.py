@@ -224,13 +224,15 @@ def test_resnet101_apply_raises_as_the_jax_package_does():
         TR.resnet101_apply(tree, x, fused_stages=(0,))
     with pytest.raises(ValueError, match="does not divide"):
         TR.resnet101_apply(folded, x, fused_stages=(0,), fused_block_b=2)
-    s2d = dict(folded, conv1={"w": torch.zeros(4, 4, 12, 16), "b": torch.zeros(16)})
-    with pytest.raises(NotImplementedError, match="space-to-depth"):
-        TR.resnet101_apply(s2d, x)
-    for fn in (TR.space_to_depth_stem, TR.quantize_resnet,
-               lambda p: TR.resnet101_apply_int8(p, x)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(folded)
+    # the s2d stem and the int8 mode, once refused here, run: the s2d tree is
+    # the folded tree's map, the int8 tree tracks it
+    # (tests/test_torch_port_resnet_variants.py holds both to JAX)
+    s2d = TR.space_to_depth_stem(folded)
+    assert tuple(s2d["conv1"]["w"].shape) == (4, 4, 12, 16)
+    want = TR.resnet101_apply(folded, x1)
+    assert_scaled_close(TR.resnet101_apply(s2d, x1), want, 3e-5)
+    got = TR.resnet101_apply_int8(TR.quantize_resnet(folded), x1)
+    assert got.shape == want.shape and torch.isfinite(got).all()
 
 
 def test_resnet101_init_has_the_jax_tree():

@@ -103,8 +103,14 @@ def test_bench_pixels_artifact_built_once_then_reused(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--s2d"], "space-to-depth stem is still to port"),
-    (["--int8"], "int8 serving mode is still to port"),
+    (["--s2d", "--no-fold-bn"], "--s2d needs the folded"),
+    (["--s2d", "--int8"], "--s2d needs the folded"),
+    (["--int8", "--no-fold-bn"], "--int8 quantizes the folded tree"),
+    (["--int8", "--backbone", "vgg16"], "resnet101 variants"),
+    (["--s2d", "--backbone", "vit"], "resnet101 variants"),
+    (["--int8", "--artifact"], "--artifact does not take --int8"),
+    (["--int8", "--fused-stages", "0"], "no --int8/--s2d"),
+    (["--s2d", "--fused-stages", "1,2"], "no --int8/--s2d"),
     (["--fused-stages", "1,7"], "indices must be in 0..3"),
     (["--no-fold-bn", "--fused-stages", "2"], "needs the folded resnet101"),
     (["--backbone", "vgg16", "--no-fold-bn"], "resnet101 variant"),
@@ -112,6 +118,16 @@ def test_bench_pixels_artifact_built_once_then_reused(tmp_path, capsys):
 def test_bench_pixels_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         bench_pixels.main(["--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("variant", ["--s2d", "--int8"])
+def test_bench_pixels_variants_cpu_smoke(variant, capsys):
+    """The s2d stem and the int8 backbone each print a well-formed line,
+    without the stage kernel, flagged as the variant."""
+    assert bench_pixels.main(["--device", "cpu", variant, *PIXELS]) == 0
+    line = last_json(capsys.readouterr().out)
+    check_line(line, bench_pixels.METRIC, backbone="resnet101", fused_stages=[], batch=1,
+               s2d=variant == "--s2d", int8=variant == "--int8")
 
 
 def test_bench_without_a_card_exits_3_with_the_error_line(monkeypatch, capsys):

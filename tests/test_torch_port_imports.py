@@ -37,7 +37,7 @@ def test_sources_found():
             "bench_torch_stage.py", "loader.py", "checkpoint.py",
             "msgpack_flax.py", "cli.py", "serve.py", "native.py",
             "images.py", "torch_convert.py", "vgg.py", "vit.py", "precompute.py",
-            "rigcheck.py", "roadmap.py", "hdf5.py", "prepro.py", "released.py",
+            "rigcheck.py", "hdf5.py", "prepro.py", "released.py",
             "layout_diag.py", "visatt.py", "export.py", "chain.py", "benchparams.py",
             "doctor.py", "dashboard.py", "file_utils.py", "flops.py", "bench.py",
             "bench_pixels.py", "bench_torch.py", "bench_torch_pixels.py",

@@ -288,6 +288,29 @@ Phases, in order; any failure exits non-zero:
               ``bench_torch_pixels.py --s2d`` and ``--int8`` (``--chain 2
               --rounds 2``), each its JSON line and exit 0.
 
+16. scripts — the measurement and experiment scripts
+              (``rau_vqa_tpu_torch/scripts/``, under a 900 s watchdog), each
+              a subprocess as a user runs it (``python -m ...``, the card's
+              own): ``bench_train`` at B=100 (3 steps, 1 warm and 2 timed
+              rounds) with ``plain,remat,fused,trunc16,accum2,maskref`` in
+              float32 and ``plain,remat,fused`` in bf16, and ``pixels`` and
+              ``finetunegrp`` on ``ours_resnet`` at B=48, qpi 3;
+              ``bench_serve`` (8 clients x 5 requests, 10 unloaded);
+              ``bench_precompute`` (VGG16, 64 images); ``probe_serving_batch``
+              (B 512 and 2048, K=3); ``profile_vit`` (B=8); ``paper_dims_run``
+              ``generate`` and 2 epochs of ``train``; ``ft_accuracy_ab``
+              (2 epochs); three lanes of them at once (the training
+              bench; the serving and backbone scripts; the experiments), so
+              their times are readings under contention.  Gates: each exits 0 (``paper_dims_run train`` 1
+              where its criterion is unmet, as its contract says), its last
+              line has its ``metric``, a value > 0 (``ft_ab_gap``: a value,
+              and the fine-tuned arm's backbone gradient alive), no
+              ``error``, and names the card; each fused variant launched its
+              type's forward and backward kernels once a warm and a timed
+              step, no unfused variant any; the serving scripts launched
+              both serving kernels.  Each line is printed; the ``kernels``
+              line's ``scripts_launches`` are the lines' ``launches``.
+
 Prints each number beside the card's name and power limit, a ``kernels``
 JSON line (the hop kernel's and the training kernels' entries also give
 their device kernels a call, as recorded), and as the last line
@@ -3739,6 +3762,178 @@ def variants_phase(seed: int, card: str) -> dict:
                      "f32_ms": ms32, "peak_mb": peak}}
 
 
+SCRIPTS_DEVICE = "cuda"      # a CPU rehearsal sets "cpu" (and the flags below)
+SCRIPTS_TIMEOUT = 300        # seconds a script may run
+SCRIPTS_LANES = 3            # lanes of scripts run at once (1: one script at a time)
+SCRIPTS_TRAIN = ["--batch", "100", "--steps", "3", "--rounds", "2"]
+SCRIPTS_PIXELS = ["--preset", "ours_resnet", "--batch", "48", "--qpi", "3", "--steps", "2",
+                  "--rounds", "1"]
+SCRIPTS_SERVE = ["--clients", "8", "--requests", "5", "--unloaded", "10"]
+SCRIPTS_PRECOMPUTE = ["--backbone", "vgg16", "--n", "64"]
+SCRIPTS_PROBE = ["--batches", "512,2048", "--rounds", "1", "--chain", "3"]
+SCRIPTS_VIT = ["--batch", "8", "--chain", "2", "--rounds", "1"]
+SCRIPTS_PAPER = (["--n-train", "1024", "--n-test", "512", "--n-images", "64"],
+                 ["--epochs", "2", "--batch-size", "256"])
+SCRIPTS_FT_AB = ["--epochs", "2", "--n-train", "64", "--n-test", "32"]
+TRAIN_KERNEL_NAMES = ("train_hops_fwd", "train_hops_bwd", "train_hops_fwd_bf16",
+                      "train_hops_bwd_bf16", "train_hops_bwd_dfeats",
+                      "train_hops_bwd_dfeats_bf16")
+
+
+def run_script_json(module: str, argv, timeout: float = SCRIPTS_TIMEOUT):
+    """``python -m rau_vqa_tpu_torch.scripts.<module> argv`` from the
+    checkout's root, as a user runs it: (exit code, its last stdout line as
+    JSON or None, its stderr's tail, seconds)."""
+    import ctypes
+    import signal
+
+    def die_with_parent():
+        # the script ends with this process, a watchdog's os._exit included
+        ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)   # PR_SET_PDEATHSIG
+
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", f"rau_vqa_tpu_torch.scripts.{module}",
+                               *argv], cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=timeout,
+                              preexec_fn=die_with_parent)
+    except subprocess.TimeoutExpired as e:
+        return None, None, f"killed after {timeout} s: {(e.stderr or b'')[-3000:]!r}", timeout
+    secs = time.perf_counter() - t0
+    try:
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        line = None
+    return proc.returncode, line, proc.stderr[-3000:], secs
+
+
+def train_launch_faults(line) -> list:
+    """The bench_train line's launch gates: each fused variant launched its
+    type's forward and backward kernel once a warm and a timed step, and no
+    other training kernel; no other variant launched any."""
+    faults = []
+    bf16 = line.get("compute_dtype") == "bfloat16"
+    want = ("train_hops_fwd_bf16", "train_hops_bwd_bf16") if bf16 else \
+        ("train_hops_fwd", "train_hops_bwd")
+    for key, counts in line["launches_by_variant"].items():
+        steps = line["steps_by_variant"][key]
+        train = {n: counts.get(n, 0) for n in TRAIN_KERNEL_NAMES if counts.get(n, 0)}
+        if re.match(r"^fused\d*_b\d+$", key):
+            if train != {n: steps for n in want}:
+                faults.append(f"{key}: training launches {train}, want {want} x {steps}")
+        elif train:
+            faults.append(f"{key}: an unfused variant launched {train}")
+    return faults
+
+
+def scripts_phase(seed: int, card: str) -> dict:
+    """16. scripts: the port's measurement and experiment scripts
+    (``rau_vqa_tpu_torch/scripts/``), each run as a subprocess at cut flags;
+    returns each kernel's launches over them (from each line's
+    ``launches``) and each run's line."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    on_card = SCRIPTS_DEVICE == "cuda"
+    dev_flag = [] if on_card else ["--device", "cpu"]
+    kind = torch.cuda.get_device_name(0) if on_card else "cpu"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()     # the card's memory to the subprocesses
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scripts_")
+    runs = [
+        ("bench_train float32", "bench_train",
+         SCRIPTS_TRAIN + ["--f32", "--variants", "plain,remat,fused,trunc16,accum2,maskref"]),
+        ("bench_train bf16", "bench_train", SCRIPTS_TRAIN + ["--variants", "plain,remat,fused"]),
+        ("bench_train pixels", "bench_train", SCRIPTS_PIXELS + ["--variants",
+                                                                "pixels,finetunegrp"]),
+        ("bench_serve", "bench_serve", SCRIPTS_SERVE),
+        ("bench_precompute", "bench_precompute", SCRIPTS_PRECOMPUTE),
+        ("probe_serving_batch", "probe_serving_batch", SCRIPTS_PROBE),
+        ("profile_vit", "profile_vit", SCRIPTS_VIT),
+        ("paper_dims_run generate", "paper_dims_run",
+         ["generate", "--root", os.path.join(tmp, "paper")] + SCRIPTS_PAPER[0]),
+        ("paper_dims_run train", "paper_dims_run",
+         ["train", "--root", os.path.join(tmp, "paper")] + SCRIPTS_PAPER[1]),
+        ("ft_accuracy_ab", "ft_accuracy_ab", ["--root", os.path.join(tmp, "ft_ab")]
+         + SCRIPTS_FT_AB),
+    ]
+    # three lanes of runs that share nothing (the training bench; the
+    # serving and backbone scripts; the experiments, generate before train),
+    # SCRIPTS_LANES of them at once: each script spends 15-20 s starting and
+    # probing the card before its work
+    lanes = [runs[:3], runs[3:7], runs[7:]]
+
+    def run_lane(lane):
+        out = []
+        for label, module, argv in lane:
+            argv = argv + ([] if module == "paper_dims_run" and argv[0] == "generate"
+                           else dev_flag)
+            out.append((label, module) + run_script_json(module, argv))
+        return out
+
+    from concurrent.futures import ThreadPoolExecutor
+    launches: dict = {}
+    lines: dict = {}
+    failed = []
+    try:
+        with ThreadPoolExecutor(SCRIPTS_LANES) as ex:
+            done = [r for lane in ex.map(run_lane, lanes) for r in lane]
+        for label, module, rc, line, err, secs in done:
+            lines[label] = line
+            faults = []
+            if label == "paper_dims_run generate":
+                if rc != 0 or not os.path.exists(os.path.join(tmp, "paper", "shard_int8",
+                                                              "features.npy")):
+                    faults.append(f"rc {rc}, no int8 shard")
+            elif line is None or "error" in line:
+                faults.append(f"rc {rc}, line {line}")
+            else:
+                if line.get("device") != kind:
+                    faults.append(f"device {line.get('device')!r}, not {kind!r}")
+                if label == "paper_dims_run train":
+                    # the learnability criterion is not reachable in 2
+                    # epochs: the exit code must say whether it was met
+                    if rc != (0 if line["criterion"]["met"] else 1) or \
+                            line["epochs_run"] < 1 or not line["value"] >= 0:
+                        faults.append(f"rc {rc}, line {line}")
+                elif label == "ft_accuracy_ab":
+                    arms = line.get("arms", {})
+                    gb = [h["grad_norm_backbone"] for h in arms.get("finetune", {})
+                          .get("history", [])]
+                    if rc != 0 or line.get("value") is None or not gb or min(gb) <= 0:
+                        faults.append(f"rc {rc}, value {line.get('value')}, finetune "
+                                      f"grad_norm_backbone {gb}")
+                elif rc != 0 or not line.get("value", 0) > 0:
+                    faults.append(f"rc {rc}, value {line.get('value')}")
+                if module == "bench_train":
+                    faults += train_launch_faults(line)
+                elif module in ("bench_serve", "probe_serving_batch", "profile_vit"):
+                    got = line.get("launches", {})
+                    if on_card and not (got.get("lstm_encode", 0) > 0
+                                        and got.get("rau_hops", 0) > 0):
+                        faults.append(f"the serving kernels were not launched: {got}")
+                for n, c in (line.get("launches") or {}).items():
+                    launches[n] = launches.get(n, 0) + c
+            print(json.dumps({"script": label, **(line or {})}), flush=True)
+            log(f"scripts: {label}: rc {rc}, {secs:.1f} s (preflight "
+                f"{(line or {}).get('preflight_s')} s, body {(line or {}).get('body_s')} s), "
+                f"launches {(line or {}).get('launches')} [{card}]")
+            for ln in err.strip().splitlines()[-12:]:
+                log(f"scripts: {label} | {ln[:300]}")
+            if faults:
+                log(f"scripts: {label} stderr tail:\n{err}")
+                failed.append(f"{label}: " + "; ".join(faults))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"scripts_phase_s={time.perf_counter() - t_phase:.1f} ({SCRIPTS_LANES} lanes at once; "
+        f"the scripts' own {sum(r[-1] for r in done):.1f} s) [{card}]")
+    if failed:
+        raise SystemExit("scripts phase failed: " + " | ".join(failed))
+    return {"launches": launches, "lines": lines}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4870,6 +5065,10 @@ def main() -> int:
     with watchdog(300, "the variants phase"):
         variants = variants_phase(args.seed, card)
     log("phase variants: ok")
+    # 16. the measurement and experiment scripts, each as a user runs it
+    with watchdog(900, "the scripts phase"):
+        scripts = scripts_phase(args.seed, card)
+    log("phase scripts: ok")
 
     s2 = stage_ms[2]
     kernels = [
@@ -5006,7 +5205,8 @@ def main() -> int:
     for k in kernels:
         k["mesh_launches"] = mesh_launches.get(k["name"], 0)
         k["variants_launches"] = variants["launches"].get(k["name"], 0)
-        k["launches"] += k["mesh_launches"] + k["variants_launches"]
+        k["scripts_launches"] = scripts["launches"].get(k["name"], 0)
+        k["launches"] += k["mesh_launches"] + k["variants_launches"] + k["scripts_launches"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import os
 import sys
 import time
@@ -130,22 +129,17 @@ def result_line(metric: str, per_round: float, times: List[float], K: int, flops
 
 
 def run_bench(metric: str, device: torch.device, body: Callable[[], Dict]) -> int:
-    """Arm the watchdog, probe the card, run ``body`` and print its line
-    (kept as a record on the card); exit code 3 with the error line when
-    the card is absent or hung."""
-    from rau_vqa_tpu_torch.utils.rigcheck import bench_preflight, bench_watchdog, record
+    """``body`` without autograd under the scripts' harness
+    (``scripts/_common.py`` ``run_script``: the watchdog, the card's
+    preflight, the line printed and kept as a record on the card; exit code
+    3 with the error line when the card is absent or hung)."""
+    from rau_vqa_tpu_torch.scripts._common import run_script
 
-    watchdog = bench_watchdog(metric, UNIT)
-    try:
-        bench_preflight(metric, UNIT, device)
+    def no_grad_body() -> Dict:
         with torch.no_grad():
-            line = body()
-    finally:
-        watchdog.cancel()
-    print(json.dumps(line), flush=True)
-    if device.type == "cuda":
-        record(line)
-    return 0
+            return body()
+
+    return run_script(metric, UNIT, device, no_grad_body)
 
 
 def main(argv=None) -> int:

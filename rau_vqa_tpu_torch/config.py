@@ -55,6 +55,10 @@ class ModelConfig:
     # package defaults to "xla" only because its Pallas backward compiles
     # pathologically under Mosaic (rau_vqa_tpu/ops/rau_train_hops.py:619-625);
     # nvcc builds the CUDA backward in seconds, so the port defaults to it.
+    # "reference" runs the whole fused hop loop, its forward too, as the
+    # plain version under autograd on any device: the JAX package's
+    # fused_train_impl="reference", which the training bench's maskref
+    # variant times to part the kernels' cost from the masks'
     fused_train_bwd: str = "kernel"
     # unfused path: recompute each hop in the backward instead of saving its
     # [B, S, M]-sized activations (torch.utils.checkpoint)

@@ -22,7 +22,8 @@ where a train step spends its work.  ``rau_train_hops`` runs it fused:
   masked in its epilogue); the JAX package's Pallas backward returns zeros
   there (:649, :664), its plain autodiff on the CPU does not.
   ``fused_train_bwd="xla"`` instead runs autograd through
-  ``rau_train_hops_reference``.
+  ``rau_train_hops_reference``; ``"reference"`` runs the forward there too,
+  with no kernel (the training bench's ``maskref``).
 
 CPU tensors run the kernels' plain versions (``train_hops_fwd_reference``,
 ``train_hops_bwd_reference``); CUDA tensors launch the kernels or raise.
@@ -134,8 +135,8 @@ def check_fused_config(cfg: ModelConfig) -> None:
             "fused training path supports the reference configuration "
             "(1-layer ATTLSTM, no att_rnn_dropout): use fused_train=False")
     dot_dtype(cfg)
-    if cfg.fused_train_bwd not in ("kernel", "xla"):
-        raise ValueError(f"fused_train_bwd must be 'kernel' or 'xla', got "
+    if cfg.fused_train_bwd not in ("kernel", "xla", "reference"):
+        raise ValueError(f"fused_train_bwd must be 'kernel', 'xla' or 'reference', got "
                          f"{cfg.fused_train_bwd!r}")
 
 
@@ -935,6 +936,8 @@ def rau_train_hops(mp: Dict, cfg: ModelConfig, q, feats, seed, row0: int = 0):
     microbatch's rows of a sharded step).  Products in
     ``cfg.compute_dtype``."""
     check_fused_config(cfg)
+    if cfg.fused_train_bwd == "reference":
+        return rau_train_hops_reference(mp, cfg, q, feats, seed, row0)
     seed = _seed_tensor(seed, q.device)
     weights = [pluck(mp, p) for p in _FWD_WEIGHTS]
     return _FusedTrainHops.apply(cfg, int(row0), seed, q, feats, *weights)

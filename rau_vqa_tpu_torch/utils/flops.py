@@ -119,6 +119,62 @@ def train_hop_flops(cfg):
     return fwd, bwd
 
 
+def train_step_flops(cfg, B: int, T: int, *, backbone=None, size: int = 0,
+                     n_images: int = 0, train_backbone: bool = False,
+                     backbone_remat: bool = False, vit_cfg=None) -> int:
+    """One train step of ``B`` questions on a token axis of ``T``: the
+    products its forward and backward run, as ``make_train_step`` computes
+    them (``grad_accum`` splits the rows and changes nothing here).
+
+    The forward: the encoder over all ``T`` tokens of every row, then each
+    hop's ``train_hop_flops`` forward, which holds its image embedding (a
+    training hop re-embeds the features under its own masks) and the
+    classifier; the metrics add the select aggregate over the hops
+    (``select_aggregate``'s product, none at one hop).  The backward takes
+    twice the forward, less what nothing needs: ``do_pred``'s product (no
+    loss term reads it, reference :565-567), and the input gradients of the
+    features (they require no grad unless the backbone is trained), of the
+    zero states entering the first hop and of the encoder's first token.
+    ``cfg.remat_hops`` adds one more hop forward
+    a hop; so does the fused hop loop, whose backward rematerializes each
+    hop from its carries (the ``"kernel"`` and ``"xla"`` backwards; the
+    ``"reference"`` one is plain autograd).
+
+    ``backbone`` with ``n_images`` images at ``size`` px: frozen (the
+    ``pixels`` bench) adds their forward; ``train_backbone`` adds forward and
+    backward, less the first layer's input gradient (the pixels require no
+    grad), and ``backbone_remat`` one more forward of every checkpointed
+    block (VGG16's stem is inside its first checkpointed stage, ResNet's and
+    the ViT's patch embedding are not)."""
+    E, R, L = cfg.embed_dim, cfg.rnn_size, cfg.rnn_layers
+    S, Dc, M = cfg.cnn_spat, cfg.cnn_dim, cfg.multfeat_dim
+    Ra, H = cfg.att_rnn_size, cfg.n_hops
+    enc = T * lstm_step_flops(cfg)
+    hop = train_hop_flops(cfg)[0]
+    fwd = B * (enc + H * hop)
+    skipped = B * (L * 2 * 4 * R * R                       # the encoder's h at t = 0
+                   + 2 * (Ra * M + Ra * cfg.cnn_spat + Ra * 4 * Ra))   # the first hop's h
+    feats_grad = train_backbone and backbone is not None
+    if not feats_grad:
+        skipped += B * H * 2 * S * Dc * M
+    skipped += B * H * 2 * 2 * M                          # do_pred's dX and dW
+    total = 3 * fwd - skipped
+    if H > 1:
+        total += 2 * H * B * cfg.answer_size               # the metrics' select_pred
+    if cfg.remat_hops or (cfg.fused_train and cfg.fused_train_bwd != "reference"):
+        total += B * H * hop
+    if backbone is not None and n_images:
+        per = backbone_flops(backbone, size, vit_cfg)
+        stem = backbone_stem_flops(backbone, size, vit_cfg)
+        if not train_backbone:
+            total += n_images * per
+        else:
+            total += n_images * (3 * per - stem)
+            if backbone_remat:
+                total += n_images * (per - (0 if backbone == "vgg16" else stem))
+    return int(total)
+
+
 # ---------------------------------------------------------------------------
 # backbones
 # ---------------------------------------------------------------------------
@@ -176,6 +232,23 @@ def vit_flops(cfg) -> float:
     M = int(D * cfg.mlp_ratio)
     block = 2.0 * S * D * (3 * D + D + 2 * M) + 2 * 2.0 * S * S * D
     return 2.0 * S * P * P * 3 * D + cfg.depth * block
+
+
+def backbone_stem_flops(backbone: str, size: int, vit_cfg=None) -> float:
+    """The named backbone's first layer an image at ``size`` px (the one whose
+    input, the pixels, needs no gradient): VGG16's first 3x3 convolution,
+    ResNet's 7x7/2 stem, the ViT's patch embedding."""
+    if backbone == "resnet101":
+        side = -(-size // 2)
+        return 2.0 * 49 * 3 * 64 * side * side
+    if backbone == "vgg16":
+        from rau_vqa_tpu_torch.models.backbones.vgg import VGG16_CFG
+        return 2.0 * 9 * 3 * VGG16_CFG[0] * size * size
+    if backbone == "vit":
+        from rau_vqa_tpu_torch.models.backbones.vit import VIT_L14
+        cfg = vit_cfg or VIT_L14
+        return 2.0 * cfg.seq * cfg.patch * cfg.patch * 3 * cfg.dim
+    raise ValueError(f"unknown backbone {backbone!r}")
 
 
 def backbone_flops(backbone: str, size: int, vit_cfg=None) -> float:

@@ -1051,3 +1051,30 @@ def test_two_rank_dp_step_on_one_card(cuda_device, tmp_path):
     np.testing.assert_allclose(got["losses"][-1], want_losses[-1], rtol=2e-4)
     torch.testing.assert_close(got["params"]["mult"]["cls"]["w"].cpu(),
                                want.params["mult"]["cls"]["w"].cpu(), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("f32", [True, False], ids=["float32", "bf16"])
+def test_bench_train_fused_launches_match_its_steps(cuda_device, f32):
+    """``bench_train --variants fused`` at B=8 as a user runs it: exit 0, a
+    positive ms a step, the card's name, and its type's forward and backward
+    kernels launched once a warm and a timed step (3 steps x (1 + 2 rounds)),
+    no other training kernel."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from chip_smoke import train_launch_faults
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-m", "rau_vqa_tpu_torch.scripts.bench_train",
+                           "--batch", "8", "--variants", "fused", "--steps", "3", "--rounds",
+                           "2"] + (["--f32"] if f32 else []), cwd=repo, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["metric"] == "train_ms_per_step" and line["value"] > 0
+    assert line["device"] == torch.cuda.get_device_name(0) and line["mfu"]["fused_b8"] > 0
+    assert line["steps_by_variant"] == {"fused_b8": 9}
+    assert train_launch_faults(line) == []
+    fwd = "train_hops_fwd" if f32 else "train_hops_fwd_bf16"
+    assert line["launches"][fwd] == 9

@@ -1,5 +1,6 @@
 """The port stands alone: no module of rau_vqa_tpu_torch, and neither
-chip_smoke.py nor a root bench_torch*.py script, imports JAX, Flax or anything of the JAX package (checked on
+chip_smoke.py nor a root bench_torch*.py script, imports JAX, Flax, anything of the JAX package or
+the JAX side's scripts/ (checked on
 the source, so lazy imports inside functions count too), nor torchvision or
 timm: their state dicts are read as dicts from local files.  The packages the
 card's machine lacks are imported only inside the functions that need them."""
@@ -12,7 +13,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "rau_vqa_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", *sorted(ROOT.glob("bench_torch*.py"))]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rau_vqa_tpu", "torchvision", "timm")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rau_vqa_tpu", "torchvision", "timm",
+             "scripts")
 
 
 def imported_modules(path):
@@ -41,7 +43,11 @@ def test_sources_found():
             "layout_diag.py", "visatt.py", "export.py", "chain.py", "benchparams.py",
             "doctor.py", "dashboard.py", "file_utils.py", "flops.py", "bench.py",
             "bench_pixels.py", "bench_torch.py", "bench_torch_pixels.py",
-            "bench_torch_train_hops.py", "mesh.py"} <= names
+            "bench_torch_train_hops.py", "mesh.py", "bench_torch_train.py",
+            "bench_train.py", "bench_serve.py", "bench_precompute.py",
+            "probe_serving_batch.py", "profile_vit.py", "paper_dims_run.py",
+            "ft_accuracy_ab.py", "_common.py"} <= names
+    assert (ROOT / "rau_vqa_tpu_torch" / "scripts" / "__init__.py") in SOURCES
     assert (ROOT / "rau_vqa_tpu_torch" / "models" / "backbones" / "__init__.py") in SOURCES
     assert (ROOT / "rau_vqa_tpu_torch" / "parallel" / "__init__.py") in SOURCES
 
@@ -62,6 +68,7 @@ OPTIONAL = {"h5py": set(),
                     ("images.py", "decode_scale_center_crop"),
                     ("images.py", "_load_one"),
                     ("serve.py", "_decode_image"),
+                    ("bench_precompute.py", "make_images"),
                     ("chip_smoke.py", "serve_phase")},
             "matplotlib": {("plots.py", "render_curves")},
             "msgpack": set()}

@@ -298,17 +298,30 @@ Phases, in order; any failure exits non-zero:
               ``bench_serve`` (8 clients x 5 requests, 10 unloaded);
               ``bench_precompute`` (VGG16, 64 images); ``probe_serving_batch``
               (B 512 and 2048, K=3); ``profile_vit`` (B=8); ``paper_dims_run``
-              ``generate`` and 2 epochs of ``train``; ``ft_accuracy_ab``
-              (2 epochs); three lanes of them at once (the training
-              bench; the serving and backbone scripts; the experiments), so
-              their times are readings under contention.  Gates: each exits 0 (``paper_dims_run train`` 1
-              where its criterion is unmet, as its contract says), its last
-              line has its ``metric``, a value > 0 (``ft_ab_gap``: a value,
-              and the fine-tuned arm's backbone gradient alive), no
-              ``error``, and names the card; each fused variant launched its
-              type's forward and backward kernels once a warm and a timed
-              step, no unfused variant any; the serving scripts launched
-              both serving kernels.  Each line is printed; the ``kernels``
+              ``generate`` at the JAX package's run 4 flags with 1,024 images
+              a split (run 4: 4,096) and ``train`` at its flags cut to 12
+              epochs in two arms, the preset's unfused hops (P) and
+              ``--fused-train`` (F), each in a lane of its own after
+              ``generate``; ``ft_accuracy_ab`` at the JAX rig's recipe cut
+              to 1 head-only and 2 epochs an arm of 96 questions; four lanes of them at once (the training
+              bench; the serving and backbone scripts; ``generate`` and arm
+              P; the A/B and arm F), so their times are readings under
+              contention.
+              Gates: each exits 0 (``paper_dims_run train`` 1 where its
+              criterion is unmet, as its contract says), its last line has
+              its ``metric``, a value > 0 (the A/B's gap: a value), no
+              ``error``, and names the card; each fused variant launched
+              its type's forward and backward kernels once a warm and a
+              timed step, no unfused variant any; the serving scripts
+              launched both serving kernels; each paper-dims arm's best
+              held-out best-hop accuracy reaches 0.15 (run 4: 0.207 at
+              epoch 10, 0.313 at 12; chance 0.005), its eval sweeps
+              launched both serving kernels, arm F each bf16 training
+              kernel once a step and no other, arm P none; the A/B's
+              fine-tuned arm has a live backbone gradient every epoch and
+              a moved backbone, its frozen arm an unmoved one, and both
+              arms start from the same head (a digest of its parameters).
+              Each line is printed; the ``kernels``
               line's ``scripts_launches`` are the lines' ``launches``.
 
 Prints each number beside the card's name and power limit, a ``kernels``
@@ -3764,7 +3777,7 @@ def variants_phase(seed: int, card: str) -> dict:
 
 SCRIPTS_DEVICE = "cuda"      # a CPU rehearsal sets "cpu" (and the flags below)
 SCRIPTS_TIMEOUT = 300        # seconds a script may run
-SCRIPTS_LANES = 3            # lanes of scripts run at once (1: one script at a time)
+SCRIPTS_LANES = 4            # lanes of scripts run at once (1: one script at a time)
 SCRIPTS_TRAIN = ["--batch", "100", "--steps", "3", "--rounds", "2"]
 SCRIPTS_PIXELS = ["--preset", "ours_resnet", "--batch", "48", "--qpi", "3", "--steps", "2",
                   "--rounds", "1"]
@@ -3772,9 +3785,19 @@ SCRIPTS_SERVE = ["--clients", "8", "--requests", "5", "--unloaded", "10"]
 SCRIPTS_PRECOMPUTE = ["--backbone", "vgg16", "--n", "64"]
 SCRIPTS_PROBE = ["--batches", "512,2048", "--rounds", "1", "--chain", "3"]
 SCRIPTS_VIT = ["--batch", "8", "--chain", "2", "--rounds", "1"]
-SCRIPTS_PAPER = (["--n-train", "1024", "--n-test", "512", "--n-images", "64"],
-                 ["--epochs", "2", "--batch-size", "256"])
-SCRIPTS_FT_AB = ["--epochs", "2", "--n-train", "64", "--n-test", "32"]
+# paper_dims_run at the JAX package's run 4 flags (dense class codes,
+# 12,800 / 2,048 questions, B=512, bf16, flat lr 4e-3), cut to 12 epochs and
+# to 1,024 images a split (run 4: 4,096); each arm's best held-out best-hop
+# accuracy must reach SCRIPTS_PAPER_MIN_OE (run 4: 0.207 at epoch 10, 0.313
+# at 12; chance 0.005)
+SCRIPTS_PAPER = (["--class-code", "dense", "--n-images", "1024"],
+                 ["--lr", "4e-3", "--lr-decay", "1.0", "--epochs", "12"])
+SCRIPTS_PAPER_MIN_OE = 0.15
+# ft_accuracy_ab at the JAX rig's recipe (tiny ViT, 8 texture classes, a
+# head-only warm start both arms restore), cut to 1 + 2 epochs of 96 questions
+SCRIPTS_FT_AB = ["--backbone", "vit", "--image-mode", "texture", "--n-classes", "8",
+                 "--head-warmup", "1", "--epochs", "2", "--lr", "3e-3", "--batch-size", "16",
+                 "--n-train", "96", "--n-test", "32"]
 TRAIN_KERNEL_NAMES = ("train_hops_fwd", "train_hops_bwd", "train_hops_fwd_bf16",
                       "train_hops_bwd_bf16", "train_hops_bwd_dfeats",
                       "train_hops_bwd_dfeats_bf16")
@@ -3826,6 +3849,56 @@ def train_launch_faults(line) -> list:
     return faults
 
 
+def paper_faults(line, rc, on_card: bool, fused: bool) -> list:
+    """A ``paper_dims_run train`` arm's gates: the exit code says whether the
+    criterion was met; the best held-out best-hop accuracy reaches
+    ``SCRIPTS_PAPER_MIN_OE``; the line names the route; every eval sweep ran
+    the serving kernels; arm F launched each bf16 training kernel once a
+    step (every dispatched step of an aborted epoch too) and no other
+    training kernel, arm P none."""
+    faults = []
+    if rc != (0 if line["criterion"]["met"] else 1) or line["epochs_run"] < 1:
+        faults.append(f"rc {rc}, criterion {line['criterion']}, epochs {line['epochs_run']}")
+    if not line["value"] >= SCRIPTS_PAPER_MIN_OE:
+        faults.append(f"best held-out {line['value']} < {SCRIPTS_PAPER_MIN_OE} in "
+                      f"{line['epochs_run']} epochs")
+    if line.get("fused_train") is not fused:
+        faults.append(f"fused_train {line.get('fused_train')}, not {fused}")
+    if on_card:
+        got = line.get("launches", {})
+        steps = sum(h["steps"] for h in line["history"])
+        train = {n: got.get(n, 0) for n in TRAIN_KERNEL_NAMES if got.get(n, 0)}
+        want = ("train_hops_fwd_bf16", "train_hops_bwd_bf16") if fused else ()
+        ok = set(train) == set(want) and all(
+            train[n] == steps if not line["aborted_epochs"] else train[n] >= steps
+            for n in want)
+        if not ok:
+            faults.append(f"training launches {train} over {steps} steps "
+                          f"({line['aborted_epochs']} aborted epochs), want {want} each")
+        if not (got.get("lstm_encode", 0) > 0 and got.get("rau_hops", 0) > 0):
+            faults.append(f"the eval sweeps did not launch the serving kernels: {got}")
+    return faults
+
+
+def ft_ab_faults(line, rc) -> list:
+    """The A/B's gates: it ran to its line; the fine-tuned arm's backbone
+    gradient was alive every epoch and its backbone moved; the frozen arm's
+    backbone did not move; both arms started from the same head."""
+    faults = []
+    arms = line.get("arms", {})
+    tuned, frozen = arms.get("finetune", {}), arms.get("frozen", {})
+    gb = [h["grad_norm_backbone"] for h in tuned.get("history", [])]
+    if rc != 0 or line.get("value") is None or not gb or min(gb) <= 0:
+        faults.append(f"rc {rc}, value {line.get('value')}, finetune grad_norm_backbone {gb}")
+    if frozen.get("backbone_max_change") != 0 or not tuned.get("backbone_max_change", 0) > 0:
+        faults.append(f"backbone change: frozen {frozen.get('backbone_max_change')}, "
+                      f"finetune {tuned.get('backbone_max_change')}")
+    if "head_warmup" in arms and tuned.get("head_start_sha1") != frozen.get("head_start_sha1"):
+        faults.append(f"the arms started from different heads: {tuned.get('head_start_sha1')} "
+                      f"against {frozen.get('head_start_sha1')}")
+    return faults
+
+
 def scripts_phase(seed: int, card: str) -> dict:
     """16. scripts: the port's measurement and experiment scripts
     (``rau_vqa_tpu_torch/scripts/``), each run as a subprocess at cut flags;
@@ -3855,22 +3928,33 @@ def scripts_phase(seed: int, card: str) -> dict:
         ("paper_dims_run generate", "paper_dims_run",
          ["generate", "--root", os.path.join(tmp, "paper")] + SCRIPTS_PAPER[0]),
         ("paper_dims_run train", "paper_dims_run",
-         ["train", "--root", os.path.join(tmp, "paper")] + SCRIPTS_PAPER[1]),
+         ["train", "--root", os.path.join(tmp, "paper"), "--workdir",
+          os.path.join(tmp, "paper", "run_P")] + SCRIPTS_PAPER[1]),
+        ("paper_dims_run train --fused-train", "paper_dims_run",
+         ["train", "--root", os.path.join(tmp, "paper"), "--workdir",
+          os.path.join(tmp, "paper", "run_F"), "--fused-train"] + SCRIPTS_PAPER[1]),
         ("ft_accuracy_ab", "ft_accuracy_ab", ["--root", os.path.join(tmp, "ft_ab")]
          + SCRIPTS_FT_AB),
     ]
-    # three lanes of runs that share nothing (the training bench; the
-    # serving and backbone scripts; the experiments, generate before train),
-    # SCRIPTS_LANES of them at once: each script spends 15-20 s starting and
-    # probing the card before its work
-    lanes = [runs[:3], runs[3:7], runs[7:]]
+    # four lanes of runs, SCRIPTS_LANES of them at once (each script spends
+    # 15-20 s starting and probing the card before its work): the training
+    # bench; the serving and backbone scripts; generate, then arm P; the
+    # A/B, then arm F, which waits for generate's data
+    lanes = [runs[:3], runs[3:7], runs[7:9], [runs[10], runs[9]]]
+    generated = threading.Event()
 
     def run_lane(lane):
         out = []
         for label, module, argv in lane:
+            if label == "paper_dims_run train --fused-train":
+                generated.wait()
             argv = argv + ([] if module == "paper_dims_run" and argv[0] == "generate"
                            else dev_flag)
-            out.append((label, module) + run_script_json(module, argv))
+            try:
+                out.append((label, module) + run_script_json(module, argv))
+            finally:
+                if label == "paper_dims_run generate":
+                    generated.set()
         return out
 
     from concurrent.futures import ThreadPoolExecutor
@@ -3892,19 +3976,10 @@ def scripts_phase(seed: int, card: str) -> dict:
             else:
                 if line.get("device") != kind:
                     faults.append(f"device {line.get('device')!r}, not {kind!r}")
-                if label == "paper_dims_run train":
-                    # the learnability criterion is not reachable in 2
-                    # epochs: the exit code must say whether it was met
-                    if rc != (0 if line["criterion"]["met"] else 1) or \
-                            line["epochs_run"] < 1 or not line["value"] >= 0:
-                        faults.append(f"rc {rc}, line {line}")
+                if label.startswith("paper_dims_run train"):
+                    faults += paper_faults(line, rc, on_card, "--fused-train" in label)
                 elif label == "ft_accuracy_ab":
-                    arms = line.get("arms", {})
-                    gb = [h["grad_norm_backbone"] for h in arms.get("finetune", {})
-                          .get("history", [])]
-                    if rc != 0 or line.get("value") is None or not gb or min(gb) <= 0:
-                        faults.append(f"rc {rc}, value {line.get('value')}, finetune "
-                                      f"grad_norm_backbone {gb}")
+                    faults += ft_ab_faults(line, rc)
                 elif rc != 0 or not line.get("value", 0) > 0:
                     faults.append(f"rc {rc}, value {line.get('value')}")
                 if module == "bench_train":

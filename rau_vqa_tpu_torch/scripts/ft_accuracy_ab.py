@@ -21,13 +21,17 @@ Prints one JSON line: ``metric`` ft_ab_gap (the fine-tuned arm's best
 held-out best-hop accuracy less the frozen arm's), the JAX script's keys
 (``frozen_best_test_acc``, ``finetune_best_test_acc``, ``chance``, ``arms``
 with each epoch's history, ...), ``launches``, ``device``, ``power_limit_w``
-and the canary; and writes it to ``<root>/result.json``.
+and the canary; and writes it to ``<root>/result.json``.  Each arm also
+carries ``head_start_sha1``, a digest of the head's parameters as the arm
+starts (equal in both arms after a warm start), and ``backbone_max_change``,
+the largest change of a backbone weight over the arm (0 when frozen).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses as dc
+import hashlib
 import json
 import os
 import shutil
@@ -109,6 +113,13 @@ def run_arm(name: str, root: str, workdir: str, *, train_backbone: bool, args, d
         # the two-phase recipe: the head's three groups from the head-only
         # snapshot, the backbone from its init
         trainer.restore(warm_start)
+    from rau_vqa_tpu_torch.convert import tree_leaves
+    from rau_vqa_tpu_torch.train.trainer import head_params
+
+    digest = hashlib.sha1()
+    for x in tree_leaves(head_params(trainer.state.params)):
+        digest.update(x.detach().float().cpu().numpy().tobytes())
+    bb_start = [x.detach().float().cpu().clone() for x in tree_leaves(trainer._bb_tree())]
     hist, best, t0 = [], 0.0, time.time()
     for _ in range(args.epochs):
         rec = trainer.train_epoch()
@@ -127,7 +138,10 @@ def run_arm(name: str, root: str, workdir: str, *, train_backbone: bool, args, d
         log(f"[{name}] epoch {trainer.epoch}: held-out {te:.4f} (best {best:.4f}) loss "
             f"{rec.get('loss', float('nan')):.3f}"
             + (f" gB {rec.get('grad_norm_backbone', 0):.4f}" if train_backbone else ""))
+    bb_change = max((float((x.detach().float().cpu() - x0).abs().max())
+                     for x, x0 in zip(tree_leaves(trainer._bb_tree()), bb_start)), default=0.0)
     out = {"name": name, "best_test_acc": round(best, 4), "wall_s": round(time.time() - t0, 1),
+           "head_start_sha1": digest.hexdigest(), "backbone_max_change": bb_change,
            "history": hist}
     if save_final:
         out["snapshot"] = trainer.save()

@@ -13,19 +13,23 @@ clip, 3-group Adam, LR decay) are broken.  Subcommands:
   train    — ``Trainer`` at the ``ours_ms`` recipe (bf16, the guard, length
              buckets, a sweep an epoch) until the criterion (best-hop train
              accuracy >= 0.90 and held-out >= 0.80) or ``--epochs``; exit 1
-             when it is not met;
+             when it is not met.  ``--fused-train`` runs the hop loop through
+             the training kernels (the JAX CLI's switch), else the preset's
+             unfused hops;
   timebox  — the production loop (prefetch, the int8 shard, background
              checkpoints, the guard) for a bounded segment, beside a
              host-only pass over the same loader.
 
     python3 -m rau_vqa_tpu_torch.scripts.paper_dims_run generate [--root DIR] [--n-train 12800]
-    python3 -m rau_vqa_tpu_torch.scripts.paper_dims_run train [--root DIR] [--epochs 20] [--device cpu]
+    python3 -m rau_vqa_tpu_torch.scripts.paper_dims_run train [--root DIR] [--epochs 20]
+        [--fused-train] [--device cpu]
     python3 -m rau_vqa_tpu_torch.scripts.paper_dims_run timebox [--root DIR] [--minutes 35]
 
 ``train`` and ``timebox`` print one JSON line (``paper_dims_best_testOEacc``,
 ``host_pipeline_examples_per_sec``; the JAX script's keys with ``device``,
-``power_limit_w`` and the canary) and write it, with the run's
-``metrics.jsonl``, under ``<root>/results/``.
+``power_limit_w`` and the canary; ``train``'s also ``fused_train`` and each
+epoch's ``history``) and write it, with the run's ``metrics.jsonl``, under
+``<root>/results/``.
 """
 
 from __future__ import annotations
@@ -110,7 +114,8 @@ def build_trainer(args, device):
     lr = getattr(args, "lr", None)
     lr_decay = getattr(args, "lr_decay", None)
     exp = exp.replace(
-        model=dataclasses.replace(exp.model, compute_dtype="bfloat16"),
+        model=dataclasses.replace(exp.model, compute_dtype="bfloat16",
+                                  fused_train=getattr(args, "fused_train", False)),
         train=dataclasses.replace(
             exp.train, batch_size=args.batch_size, max_epochs=args.epochs,
             test_interval=1, checkpoint_interval=args.ckpt_interval,
@@ -142,16 +147,26 @@ def cmd_train(args) -> int:
         trainer, workdir = build_trainer(args, device)
         keys = canary_keys(device)
         best = {"train": 0.0, "test": 0.0, "epoch": 0}
+        history = []
         t0 = time.time()
         for _ in range(args.epochs):
             rec = trainer.train_epoch()
             if rec.get("aborted"):
+                history.append({"epoch": trainer.epoch + 1, "aborted": True,
+                                "steps": rec["steps"], "exploded": rec["exploded"],
+                                "sec": round(rec["sec"], 3)})
                 log("epoch aborted by the explosion guard (restored); continuing")
                 continue
             tr_acc = max((v for k, v in rec.items() if k.startswith("trainacc_")),
                          default=0.0)
             ev = trainer.evaluate(write_submissions=False)
             te_acc = max(ev["testOEacc"])
+            history.append({"epoch": trainer.epoch, "train_acc": round(float(tr_acc), 4),
+                            "test_acc": round(float(te_acc), 4),
+                            "loss": round(float(rec.get("loss", float("nan"))), 4),
+                            "examples_per_sec": round(rec.get("examples_per_sec", 0.0), 1),
+                            "steps": rec["steps"], "sec": round(rec["sec"], 3),
+                            "aborted": False})
             log(f"epoch {trainer.epoch}: best-hop train {tr_acc:.4f} test {te_acc:.4f} loss "
                 f"{rec.get('loss', float('nan')):.4f} "
                 f"({rec.get('examples_per_sec', 0):.0f} ex/s)")
@@ -177,7 +192,10 @@ def cmd_train(args) -> int:
                   "dims": {"vocab": m.vocab_size, "answers": m.answer_size,
                            "rnn": m.rnn_size, "hops": m.n_hops,
                            "feat": [m.cnn_spat, m.cnn_dim]},
-                  "batch_size": args.batch_size, "compute_dtype": "bfloat16",
+                  "batch_size": args.batch_size, "compute_dtype": m.compute_dtype,
+                  "fused_train": m.fused_train,
+                  "aborted_epochs": sum(1 for h in history if h["aborted"]),
+                  "history": history,
                   "launches": {n: c for n, c in launches_since(before).items() if c},
                   **keys}
         with open(os.path.join(out, "learnability.json"), "w") as f:
@@ -272,6 +290,8 @@ def main(argv=None) -> int:
     t.add_argument("--lr-decay", type=float, default=None,
                    help="the preset's 0.9 an epoch overridden (1.0 = flat)")
     t.add_argument("--ckpt-interval", type=int, default=5)
+    t.add_argument("--fused-train", action="store_true",
+                   help="the hop loop through the training kernels (the preset's is unfused)")
     t.add_argument("--budget-s", type=float, default=5400.0)
     add_device_arg(t)
     t.set_defaults(fn=cmd_train)

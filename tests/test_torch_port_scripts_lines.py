@@ -8,7 +8,9 @@ no ``vs_baseline``, and the port's keys (``device`` "cpu" and null
 ``power_limit_w`` and canary on the CPU, ``launches``).  The training
 bench's first case runs through the root wrapper, bench_torch_train.py.
 The two experiment scripts (paper_dims_run, ft_accuracy_ab) run at tiny
-sizes as ``slow`` cases.  repro_table1.sh needs VQA's data, which is not in
+sizes as ``slow`` cases; ``paper_dims_run train`` with and without
+``--fused-train`` also runs in this process, one epoch of two steps at the
+full widths.  repro_table1.sh needs VQA's data, which is not in
 the repository: it is syntax-checked, then run with ``python`` standing in
 for a recorder, and each command it would run is parsed by the port's CLI.
 """
@@ -134,6 +136,42 @@ def test_scripts_refuse_a_missing_card():
     assert "preflight" in line["error"]
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["preset", "fused_train"])
+def test_paper_dims_run_train_takes_fused_train(tmp_path, monkeypatch, capsys, fused):
+    """``train --fused-train`` sets the Trainer's ``fused_train`` (each step
+    then runs the hop loop through the training kernels' wrappers, their
+    plain versions here) and the line says so; without it the preset's
+    unfused hops run.  Tiny data at the full widths: 16 questions, B=8."""
+    from rau_vqa_tpu_torch.models import rau as trau
+    from rau_vqa_tpu_torch.scripts import paper_dims_run
+    from rau_vqa_tpu_torch.train.trainer import Trainer
+
+    root = str(tmp_path / "pd")
+    assert paper_dims_run.main(["generate", "--root", root, "--n-train", "16", "--n-test", "8",
+                                "--n-images", "4", "--class-code", "dense"]) == 0
+    configs, hop_loops = [], []
+    init = Trainer.__init__
+    monkeypatch.setattr(Trainer, "__init__", lambda self, exp, *a, **kw: (
+        configs.append(exp.model), init(self, exp, *a, **kw))[1])
+    fused_loop = trau.rau_train_hops
+    monkeypatch.setattr(trau, "rau_train_hops", lambda *a, **kw: (
+        hop_loops.append(1), fused_loop(*a, **kw))[1])
+    rc = paper_dims_run.main(["train", "--root", root, "--epochs", "1", "--batch-size", "8",
+                              "--lr", "4e-3", "--lr-decay", "1.0", "--train-acc", "0",
+                              "--test-acc", "0", "--device", "cpu"]
+                             + (["--fused-train"] if fused else []))
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and line["criterion"]["met"], line
+    assert [m.fused_train for m in configs] == [fused]
+    assert configs[0].compute_dtype == "bfloat16" and line["compute_dtype"] == "bfloat16"
+    assert line["fused_train"] is fused and line["launches"] == {}
+    assert len(hop_loops) == (2 if fused else 0)      # one a step
+    assert line["aborted_epochs"] == 0 and [h["epoch"] for h in line["history"]] == [1]
+    assert set(line["history"][0]) == {"epoch", "train_acc", "test_acc", "loss",
+                                       "examples_per_sec", "steps", "sec", "aborted"}
+    assert line["history"][0]["steps"] == 2
+
+
 @pytest.mark.slow
 def test_paper_dims_run_subcommands(tmp_path):
     root = str(tmp_path / "pd")
@@ -174,6 +212,8 @@ def test_ft_accuracy_ab_line(tmp_path):
     assert set(line["arms"]) == {"frozen", "finetune"}
     assert line["arms"]["finetune"]["history"][0]["grad_norm_backbone"] > 0
     assert line["arms"]["frozen"]["history"][0]["grad_norm_backbone"] == 0
+    assert line["arms"]["frozen"]["backbone_max_change"] == 0
+    assert line["arms"]["finetune"]["backbone_max_change"] > 0
     assert os.path.exists(tmp_path / "ab" / "result.json")
 
 

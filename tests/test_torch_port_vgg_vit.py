@@ -160,6 +160,28 @@ def test_vit_init_has_the_jax_tree_and_scales():
     assert (gp["['ln_final']['scale']"] == 1).all()
 
 
+def test_vit_init_draws_each_leaf_from_the_jax_distribution():
+    """The fine-tuning A/B's tiny ViT (``ft_accuracy_ab --backbone vit``):
+    over 40 seeds of each package, every leaf's pooled std within 5% of the
+    JAX package's and its mean within 5% of that std; the constant leaves
+    equal.  The two packages' draws differ seed for seed, so a run's
+    frozen backbone is another sample of the same distribution."""
+    cfg = dict(image_size=64, patch=16, dim=16, depth=2, heads=4)
+    want = [by_path(JVT.vit_init(jax.random.PRNGKey(s), JVT.ViTConfig(**cfg)))
+            for s in range(40)]
+    got = [by_path(TVT.vit_init(torch.Generator().manual_seed(s), TVT.ViTConfig(**cfg),
+                                device="cpu")) for s in range(40)]
+    for k in want[0]:
+        w = np.stack([np.asarray(t[k]) for t in want])
+        g = np.stack([t[k].numpy() for t in got])
+        assert g.shape == w.shape, k
+        if w.std() == 0:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+            continue
+        assert abs(g.std() / w.std() - 1) < 0.05, (k, g.std(), w.std())
+        assert abs(g.mean() - w.mean()) < 0.05 * w.std(), (k, g.mean(), w.mean())
+
+
 def test_vit_config_grid():
     assert (TVT.VIT_L14.grid, TVT.VIT_L14.seq, TVT.VIT_L14.dim) == (16, 256, 1024)
     assert (TVT.VIT_B16.grid, TVT.VIT_B16.seq) == (14, 196)

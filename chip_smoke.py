@@ -172,7 +172,7 @@ Phases, in order; any failure exits non-zero:
               (first-step losses within 5e-3, sweep answers >= 0.99 alike,
               trained q/s); ``RAUService(backbone="vgg16")`` answering three
               PNGs by ``image_b64`` as by ``feat_name`` on the float32 shard;
-11. finetune — backbone fine-tuning (under a 300 s watchdog): the
+11. finetune — backbone fine-tuning (under a 450 s watchdog): the
               ``ours_resnet_ft`` preset as shipped (bf16, unfused, no remat,
               'imggroup' groups of 3: B=288 on 96 unique 448 px images, a
               random folded ResNet-101, the RMS interface, Zipf labels) for
@@ -192,7 +192,28 @@ Phases, in order; any failure exits non-zero:
               448 px JPEGs through VGG16 in the 'imggroup' order, its sweep
               with the trained backbone, a snapshot that resumes to the same
               bits, and ``RAUService`` serving it through its own backbone as
-              ``answer_pixels`` answers;
+              ``answer_pixels`` answers; then (4) ViT-L/14 grouped fine-tuning,
+              ``ours_vit`` as ``bench_train --variants finetunegrp`` builds it
+              (bf16, B=144 on 48 unique 224 px images, block remat), 10 steps:
+              the loss falls, grad_norm_backbone > 0 every step, every
+              backbone leaf moves, the first loss within 5% of float32's,
+              remat off at the largest B of {144, 96, 48} that fits and the
+              backbone's grads with remat within 1e-3 of those without;
+              (5) ``ours_resnet_ft`` fused at B=288 (S=196, Dc=2048): the
+              float32 backward with dfeats within 1e-3 of its plain version,
+              the bf16 one at the one-hop dfeats bar, the bf16 forward and
+              backward at eight hops within ``train_bf16_deep_bar``, each
+              plan against its launcher's dry run, the fused step's grads
+              within 5% per leaf of the same step through the plain hop loop
+              (the same masks), and 3 fused steps each launching the bf16
+              forward and the bf16 backward with dfeats once; (6)
+              ``Trainer.fit`` for 3 epochs, ``ours_resnet_ft`` on the
+              fixture's 448 px JPEGs (576 questions on 192 images, 2 steps an
+              epoch), unfused and fused, under deterministic algorithms: no
+              epoch aborts, grad_norm_backbone > 0, every group's rate
+              decays by 0.9 an epoch, each sweep runs both serving kernels,
+              and epoch 3 resumed from epoch 2's snapshot is bit for bit the
+              uninterrupted one;
 12. workflow — the paper's workflow through ``rau_vqa_tpu_torch.cli``'s
               ``main`` (under a 600 s watchdog): fabricated official VQA v1
               JSONs (two train2014 sources, ~6,000 questions on 300 images
@@ -1938,6 +1959,543 @@ def backbones_phase(seed: int, card: str) -> dict:
     return total
 
 
+# phase 11's sub-phases 4-6: fine-tuning where the port had not run it on the
+# card (a CPU rehearsal patches the sizes below smaller)
+VIT_FT_B = 144                  # path A: 48 unique 224 px images, 3 questions each
+VIT_FT_REMAT_OFF_B = (144, 96, 48)   # remat off: the largest of these that fits
+FIT_EPOCHS = 3                  # path C: Trainer.fit's epochs a route
+FIT_SPEC = dict(n_train=576, n_test=166, n_images=192)   # 2 steps of 288 an epoch
+
+
+def ft_inputs(cfg, B, n_images, side, s, rs, dev):
+    """A fine-tuning batch: B questions (full length), ``n_images`` uint8
+    images of ``side`` px from seed ``s``, Zipf labels over 10 answers."""
+    zipf = 1.0 / np.arange(1, 11)
+    tokens, lengths, _ = make_batch(dataclasses.replace(cfg, cnn_dim=1), B, cfg.seq_len, rs,
+                                    dev)
+    images = torch.randint(0, 256, (n_images, side, side, 3), dtype=torch.uint8, device=dev,
+                           generator=torch.Generator(dev).manual_seed(s))
+    labels = torch.as_tensor(rs.choice(10, B, p=zipf / zipf.sum()), device=dev)
+    return tokens, lengths, images, labels
+
+
+def trees_moved(a, b):
+    """(leaves of ``a`` that differ from ``b``'s, leaves)."""
+    from rau_vqa_tpu_torch.convert import tree_leaves
+    leaves = list(zip(tree_leaves(a), tree_leaves(b)))
+    return sum(1 for x, y in leaves if not torch.equal(x, y)), len(leaves)
+
+
+def step_peak(step, state, batch):
+    """(the state and metrics of one step, its ms, its peak device memory in
+    MB above what was held before it)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, *batch)
+    torch.cuda.synchronize()
+    return state, m, (time.perf_counter() - t0) * 1e3, \
+        (torch.cuda.max_memory_allocated() - held) / 1e6
+
+
+def vit_finetune_subphase(seed: int, card: str, rs, failed: list) -> dict:
+    """Phase 11 (4), path A: ViT-L/14 grouped fine-tuning, ``ours_vit`` as
+    ``bench_train --preset ours_vit --variants finetunegrp`` builds it (bf16,
+    the preset's unfused hops, ``train_backbone`` with block remat, B=144 on
+    48 unique 224 px images, a random ViT-L/14 from the seed): 10 steps on one
+    batch, then remat off at the largest B of ``VIT_FT_REMAT_OFF_B`` that
+    fits.  Gates: the loss falls, ``grad_norm_backbone`` > 0 every step,
+    every backbone leaf moves (the trust-ratio cap bounds each leaf's update
+    to tau (|w| + 1e-3) > 0), the first loss within 5% of the float32
+    step's, the backbone's grads with remat within 1e-3 norm-relative per
+    leaf of those without at a B both fit."""
+    from rau_vqa_tpu_torch.config import get_train_preset
+    from rau_vqa_tpu_torch.convert import tree_leaves
+    from rau_vqa_tpu_torch.models.backbones import vit
+    from rau_vqa_tpu_torch.train.losses import hop_grad_scale
+    from rau_vqa_tpu_torch.train.trainer import (
+        _generator, featurizer, init_train_state, loss_and_grads, make_train_step)
+    from rau_vqa_tpu_torch.utils.flops import train_step_flops
+
+    t_sub = time.perf_counter()
+    dev = torch.device("cuda")
+    mcfg, tcfg = get_train_preset("ours_vit")
+    mcfg = dataclasses.replace(mcfg, compute_dtype="bfloat16")
+    tcfg = dataclasses.replace(tcfg, train_backbone=True, backbone_remat=True)
+    g, B, vcfg = 3, VIT_FT_B, vit.VIT_L14
+    side = vcfg.image_size
+    state0 = init_train_state(mcfg, seed, bb_params=vit.vit_init(
+        torch.Generator().manual_seed(seed + 60), vcfg, device=dev))
+    tokens, lengths, images, labels = ft_inputs(mcfg, B, B // g, side, seed + 61, rs, dev)
+    hop_scale = hop_grad_scale(mcfg.n_hops, scale_by_nhop=tcfg.hop_grad_scale_nhop,
+                               stop_timing=tcfg.hop_stop_timing, epoch=1).to(dev)
+    lrs = (tcfg.learning_rate, tcfg.mult_learning_rate)
+
+    def batch_of(n):
+        return (tokens[:n], lengths[:n], images[:n // g], labels[:n], hop_scale, *lrs)
+
+    def stepper(cfg, remat):
+        return make_train_step(cfg, dataclasses.replace(tcfg, backbone_remat=remat),
+                               backbone="vit", vit_cfg=vcfg, img_repeat=g)
+
+    step = stepper(mcfg, True)
+    batch = batch_of(B)
+    state, hist, step_ms, peak_on = state0, [], [], 0.0
+    for i in range(10):
+        state, m, ms, peak = step_peak(step, state, batch)
+        step_ms.append(ms)
+        if i == 1:
+            peak_on = peak
+        hist.append({k: v.detach() for k, v in m.items()})
+    losses = [m["loss"].item() for m in hist]
+    gnb = [m["grad_norm_backbone"].item() for m in hist]
+    bad = [i for i, m in enumerate(hist) if not all(torch.isfinite(v).all() for v in m.values())]
+    n_moved, n_leaves = trees_moved(state.params["backbone"], state0.params["backbone"])
+    ms = float(np.mean(step_ms[1:]))
+    flops = train_step_flops(mcfg, B, mcfg.seq_len, backbone="vit", size=side, n_images=B // g,
+                             train_backbone=True, backbone_remat=True, vit_cfg=vcfg)
+    log(f"vit_ft losses: " + " ".join(f"{x:.4f}" for x in losses))
+    log(f"vit_ft grad_norm_backbone per step: " + " ".join(f"{x:.3e}" for x in gnb)
+        + f"; backbone leaves moved {n_moved} of {n_leaves}")
+    if bad or not losses[-1] < losses[0] or min(gnb) <= 0 or n_moved < n_leaves:
+        failed.append(f"vit_ft: non-finite steps {bad}, losses {losses[0]:.4f} -> "
+                      f"{losses[-1]:.4f}, grad_norm_backbone {min(gnb):.3e}, moved "
+                      f"{n_moved}/{n_leaves}")
+    busy, top, ops, n_kern, _ = device_profile(lambda: step(state, *batch), iters=2)
+    for name, t in top[:6]:
+        log(f"vit_ft_device_ms={t:.3f} {name[:70]} <- {ops.get(name, 'no op')[:110]}")
+    log(f"vit_ft_step_ms={ms:.2f} remat on (steps 2-10; the first {step_ms[0]:.1f}) B={B} on "
+        f"{B // g} unique {side} px images; trained_q_per_s={B / ms * 1e3:.1f}; "
+        f"{flops / 1e12:.3f} TFLOP a step, mfu {flops / (ms / 1e3) / H100_BF16_FLOPS:.4f}; "
+        f"device busy " + (f"{busy:.2f} ms a step, idle share {1 - busy / ms:.3f}" if busy > 0
+                           else "not measured (the profiler recorded no device time)")
+        + f"; {n_kern:.0f} device kernels a step; peak memory {peak_on:.1f} MB above what the "
+        f"state holds [{card}]")
+    # the first loss against the float32 step's (remat on: the same values)
+    _, m32 = stepper(dataclasses.replace(mcfg, compute_dtype="float32"), True)(state0, *batch)
+    gap = abs(losses[0] - m32["loss"].item()) / abs(m32["loss"].item())
+    log(f"vit_ft first-step loss: bf16 {losses[0]:.6f}, float32 {m32['loss'].item():.6f}, "
+        f"relative gap {gap:.3e} (bar 0.05)")
+    if gap > 0.05:
+        failed.append(f"vit_ft: first-step loss {gap:.3e} from float32's")
+    del m32, hist, state
+    torch.cuda.empty_cache()
+    # remat off: the largest batch that fits, its step and peak memory
+    off = None
+    for Bo in VIT_FT_REMAT_OFF_B:
+        try:
+            step_off = stepper(mcfg, False)
+            st, _, _, _ = step_peak(step_off, state0, batch_of(Bo))
+            st, _, ms_off, peak_off = step_peak(step_off, st, batch_of(Bo))
+            off = (Bo, ms_off, peak_off)
+            del st
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"vit_ft remat off at B={Bo}: out of memory ({str(e)[:120]})")
+            torch.cuda.empty_cache()
+    if off is None:
+        failed.append(f"vit_ft: remat off fits none of B in {VIT_FT_REMAT_OFF_B}")
+    else:
+        Bo, ms_off, peak_off = off
+        # remat's effect at the main path's B: one remat-on step there
+        _, _, ms_on_b, peak_on_b = step_peak(step, state0, batch_of(Bo))
+        log(f"vit_ft remat off at B={Bo} (the largest of {VIT_FT_REMAT_OFF_B} that fits): "
+            f"{ms_off:.2f} ms a step, trained_q_per_s={Bo / ms_off * 1e3:.1f}, peak memory "
+            f"{peak_off:.1f} MB; remat on at B={Bo}: {ms_on_b:.2f} ms, {peak_on_b:.1f} MB "
+            f"[{card}]")
+        # the backbone's grads with remat against without, at B=Bo, one
+        # dropout draw
+        grads = {}
+        for remat in (False, True):
+            fz = featurizer(mcfg, dataclasses.replace(tcfg, backbone_remat=remat), "vit",
+                            vcfg, img_repeat=g)
+            gr, _ = loss_and_grads(mcfg, state0.params, *batch_of(Bo)[:4], hop_scale,
+                                   generator=_generator(dev, state0.seed, 0, 0), featurize=fz)
+            grads[remat] = gr["backbone"]
+            del gr
+        worst = max(norm_rel(a, b) for a, b in zip(tree_leaves(grads[True]),
+                                                    tree_leaves(grads[False])))
+        log(f"vit_ft backbone grads with remat against without at B={Bo}: worst leaf "
+            f"norm-relative {worst:.3e} (bar 1e-3)")
+        if worst > 1e-3:
+            failed.append(f"vit_ft: remat's backbone grads {worst:.3e} from remat off's")
+        del grads
+    del state0, images
+    torch.cuda.empty_cache()
+    log(f"vit_ft_subphase_s={time.perf_counter() - t_sub:.1f} [{card}]")
+    return {"step_ms": ms, "remat_off": off}
+
+
+def resnet_ft_fused_subphase(seed: int, card: str, rs, failed: list, counted: dict) -> dict:
+    """Phase 11 (5), path B: ``ours_resnet_ft`` as shipped (B=288 on 96 unique
+    448 px images, bf16, remat off, a random folded ResNet-101, the RMS
+    interface) with ``fused_train``.  The training kernels at these shapes
+    (B=288, S=196, Dc=2048, M=512, F=256, R=512, Q=1024), each against its
+    plain version on the card: the float32 backward with dfeats per output
+    within 1e-3 and twice bit-equal; the bf16 one at one hop within the
+    backward's bf16 bar for dfeats, and the bf16 forward and backward at
+    eight hops within ``train_bf16_deep_bar``; each plan against its built
+    launcher's dry run and the bf16 kernels' device kernels a call against
+    their plans.  Then the fused step's grads, backbone included, against
+    the step through the fused hop loop's plain version (``maskref``: the
+    same masks) within 5% by norm per leaf; and 3 fused steps, the main
+    path's, each launching ``train_hops_fwd_bf16`` and the bf16 backward with
+    dfeats once and no other training kernel.  Returns the readings and
+    those launches."""
+    from rau_vqa_tpu_torch.config import get_train_preset
+    from rau_vqa_tpu_torch.convert import map_tree, tree_leaves
+    from rau_vqa_tpu_torch.models.backbones import resnet
+    from rau_vqa_tpu_torch.models.rau import init_params
+    from rau_vqa_tpu_torch.ops import rau_train_hops as rth
+    from rau_vqa_tpu_torch.train.losses import hop_grad_scale
+    from rau_vqa_tpu_torch.train.trainer import (
+        _generator, featurizer, init_train_state, loss_and_grads, make_train_step)
+
+    t_sub = time.perf_counter()
+    dev, b16 = torch.device("cuda"), torch.bfloat16
+    mcfg, tcfg = get_train_preset("ours_resnet_ft")
+    mcfgF = dataclasses.replace(mcfg, fused_train=True)
+    tcfg = dataclasses.replace(tcfg, backbone_feat_norm=True)
+    g, B, side = 3, tcfg.batch_size, mcfg.cnn_w * 32
+    state0 = init_train_state(mcfgF, seed, bb_params=resnet.fold_batchnorm(
+        resnet.resnet101_init(torch.Generator().manual_seed(seed + 70), device=dev)))
+    tokens, lengths, images, labels = ft_inputs(mcfgF, B, B // g, side, seed + 71, rs, dev)
+    hop_scale = hop_grad_scale(mcfg.n_hops, scale_by_nhop=tcfg.hop_grad_scale_nhop,
+                               stop_timing=tcfg.hop_stop_timing, epoch=1).to(dev)
+    fz = featurizer(mcfgF, tcfg, "resnet101", img_repeat=g)
+    with torch.no_grad():
+        feats16 = fz(state0.params["backbone"], images).contiguous()
+    feats32 = feats16.float()
+    S, Dc, H = mcfg.cnn_spat, mcfg.cnn_dim, mcfg.n_hops
+    widths = (S, Dc, mcfg.multfeat_dim, mcfg.attfeat_dim, mcfg.att_state_dim, mcfg.rnnout_dim)
+    log(f"resnet_ft fused: kernels at B={B}, S={S}, Dc={Dc}, M={widths[2]}, F={widths[3]}, "
+        f"R={widths[4]}, Q={widths[5]}: P = B*S = {B * S} rows, the features "
+        f"{feats16.numel() * 2 / 1e6:.1f} MB in bf16, dfeats {feats16.numel() * 4 / 1e6:.1f} MB "
+        f"in float32")
+    # the plans against the built launchers' dry runs, both types
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {}
+    for dtp in (torch.float32, b16):
+        fp = rth.fwd_plan(B, *widths, mcfg.answer_size, n_sm, dtp)
+        scratch_f, launches_f = rth.fwd_launcher_plan(B, *widths, mcfg.answer_size, dtp)
+        bp = rth.bwd_plan(B, *widths, n_sm, dtp, True)
+        scratch_b, launches_b = rth.launcher_plan(B, *widths, dtp, bp.chunk_rows, True)
+        if (scratch_f <= 0 or [x[:3] for x in launches_f] != [ph.grid for ph in fp.phases]
+                or scratch_b <= 0
+                or [x[:3] for x in launches_b] != [ph.grid for ph in bp.phases]):
+            failed.append(f"resnet_ft plans {dtp}: the launchers run {launches_f} / "
+                          f"{launches_b}")
+        plans[dtp] = (fp, bp)
+        log(f"resnet_ft plans {dtp}: forward {len(fp.phases)} kernels a hop, scratch "
+            f"{scratch_f} floats; backward with dfeats {len(bp.phases)} kernels a hop, "
+            f"{bp.chunks} K chunks of {bp.chunk_rows} rows, scratch {scratch_b} floats")
+    mp = init_params(mcfgF, torch.Generator().manual_seed(seed + 72), dev)["mult"]
+    q = torch.as_tensor(0.5 * rs.randn(B, mcfg.rnnout_dim).astype(np.float32), device=dev)
+    s = torch.tensor([seed + 73], dtype=torch.int32, device=dev)
+    cfg32 = dataclasses.replace(mcfgF, compute_dtype="float32")
+    _, _, _, c_all, h_all = rth.train_hops_fwd(mp, cfg32, q, feats32, s)
+    gsc = 1e-3 * torch.randn(H, B, mcfg.answer_size, device=dev,
+                             generator=torch.Generator(dev).manual_seed(seed + 74))
+    args = (mp, cfg32, q, feats32, s, c_all, h_all, (gsc @ mp["cls"]["w"].T).contiguous())
+    em, gw = rth.train_hops_bwd(*args, dfeats=True)
+    em2, gw2 = rth.train_hops_bwd(*args, dfeats=True)
+    want_em, want_gw = rth.train_hops_bwd_reference(*args, dfeats=True)
+    torch.cuda.synchronize()
+    errs = {"/".join(map(str, k)): norm_rel(gw[k], want_gw[k]) for k in gw}
+    errs.update({k: norm_rel(em[k], want_em[k]) for k in em})
+    same = (all(torch.equal(gw[k], gw2[k]) for k in gw)
+            and all(torch.equal(em[k], em2[k]) for k in em))
+    log(f"resnet_ft train_hops_bwd dfeats float32 B={B}: dfeats norm-relative "
+        f"{errs['feats']:.3e}, worst of every output {max(errs.values()):.3e} (bar 1e-3); two "
+        f"calls bit-equal {same}")
+    if max(errs.values()) > 1e-3 or not same:
+        failed.append(f"resnet_ft train_hops_bwd dfeats float32: {errs}, bit-equal {same}")
+    del em, em2, gw, gw2, want_em, want_gw
+    rd = {"train_hops_bwd_dfeats": max(errs.values())}
+    ms = {"train_hops_bwd_dfeats": {
+        "ms": time_ms(lambda: rth.train_hops_bwd(*args, dfeats=True), iters=3, warmup=1),
+        "plain_ms": time_ms(lambda: rth.train_hops_bwd_reference(*args, dfeats=True), iters=1,
+                            warmup=1)}}
+    bd = {"train_hops_bwd_dfeats": train_bwd_bound(cfg32, mp, B, dfeats=True)}
+    # bf16: one hop, then the main path's eight (train_bf16_readings)
+    one = train_bf16_readings(rth, dataclasses.replace(mcfgF, n_hops=1), mp, B, rs, dev,
+                              dfeats=True)
+    bar1 = train_bf16_bar("bwd", "feats")
+    r1 = one["bwd"]["feats"]
+    log(f"resnet_ft bf16 B={B}, one hop, norm-relative from the bf16 plain version: kernel / "
+        f"float32 plain: " + "; ".join(
+            f"{kind} " + ", ".join(f"{k} {r['kernel']:.3e} / {r['float32']:.3e}"
+                                   for k, r in per.items()) for kind, per in one.items())
+        + f"; dfeats bar {bar1:.1e}")
+    if not r1["kernel"] <= bar1 < 0.5 * r1["float32"]:
+        failed.append(f"resnet_ft train_hops_bwd_bf16 dfeats one hop: {r1}")
+    t_part = time.perf_counter()
+    deep = train_bf16_readings(rth, mcfgF, mp, B, rs, dev, host=True, dfeats=True)
+    log(f"resnet_ft: the eight-hop readings (the plain version on the host CPU too) in "
+        f"{time.perf_counter() - t_part:.1f} s")
+    for kind, per in deep.items():
+        bars = {k: train_bf16_deep_bar(r) for k, r in per.items()}
+        log(f"resnet_ft train_hops_{kind}_bf16 B={B}, {H} hops, norm-relative from the bf16 "
+            f"plain version: kernel / float32 plain / bf16 plain on the host (bar): " + ", ".join(
+                f"{k} {r['kernel']:.3e} / {r['float32']:.3e} / {r['host']:.3e} ({bars[k]:.3e})"
+                for k, r in per.items()) + f" [{card}]")
+        for k, r in per.items():
+            if not r["kernel"] <= bars[k]:
+                failed.append(f"resnet_ft train_hops_{kind}_bf16 {H} hops: {k} "
+                              f"{r['kernel']:.3e} > {bars[k]:.3e}")
+    rd["train_hops_fwd_bf16"] = max(r["kernel"] for r in deep["fwd"].values())
+    rd["train_hops_bwd_dfeats_bf16"] = max(r1["kernel"], deep["bwd"]["feats"]["kernel"])
+    mcfg16 = dataclasses.replace(mcfgF, compute_dtype="bfloat16")
+    mp16 = map_tree(lambda w: w.to(b16), mp)
+    f_args = (mp16, mcfg16, q.to(b16), feats16, s)
+    _, _, _, c16, h16 = rth.train_hops_fwd(*f_args)
+    args16 = f_args + (c16, h16, (rth._rnd(gsc, b16) @ rth._rnd(mp["cls"]["w"], b16).T)
+                       .contiguous())
+    fp16, bp16 = plans[b16]
+    kern = {"train_hops_fwd_bf16": device_kernels(
+                lambda: rth.train_hops_fwd(*f_args), len(fp16.phases) * H,
+                f"train_hops_fwd bfloat16 B={B}", card),
+            "train_hops_bwd_dfeats_bf16": device_kernels(
+                lambda: rth.train_hops_bwd(*args16, dfeats=True), len(bp16.phases) * H,
+                f"train_hops_bwd dfeats bfloat16 B={B}", card)}
+    ms["train_hops_fwd_bf16"] = {
+        "ms": time_ms(lambda: rth.train_hops_fwd(*f_args), iters=3, warmup=1),
+        "plain_ms": time_ms(lambda: rth.train_hops_fwd_reference(*f_args), iters=1, warmup=1)}
+    ms["train_hops_bwd_dfeats_bf16"] = {
+        "ms": time_ms(lambda: rth.train_hops_bwd(*args16, dfeats=True), iters=3, warmup=1),
+        "plain_ms": time_ms(lambda: rth.train_hops_bwd_reference(*args16, dfeats=True),
+                            iters=1, warmup=1)}
+    bd["train_hops_fwd_bf16"] = train_fwd_bound(mcfg16, mp16, B, b16)
+    bd["train_hops_bwd_dfeats_bf16"] = train_bwd_bound(mcfg16, mp16, B, b16, dfeats=True)
+    for k in ms:
+        log(f"resnet_ft {k}_ms={ms[k]['ms']:.3f} plain_ms={ms[k]['plain_ms']:.3f} "
+            f"bound_ms={bd[k][0]:.3f} by {bd[k][1]} ({ms[k]['ms'] / bd[k][0]:.1f}x) B={B}, S={S}, "
+            f"Dc={Dc}, {H} hops" + (f", {kern[k]} device kernels a call" if k in kern else "")
+            + f" [{card}]")
+    del args, args16, f_args, c_all, h_all, c16, h16, feats16, feats32
+    torch.cuda.empty_cache()
+    # the fused step's grads against the step through the fused hop loop's
+    # plain version (the same masks; every other part the same code)
+    gen = lambda: _generator(dev, state0.seed, 0, 0)   # noqa: E731
+    batch4 = (tokens, lengths, images, labels)
+    gk, mk = loss_and_grads(mcfgF, state0.params, *batch4, hop_scale, generator=gen(),
+                            featurize=fz)
+    gr, mr = loss_and_grads(dataclasses.replace(mcfgF, fused_train_bwd="reference"),
+                            state0.params, *batch4, hop_scale, generator=gen(), featurize=fz)
+    rel = {}
+    for grp in gk:
+        for i, (a, b) in enumerate(zip(tree_leaves(gk[grp]), tree_leaves(gr[grp]))):
+            rel[(grp, i)] = norm_rel(a, b)
+    # mult's att_score b: a softmax's shift, whose gradient is rounding alone
+    noise = gk["mult"]["att_score"]["b"]
+    noise_ref = gr["mult"]["att_score"]["b"]
+    skip = {("mult", i) for i, x in enumerate(tree_leaves(gk["mult"])) if x is noise}
+    worst = {grp: max(v for (g_, i), v in rel.items() if g_ == grp and (g_, i) not in skip)
+             for grp in gk}
+    log(f"resnet_ft fused step's grads against maskref's (the plain hop loop, the same "
+        f"masks), worst leaf norm-relative by group (bar 0.05): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; loss {mk['loss'].item():.6f} vs {mr['loss'].item():.6f}; att_score b (rounding "
+        f"noise) max |g| {noise.abs().max().item():.3e} / {noise_ref.abs().max().item():.3e}")
+    if max(worst.values()) > 0.05 or max(noise.abs().max().item(),
+                                         noise_ref.abs().max().item()) > 1e-4:
+        failed.append(f"resnet_ft fused step's grads: {worst}")
+    del gk, gr
+    torch.cuda.empty_cache()
+    # the main path: 3 fused steps, the counts from 0
+    before = {n: k.launches for n, k in counted.items()}
+    step = make_train_step(mcfgF, tcfg, backbone="resnet101", img_repeat=g)
+    batch = batch4 + (hop_scale, tcfg.learning_rate, tcfg.mult_learning_rate)
+    state, losses, step_ms, peak = state0, [], [], 0.0
+    for i in range(3):
+        state, m, t, p = step_peak(step, state, batch)
+        losses.append(m["loss"].item())
+        step_ms.append(t)
+        peak = p if i == 1 else peak
+    launches = {n: k.launches - before[n] for n, k in counted.items()}
+    want = {"train_hops_fwd": 0, "train_hops_bwd": 0, "train_hops_bwd_dfeats": 0,
+            "train_hops_fwd_bf16": 3, "train_hops_bwd_bf16": 0,
+            "train_hops_bwd_dfeats_bf16": 3}
+    n_moved, n_leaves = trees_moved(state.params["backbone"], state0.params["backbone"])
+    t_ms = float(np.mean(step_ms[1:]))
+    log(f"resnet_ft fused steps: losses " + " ".join(f"{x:.4f}" for x in losses)
+        + f"; {t_ms:.2f} ms a step (steps 2-3), trained_q_per_s={B / t_ms * 1e3:.1f}, peak "
+        f"memory {peak:.1f} MB above what the state holds; backbone leaves moved {n_moved} of "
+        f"{n_leaves}; launches {launches} [{card}]")
+    if (not all(np.isfinite(losses)) or n_moved == 0
+            or any(launches[k] != v for k, v in want.items())):
+        failed.append(f"resnet_ft fused steps: losses {losses}, moved {n_moved}, launches "
+                      f"{launches}, expected {want}")
+    del state, state0, images
+    torch.cuda.empty_cache()
+    log(f"resnet_ft_fused_subphase_s={time.perf_counter() - t_sub:.1f} [{card}]")
+    return {"launches": launches, "err": rd, "ms": ms, "bound": bd, "kernels_a_call": kern}
+
+
+def fit_subphase(seed: int, card: str, failed: list, counted: dict) -> dict:
+    """Phase 11 (6), path C: ``Trainer.fit`` for ``FIT_EPOCHS`` epochs,
+    ``ours_resnet_ft`` as shipped on the paper-dims fixture's 448 px JPEGs
+    (cut to ``FIT_SPEC``), 'imggroup' order, a random folded ResNet-101, the
+    RMS interface, in both routes (the preset's unfused hops; fused_train),
+    under deterministic algorithms; then a second Trainer restored from
+    epoch 2's snapshot runs epoch 3.  Gates: no epoch aborts,
+    ``grad_norm_backbone`` > 0 each epoch, every group's rate at each step
+    of epoch e its base times lr_decay^(e-1) (the rates each Adam update
+    took), each sweep launches both serving kernels, the fused route one
+    of each bf16 training kernel a step and the preset's none, and the
+    resumed epoch 3 the same loss, parameters and moments bit for bit."""
+    import tempfile
+
+    from rau_vqa_tpu_torch.config import get_experiment
+    from rau_vqa_tpu_torch.convert import tree_leaves
+    from rau_vqa_tpu_torch.data.fixtures import FixtureSpec, fixture_bundle
+    from rau_vqa_tpu_torch.data.images import ImageDirSource
+    from rau_vqa_tpu_torch.data.loader import build_vqa_data
+    from rau_vqa_tpu_torch.models.backbones import resnet
+    from rau_vqa_tpu_torch.train import trainer as trainer_mod
+
+    t_sub = time.perf_counter()
+    dev = torch.device("cuda")
+    bb = resnet.fold_batchnorm(resnet.resnet101_init(torch.Generator().manual_seed(seed + 80),
+                                                     device=dev))
+    base = get_experiment("ours_resnet_ft")
+    side = base.model.cnn_w * 32
+    groups = ("embed", "rnn", "mult", "backbone")
+    launches = {n: 0 for n in counted}
+    out = {}
+    taken = []
+    adam = trainer_mod.adam_update
+
+    def taking(p, gr, lr, *a, **k):
+        taken.append(lr)
+        return adam(p, gr, lr, *a, **k)
+
+    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as root:
+        t0 = time.perf_counter()
+        spec = FixtureSpec(**FIT_SPEC, n_words=12604, n_answers=1000, seq_len=26, feat_dim=512,
+                           feat_w=14, feat_h=14, n_mc=4, seed=17 + seed, n_img_classes=5,
+                           class_code="dense")
+        bundle = fixture_bundle(os.path.join(root, "fixture"), spec, images=True,
+                                image_size=side, uniform_img_assign=True)
+        fix_images = os.path.join(root, "fixture", "images")
+        gt = {int(k): v for k, v in bundle.gt.items()}
+        log(f"fit: the fixture ({spec.n_train} train / {spec.n_test} test questions, "
+            f"{spec.n_images} {side} px JPEGs a split) in {time.perf_counter() - t0:.1f} s")
+        try:
+            torch.backends.cudnn.deterministic = True
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            trainer_mod.adam_update = taking
+            for route, fused in (("preset", False), ("fused", True)):
+                exp = base.replace(
+                    model=dataclasses.replace(base.model, fused_train=fused),
+                    train=dataclasses.replace(base.train, backbone_feat_norm=True),
+                    data=dataclasses.replace(base.data, split="val2014", test_batch_size=83))
+
+                def trainer(work):
+                    data = build_vqa_data(bundle.info, bundle.arrays, exp.train.batch_size,
+                                          split="val2014", test_batch_size=83,
+                                          seed=exp.train.seed)
+                    return trainer_mod.Trainer(
+                        exp, data, ImageDirSource(fix_images, size=side, backend="native"),
+                        os.path.join(root, route, work), gt_anno=gt, backbone="resnet101",
+                        bb_params=bb)
+
+                tr = trainer("run")
+                records, sweeps, taken[:] = [], [], []
+                epoch, evaluate = tr.train_epoch, tr.evaluate
+
+                def train_epoch():
+                    t = time.perf_counter()
+                    records.append({**epoch(), "wall_s": time.perf_counter() - t})
+                    return records[-1]
+
+                def sweep(**kw):
+                    b = {n: counted[n].launches for n in ("lstm_encode", "rau_hops")}
+                    t = time.perf_counter()
+                    res = evaluate(**kw)
+                    sweeps.append({"s": time.perf_counter() - t, **{
+                        n: counted[n].launches - b[n] for n in b}})
+                    return res
+
+                tr.train_epoch, tr.evaluate = train_epoch, sweep
+                before = {n: k.launches for n, k in counted.items()}
+                t0 = time.perf_counter()
+                tr.fit(FIT_EPOCHS)
+                t_fit = time.perf_counter() - t0
+                got = {n: k.launches - before[n] for n, k in counted.items()}
+                steps = [r.get("steps", 0) for r in records]
+                rates = [dict(zip(groups, taken[i:i + 4])) for i in range(0, len(taken), 4)]
+                want_lr, bad_lr, i = [], [], 0
+                for e, r in enumerate(records):
+                    lr = exp.train.learning_rate * exp.train.lr_decay ** e
+                    mult = exp.train.mult_learning_rate * exp.train.mult_lr_decay ** e
+                    want = {"embed": lr, "rnn": lr, "mult": mult,
+                            "backbone": lr * exp.train.backbone_lr_scale}
+                    want_lr.append(want)
+                    for got_r in rates[i:i + r.get("steps", 0)]:
+                        if any(abs(got_r[k] - v) > 1e-12 * v for k, v in want.items()):
+                            bad_lr.append((e + 1, got_r, want))
+                    i += r.get("steps", 0)
+                for r, sw in zip(records, sweeps):
+                    log(f"fit {route} epoch {r['epoch']}: loss {r['loss']:.4f}, "
+                        f"grad_norm_backbone {r.get('grad_norm_backbone', 0):.4e}, "
+                        f"{r.get('steps', 0)} steps in {r['wall_s']:.2f} s, trained q/s "
+                        f"{r.get('examples_per_sec', 0):.1f}, rates "
+                        + ", ".join(f"{k} {v:.4e}" for k, v in rates[
+                            sum(steps[:r['epoch'] - 1])].items())
+                        + f"; sweep {sw['s']:.2f} s, {sw['lstm_encode']} lstm_encode and "
+                        f"{sw['rau_hops']} rau_hops launches [{card}]")
+                snaps = sorted(f for f in os.listdir(tr.ckpt_dir)
+                               if f.endswith(".pt") and "_epoch2.00" in f)
+                log(f"fit {route}: {FIT_EPOCHS} epochs in {t_fit:.1f} s (sweeps and saves "
+                    f"included); snapshots {sorted(os.listdir(tr.ckpt_dir))}; launches {got}")
+                if (len(records) != FIT_EPOCHS or any(r.get("aborted") for r in records)
+                        or not all(r.get("grad_norm_backbone", 0) > 0 for r in records)
+                        or bad_lr or len(rates) != sum(steps) or len(sweeps) != FIT_EPOCHS
+                        or not all(sw["lstm_encode"] > 0 and sw["rau_hops"] > 0
+                                   for sw in sweeps) or len(snaps) != 1):
+                    failed.append(f"fit {route}: records {records}, rates off {bad_lr[:2]}, "
+                                  f"sweeps {sweeps}, snapshots {snaps}")
+                train_k = ("train_hops_fwd_bf16", "train_hops_bwd_dfeats_bf16")
+                if any(got[n] != (sum(steps) if fused and n in train_k else 0)
+                       for n in counted if n.startswith("train_hops")):
+                    failed.append(f"fit {route}: training kernel launches {got}, steps {steps}")
+                for n in launches:
+                    launches[n] += got[n]
+                # epoch 3 again from epoch 2's snapshot
+                if snaps:
+                    tr2 = trainer("resumed")
+                    tr2.restore(os.path.join(tr.ckpt_dir, snaps[0]))
+                    rec = tr2.train_epoch()
+                    same = (rec["loss"] == records[-1]["loss"]
+                            and tr2.state.step == tr.state.step and tr2.lr == tr.lr
+                            and all(torch.equal(a, b) for a, b in zip(
+                                tree_leaves(tr2.state.params), tree_leaves(tr.state.params)))
+                            and all(torch.equal(a, b) for a, b in zip(
+                                tree_leaves(tr2.state.opt), tree_leaves(tr.state.opt))))
+                    log(f"fit {route}: epoch 3 resumed from {snaps[0]}: loss "
+                        f"{rec['loss']:.6f} (uninterrupted {records[-1]['loss']:.6f}); loss, "
+                        f"parameters and moments bit for bit: {same}")
+                    if not same:
+                        failed.append(f"fit {route}: the resumed epoch 3 differs")
+                    del tr2
+                out[route] = {"epoch_s": [r["wall_s"] for r in records],
+                              "q_per_s": [r.get("examples_per_sec", 0) for r in records],
+                              "sweep_s": [sw["s"] for sw in sweeps], "fit_s": t_fit}
+                # the wrappers close over tr's own methods: without them tr
+                # and its state go with the last reference
+                del tr.train_epoch, tr.evaluate, tr, epoch, evaluate
+                torch.cuda.empty_cache()
+        finally:
+            trainer_mod.adam_update = adam
+            torch.backends.cudnn.deterministic = det[0]
+            torch.use_deterministic_algorithms(det[1])
+    log(f"fit_subphase_s={time.perf_counter() - t_sub:.1f} [{card}]")
+    return {"launches": launches, "routes": out}
+
+
 def finetune_phase(seed: int, card: str) -> dict:
     """Phase 11: backbone fine-tuning through the user's entry points.
     ``ours_resnet_ft`` as the preset ships it (bf16, unfused, no remat,
@@ -1945,8 +2503,10 @@ def finetune_phase(seed: int, card: str) -> dict:
     ``ours_ms`` fused through VGG16, whose backward kernel sums the
     features' gradient (``dfeats``), held to its plain version; the
     ``Trainer`` fine-tuning from the paper-dims fixture's JPEGs, its sweep,
-    snapshot, resume and ``RAUService``.  Returns the launches of this
-    phase's kernels and the dfeats kernels' readings."""
+    snapshot, resume and ``RAUService``; then sub-phases 4-6
+    (``vit_finetune_subphase``, ``resnet_ft_fused_subphase``,
+    ``fit_subphase``).  Returns the launches of this phase's kernels, the
+    dfeats kernels' readings at B=96 and the sub-phases' readings."""
     import base64
     import tempfile
 
@@ -1970,23 +2530,10 @@ def finetune_phase(seed: int, card: str) -> dict:
     dev = torch.device("cuda")
     rs = np.random.RandomState(seed + 50)
     failed = []
-    zipf = 1.0 / np.arange(1, 11)
     log(f"finetune: TF32 in this run: matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
         f"{torch.backends.cudnn.allow_tf32} (the train step leaves both as the process sets "
         f"them); the backbone computes in the compute type: under bfloat16 on a bf16 cast of "
         f"its float32 masters made in the step, in float32 on them")
-
-    def inputs(cfg, B, n_images, side, s):
-        tokens, lengths, _ = make_batch(dataclasses.replace(cfg, cnn_dim=1), B, cfg.seq_len,
-                                        rs, dev)
-        images = torch.randint(0, 256, (n_images, side, side, 3), dtype=torch.uint8,
-                               device=dev, generator=torch.Generator(dev).manual_seed(s))
-        labels = torch.as_tensor(rs.choice(10, B, p=zipf / zipf.sum()), device=dev)
-        return tokens, lengths, images, labels
-
-    def moved(a, b):
-        leaves = list(zip(tree_leaves(a), tree_leaves(b)))
-        return sum(1 for x, y in leaves if not torch.equal(x, y)), len(leaves)
 
     # 1. ours_resnet_ft as the preset ships it: bf16, unfused, no remat,
     # 'imggroup' groups of 3 (B=288 on 96 unique 448 px images), a random
@@ -1998,7 +2545,7 @@ def finetune_phase(seed: int, card: str) -> dict:
         torch.Generator().manual_seed(seed + 51), device=dev))
     state0 = init_train_state(mcfg, seed, bb_params=bb)
     del bb
-    tokens, lengths, images, labels = inputs(mcfg, B, B // g, side, seed + 52)
+    tokens, lengths, images, labels = ft_inputs(mcfg, B, B // g, side, seed + 52, rs, dev)
     hop_scale = hop_grad_scale(mcfg.n_hops, scale_by_nhop=tcfg.hop_grad_scale_nhop,
                                stop_timing=tcfg.hop_stop_timing, epoch=1).to(dev)
     lr, mult_lr = tcfg.learning_rate, tcfg.mult_learning_rate
@@ -2019,7 +2566,7 @@ def finetune_phase(seed: int, card: str) -> dict:
         hist.append({k: v.detach() for k, v in m.items()})
     losses = [m["loss"].item() for m in hist]
     bad = [i for i, m in enumerate(hist) if not all(torch.isfinite(v).all() for v in m.values())]
-    n_moved, n_leaves = moved(state.params["backbone"], state0.params["backbone"])
+    n_moved, n_leaves = trees_moved(state.params["backbone"], state0.params["backbone"])
     gnb = [m["grad_norm_backbone"].item() for m in hist]
     ms = float(np.mean(step_ms[1:]))
     log(f"ours_resnet_ft losses: " + " ".join(f"{x:.4f}" for x in losses))
@@ -2092,7 +2639,7 @@ def finetune_phase(seed: int, card: str) -> dict:
     B2 = tcfg2.batch_size
     vbb = map_tree(lambda t: t * 0.72 if t.ndim == 4 else t,
                    vgg.vgg16_pool5_init(torch.Generator().manual_seed(seed + 53), device=dev))
-    batch2 = inputs(mcfg2, B2, B2 // g, side, seed + 54)
+    batch2 = ft_inputs(mcfg2, B2, B2 // g, side, seed + 54, rs, dev)
     hs2 = hop_grad_scale(mcfg2.n_hops, scale_by_nhop=tcfg2.hop_grad_scale_nhop,
                          stop_timing=tcfg2.hop_stop_timing, epoch=1).to(dev)
     with torch.no_grad():
@@ -2223,7 +2770,7 @@ def finetune_phase(seed: int, card: str) -> dict:
         for _ in range(n):
             st, m = step2(st, *batch2[:4], hs2, tcfg2.learning_rate, tcfg2.mult_learning_rate)
             ls.append(m["loss"].item())
-        runs[name] = (ls, moved(st.params["backbone"], init.params["backbone"]),
+        runs[name] = (ls, trees_moved(st.params["backbone"], init.params["backbone"]),
                       (time.perf_counter() - t0) * 1e3 / n)
     launches = {n: k.launches for n, k in counted.items()}
     for name, (ls, (nm, nl), t) in runs.items():
@@ -2273,7 +2820,7 @@ def finetune_phase(seed: int, card: str) -> dict:
         t0 = time.perf_counter()
         res = tr.evaluate(write_submissions=False)
         t_sweep = time.perf_counter() - t0
-        nm, nl = moved(tr.state.params["backbone"], map_tree(lambda t: t.float(), vbb))
+        nm, nl = trees_moved(tr.state.params["backbone"], map_tree(lambda t: t.float(), vbb))
         log(f"trainer fine-tuning: img_repeat {tr.img_repeat} (imggroup), epoch loss "
             f"{rec['loss']:.4f}, grad_norm_backbone {rec['grad_norm_backbone']:.4e}, "
             f"{rec['steps']} steps in {t_epoch:.2f} s, trained q/s "
@@ -2329,6 +2876,18 @@ def finetune_phase(seed: int, card: str) -> dict:
     torch.cuda.synchronize()
     for n in ("lstm_encode", "rau_hops"):
         launches[n] += counted[n].launches
+    del vbb
+    torch.cuda.empty_cache()
+    log(f"finetune sub-phases 1-3: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    # 4-6. ViT-L/14 grouped fine-tuning; ours_resnet_ft fused at B=288; a
+    # 3-epoch fit from images in both routes, and its resume
+    vit_ft = vit_finetune_subphase(seed, card, rs, failed)
+    resnet_ft = resnet_ft_fused_subphase(seed, card, rs, failed, counted)
+    fit = fit_subphase(seed, card, failed, counted)
+    for part in (resnet_ft, fit):
+        for n, c in part["launches"].items():
+            launches[n] += c
     if failed:
         raise SystemExit("finetune: " + "; ".join(failed))
     log(f"finetune_phase_s={time.perf_counter() - t_phase:.1f} [{card}]")
@@ -2337,7 +2896,8 @@ def finetune_phase(seed: int, card: str) -> dict:
                                                                             r16_deep["kernel"])},
             "ms": {"train_hops_bwd_dfeats": dt, "train_hops_bwd_dfeats_bf16": dt16},
             "bound": {"train_hops_bwd_dfeats": (b_ms, b_by),
-                      "train_hops_bwd_dfeats_bf16": (b16_ms, b16_by)}}
+                      "train_hops_bwd_dfeats_bf16": (b16_ms, b16_by)},
+            "resnet_ft": resnet_ft, "vit_ft": vit_ft, "fit": fit["routes"]}
 
 
 # phase 12's sizes: VQA v1's shapes at the scale a run of the smoke allows
@@ -2969,13 +3529,19 @@ def export_bench_phase(seed: int, card: str) -> dict:
         except AssertionError as e:
             failed.append(f"(b) attention: {str(e).splitlines()[0]}")
 
-        # (d) the smoke's own timing of PredictStep at B=512, T=26
+        # (d) the smoke's own timing of PredictStep at B=512, T=26: the
+        # median of 5 rounds of 10 calls, as the bench takes the median of
+        # its 5 rounds (one window of 10 calls read 5.44 ms on a slow host
+        # where the bench read 4.63)
         tokens, lengths, feats = make_batch(cfg, EB_STEP_B, cfg.seq_len, rs, dev)
         with torch.no_grad():
-            step_ms = time_ms(lambda: step(params, tokens, lengths, feats), iters=10)
+            rounds = [time_ms(lambda: step(params, tokens, lengths, feats), iters=10,
+                              warmup=3 if r == 0 else 0) for r in range(5)]
+        step_ms = float(np.median(rounds))
         smoke_qps = EB_STEP_B / step_ms * 1e3
-        log(f"export_bench PredictStep B={EB_STEP_B} T=26: {step_ms:.4f} ms, "
-            f"{smoke_qps:.1f} questions/s [{card}]")
+        log(f"export_bench PredictStep B={EB_STEP_B} T=26: {step_ms:.4f} ms (the median of "
+            f"rounds " + ", ".join(f"{t:.4f}" for t in rounds) + f"), {smoke_qps:.1f} "
+            f"questions/s [{card}]")
 
         # (c) the two benches at their defaults, live and from an artifact
         lines = {}
@@ -5119,7 +5685,7 @@ def main() -> int:
         backbones_launches = backbones_phase(args.seed, card)
     log("phase backbones: ok")
     # 11. backbone fine-tuning through the user's entry points
-    with watchdog(300, "the finetune phase"):
+    with watchdog(450, "the finetune phase"):
         ft = finetune_phase(args.seed, card)
     ft_launches = ft["launches"]
     log("phase finetune: ok")
@@ -5146,6 +5712,18 @@ def main() -> int:
     log("phase scripts: ok")
 
     s2 = stage_ms[2]
+
+    def resnet_ft_keys(name):
+        """A training kernel's readings at ``ours_resnet_ft``'s shapes (the
+        finetune phase's sub-phase 5: B=288, S=196, Dc=2048)."""
+        r = ft["resnet_ft"]
+        return {"resnet_ft_ms": r["ms"][name]["ms"],
+                "resnet_ft_plain_ms": r["ms"][name]["plain_ms"],
+                "resnet_ft_bound_ms": r["bound"][name][0],
+                "resnet_ft_bound_by": r["bound"][name][1],
+                "resnet_ft_max_abs_err": r["err"][name],
+                "resnet_ft_launches": r["launches"][name]}
+
     kernels = [
         {"name": "lstm_encode", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/lstm_encoder.cu",
@@ -5182,7 +5760,7 @@ def main() -> int:
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_fwd.cu",
          "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:358",
          "launches": train_launches["train_hops_fwd"] + wf_launches["train_hops_fwd"]
-         + eb_launches["train_hops_fwd"],
+         + eb_launches["train_hops_fwd"] + ft_launches["train_hops_fwd"],
          "workflow_launches": wf_launches["train_hops_fwd"],
          "export_bench_launches": eb_launches["train_hops_fwd"],
          "max_abs_err": err["train_hops_fwd"],
@@ -5211,13 +5789,14 @@ def main() -> int:
         {"name": "train_hops_fwd_bf16", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_fwd.cu",
          "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:358",
-         "launches": bf16_launches["train_hops_fwd_bf16"] + wf_launches["train_hops_fwd_bf16"],
+         "launches": bf16_launches["train_hops_fwd_bf16"] + wf_launches["train_hops_fwd_bf16"]
+         + ft_launches["train_hops_fwd_bf16"],
          "workflow_launches": wf_launches["train_hops_fwd_bf16"],
          "max_abs_err": err["train_hops_fwd_bf16"],
          "ms": tms16["train_hops_fwd_bf16"], "plain_ms": tms16["train_fwd_bf16_plain"],
          "bound_ms": fb16_ms, "bound_by": fb16_by, "library_ms": None,
          "finetune_launches": ft_launches["train_hops_fwd_bf16"],
-         "device_kernels_a_call": fwd_kernels[bf16]},
+         "device_kernels_a_call": fwd_kernels[bf16], **resnet_ft_keys("train_hops_fwd_bf16")},
         {"name": "train_hops_bwd_bf16", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_bwd.cu",
          "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:471",
@@ -5242,7 +5821,8 @@ def main() -> int:
          "bound_ms": ft["bound"]["train_hops_bwd_dfeats"][0],
          "bound_by": ft["bound"]["train_hops_bwd_dfeats"][1], "library_ms": None,
          "without_dfeats_ms": ft["ms"]["train_hops_bwd_dfeats"]["without_ms"],
-         "device_kernels_a_call": ft["ms"]["train_hops_bwd_dfeats"]["device_kernels"]},
+         "device_kernels_a_call": ft["ms"]["train_hops_bwd_dfeats"]["device_kernels"],
+         **resnet_ft_keys("train_hops_bwd_dfeats")},
         {"name": "train_hops_bwd_dfeats_bf16", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/rau_train_hops_bwd.cu",
          "replaces": "rau_vqa_tpu/ops/rau_train_hops.py:471",
@@ -5252,7 +5832,8 @@ def main() -> int:
          "plain_ms": ft["ms"]["train_hops_bwd_dfeats_bf16"]["plain_ms"],
          "bound_ms": ft["bound"]["train_hops_bwd_dfeats_bf16"][0],
          "bound_by": ft["bound"]["train_hops_bwd_dfeats_bf16"][1], "library_ms": None,
-         "device_kernels_a_call": ft["ms"]["train_hops_bwd_dfeats_bf16"]["device_kernels"]},
+         "device_kernels_a_call": ft["ms"]["train_hops_bwd_dfeats_bf16"]["device_kernels"],
+         **resnet_ft_keys("train_hops_bwd_dfeats_bf16")},
         # the check entry of the device hash; launches: its check's
         {"name": "maskgen", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/maskgen.cu",

@@ -37,14 +37,20 @@ def _u32(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int64, device=device) & _M32
 
 
+def _fmix32_(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32 in place on ``x``, int64 holding uint32.  A mask hashes
+    every element of a hop's [B, S, Dc] features, so each pass counts."""
+    x ^= x >> 16
+    x.mul_(0x85EBCA6B).bitwise_and_(_M32)
+    x ^= x >> 13
+    x.mul_(0xC2B2AE35).bitwise_and_(_M32)
+    x ^= x >> 16
+    return x
+
+
 def mix32(x) -> torch.Tensor:
     """murmur3 fmix32 on the low 32 bits of ``x`` (int64 holding uint32)."""
-    x = _u32(x)
-    x = x ^ (x >> 16)
-    x = (x * 0x85EBCA6B) & _M32
-    x = x ^ (x >> 13)
-    x = (x * 0xC2B2AE35) & _M32
-    return x ^ (x >> 16)
+    return _fmix32_(_u32(x))
 
 
 def site_salt(seed, hop: int, site: int) -> torch.Tensor:
@@ -65,40 +71,52 @@ def mask_scale(rate: float) -> float:
     return float(np.float32(1.0 / (1.0 - rate)))
 
 
+# elements a CPU mask hashes at once, so that its passes stay in the cache
+_CPU_CHUNK = 1 << 18
+
+
+def _span(local_shape: Sequence[int], row_offset: int):
+    """(the global linear index of a tile's first element, its elements):
+    dim 0 is the batch and ``row_offset`` the tile's first global row."""
+    acc = 1
+    for d in local_shape[1:]:
+        acc *= int(d)
+    return row_offset * acc, int(local_shape[0]) * acc
+
+
+def _hash(start: int, n: int, salt: torch.Tensor) -> torch.Tensor:
+    """The bits of the global linear indices start .. start + n - 1 (sums and
+    products taken mod 2^32 once or after every step agree)."""
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=salt.device)
+    idx.bitwise_and_(_M32).mul_(2654435761).bitwise_and_(_M32)
+    idx ^= salt
+    return _fmix32_(idx)
+
+
 def counter_bits(local_shape: Sequence[int], row_offset: int,
                  salt: torch.Tensor) -> torch.Tensor:
     """Hash bits (int64 holding uint32) for a tile of a global array.  Dim 0
     is the batch and ``row_offset`` the tile's first global row, so the bits
     of an element depend only on its global linear index."""
-    salt = _u32(salt)
-    dev = salt.device
-    acc = 1
-    for d in local_shape[1:]:
-        acc *= d
-    nd = len(local_shape)
-
-    def iota(d):
-        view = [1] * nd
-        view[d] = local_shape[d]
-        return torch.arange(local_shape[d], dtype=torch.int64,
-                            device=dev).reshape(view)
-
-    idx = ((iota(0) + row_offset) * acc) & _M32
-    stride = acc
-    for d in range(1, nd):
-        stride //= local_shape[d]
-        idx = (idx + iota(d) * stride) & _M32
-    idx = idx.expand(*local_shape)
-    return mix32(((idx * 2654435761) & _M32) ^ salt)
+    return _hash(*_span(local_shape, row_offset), _u32(salt)).reshape(tuple(local_shape))
 
 
 def dropout_scale_mask(local_shape: Sequence[int], row_offset: int,
                        salt: torch.Tensor, rate: float) -> torch.Tensor:
     """Inverted-dropout scale factors, float32: ``1/(1-rate)`` where the
-    element's bits are at or above the threshold, else 0."""
-    keep = counter_bits(local_shape, row_offset, salt) >= mask_threshold(rate)
-    return torch.where(keep, torch.tensor(mask_scale(rate), device=keep.device),
-                       torch.zeros((), device=keep.device))
+    element's bits are at or above the threshold, else 0.  On the CPU in
+    chunks of ``_CPU_CHUNK`` elements."""
+    salt = _u32(salt)
+    start, n = _span(local_shape, row_offset)
+    out = torch.empty(n, dtype=torch.float32, device=salt.device)
+    scale = torch.tensor(mask_scale(rate), device=salt.device)
+    zero = torch.zeros((), device=salt.device)
+    step = max(n, 1) if salt.device.type != "cpu" else _CPU_CHUNK
+    for i in range(0, n, step):
+        m = min(step, n - i)
+        torch.where(_hash(start + i, m, salt) >= mask_threshold(rate), scale, zero,
+                    out=out[i:i + m])
+    return out.reshape(tuple(local_shape))
 
 
 def dropout_mask(seed: torch.Tensor, hop: int, site: int,

@@ -29,11 +29,12 @@ Variants (``--variants``, comma-separated):
                 image's features repeated to ``--qpi`` questions;
   finetune    — backbone fine-tuning (``train_backbone``, blockwise remat
                 unless ``--ft-no-remat``), one image a question;
-  finetunegrp — the same on B / qpi unique images (``img_repeat``).
+  finetunegrp — the same on B / qpi unique images (``img_repeat``);
+                with ``--ft-fused`` both through the fused hop loop.
 
     python3 -m rau_vqa_tpu_torch.scripts.bench_train [--batch 512] [--variants plain,remat]
         [--steps 10] [--rounds 2] [--f32] [--preset ours_ms] [--qpi 3]
-        [--ft-no-remat] [--pixels-size 0] [--device cpu]
+        [--ft-no-remat] [--ft-fused] [--pixels-size 0] [--device cpu]
 
 bf16 compute by default; ``--f32`` for float32 with TF32 off.  Prints one
 JSON line: ``metric`` train_ms_per_step, ``value`` the first variant's ms a
@@ -95,7 +96,7 @@ def backbone_of(preset: str) -> str:
 
 
 def variant(name: str, mcfg, tcfg, *, f32: bool, preset: str = "ours_ms",
-            pixels_size: int = 0, ft_no_remat: bool = False) -> Variant:
+            pixels_size: int = 0, ft_no_remat: bool = False, ft_fused: bool = False) -> Variant:
     """The configurations ``name`` runs, from the preset's pair: the compute
     type, then the variant's switch (``scripts/bench_train.py:110-147``)."""
     if not VARIANT_RE.match(name):
@@ -120,6 +121,8 @@ def variant(name: str, mcfg, tcfg, *, f32: bool, preset: str = "ours_ms",
             mcfg = dataclasses.replace(mcfg, cnn_w=g, cnn_h=g)
     if kind == "finetune":
         tcfg = dataclasses.replace(tcfg, train_backbone=True, backbone_remat=not ft_no_remat)
+        if ft_fused:
+            mcfg = dataclasses.replace(mcfg, fused_train=True, fused_train_bwd="kernel")
     return Variant(name, mcfg, tcfg, trunc, kind, name == "finetunegrp", backbone)
 
 
@@ -196,7 +199,8 @@ def run_variant(name: str, B: int, args, device: torch.device) -> Dict:
 
     mcfg0, tcfg0 = get_train_preset(args.preset)
     v = variant(name, mcfg0, tcfg0, f32=args.f32, preset=args.preset,
-                pixels_size=args.pixels_size, ft_no_remat=args.ft_no_remat)
+                pixels_size=args.pixels_size, ft_no_remat=args.ft_no_remat,
+                ft_fused=args.ft_fused)
     bb_host, image_size, featurize = None, 0, None
     if v.kind != "features":
         wdtype = torch.float32 if args.f32 else torch.bfloat16
@@ -230,13 +234,16 @@ def run_variant(name: str, B: int, args, device: torch.device) -> Dict:
     cls_b = out.params["mult"]["cls"]["b"]
     if not torch.isfinite(cls_b).all():
         raise RuntimeError(f"bench_train: {name} B={B}: non-finite parameters after the chain")
-    ms = float(np.median(times)) / K * 1e3
+    # the line's q/s is B over its ms as printed, to 6 significant digits: a
+    # q/s rounded to 2 decimals strays from B / ms by up to 0.005, which is
+    # more than 1e-3 of it on a step slower than B / 5 s
+    ms = round(float(np.median(times)) / K * 1e3, 4)
     T = inp["tokens"].shape[1]
     n_img = inp["images"].shape[0] if "images" in inp else 0
     flops = train_step_flops(v.mcfg, B, T, backbone=v.backbone, size=inp.get("side", 0),
                              n_images=n_img, train_backbone=v.kind == "finetune",
                              backbone_remat=v.tcfg.backbone_remat)
-    qps = B / (ms / 1e3)
+    qps = float(f"{B / (ms / 1e3):.6g}")
     log(f"[{name} B={B}] {ms:.3f} ms/step ({qps:,.1f} questions/s; rounds "
         + ", ".join(f"{t / K * 1e3:.3f}" for t in times) + f" ms); launches {launches}")
     if v.kind == "pixels":
@@ -246,7 +253,7 @@ def run_variant(name: str, B: int, args, device: torch.device) -> Dict:
         log(f"[{name} B={B}] backbone fine-tuning: {qps / args.qpi:,.1f} unique images/s "
             f"({n_img} backbone images a step, qpi={args.qpi}"
             f"{' grouped' if v.grouped else ' duplicates'})")
-    return {"ms": round(ms, 4), "qps": round(qps, 2), "spread": spread(times),
+    return {"ms": ms, "qps": qps, "spread": spread(times),
             "flops": flops, "launches": launches, "steps": (1 + args.rounds) * K}
 
 
@@ -264,6 +271,9 @@ def main(argv=None) -> int:
                     help="questions an image for the pixels and finetune variants")
     ap.add_argument("--ft-no-remat", action="store_true",
                     help="finetune variants: no blockwise backbone remat")
+    ap.add_argument("--ft-fused", action="store_true",
+                    help="finetune variants: the fused hop loop (the training kernels, "
+                         "the backward with the features' gradient)")
     ap.add_argument("--pixels-size", type=int, default=0,
                     help="the pixels variants' image side (0: the backbone's own; "
                          "a multiple of 32, conv backbones only)")

@@ -145,7 +145,11 @@ def train_step_flops(cfg, B: int, T: int, *, backbone=None, size: int = 0,
     backward, less the first layer's input gradient (the pixels require no
     grad), and ``backbone_remat`` one more forward of every checkpointed
     block (VGG16's stem is inside its first checkpointed stage, ResNet's and
-    the ViT's patch embedding are not)."""
+    the ViT's patch embedding are not) as far as ``torch.utils.checkpoint``
+    recomputes it: it stops at the last tensor the backward saved, which in
+    a ViT block is the MLP's hidden activation, so its ``fc2`` product runs
+    once (a ResNet block ends on a ReLU and a VGG16 stage on a max-pool,
+    whose saved tensors are the block's last)."""
     E, R, L = cfg.embed_dim, cfg.rnn_size, cfg.rnn_layers
     S, Dc, M = cfg.cnn_spat, cfg.cnn_dim, cfg.multfeat_dim
     Ra, H = cfg.att_rnn_size, cfg.n_hops
@@ -172,6 +176,8 @@ def train_step_flops(cfg, B: int, T: int, *, backbone=None, size: int = 0,
             total += n_images * (3 * per - stem)
             if backbone_remat:
                 total += n_images * (per - (0 if backbone == "vgg16" else stem))
+                if backbone == "vit":
+                    total -= n_images * vit_fc2_flops(vit_cfg)
     return int(total)
 
 
@@ -232,6 +238,14 @@ def vit_flops(cfg) -> float:
     M = int(D * cfg.mlp_ratio)
     block = 2.0 * S * D * (3 * D + D + 2 * M) + 2 * 2.0 * S * S * D
     return 2.0 * S * P * P * 3 * D + cfg.depth * block
+
+
+def vit_fc2_flops(cfg=None) -> float:
+    """The MLP's second product over every block of a ViT an image (ViT-L/14
+    when None): what block remat does not recompute."""
+    from rau_vqa_tpu_torch.models.backbones.vit import VIT_L14
+    cfg = cfg or VIT_L14
+    return cfg.depth * 2.0 * cfg.seq * int(cfg.dim * cfg.mlp_ratio) * cfg.dim
 
 
 def backbone_stem_flops(backbone: str, size: int, vit_cfg=None) -> float:

@@ -420,11 +420,11 @@ def test_resnet_ft_preset():
 # ---------------------------------------------------------------------------
 
 def _trainer(root, workdir, *, train_backbone=True, order="imggroup", bb=None,
-             dtype="float32"):
+             dtype="float32", spec=None):
     from rau_vqa_tpu_torch.data.fixtures import FixtureSpec, fixture_bundle
     from rau_vqa_tpu_torch.data.images import ImageDirSource
     from rau_vqa_tpu_torch.data.loader import build_vqa_data
-    bundle = fixture_bundle(root, FixtureSpec(), images=True, image_size=28,
+    bundle = fixture_bundle(root, spec or FixtureSpec(), images=True, image_size=28,
                             uniform_img_assign=True)
     exp = tconfig.get_experiment("ours_ms")
     exp = exp.replace(

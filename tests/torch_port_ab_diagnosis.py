@@ -13,12 +13,20 @@ the two causes:
                 and ``_run_arm``), ``--side port`` (the port's script with
                 the JAX package's draw moved by ``params_from_jax``) or
                 ``--side port-own`` (the port's script as it ships);
+                ``--draw-seed s`` draws the tiny ViT from seed ``s`` in the
+                package's own generator (``jax.random.PRNGKey(s)``,
+                ``torch.Generator().manual_seed(s)`` through the port's
+                ``vit_init``; ``--side port`` takes JAX's draw at ``s``);
+  spread      — ``arms`` for each ``--seeds`` in each ``--sides``, several
+                at a time (``--jobs``), then one table of each run's frozen
+                and fine-tuned best held-out accuracy and their gap;
   cross-eval  — the port's frozen arm (its own draw) from a head-only
                 snapshot for ``--epochs`` epochs, then its state scored by
                 the port's ``evaluate`` and by the JAX package's on the same
                 held-out split (``params_to_jax``): accuracies and answers.
 
     python tests/torch_port_ab_diagnosis.py arms --side jax --arms frozen,finetune --out jax.json
+    python tests/torch_port_ab_diagnosis.py spread --seeds 0,1,2,3,4 --out spread.json
     python tests/torch_port_ab_diagnosis.py cross-eval --snapshot <head-only .pt> --epochs 45 --out x.json
 
 The recipe is the JAX rig's (``--backbone vit --image-mode texture
@@ -69,23 +77,42 @@ def fixture(root: str) -> str:
     return data
 
 
-def jax_draw():
-    """The JAX script's backbone: ``vit_init(PRNGKey(0))``, as port tensors."""
+def jax_draw(seed: int = 0):
+    """The JAX script's backbone: ``vit_init(PRNGKey(seed))``, as port tensors."""
     from rau_vqa_tpu.models.backbones.vit import ViTConfig, vit_init
     from rau_vqa_tpu_torch.convert import params_from_jax
 
-    return params_from_jax(jax.tree.map(np.asarray, vit_init(jax.random.PRNGKey(0),
+    return params_from_jax(jax.tree.map(np.asarray, vit_init(jax.random.PRNGKey(seed),
                                                              ViTConfig(**VIT))))
+
+
+def seed_jax_draw(seed: int) -> None:
+    """Make the JAX script's ``vit_init(PRNGKey(0), cfg)`` draw from ``seed``."""
+    from rau_vqa_tpu.models.backbones import vit
+
+    init = vit.vit_init
+    vit.vit_init = lambda key, cfg, dtype=jax.numpy.float32: init(
+        jax.random.PRNGKey(seed), cfg, dtype)
+
+
+def seed_port_draw(seed: int) -> None:
+    """Make the port script's ``vit_init(manual_seed(0), ...)`` draw from ``seed``."""
+    from rau_vqa_tpu_torch.models.backbones import vit
+
+    init = vit.vit_init
+    vit.vit_init = lambda gen, cfg, dtype=torch.float32, device=None: init(
+        torch.Generator().manual_seed(seed), cfg, dtype, device)
 
 
 def cmd_arms(a) -> dict:
     data = fixture(a.root)
-    runs = os.path.join(a.root, f"runs_{a.side}")
+    runs = os.path.join(a.root, f"runs_{a.side}_seed{a.draw_seed}")
     warm = argparse.Namespace(**{**vars(recipe(30)), "epochs": 30})
     out = {}
     if a.side == "jax":
         import ft_accuracy_ab as J
 
+        seed_jax_draw(a.draw_seed)
         out["head_warmup"] = J._run_arm("head_warmup", data, os.path.join(runs, "head_warmup"),
                                         train_backbone=False, args=warm, save_final=True)
         for arm in a.arms.split(","):
@@ -97,8 +124,10 @@ def cmd_arms(a) -> dict:
     from rau_vqa_tpu_torch.scripts import ft_accuracy_ab as P
 
     if a.side == "port":
-        drawn = jax_draw()
+        drawn = jax_draw(a.draw_seed)
         vit.vit_init = lambda gen, cfg, device="cpu": drawn
+    else:
+        seed_port_draw(a.draw_seed)
     dev = torch.device("cpu")
     out["head_warmup"] = P.run_arm("head_warmup", data, os.path.join(runs, "head_warmup"),
                                    train_backbone=False, args=warm, device=dev, save_final=True)
@@ -107,6 +136,36 @@ def cmd_arms(a) -> dict:
                              train_backbone=arm == "finetune", args=recipe(a.epochs),
                              device=dev, warm_start=out["head_warmup"]["snapshot"])
     return out
+
+
+def cmd_spread(a) -> dict:
+    """``arms`` in a subprocess a (side, seed), ``--jobs`` at a time, then the table."""
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    fixture(a.root)  # once, before the runs share it
+    runs = [(side, int(s)) for s in a.seeds.split(",") for side in a.sides.split(",")]
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
+           "XLA_FLAGS": "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1"}
+
+    def one(run):
+        side, seed = run
+        out = os.path.join(a.root, f"arms_{side}_seed{seed}.json")
+        if not os.path.exists(out):
+            with open(out + ".log", "w") as log:
+                subprocess.run([sys.executable, os.path.abspath(__file__), "arms", "--side", side,
+                                "--draw-seed", str(seed), "--epochs", str(a.epochs),
+                                "--root", a.root, "--out", out],
+                               env=env, stdout=log, stderr=subprocess.STDOUT, check=True)
+        with open(out) as f:
+            res = json.load(f)
+        frozen, tuned = res["frozen"]["best_test_acc"], res["finetune"]["best_test_acc"]
+        return {"side": side, "seed": seed, "frozen": frozen, "finetune": tuned,
+                "gap": round(tuned - frozen, 4)}
+
+    with ThreadPoolExecutor(a.jobs) as pool:
+        table = list(pool.map(one, runs))
+    return {"recipe": vars(recipe(a.epochs)), "runs": table}
 
 
 def cmd_cross_eval(a) -> dict:
@@ -143,16 +202,29 @@ def main() -> int:
     r.add_argument("--side", choices=("jax", "port", "port-own"), required=True)
     r.add_argument("--arms", default="frozen,finetune")
     r.add_argument("--epochs", type=int, default=60)
+    r.add_argument("--draw-seed", type=int, default=0,
+                   help="the tiny ViT's draw, in the package's own generator")
+    sp = sub.add_parser("spread")
+    sp.add_argument("--seeds", default="0,1,2,3,4")
+    sp.add_argument("--sides", default="jax,port-own")
+    sp.add_argument("--epochs", type=int, default=60)
+    sp.add_argument("--jobs", type=int, default=4)
     c = sub.add_parser("cross-eval")
     c.add_argument("--snapshot", required=True, help="the port's head-only snapshot (.pt)")
     c.add_argument("--epochs", type=int, default=45)
-    for p in (r, c):
+    for p in (r, sp, c):
         p.add_argument("--root", default=os.path.join(_REPO, ".scratch", "ab_diagnosis"))
         p.add_argument("--out", required=True)
     a = ap.parse_args()
-    res = cmd_arms(a) if a.cmd == "arms" else cmd_cross_eval(a)
+    res = {"arms": cmd_arms, "spread": cmd_spread, "cross-eval": cmd_cross_eval}[a.cmd](a)
     with open(a.out, "w") as f:
         json.dump(res, f, indent=1)
+    if a.cmd == "spread":
+        print("side      seed  frozen  finetune  gap")
+        for r in res["runs"]:
+            print(f"{r['side']:9} {r['seed']:4}  {r['frozen']:.4f}  {r['finetune']:.4f}    "
+                  f"{r['gap']:+.4f}")
+        return 0
     for name, v in res.items():
         print(name, v["best_test_acc"] if isinstance(v, dict) else v)
     return 0

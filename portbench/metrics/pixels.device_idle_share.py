@@ -1,0 +1,7 @@
+"""The share of the traced stretch of the from-pixels cell in which no kernel or
+copy ran on the card: host time ``answer_pixels`` does not hide."""
+
+
+def read(view):
+    share = view.idle_share()
+    return None if share is None else 100.0 * share

@@ -693,8 +693,12 @@ def cmd_export(args) -> int:
 def cmd_profile(args) -> int:
     """``torch.profiler`` over ``--steps`` train steps of the preset on
     random inputs (the first step runs outside the trace): a Chrome trace
-    under ``--out`` and the ops by time.  ``--fused-train`` traces the
-    training kernels."""
+    under ``--out``, the ops by time, and a JSON line with the step's time
+    untraced and traced (each ``--steps`` steps and a synchronise) and each
+    span's ``utils/spans.py`` ``read_spans`` reading a step.
+    ``--fused-train`` traces the training kernels."""
+    import time
+
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -703,6 +707,7 @@ def cmd_profile(args) -> int:
     from rau_vqa_tpu_torch.config import get_experiment
     from rau_vqa_tpu_torch.devices import pick_device
     from rau_vqa_tpu_torch.train.trainer import init_train_state, make_train_step
+    from rau_vqa_tpu_torch.utils.spans import read_spans
 
     device = pick_device(args.device, "profile")
     exp = _apply_overrides(get_experiment(args.preset), args)
@@ -723,14 +728,20 @@ def cmd_profile(args) -> int:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    state, m = step(state, *batch, hop_scale, lr, mult_lr)    # outside the trace
-    sync()
-    activities = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    with profile(activities=activities) as prof:
+    def steps_ms(state):
+        t0 = time.perf_counter()
         for _ in range(args.steps):
             state, m = step(state, *batch, hop_scale, lr, mult_lr)
         sync()
+        return state, m, (time.perf_counter() - t0) * 1e3 / args.steps
+
+    state, m = step(state, *batch, hop_scale, lr, mult_lr)    # outside the trace
+    sync()
+    state, m, untraced_ms = steps_ms(state)
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        state, m, traced_ms = steps_ms(state)
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, "trace.json")
     prof.export_chrome_trace(path)
@@ -742,6 +753,10 @@ def cmd_profile(args) -> int:
     print(f"traced {args.steps} steps (loss {float(m['loss']):.4f}) -> {path}; "
           + (f"device time {device_ms:.3f} ms" if device_ms > 0
              else "no device time recorded"))
+    per_step = {name: {k: (v / args.steps if v is not None else None) for k, v in r.items()}
+                for name, r in read_spans(path).items()}
+    print(json.dumps({"steps": args.steps, "untraced_step_ms": untraced_ms,
+                      "traced_step_ms": traced_ms, "spans_a_step": per_step}))
     return 0
 
 

@@ -28,6 +28,7 @@ from rau_vqa_tpu_torch.ops.lstm_encoder import (
     pack_encoder_weights,
 )
 from rau_vqa_tpu_torch.ops.rau_hops import pack_hop_weights, rau_hops
+from rau_vqa_tpu_torch.utils.spans import span
 
 
 def _aggregate(scores, do_pred, attprob) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -75,14 +76,20 @@ def predict_fused(params, kernel_weights: Dict, cfg: ModelConfig, tokens,
     """Like ``predict``, with the question LSTM and the hop loop in the two
     kernels (bf16 dots, f32 state); ``kernel_weights`` from
     ``pack_kernel_weights``.  The embedding gather and ``embed_image`` stay
-    PyTorch operations, as they stay XLA in the JAX package."""
-    q = encode_question_fused(params, kernel_weights["rnn"], cfg, tokens,
-                              lengths.to(torch.int32))
-    ifeat, iatt = embed_image(params["mult"], feats)
-    scores, do_pred, attprob = rau_hops(
-        kernel_weights["mult"], cfg, q, ifeat.to(torch.bfloat16).contiguous(),
-        iatt.to(torch.bfloat16).contiguous())
-    return _aggregate(scores, do_pred, attprob)
+    PyTorch operations, as they stay XLA in the JAX package.  Its four
+    parts are the spans ``predict.encoder``, ``predict.embed_image`` (with
+    the bf16 casts), ``predict.hops`` and ``predict.aggregate``."""
+    with span("predict.encoder"):
+        q = encode_question_fused(params, kernel_weights["rnn"], cfg, tokens,
+                                  lengths.to(torch.int32))
+    with span("predict.embed_image"):
+        ifeat, iatt = embed_image(params["mult"], feats)
+        ifeat = ifeat.to(torch.bfloat16).contiguous()
+        iatt = iatt.to(torch.bfloat16).contiguous()
+    with span("predict.hops"):
+        scores, do_pred, attprob = rau_hops(kernel_weights["mult"], cfg, q, ifeat, iatt)
+    with span("predict.aggregate"):
+        return _aggregate(scores, do_pred, attprob)
 
 
 class PredictStep:
@@ -93,7 +100,10 @@ class PredictStep:
     With ``buckets``, the token axis is cut to the smallest ladder entry that
     covers the batch's longest question (exact).  The kernels' bf16 weights
     are cast on the first call with a parameter set and reused while the
-    same object is passed (parameters are not changed in place at eval)."""
+    same object is passed (parameters are not changed in place at eval).
+    A call is the span ``predict.step``, holding ``predict.place`` (the
+    inputs to the device, the lengths' host copy, the bucket pick),
+    ``predict.weights`` and ``predict_fused``'s spans."""
 
     def __init__(self, cfg: ModelConfig, buckets: Tuple[int, ...],
                  device: torch.device):
@@ -103,17 +113,20 @@ class PredictStep:
         self._weights_for = MemoRecent(pack_kernel_weights)
 
     def __call__(self, params, tokens, lengths, feats):
-        lengths_np = np.asarray(lengths.cpu() if torch.is_tensor(lengths)
-                                else lengths)
-        tokens = torch.as_tensor(tokens, device=self.device)
-        lengths = torch.as_tensor(lengths_np, device=self.device)
-        feats = torch.as_tensor(feats, device=self.device, dtype=torch.float32)
-        if self.ladder is not None:
-            T = pick_bucket(self.ladder, int(lengths_np.max()))
-            tokens = tokens[:, :T]
-        with torch.no_grad():
-            return predict_fused(params, self._weights_for(params), self.cfg,
-                                 tokens, lengths, feats)
+        with span("predict.step"):
+            with span("predict.place"):
+                lengths_np = np.asarray(lengths.cpu() if torch.is_tensor(lengths)
+                                        else lengths)
+                tokens = torch.as_tensor(tokens, device=self.device)
+                lengths = torch.as_tensor(lengths_np, device=self.device)
+                feats = torch.as_tensor(feats, device=self.device, dtype=torch.float32)
+                if self.ladder is not None:
+                    T = pick_bucket(self.ladder, int(lengths_np.max()))
+                    tokens = tokens[:, :T]
+            with torch.no_grad():
+                with span("predict.weights"):
+                    weights = self._weights_for(params)
+                return predict_fused(params, weights, self.cfg, tokens, lengths, feats)
 
 
 def make_predict_step(cfg: ModelConfig, *, buckets: Tuple[int, ...] = (),

@@ -24,6 +24,7 @@ from rau_vqa_tpu_torch.models.backbones.vgg import vgg16_pool5_apply
 from rau_vqa_tpu_torch.models.backbones.vit import VIT_L14, vit_apply
 from rau_vqa_tpu_torch.models.rau import RAUOutput, rau_forward
 from rau_vqa_tpu_torch.ops import transforms as T
+from rau_vqa_tpu_torch.utils.spans import span
 
 BACKBONES = ("vgg16", "resnet101", "vit")
 SERVING_STAGES = (0, 1, 2, 3)
@@ -76,14 +77,18 @@ def pixels_tables(params: Dict, bb_params: Dict, cfg: ModelConfig, backbone: str
     """``answer_pixels``' tables before the argmax: (tab_pred [H+2, B, A],
     tab_att [H+2, B, S]), as ``eval.predict.predict`` gives them; with
     ``feat_norm`` the features RMS-normalized (a fine-tuned head's
-    interface)."""
+    interface).  Spans: ``pipeline.place`` (the inputs to the device),
+    ``pipeline.backbone`` (normalization and the backbone), then
+    ``predict_fused``'s."""
     device = pick_device(device, "answer_pixels")
-    images_u8 = torch.as_tensor(images_u8, device=device)
-    tokens = torch.as_tensor(tokens, device=device)
-    lengths = torch.as_tensor(lengths, device=device)
+    with span("pipeline.place"):
+        images_u8 = torch.as_tensor(images_u8, device=device)
+        tokens = torch.as_tensor(tokens, device=device)
+        lengths = torch.as_tensor(lengths, device=device)
     with torch.no_grad():
-        feats = extract_features(backbone, bb_params, images_u8, vit_cfg,
-                                 fused_stages=SERVING_STAGES, feat_norm=feat_norm).float()
+        with span("pipeline.backbone"):
+            feats = extract_features(backbone, bb_params, images_u8, vit_cfg,
+                                     fused_stages=SERVING_STAGES, feat_norm=feat_norm).float()
         return predict_fused(params, _head_weights(params), cfg, tokens, lengths, feats)
 
 
@@ -100,7 +105,9 @@ def answer_pixels(params: Dict, bb_params: Dict, cfg: ModelConfig, backbone: str
     lengths may be numpy arrays or tensors.  A ResNet runs every identity
     run in the stage kernel; the features of every backbone reach the head
     as float32.  The head's bf16 kernel weights are cast once per parameter
-    set."""
-    tab_pred, tab_att = pixels_tables(params, bb_params, cfg, backbone, images_u8, tokens,
-                                      lengths, vit_cfg=vit_cfg, device=device)
-    return tab_pred.argmax(-1), tab_att
+    set.  A call is the span ``pipeline.answer_pixels``, the argmax
+    included."""
+    with span("pipeline.answer_pixels"):
+        tab_pred, tab_att = pixels_tables(params, bb_params, cfg, backbone, images_u8,
+                                          tokens, lengths, vit_cfg=vit_cfg, device=device)
+        return tab_pred.argmax(-1), tab_att

@@ -84,6 +84,7 @@ from rau_vqa_tpu_torch.utils.checkpoint import (
     to_host,
 )
 from rau_vqa_tpu_torch.utils.logging import MetricsLogger, per_hop_record
+from rau_vqa_tpu_torch.utils.spans import span
 
 PARAM_GROUPS = ("embed", "rnn", "mult")
 
@@ -142,17 +143,20 @@ def loss_and_grads(mcfg: ModelConfig, params: Dict, tokens, lengths, feats,
     ``featurize`` (fine-tuning), ``feats`` are images and
     ``featurize(params["backbone"], feats)`` makes the features inside the
     differentiated function.  ``rows``: the batch's place in a larger one
-    (``rau_forward``)."""
+    (``rau_forward``).  Spans: ``trainer.forward`` (the backbone under
+    fine-tuning, ``rau_forward`` and the loss), ``trainer.backward``."""
     with torch.enable_grad():
         p = map_tree(lambda x: x.detach().requires_grad_(), params)
-        if featurize is not None:
-            feats = featurize(p["backbone"], feats)
-        out = rau_forward(head_params(p), mcfg, tokens, lengths, feats, train=True,
-                          generator=generator, hop_seed=hop_seed, rows=rows)
-        loss, metrics = joint_loss_and_metrics(out.scores, out.do_pred,
-                                               labels, hop_scale)
-        flat = iter(torch.autograd.grad(loss, tree_leaves(p), allow_unused=True,
-                                        materialize_grads=True))
+        with span("trainer.forward"):
+            if featurize is not None:
+                feats = featurize(p["backbone"], feats)
+            out = rau_forward(head_params(p), mcfg, tokens, lengths, feats, train=True,
+                              generator=generator, hop_seed=hop_seed, rows=rows)
+            loss, metrics = joint_loss_and_metrics(out.scores, out.do_pred,
+                                                   labels, hop_scale)
+        with span("trainer.backward"):
+            flat = iter(torch.autograd.grad(loss, tree_leaves(p), allow_unused=True,
+                                            materialize_grads=True))
     return map_tree(lambda _: next(flat), params), metrics
 
 
@@ -235,6 +239,11 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
 
     ``reductions`` (``StepReductions``): ``parallel/mesh.py`` passes its
     own to run the step over a mesh (``make_sharded_train_step``).
+
+    A step is the span ``trainer.step``, holding ``trainer.place`` (the
+    inputs to the device), ``loss_and_grads``' spans, and for each group
+    ``trainer.noise``, ``trainer.clip`` and ``trainer.adam`` (the backbone's
+    trust-ratio cap and freeze included).
     """
     device = pick_device(device, "make_train_step")
     red = reductions or StepReductions()
@@ -290,48 +299,53 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *, device=None,
 
     def step_fn(state: TrainState, tokens, lengths, feats, labels, hop_scale,
                 lr, mult_lr):
-        tokens = torch.as_tensor(tokens, device=device)
-        lengths = torch.as_tensor(lengths, device=device)
-        feats = torch.as_tensor(feats, device=device)   # rau_forward casts it
-        labels = torch.as_tensor(labels, device=device)
-        hop_scale = torch.as_tensor(hop_scale, device=device,
-                                    dtype=torch.float32)
-        grads, metrics = grads_and_metrics(
-            red.full_params(state.params), tokens, lengths, feats, labels, hop_scale,
-            _generator(device, state.seed, state.step, 0))
-        grads, metrics = red.reduce(grads, metrics)
-        lrs = {"embed": lr, "rnn": lr, "mult": mult_lr,
-               "backbone": lr * float(tcfg.backbone_lr_scale)}
-        new_params, new_opt = {}, {}
-        for i, g in enumerate(groups):
-            gg = grads[g]
-            if g == "backbone":
-                # the zero-signal test on the gradient before its noise: the
-                # noise alone would keep a dead backbone's norm above 0
-                alive = (red.norm(g, gg) > 0).float()
-            if g != "backbone" or tcfg.backbone_grad_noise:
-                # state.step counts completed steps; the noise schedule takes
-                # the 1-based iteration (the reference's `it`, :598)
-                gg = red.noise(
-                    g, gg, _generator(device, state.seed, state.step, 1 + i),
-                    state.step + 1, tcfg.noisy_eta, tcfg.noisy_gamma)
-            gg, norm = clip_by_global_norm(gg, tcfg.grad_clip, norm=red.norm(g, gg))
-            new_params[g], new_opt[g] = adam_update(
-                state.params[g], gg, lrs[g], state.opt[g],
-                beta1=tcfg.adam_beta1, beta2=tcfg.adam_beta2,
-                epsilon=tcfg.adam_epsilon)
-            if g == "backbone":
-                if tcfg.backbone_trust_ratio > 0:
-                    new_params[g] = trust_ratio_cap(
-                        new_params[g], state.params[g], tcfg.backbone_trust_ratio,
-                        norms=lambda t, g=g: red.leaf_norms(g, t))
-                # the zero-signal freeze: an exactly-zero backbone gradient
-                # (a saturated head) moves nothing, stale momentum included
-                new_params[g] = map_tree(lambda n, o: o + (n - o) * alive.to(n.dtype),
-                                         new_params[g], state.params[g])
-            metrics[f"grad_norm_{g}"] = norm
-        return TrainState(new_params, new_opt, state.step + 1,
-                          state.seed), metrics
+        with span("trainer.step"):
+            with span("trainer.place"):
+                tokens = torch.as_tensor(tokens, device=device)
+                lengths = torch.as_tensor(lengths, device=device)
+                feats = torch.as_tensor(feats, device=device)   # rau_forward casts it
+                labels = torch.as_tensor(labels, device=device)
+                hop_scale = torch.as_tensor(hop_scale, device=device,
+                                            dtype=torch.float32)
+            grads, metrics = grads_and_metrics(
+                red.full_params(state.params), tokens, lengths, feats, labels, hop_scale,
+                _generator(device, state.seed, state.step, 0))
+            grads, metrics = red.reduce(grads, metrics)
+            lrs = {"embed": lr, "rnn": lr, "mult": mult_lr,
+                   "backbone": lr * float(tcfg.backbone_lr_scale)}
+            new_params, new_opt = {}, {}
+            for i, g in enumerate(groups):
+                gg = grads[g]
+                if g == "backbone":
+                    # the zero-signal test on the gradient before its noise: the
+                    # noise alone would keep a dead backbone's norm above 0
+                    alive = (red.norm(g, gg) > 0).float()
+                if g != "backbone" or tcfg.backbone_grad_noise:
+                    # state.step counts completed steps; the noise schedule takes
+                    # the 1-based iteration (the reference's `it`, :598)
+                    with span("trainer.noise"):
+                        gg = red.noise(
+                            g, gg, _generator(device, state.seed, state.step, 1 + i),
+                            state.step + 1, tcfg.noisy_eta, tcfg.noisy_gamma)
+                with span("trainer.clip"):
+                    gg, norm = clip_by_global_norm(gg, tcfg.grad_clip, norm=red.norm(g, gg))
+                with span("trainer.adam"):
+                    new_params[g], new_opt[g] = adam_update(
+                        state.params[g], gg, lrs[g], state.opt[g],
+                        beta1=tcfg.adam_beta1, beta2=tcfg.adam_beta2,
+                        epsilon=tcfg.adam_epsilon)
+                    if g == "backbone":
+                        if tcfg.backbone_trust_ratio > 0:
+                            new_params[g] = trust_ratio_cap(
+                                new_params[g], state.params[g], tcfg.backbone_trust_ratio,
+                                norms=lambda t, g=g: red.leaf_norms(g, t))
+                        # the zero-signal freeze: an exactly-zero backbone gradient
+                        # (a saturated head) moves nothing, stale momentum included
+                        new_params[g] = map_tree(lambda n, o: o + (n - o) * alive.to(n.dtype),
+                                                 new_params[g], state.params[g])
+                metrics[f"grad_norm_{g}"] = norm
+            return TrainState(new_params, new_opt, state.step + 1,
+                              state.seed), metrics
 
     return step_fn
 

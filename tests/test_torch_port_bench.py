@@ -152,4 +152,10 @@ def test_profile_cpu_writes_a_trace(tmp_path, capsys):
     with open(os.path.join(out, "trace.json")) as f:
         trace = json.load(f)
     assert trace["traceEvents"]
-    assert "traced 2 steps" in capsys.readouterr().out
+    printed = capsys.readouterr().out
+    assert "traced 2 steps" in printed
+    # the last line: the step's time untraced and traced, each span a step
+    line = json.loads(printed.strip().splitlines()[-1])
+    assert line["steps"] == 2 and line["untraced_step_ms"] > 0 and line["traced_step_ms"] > 0
+    assert line["spans_a_step"]["trainer.step"]["calls"] == 1.0
+    assert line["spans_a_step"]["trainer.adam"]["calls"] == 3.0

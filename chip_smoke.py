@@ -46,10 +46,20 @@ Phases, in order; any failure exits non-zero:
               dropped bias must land beyond twice the bar; a host watchdog
               ends the run with a message if the stage checks hang, and the
               kernel's own mbarrier watchdog traps a wait that never ends;
+   embed_image — the image embedding's 3xTF32 kernel against the parent's
+              path (``embed_image`` and the casts, float32 cuBLAS) at Dc 512,
+              1024 and 2048 and B in {1, 16, 120, 512}: the share of its bf16
+              outputs off the float64 result's rounding within 1.25x the
+              parent's + 1e-4 (TF32 on misses that limit: the control), two
+              calls bit-equal, one launch a call and no fallback, its time at
+              most the parent's path's at every batch, logged beside its
+              3xTF32 bound; ``embed_image_phase`` runs alone after building
+              ``embed_image``;
 4. serving  — ``make_predict_step`` on cuda answers batches of 1, 4, 16, 83
               and 512 with length buckets 8, 16 and 26 each hit; outputs are
-              finite and agree with the plain float32 path; both serving
-              kernels' launch counts rose during this phase;
+              finite and agree with the plain float32 path; the three serving
+              kernels' launch counts rose during this phase, the image
+              embedding's with no fallback;
 5. training — ``make_train_step`` on cuda, ``ours_ms``, B=100, T=26, 10 steps
               on one batch with all dropout and gradient noise on, losses and
               grad norms finite and the last loss below the first, in three
@@ -821,6 +831,7 @@ def trainer_phase(seed: int, card: str) -> dict:
     from rau_vqa_tpu_torch.data.features import PackedShardWriter, T7DirFeatureSource
     from rau_vqa_tpu_torch.data.fixtures import FixtureSpec, fixture_bundle
     from rau_vqa_tpu_torch.data.loader import build_vqa_data
+    from rau_vqa_tpu_torch.ops import embed_image as embed_op
     from rau_vqa_tpu_torch.ops import lstm_encoder, rau_hops
     from rau_vqa_tpu_torch.ops import rau_train_hops as rth
     from rau_vqa_tpu_torch.train.trainer import Trainer
@@ -828,6 +839,7 @@ def trainer_phase(seed: int, card: str) -> dict:
         flush_checkpoint_writes, latest_checkpoint)
 
     counters = {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL,
+                "embed_image": embed_op.KERNEL,
                 "train_hops_fwd": rth.FWD_KERNEL, "train_hops_bwd": rth.BWD_KERNEL}
     total = {k: 0 for k in counters}
     # the JAX package's paper-dims fixture (scripts/paper_dims_run.py:55-63)
@@ -1077,8 +1089,8 @@ def trainer_phase(seed: int, card: str) -> dict:
                 f"snapshot {os.path.getsize(p_sync) / 1e6:.1f} MB; the two saves "
                 f"byte-identical, the restore bit-identical [{card}]")
             log(f"trainer {name}: launches in the four fits {launched}")
-            want = (("lstm_encode", "rau_hops", "train_hops_fwd", "train_hops_bwd")
-                    if model else ("lstm_encode", "rau_hops"))
+            want = (("lstm_encode", "rau_hops", "embed_image", "train_hops_fwd",
+                     "train_hops_bwd") if model else ("lstm_encode", "rau_hops", "embed_image"))
             if any(launched[k] < 1 for k in want) or (
                     not model and launched["train_hops_fwd"] + launched["train_hops_bwd"]):
                 raise SystemExit(f"trainer {name}: the path's kernels did not run as "
@@ -1143,6 +1155,7 @@ def serve_phase(seed: int, card: str) -> dict:
     from rau_vqa_tpu_torch.eval.predict import predict, predict_fused
     from rau_vqa_tpu_torch.models import pipeline
     from rau_vqa_tpu_torch.models.backbones import resnet
+    from rau_vqa_tpu_torch.ops import embed_image as embed_op
     from rau_vqa_tpu_torch.ops import fused_resnet, lstm_encoder, rau_hops
     from rau_vqa_tpu_torch.serve import RAUService, serve
     from rau_vqa_tpu_torch.train.trainer import init_train_state
@@ -1151,7 +1164,7 @@ def serve_phase(seed: int, card: str) -> dict:
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     counters = {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL,
-                "fused_identity_stage": fused_resnet.KERNEL}
+                "embed_image": embed_op.KERNEL, "fused_identity_stage": fused_resnet.KERNEL}
     total = {k: 0 for k in counters}
     dispatches = [0]
 
@@ -1294,7 +1307,8 @@ def serve_phase(seed: int, card: str) -> dict:
             for what, seen in (("warm-up", warm_launch), ("unloaded", seq_launch),
                                ("saturated", sat_launch)):
                 log(f"serve {what}: launches {seen}")
-                if not seen["lstm_encode"] == seen["rau_hops"] == seen["dispatches"] > 0:
+                if not seen["lstm_encode"] == seen["rau_hops"] == seen["embed_image"] \
+                        == seen["dispatches"] > 0:
                     failed.append(f"{what} launches {seen}")
             # 7. /answer_many: 3 questions about one image, one feature fetch
             name = data.test_data.img_names[0]
@@ -1509,7 +1523,7 @@ def serve_phase(seed: int, card: str) -> dict:
             svc_r.close()
             srv_thread.join(60)
     log(f"serve launches in the driven requests {total}, dispatches {dispatches[0]}")
-    if not total["lstm_encode"] == total["rau_hops"] == dispatches[0]:
+    if not total["lstm_encode"] == total["rau_hops"] == total["embed_image"] == dispatches[0]:
         failed.append(f"launches {total} for {dispatches[0]} dispatches")
     log(f"serve_phase_s={time.perf_counter() - t_phase:.1f} [{card}]")
     if failed:
@@ -1606,6 +1620,7 @@ def backbones_phase(seed: int, card: str) -> dict:
     from rau_vqa_tpu_torch.models import pipeline
     from rau_vqa_tpu_torch.models.backbones import vgg, vit
     from rau_vqa_tpu_torch.models.rau import embed_image, embed_question, init_params
+    from rau_vqa_tpu_torch.ops import embed_image as embed_op
     from rau_vqa_tpu_torch.ops import fused_resnet, lstm_encoder, rau_hops
     from rau_vqa_tpu_torch.precompute import (
         precompute_features, quantize_feats_device, scan_image_dir, unique_by_feat_name)
@@ -1615,7 +1630,8 @@ def backbones_phase(seed: int, card: str) -> dict:
     t_phase = time.perf_counter()
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     rs = np.random.RandomState(seed + 40)
-    heads = {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL}
+    heads = {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL,
+             "embed_image": embed_op.KERNEL}
     total = dict.fromkeys(heads, 0)
     failed = []
 
@@ -1696,7 +1712,7 @@ def backbones_phase(seed: int, card: str) -> dict:
         n_all = sum(n_calls.values())
         log(f"{name} answer_pixels launches in {n_all} calls: {launched}, stage kernel "
             f"{fused_resnet.KERNEL.launches}")
-        if launched != {"lstm_encode": n_all, "rau_hops": n_all} or fused_resnet.KERNEL.launches:
+        if launched != dict.fromkeys(heads, n_all) or fused_resnet.KERNEL.launches:
             raise SystemExit(f"{name}: expected one launch of each head kernel a call and "
                              f"no stage kernel, got {launched}, {fused_resnet.KERNEL.launches}")
         count(launched)
@@ -1948,7 +1964,7 @@ def backbones_phase(seed: int, card: str) -> dict:
             served = {n: k.launches for n, k in heads.items()}
             log(f"serve vgg16: launches in 6 requests {served}, dispatches "
                 f"{svc.stats()['dispatches']}")
-            if served["lstm_encode"] < 1 or served["rau_hops"] < 1:
+            if min(served.values()) < 1:
                 failed.append(f"serve vgg16: the head kernels did not run: {served}")
             count(served)
         finally:
@@ -2412,7 +2428,8 @@ def fit_subphase(seed: int, card: str, failed: list, counted: dict) -> dict:
                     return records[-1]
 
                 def sweep(**kw):
-                    b = {n: counted[n].launches for n in ("lstm_encode", "rau_hops")}
+                    b = {n: counted[n].launches
+                         for n in ("lstm_encode", "rau_hops", "embed_image")}
                     t = time.perf_counter()
                     res = evaluate(**kw)
                     sweeps.append({"s": time.perf_counter() - t, **{
@@ -2455,7 +2472,8 @@ def fit_subphase(seed: int, card: str, failed: list, counted: dict) -> dict:
                         or not all(r.get("grad_norm_backbone", 0) > 0 for r in records)
                         or bad_lr or len(rates) != sum(steps) or len(sweeps) != FIT_EPOCHS
                         or not all(sw["lstm_encode"] > 0 and sw["rau_hops"] > 0
-                                   for sw in sweeps) or len(snaps) != 1):
+                                   and sw["embed_image"] > 0 for sw in sweeps)
+                        or len(snaps) != 1):
                     failed.append(f"fit {route}: records {records}, rates off {bad_lr[:2]}, "
                                   f"sweeps {sweeps}, snapshots {snaps}")
                 train_k = ("train_hops_fwd_bf16", "train_hops_bwd_dfeats_bf16")
@@ -2518,6 +2536,7 @@ def finetune_phase(seed: int, card: str) -> dict:
     from rau_vqa_tpu_torch.models import pipeline
     from rau_vqa_tpu_torch.models.backbones import resnet, vgg
     from rau_vqa_tpu_torch.models.rau import init_params
+    from rau_vqa_tpu_torch.ops import embed_image as embed_op
     from rau_vqa_tpu_torch.ops import lstm_encoder, rau_hops
     from rau_vqa_tpu_torch.ops import rau_train_hops as rth
     from rau_vqa_tpu_torch.serve import RAUService
@@ -2759,7 +2778,8 @@ def finetune_phase(seed: int, card: str) -> dict:
                "train_hops_fwd_bf16": rth.FWD_BF16_KERNEL,
                "train_hops_bwd_bf16": rth.BWD_BF16_KERNEL,
                "train_hops_bwd_dfeats_bf16": rth.BWD_DFEATS_BF16_KERNEL,
-               "lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL}
+               "lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL,
+               "embed_image": embed_op.KERNEL}
     for k in counted.values():
         k.launches = 0
     init = init_train_state(mcfg2, seed, bb_params=vbb)
@@ -2874,7 +2894,7 @@ def finetune_phase(seed: int, card: str) -> dict:
         finally:
             svc.close()
     torch.cuda.synchronize()
-    for n in ("lstm_encode", "rau_hops"):
+    for n in ("lstm_encode", "rau_hops", "embed_image"):
         launches[n] += counted[n].launches
     del vbb
     torch.cuda.empty_cache()
@@ -3056,6 +3076,7 @@ def workflow_phase(seed: int, card: str) -> dict:
     from rau_vqa_tpu_torch.data.loader import (
         load_gt_annotations, load_vqa_data, read_prepro)
     from rau_vqa_tpu_torch.eval.submission import write_results
+    from rau_vqa_tpu_torch.ops import embed_image as embed_op
     from rau_vqa_tpu_torch.ops import lstm_encoder, rau_hops
     from rau_vqa_tpu_torch.ops import rau_train_hops as rth
     from rau_vqa_tpu_torch.train import trainer as trainer_mod
@@ -3065,6 +3086,7 @@ def workflow_phase(seed: int, card: str) -> dict:
 
     t_phase = time.perf_counter()
     counters = {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL,
+                "embed_image": embed_op.KERNEL,
                 "train_hops_fwd": rth.FWD_KERNEL, "train_hops_bwd": rth.BWD_KERNEL,
                 "train_hops_fwd_bf16": rth.FWD_BF16_KERNEL,
                 "train_hops_bwd_bf16": rth.BWD_BF16_KERNEL}
@@ -3335,7 +3357,7 @@ def workflow_phase(seed: int, card: str) -> dict:
             raise SystemExit("workflow: diagnose-snapshot did not find the order, or the pair")
         main_path = {k: c.launches for k, c in counters.items()}
         log(f"workflow launches in the commands: {main_path}")
-        if main_path["lstm_encode"] < 1 or main_path["rau_hops"] < 1 or any(
+        if min(main_path[k] for k in ("lstm_encode", "rau_hops", "embed_image")) < 1 or any(
                 main_path[k] for k in counters if k.startswith("train_hops")):
             raise SystemExit(f"workflow: the sweeps' kernels did not run as expected "
                              f"(the preset trains unfused): {main_path}")
@@ -3440,6 +3462,7 @@ def export_bench_phase(seed: int, card: str) -> dict:
     from rau_vqa_tpu_torch.models import pipeline
     from rau_vqa_tpu_torch.models.backbones import resnet
     from rau_vqa_tpu_torch.models.rau import init_params
+    from rau_vqa_tpu_torch.ops import embed_image as embed_op
     from rau_vqa_tpu_torch.ops import fused_resnet, lstm_encoder, rau_hops
     from rau_vqa_tpu_torch.ops import rau_train_hops as rth
     from rau_vqa_tpu_torch.train.trainer import init_train_state
@@ -3449,7 +3472,7 @@ def export_bench_phase(seed: int, card: str) -> dict:
     dev = torch.device(EB_DEVICE)
     dev_flag = ["--device", EB_DEVICE]
     counters = {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL,
-                "fused_identity_stage": fused_resnet.KERNEL,
+                "embed_image": embed_op.KERNEL, "fused_identity_stage": fused_resnet.KERNEL,
                 "train_hops_fwd": rth.FWD_KERNEL, "train_hops_bwd": rth.BWD_KERNEL}
     start = {k: c.launches for k, c in counters.items()}
     failed = []
@@ -3475,23 +3498,25 @@ def export_bench_phase(seed: int, card: str) -> dict:
             tokens, lengths, feats = make_batch(cfg, B, max_len, rs, dev)
             with torch.no_grad():
                 want = step(params, tokens, lengths, feats)
-                k0 = (lstm_encoder.KERNEL.launches, rau_hops.KERNEL.launches)
+                k0 = (lstm_encoder.KERNEL.launches, rau_hops.KERNEL.launches,
+                      embed_op.KERNEL.launches)
                 t0 = time.perf_counter()
                 got = run(tokens, lengths, feats)
                 torch.cuda.synchronize()
                 first_s = time.perf_counter() - t0
-                rose = (lstm_encoder.KERNEL.launches - k0[0], rau_hops.KERNEL.launches - k0[1])
+                rose = (lstm_encoder.KERNEL.launches - k0[0], rau_hops.KERNEL.launches - k0[1],
+                        embed_op.KERNEL.launches - k0[2])
             diff = max((g - w).abs().max().item() for g, w in zip(got, want))
             agree = bool(torch.equal(got[0].argmax(-1), want[0].argmax(-1)))
             log(f"export predict B={B} T<={max_len}: max |artifact - PredictStep| {diff:.3e} "
                 f"(bar rtol 1e-3 atol 1e-4), per-hop answers equal {agree}, launches "
-                f"{rose} (want (1, 1)), first call {first_s:.3f} s [{card}]")
+                f"{rose} (want (1, 1, 1)), first call {first_s:.3f} s [{card}]")
             try:
                 for g, w in zip(got, want):
                     torch.testing.assert_close(g, w, **SERVE_BAR)
             except AssertionError as e:
                 failed.append(f"(a) B={B}: {str(e).splitlines()[0]}")
-            if not agree or rose != (1, 1):
+            if not agree or rose != (1, 1, 1):
                 failed.append(f"(a) B={B}: answers equal {agree}, launches {rose}")
 
         # (b) the pixels artifact of ours_resnet, a folded bf16 ResNet-101, 448 px
@@ -3512,7 +3537,7 @@ def export_bench_phase(seed: int, card: str) -> dict:
         with torch.no_grad():
             ids, att = pipeline.answer_pixels(params_r, bb, cfg_r, "resnet101", images,
                                               tokens, lengths, device=dev)
-            k0 = {k: counters[k].launches for k in ("lstm_encode", "rau_hops",
+            k0 = {k: counters[k].launches for k in ("lstm_encode", "rau_hops", "embed_image",
                                                     "fused_identity_stage")}
             tab_p, att_p = E.load_exported(pix)(images, tokens, lengths)
             torch.cuda.synchronize()
@@ -3521,8 +3546,9 @@ def export_bench_phase(seed: int, card: str) -> dict:
         agree = bool(torch.equal(tab_p.argmax(-1), ids))
         log(f"export pixels B={B}: export {pix_s:.2f} s; per-hop answers equal to "
             f"answer_pixels {agree}, max |attention diff| {diff:.3e} (bar rtol 1e-3 atol "
-            f"1e-4), launches {rose} (want 1, 1, 4) [{card}]")
-        if not agree or rose != {"lstm_encode": 1, "rau_hops": 1, "fused_identity_stage": 4}:
+            f"1e-4), launches {rose} (want 1, 1, 1, 4) [{card}]")
+        if not agree or rose != {"lstm_encode": 1, "rau_hops": 1, "embed_image": 1,
+                                 "fused_identity_stage": 4}:
             failed.append(f"(b) answers equal {agree}, launches {rose}")
         try:
             torch.testing.assert_close(att_p, att, **SERVE_BAR)
@@ -3650,9 +3676,10 @@ def mesh_inputs(seed: int, dev) -> dict:
 
 
 def _mesh_counters():
-    from rau_vqa_tpu_torch.ops import fused_resnet, lstm_encoder, rau_hops
+    from rau_vqa_tpu_torch.ops import embed_image, fused_resnet, lstm_encoder, rau_hops
     from rau_vqa_tpu_torch.ops import rau_train_hops as rth
     return {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL,
+            "embed_image": embed_image.KERNEL,
             "train_hops_fwd": rth.FWD_KERNEL, "train_hops_bwd": rth.BWD_KERNEL,
             "fused_identity_stage": fused_resnet.KERNEL}
 
@@ -4115,6 +4142,7 @@ def variants_phase(seed: int, card: str) -> dict:
     from rau_vqa_tpu_torch.models import pipeline
     from rau_vqa_tpu_torch.models.backbones import resnet
     from rau_vqa_tpu_torch.models.rau import init_params
+    from rau_vqa_tpu_torch.ops import embed_image as embed_op
     from rau_vqa_tpu_torch.ops import fused_resnet, lstm_encoder, rau_hops
     from rau_vqa_tpu_torch.ops import transforms as T
 
@@ -4122,7 +4150,7 @@ def variants_phase(seed: int, card: str) -> dict:
     dev, cpu, bf16 = torch.device(VAR_DEVICE), torch.device("cpu"), torch.bfloat16
     rs = np.random.RandomState(seed + 15)
     kernels = {"fused_identity_stage": fused_resnet.KERNEL, "lstm_encode": lstm_encoder.KERNEL,
-               "rau_hops": rau_hops.KERNEL}
+               "rau_hops": rau_hops.KERNEL, "embed_image": embed_op.KERNEL}
     launches = dict.fromkeys(kernels, 0)
     failed = []
     B, side, n = VAR_B, VAR_SIDE, VAR_CHECK
@@ -4210,7 +4238,7 @@ def variants_phase(seed: int, card: str) -> dict:
     sync(dev)
     got = {name: k.launches for name, k in kernels.items()}
     log(f"variants (b) answer_pixels on the s2d tree: launches {got}")
-    if got != {"fused_identity_stage": 4, "lstm_encode": 1, "rau_hops": 1}:
+    if got != {"fused_identity_stage": 4, "lstm_encode": 1, "rau_hops": 1, "embed_image": 1}:
         failed.append(f"(b) answer_pixels on the s2d tree launched {got}")
     for name in launches:
         launches[name] += got[name]
@@ -4575,6 +4603,122 @@ def scripts_phase(seed: int, card: str) -> dict:
     return {"launches": launches, "lines": lines}
 
 
+# the image embedding's cases: (Dc, S) of ours_ms / ours_ss / ours_full, ours_vit
+# and ours_resnet, each at the service's, the pixels cell's and the serving
+# cells' batches
+EMBED_WIDTHS = ((512, 196), (1024, 256), (2048, 196))
+EMBED_BATCHES = (1, 16, 120, 512)
+EMBED_DEVICE = "cuda"        # a CPU rehearsal sets "cpu" (and the batches above)
+
+
+def embed_flip_shares(got, mp, feats):
+    """The shares of bf16 ``ifeat`` and ``iatt`` values that differ from the
+    bf16 rounding of the float64 result (``iatt`` from the float64
+    ``ifeat``)."""
+    i64 = torch.tanh(feats.double() @ mp["i_embed"]["w"].double() + mp["i_embed"]["b"].double())
+    a64 = i64 @ mp["att_i"]["w"].double() + mp["att_i"]["b"].double()
+    return tuple((g != w.to(torch.bfloat16)).float().mean().item()
+                 for g, w in zip(got, (i64, a64)))
+
+
+def embed_flip_limit(parent: float) -> float:
+    """The kernel's limit on a flip share: 1.25 x the parent's path's on the
+    same inputs, + 1e-4."""
+    return 1.25 * parent + 1e-4
+
+
+def embed_inputs(Dc, S, B, gen, dev):
+    """(mult tree of embed_image's weights at uniform(+-0.08), ReLU-normal
+    feats [B, S, Dc]), M = 512 and F = 256 as every configuration has them."""
+    def u(*shape):
+        return torch.rand(*shape, generator=gen, device=dev) * 0.16 - 0.08
+    mp = {"i_embed": {"w": u(Dc, 512), "b": u(512)}, "att_i": {"w": u(512, 256), "b": u(256)}}
+    return mp, torch.randn(B, S, Dc, generator=gen, device=dev).clamp_(min=0)
+
+
+def embed_image_phase(seed: int, card: str) -> dict:
+    """The image embedding's kernel against the parent's path (``embed_image``
+    plus the two casts: float32 cuBLAS with TF32 off, its ``library_ms``):
+    the share of bf16 outputs off the float64 result's rounding within
+    ``embed_flip_limit`` of the parent's, with TF32 on reading far beyond it
+    (the control); two calls bit-equal; one launch a call;
+    its time beside the parent's, which it may not exceed at any batch, and
+    beside its 3xTF32 bound.  Returns the kernels line's entry (at ours_ms
+    widths, B = 512) and every case's readings."""
+    from rau_vqa_tpu_torch.ops import embed_image as E
+    dev = torch.device(EMBED_DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_sm = (torch.cuda.get_device_properties(0).multi_processor_count
+            if dev.type == "cuda" else 132)
+    failed, cases = [], []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    for Dc, S in EMBED_WIDTHS:
+        for B in EMBED_BATCHES:
+            mp, feats = embed_inputs(Dc, S, B, gen, dev)
+            ew = E.pack_embed_weights(mp)
+            plain = (feats, mp["i_embed"]["w"], mp["i_embed"]["b"], mp["att_i"]["w"],
+                     mp["att_i"]["b"])
+            launches = E.KERNEL.launches
+            with torch.no_grad():
+                got = E.embed_image(mp, ew, feats)
+                again = E.embed_image(mp, ew, feats)
+                launches = E.KERNEL.launches - launches
+                parent = E.embed_image_reference(*plain)
+                torch.backends.cuda.matmul.allow_tf32 = True
+                control = E.embed_image_reference(*plain)
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                flips = {name: embed_flip_shares(out, mp, feats)
+                         for name, out in (("kernel", got), ("parent", parent),
+                                           ("tf32", control))}
+                ms = time_ms(lambda: E.embed_image(mp, ew, feats), iters=50)
+                library_ms = time_ms(lambda: E.embed_image_reference(*plain), iters=50)
+                host_s = 0.0
+                for _ in range(20):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    E.embed_image(mp, ew, feats)
+                    host_s += time.perf_counter() - t0
+            rows = B * S
+            case = {"Dc": Dc, "S": S, "B": B, "plan": dataclasses.astuple(
+                        E.embed_plan(rows, 512, 256, n_sm)),
+                    "launches": launches,
+                    "bit_equal": all(torch.equal(a, b) for a, b in zip(got, again)),
+                    "flips": flips, "ms": ms, "library_ms": library_ms,
+                    "host_enqueue_ms": host_s / 20 * 1e3,
+                    "bound_ms": E.bound_s(rows, Dc, 512, 256) * 1e3,
+                    "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                       for a, b in zip(got, parent))}
+            cases.append(case)
+            log(f"embed_image Dc={Dc} S={S} B={B}: plan {case['plan']}, {launches} launches "
+                f"in 2 calls, bit-equal {case['bit_equal']}; bf16 "
+                f"outputs off the float64 rounding (ifeat, iatt): kernel {flips['kernel']}, "
+                f"parent's path {flips['parent']}, TF32 on {flips['tf32']}; ms={ms:.4f} "
+                f"library_ms={library_ms:.4f} bound_ms={case['bound_ms']:.4f} (3 x FLOPs at "
+                f"{E.TF32_PEAK / 1e12:.0f} TFLOP/s TF32) host_enqueue_ms="
+                f"{case['host_enqueue_ms']:.4f} [{card}]")
+            what = f"Dc={Dc} S={S} B={B}"
+            if launches != 2 or not case["bit_equal"]:
+                failed.append(f"{what}: {launches} launches, bit-equal {case['bit_equal']}")
+            for k, (kern, par, ctl) in enumerate(zip(flips["kernel"], flips["parent"],
+                                                     flips["tf32"])):
+                limit = embed_flip_limit(par)
+                if not kern <= limit or not ctl > limit:
+                    failed.append(f"{what} output {k}: kernel {kern}, TF32 {ctl}, limit {limit}")
+            if not ms <= library_ms:
+                failed.append(f"{what}: {ms:.4f} ms, slower than the parent's path's "
+                              f"{library_ms:.4f} ms")
+    if failed:
+        raise SystemExit("embed_image: " + "; ".join(failed))
+    log("phase embed_image: ok")
+    main = next(c for c in cases if (c["Dc"], c["B"]) == (512, 512))
+    return {"name": "embed_image", "route": "cuda",
+            "source": "rau_vqa_tpu_torch/csrc/embed_image.cu", "replaces": None,
+            "phase_launches": sum(c["launches"] for c in cases),
+            "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["library_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "operations", "library_ms": main["library_ms"], "cases": cases}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4597,6 +4741,7 @@ def main() -> int:
     from rau_vqa_tpu_torch.models.backbones import resnet
     from rau_vqa_tpu_torch.models.rau import (
         embed_image, embed_question, encode_question, init_params)
+    from rau_vqa_tpu_torch.ops import embed_image as embed_op
     from rau_vqa_tpu_torch.ops import _build, fused_resnet, lstm_encoder, maskgen, rau_hops
     from rau_vqa_tpu_torch.ops.transforms import color_normalize
     from rau_vqa_tpu_torch.ops import rau_train_hops as rth
@@ -4624,7 +4769,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build_all(["lstm_encoder", "rau_hops", "maskgen",
                                 "rau_train_hops_fwd", "rau_train_hops_bwd",
-                                "fused_resnet"], force=True)
+                                "fused_resnet", "embed_image"], force=True)
     log(f"build_s={time.perf_counter() - t0:.3f} [{card}]")
     stage_regs = {}   # (TH, TW, NB, ring) -> registers a thread
     for name, rep in reports.items():
@@ -4963,6 +5108,7 @@ def main() -> int:
     if failed:
         raise SystemExit("kernels: " + "; ".join(failed))
     log("phase kernels: ok")
+    embed_entry = embed_image_phase(args.seed, card)
 
     # 4. serving through the user's entry point
     step = make_predict_step(cfg, buckets=(8, 16))
@@ -4970,9 +5116,11 @@ def main() -> int:
     data = [make_batch(cfg, B, max_len, rs, dev) for B, max_len in serve_batches]
     lstm_encoder.KERNEL.launches = 0
     rau_hops.KERNEL.launches = 0
+    embed_launches = embed_op.KERNEL.launches
     outs = [step(params, *batch) for batch in data]
     torch.cuda.synchronize()
     launches = {"lstm_encode": lstm_encoder.KERNEL.launches,
+                "embed_image": embed_op.KERNEL.launches - embed_launches,
                 "rau_hops": rau_hops.KERNEL.launches}
     log(f"serving launches: {launches}")
     if min(launches.values()) < 1:
@@ -5834,6 +5982,21 @@ def main() -> int:
          "bound_by": ft["bound"]["train_hops_bwd_dfeats_bf16"][1], "library_ms": None,
          "device_kernels_a_call": ft["ms"]["train_hops_bwd_dfeats_bf16"]["device_kernels"],
          **resnet_ft_keys("train_hops_bwd_dfeats_bf16")},
+        # ours_ms widths at B=512, every case's readings in "cases"; library_ms:
+        # the parent's path (embed_image and the casts, float32 cuBLAS);
+        # launches: its own phase's and those of the phases that serve, as
+        # lstm_encode's
+        {**embed_entry,
+         "launches": embed_entry["phase_launches"] + launches["embed_image"]
+         + serve_launches["embed_image"] + backbones_launches["embed_image"]
+         + ft_launches["embed_image"] + wf_launches["embed_image"]
+         + eb_launches["embed_image"],
+         "trainer_launches": trainer_launches["embed_image"],
+         "serve_launches": serve_launches["embed_image"],
+         "backbones_launches": backbones_launches["embed_image"],
+         "finetune_launches": ft_launches["embed_image"],
+         "workflow_launches": wf_launches["embed_image"],
+         "export_bench_launches": eb_launches["embed_image"]},
         # the check entry of the device hash; launches: its check's
         {"name": "maskgen", "route": "cuda",
          "source": "rau_vqa_tpu_torch/csrc/maskgen.cu",

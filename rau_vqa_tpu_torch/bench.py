@@ -41,7 +41,7 @@ from rau_vqa_tpu_torch.ops import _build
 METRIC = "vqa_questions_per_sec_per_chip"
 UNIT = "questions/sec"
 DEFAULT_ARTIFACT = os.path.join(_build.BUILD_DIR, "artifacts", "serve_chain")
-SERVING_KERNELS = ("lstm_encoder", "rau_hops")
+SERVING_KERNELS = ("lstm_encoder", "embed_image", "rau_hops")
 
 
 def log(msg: str) -> None:

@@ -583,45 +583,11 @@ cudaError_t launch_blocks(K kernel, size_t smem, int TH_, int TW_, const T* x, T
 
 // ---- host side of the bf16 kernel -----------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
-// the library needs no -lcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A row-major bf16 tensor of `rank` dims (innermost first), its box, 128-byte
 // swizzle; out-of-bounds elements read as zeros.
 bool encode(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
             const uint32_t* box) {
-  EncodeTiled fn = encoder();
-  if (!fn) return false;
-  cuuint64_t gdim[5], gstride[4];
-  cuuint32_t bdim[5], estride[5];
-  uint64_t stride = 2;
-  for (int d = 0; d < rank; ++d) {
-    gdim[d] = dims[d];
-    bdim[d] = box[d];
-    estride[d] = 1;
-    if (d > 0) gstride[d - 1] = stride;
-    stride *= dims[d];
-  }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), gdim, gstride,
-            bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tma_encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rank, dims, box);
 }
 
 template <class K, class Probe>

@@ -17,14 +17,15 @@ The batch axis is a symbolic ``Dim`` (one program serves any batch size of
 at least 1); the token axis is concrete per bucket, as in JAX, and
 truncating the tokens to any bucket covering the batch's longest question is
 exact.  The serving kinds bake the parameters in as constants, prepared
-before the trace: the kernels' bf16 weights (``pack_kernel_weights``) and,
+before the trace: the kernels' weights (``pack_kernel_weights``) and,
 from pixels, the backbone's prepared convolutions and stacked identity runs,
 so that a call casts and stacks nothing.  The chain kinds take the
 parameters as operands.
 
 The default program is what the port's service runs, ``predict_fused``: the
-question LSTM and the hop loop as the custom ops ``rau_vqa::lstm_encode`` and
-``rau_vqa::rau_hops`` (and, from pixels through ResNet-101,
+question LSTM, the image embedding and the hop loop as the custom ops
+``rau_vqa::lstm_encode``, ``rau_vqa::embed_image`` and ``rau_vqa::rau_hops``
+(and, from pixels through ResNet-101,
 ``rau_vqa::fused_identity_stage``), which ``torch.export`` keeps as calls, so
 the loaded program launches the same kernels on the card.  ``fused=False``
 exports the plain float32 ``predict``, the program the JAX artifact holds.
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 
 # registers the rau_vqa:: custom ops that a saved program calls
+import rau_vqa_tpu_torch.ops.embed_image  # noqa: F401
 import rau_vqa_tpu_torch.ops.fused_resnet  # noqa: F401
 import rau_vqa_tpu_torch.ops.lstm_encoder  # noqa: F401
 import rau_vqa_tpu_torch.ops.rau_hops  # noqa: F401

@@ -1,9 +1,10 @@
 """Test-time prediction: the nHop+2 answer sets, and the serving step.
 
 Counterpart of ``rau_vqa_tpu/eval/predict.py``.  ``predict`` is the plain
-float32 path; ``predict_fused`` runs the question LSTM and the hop loop
-through ``ops.lstm_encoder.lstm_encode`` and ``ops.rau_hops.rau_hops``,
-which launch their CUDA kernels on CUDA tensors.  ``make_predict_step``
+float32 path; ``predict_fused`` runs the question LSTM, the image embedding
+and the hop loop through ``ops.lstm_encoder.lstm_encode``,
+``ops.embed_image.embed_image`` and ``ops.rau_hops.rau_hops``, which launch
+their CUDA kernels on CUDA tensors.  ``make_predict_step``
 builds the serving step; it runs on the card unless asked for the CPU.
 
 Multiple-choice answering keeps the reference's mask-by-multiplication
@@ -22,7 +23,8 @@ from rau_vqa_tpu_torch.config import ModelConfig
 from rau_vqa_tpu_torch.convert import MemoRecent
 from rau_vqa_tpu_torch.devices import pick_device
 from rau_vqa_tpu_torch.models.aggregate import select_aggregate
-from rau_vqa_tpu_torch.models.rau import embed_image, rau_forward
+from rau_vqa_tpu_torch.models.rau import rau_forward
+from rau_vqa_tpu_torch.ops.embed_image import embed_image, pack_embed_weights
 from rau_vqa_tpu_torch.ops.lstm_encoder import (
     encode_question_fused,
     pack_encoder_weights,
@@ -66,30 +68,43 @@ def predict(params, cfg: ModelConfig, tokens, lengths, feats
 
 
 def pack_kernel_weights(params) -> Dict:
-    """The two kernels' weights in bf16, cast once per parameter set."""
+    """The kernels' weights, prepared once per parameter set: the encoder's
+    and the hop loop's in bf16, the image embedding's (on the card) split
+    into the tf32 planes of 3xTF32."""
     return {"rnn": pack_encoder_weights(params["rnn"]),
-            "mult": pack_hop_weights(params["mult"])}
+            "mult": pack_hop_weights(params["mult"]),
+            "embed": pack_embed_weights(params["mult"])}
 
 
 def predict_fused(params, kernel_weights: Dict, cfg: ModelConfig, tokens,
-                  lengths, feats) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Like ``predict``, with the question LSTM and the hop loop in the two
-    kernels (bf16 dots, f32 state); ``kernel_weights`` from
-    ``pack_kernel_weights``.  The embedding gather and ``embed_image`` stay
-    PyTorch operations, as they stay XLA in the JAX package.  Its four
-    parts are the spans ``predict.encoder``, ``predict.embed_image`` (with
-    the bf16 casts), ``predict.hops`` and ``predict.aggregate``."""
+                  lengths, feats, image=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Like ``predict``, with the question LSTM and the hop loop in their
+    kernels (bf16 dots, f32 state) and the image embedding in its kernel
+    (float32 products in 3xTF32, bf16 outputs); ``kernel_weights`` from
+    ``pack_kernel_weights``.  ``image``: the embedding's (ifeat, iatt) of
+    ``feats`` where the caller has enqueued it already.  The embedding
+    gather stays a PyTorch operation, as it stays XLA in the JAX package.
+    Its four parts are the spans ``predict.embed_image`` (with the bf16
+    casts), ``predict.encoder``, ``predict.hops`` and ``predict.aggregate``."""
+    if image is None:
+        with span("predict.embed_image"):
+            image = embed_image(params["mult"], kernel_weights["embed"], feats)
     with span("predict.encoder"):
         q = encode_question_fused(params, kernel_weights["rnn"], cfg, tokens,
                                   lengths.to(torch.int32))
-    with span("predict.embed_image"):
-        ifeat, iatt = embed_image(params["mult"], feats)
-        ifeat = ifeat.to(torch.bfloat16).contiguous()
-        iatt = iatt.to(torch.bfloat16).contiguous()
     with span("predict.hops"):
-        scores, do_pred, attprob = rau_hops(kernel_weights["mult"], cfg, q, ifeat, iatt)
+        scores, do_pred, attprob = rau_hops(kernel_weights["mult"], cfg, q, *image)
     with span("predict.aggregate"):
         return _aggregate(scores, do_pred, attprob)
+
+
+def _to_device(x, device: torch.device, dtype=None) -> torch.Tensor:
+    """``x`` on ``device``; host data reaches the card through page-locked
+    memory without blocking (the copy waits for nothing on the host)."""
+    if device.type == "cuda" and not (torch.is_tensor(x) and x.device.type == "cuda"):
+        host = torch.as_tensor(x, dtype=dtype)
+        return host.pin_memory().to(device, non_blocking=True)
+    return torch.as_tensor(x, device=device, dtype=dtype)
 
 
 class PredictStep:
@@ -98,12 +113,20 @@ class PredictStep:
 
     Inputs may be numpy arrays or tensors; they are moved to ``device``.
     With ``buckets``, the token axis is cut to the smallest ladder entry that
-    covers the batch's longest question (exact).  The kernels' bf16 weights
-    are cast on the first call with a parameter set and reused while the
+    covers the batch's longest question (exact).  The kernels' weights
+    are prepared on the first call with a parameter set and reused while the
     same object is passed (parameters are not changed in place at eval).
     A call is the span ``predict.step``, holding ``predict.place`` (the
     inputs to the device, the lengths' host copy, the bucket pick),
-    ``predict.weights`` and ``predict_fused``'s spans."""
+    ``predict.weights`` and ``predict_fused``'s spans.
+
+    The step does not block the host on the card: host inputs are copied
+    from page-locked memory without waiting, and the bucket is picked from
+    the host's lengths.  Lengths that live on the card are copied back
+    without blocking too, and the image embedding, which does not need
+    them, is enqueued before the host waits for that copy, so that the card
+    works through it while the host enqueues the rest (a second
+    ``predict.place`` span holds the wait)."""
 
     def __init__(self, cfg: ModelConfig, buckets: Tuple[int, ...],
                  device: torch.device):
@@ -113,20 +136,33 @@ class PredictStep:
         self._weights_for = MemoRecent(pack_kernel_weights)
 
     def __call__(self, params, tokens, lengths, feats):
-        with span("predict.step"):
+        dev = self.device
+        with span("predict.step"), torch.no_grad():
             with span("predict.place"):
-                lengths_np = np.asarray(lengths.cpu() if torch.is_tensor(lengths)
-                                        else lengths)
-                tokens = torch.as_tensor(tokens, device=self.device)
-                lengths = torch.as_tensor(lengths_np, device=self.device)
-                feats = torch.as_tensor(feats, device=self.device, dtype=torch.float32)
-                if self.ladder is not None:
-                    T = pick_bucket(self.ladder, int(lengths_np.max()))
-                    tokens = tokens[:, :T]
-            with torch.no_grad():
-                with span("predict.weights"):
-                    weights = self._weights_for(params)
-                return predict_fused(params, weights, self.cfg, tokens, lengths, feats)
+                tokens = _to_device(tokens, dev)
+                feats = _to_device(feats, dev, torch.float32)
+                copied = None
+                if torch.is_tensor(lengths) and lengths.device.type == "cuda":
+                    if self.ladder is not None:
+                        host = torch.empty(lengths.shape, dtype=lengths.dtype,
+                                           pin_memory=True)
+                        host.copy_(lengths, non_blocking=True)
+                        copied = torch.cuda.Event()
+                        copied.record()
+                    lengths = lengths.to(dev)
+                else:
+                    host = torch.as_tensor(lengths)
+                    lengths = _to_device(host, dev)
+            with span("predict.weights"):
+                weights = self._weights_for(params)
+            with span("predict.embed_image"):
+                image = embed_image(params["mult"], weights["embed"], feats)
+            if self.ladder is not None:
+                with span("predict.place"):
+                    if copied is not None:
+                        copied.synchronize()
+                    tokens = tokens[:, :pick_bucket(self.ladder, int(host.max()))]
+            return predict_fused(params, weights, self.cfg, tokens, lengths, feats, image)
 
 
 def make_predict_step(cfg: ModelConfig, *, buckets: Tuple[int, ...] = (),

@@ -32,10 +32,11 @@ def add_device_arg(ap: argparse.ArgumentParser) -> None:
 def kernel_counters() -> Dict:
     """Each hand-written kernel's ``_build.Kernel``, under its name in
     ``chip_smoke.py``'s ``kernels`` line."""
-    from rau_vqa_tpu_torch.ops import fused_resnet, lstm_encoder, maskgen, rau_hops
+    from rau_vqa_tpu_torch.ops import embed_image, fused_resnet, lstm_encoder, maskgen, rau_hops
     from rau_vqa_tpu_torch.ops import rau_train_hops as rth
 
-    return {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL,
+    return {"lstm_encode": lstm_encoder.KERNEL, "embed_image": embed_image.KERNEL,
+            "rau_hops": rau_hops.KERNEL,
             "train_hops_fwd": rth.FWD_KERNEL, "train_hops_bwd": rth.BWD_KERNEL,
             "train_hops_fwd_bf16": rth.FWD_BF16_KERNEL,
             "train_hops_bwd_bf16": rth.BWD_BF16_KERNEL,

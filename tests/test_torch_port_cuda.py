@@ -14,6 +14,11 @@ the hop loop at B in {1, 19, 83, 512}, two calls bit-equal, ``hops_plan``'s
 phases the launcher's own (a dry run of it), the device kernels of a call
 as the profiler records them the launcher's, and a scratch buffer the
 launcher cannot run raises.
+The image embedding's 3xTF32 kernel at Dc 512, 1024 and 2048, S 196 and
+256, B in {1, 16, 120, 512}: its bf16 outputs off the float64 result's
+rounding no more often than 1.25x the float32 cuBLAS path's + 1e-4, with
+TF32 on (the control) beyond that; ``predict_fused`` through it at 2048 and
+1024 wide within the serving step's bars; an exported program launching it.
 Training kernels (float32): the mask hash bit for bit; the forward at rtol
 1e-4 / atol 1e-4 over 8 recurrent hops of float32 sums taken in another
 order (two calls bit-equal in both types; a scratch buffer the launcher
@@ -48,6 +53,9 @@ import torch
 
 from chip_smoke import (
     device_kernels,
+    embed_flip_limit,
+    embed_flip_shares,
+    embed_inputs,
     norm_rel,
     scaled_err,
     stage_bar,
@@ -77,6 +85,7 @@ from rau_vqa_tpu_torch.models.pipeline import (
 )
 from rau_vqa_tpu_torch.models.rau import embed_image, embed_question, init_params
 from rau_vqa_tpu_torch.ops import (
+    embed_image as embed_op,
     fused_resnet,
     lstm_encoder,
     maskgen,
@@ -275,11 +284,13 @@ def test_predict_step_runs_both_kernels(cuda_device):
     B = 83
     params, tokens, lengths, feats = _inputs(B, cuda_device, seed=1)
     step = make_predict_step(CFG, buckets=(8, 16))
-    before = (lstm_encoder.KERNEL.launches, rau_hops.KERNEL.launches)
+    before = (lstm_encoder.KERNEL.launches, rau_hops.KERNEL.launches,
+              embed_op.KERNEL.launches)
     tab_pred, tab_att = step(params, tokens, lengths, feats)
     torch.cuda.synchronize()
     assert lstm_encoder.KERNEL.launches == before[0] + 1
     assert rau_hops.KERNEL.launches == before[1] + 1
+    assert embed_op.KERNEL.launches == before[2] + 1
     assert tab_pred.shape == (CFG.n_hops + 2, B, CFG.answer_size)
     assert tab_att.shape == (CFG.n_hops + 2, B, CFG.cnn_spat)
     assert torch.isfinite(tab_pred).all() and torch.isfinite(tab_att).all()
@@ -304,6 +315,140 @@ def test_wrappers_reject_wrong_inputs(cuda_device):
     q = torch.zeros(4, CFG.rnnout_dim, device=cuda_device)
     with pytest.raises(ValueError):   # features must come in as bf16
         rau_hops.rau_hops(hw, CFG, q, ifeat, iatt)
+    ew = embed_op.pack_embed_weights(params["mult"])
+    misaligned = feats.flatten()[1:1 + 196 * 512].view(1, 196, 512)
+    for bad in (feats.double(), feats[..., ::2], misaligned):
+        with pytest.raises(ValueError, match="embed_image"):
+            embed_op.embed_image(params["mult"], ew, bad)
+    with pytest.raises(ValueError, match="planes"):
+        embed_op.embed_image(params["mult"], {}, feats)
+
+
+def test_predict_step_gives_the_same_bits_from_host_and_card_inputs(cuda_device):
+    """The serving step from numpy inputs (copied through page-locked
+    memory without blocking), from card tensors (the lengths copied back
+    without blocking), and without a ladder: the same bits, over calls
+    enqueued back to back."""
+    params, tokens, lengths, feats = _inputs(37, cuda_device, seed=3)
+    step = make_predict_step(CFG, buckets=(8, 16))
+    host = [t.cpu().numpy() for t in (tokens, lengths, feats)]
+    with torch.no_grad():
+        outs = [step(params, tokens, lengths, feats), step(params, *host),
+                step(params, tokens, lengths.cpu(), feats),
+                make_predict_step(CFG)(params, tokens, lengths, feats)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
+
+
+# ---------------------------------------------------------------------------
+# the image embedding
+# ---------------------------------------------------------------------------
+
+EMBED_CASES = [(Dc, S, B) for Dc, S in ((512, 196), (1024, 256), (2048, 196))
+               for B in (1, 16, 120, 512)] + [(2048, 256, 16), (512, 256, 120)]
+
+
+@pytest.mark.parametrize("Dc,S,B", EMBED_CASES)
+def test_embed_image_is_as_accurate_as_the_float32_library_path(cuda_device, Dc, S, B):
+    """The 3xTF32 kernel's bf16 ifeat and iatt: the share that differs from
+    the bf16 rounding of the float64 result is at most 1.25x the parent's
+    path's (float32 cuBLAS with TF32 off, then the casts) + 1e-4, while the
+    same path with TF32 on reads beyond that limit (the control); two calls
+    give the same bits; one launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(Dc + S + B)
+    mp, feats = embed_inputs(Dc, S, B, gen, cuda_device)
+    ew = embed_op.pack_embed_weights(mp)
+    plain = (feats, mp["i_embed"]["w"], mp["i_embed"]["b"], mp["att_i"]["w"], mp["att_i"]["b"])
+    before = embed_op.KERNEL.launches
+    got = embed_op.embed_image(mp, ew, feats)
+    again = embed_op.embed_image(mp, ew, feats)
+    torch.cuda.synchronize()
+    assert embed_op.KERNEL.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert got[0].shape == (B, S, 512) and got[1].shape == (B, S, 256)
+    assert got[0].dtype == got[1].dtype == torch.bfloat16
+    kernel = embed_flip_shares(got, mp, feats)
+    parent = embed_flip_shares(embed_op.embed_image_reference(*plain), mp, feats)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = embed_flip_shares(embed_op.embed_image_reference(*plain), mp, feats)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"embed_image Dc={Dc} S={S} B={B}: shares off the float64 rounding (ifeat, iatt): "
+          f"kernel {kernel}, parent's path {parent}, TF32 {tf32}")
+    for k, p, t in zip(kernel, parent, tf32):
+        assert k <= embed_flip_limit(p)
+        assert t > 10 * embed_flip_limit(p)
+
+
+@pytest.mark.parametrize("Dc,M,F,rows", [(12, 16, 8, 16), (48, 96, 200, 77),
+                                         (516, 520, 264, 130), (2048, 512, 256, 1)])
+def test_embed_image_masks_row_column_and_k_tails(cuda_device, Dc, M, F, rows):
+    """Widths off every tile (the tests' tiny ones, K past the last full
+    32-wide slot, columns past the last full tile, rows past the last full
+    tile): each bf16 output within one bf16 step of the float64 result, and
+    the outputs around them untouched."""
+    gen = torch.Generator(device=cuda_device).manual_seed(Dc + M + F + rows)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=gen, device=cuda_device) * 0.16 - 0.08
+    mp = {"i_embed": {"w": u(Dc, M), "b": u(M)}, "att_i": {"w": u(M, F), "b": u(F)}}
+    feats = torch.randn(rows, Dc, generator=gen, device=cuda_device).clamp_(min=0)
+    before = embed_op.KERNEL.launches
+    ifeat, iatt = embed_op.embed_image(mp, embed_op.pack_embed_weights(mp), feats)
+    torch.cuda.synchronize()
+    assert embed_op.KERNEL.launches == before + 1
+    d = {k: {n: t.double() for n, t in v.items()} for k, v in mp.items()}
+    want_i = torch.tanh(feats.double() @ d["i_embed"]["w"] + d["i_embed"]["b"])
+    want_a = want_i @ d["att_i"]["w"] + d["att_i"]["b"]
+    for got, want in ((ifeat, want_i), (iatt, want_a)):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        err = (got.double() - want).abs()
+        assert (err <= 2.0 ** -7 * want.abs() + 1e-5).all(), err.max().item()
+
+
+@pytest.mark.parametrize("preset,B", [("ours_resnet", 120), ("ours_vit", 16)])
+def test_predict_fused_through_the_embed_kernel_matches_plain(cuda_device, preset, B):
+    """``predict_fused`` with the image embedding in its kernel, at the
+    2048- and 1024-wide configurations, within the serving step's bars of
+    ``test_predict_step_runs_both_kernels`` against the plain float32
+    ``predict``; every serving kernel launched once."""
+    cfg = get_preset(preset)
+    params, tokens, lengths, feats = _inputs(B, cuda_device, seed=7, cfg=cfg)
+    before = (lstm_encoder.KERNEL.launches, rau_hops.KERNEL.launches,
+              embed_op.KERNEL.launches)
+    with torch.no_grad():
+        tab_pred, _ = predict_fused(params, pack_kernel_weights(params), cfg, tokens, lengths,
+                                    feats)
+        ref_pred, _ = predict(params, cfg, tokens, lengths, feats)
+    torch.cuda.synchronize()
+    assert (lstm_encoder.KERNEL.launches, rau_hops.KERNEL.launches,
+            embed_op.KERNEL.launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
+    torch.testing.assert_close(tab_pred, ref_pred, rtol=0.05, atol=0.02)
+    oe, _ = compute_answers(tab_pred)
+    oe_ref, _ = compute_answers(ref_pred)
+    assert (oe == oe_ref).float().mean().item() > 0.95
+
+
+def test_exported_program_launches_the_embed_image_kernel(cuda_device, tmp_path):
+    """An exported predict program keeps ``rau_vqa::embed_image`` as a call:
+    loaded, it launches the three serving kernels once each and gives the
+    live step's bits on the same ladder."""
+    from rau_vqa_tpu_torch.eval.export import export_predict, load_exported
+
+    params, tokens, lengths, feats = _inputs(19, cuda_device, seed=4)
+    export_predict(params, CFG, str(tmp_path), buckets=(8,), device=cuda_device)
+    program = load_exported(str(tmp_path))
+    before = (lstm_encoder.KERNEL.launches, rau_hops.KERNEL.launches,
+              embed_op.KERNEL.launches)
+    got = program(tokens, lengths, feats)
+    torch.cuda.synchronize()
+    assert (lstm_encoder.KERNEL.launches, rau_hops.KERNEL.launches,
+            embed_op.KERNEL.launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
+    with torch.no_grad():
+        want = make_predict_step(CFG, buckets=(8,))(params, tokens, lengths, feats)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 # ---------------------------------------------------------------------------

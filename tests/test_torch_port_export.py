@@ -442,7 +442,7 @@ def test_ops_have_a_kernel_on_each_device_and_a_shape_function():
     """Each serving op dispatches to its plain version on the CPU and to
     its own implementation on CUDA (none falls through to the CPU one), and
     has a shape function for the trace."""
-    for op in ("lstm_encode", "rau_hops", "fused_identity_stage"):
+    for op in ("lstm_encode", "embed_image", "rau_hops", "fused_identity_stage"):
         name = f"rau_vqa::{op}"
         for key in ("CPU", "CUDA", "Meta"):
             assert torch._C._dispatch_has_kernel_for_dispatch_key(name, key), (op, key)

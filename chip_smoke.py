@@ -354,6 +354,16 @@ Phases, in order; any failure exits non-zero:
               arms start from the same head (a digest of its parameters).
               Each line is printed; the ``kernels``
               line's ``scripts_launches`` are the lines' ``launches``.
+17. siglip  — ``ours_siglip`` from pixels through SigLIP so400m/14 at 384 px
+              (bf16 tower from the seed), ``answer_pixels`` at B=32, three
+              calls: each a fused attention a block (27), one launch of the
+              encoder, hop and image-embedding kernels and no stage kernel;
+              against ``pixels_forward`` on the same tree, the kernels' head
+              on its features and the float32 head on the float32 tree's,
+              at ``pixels_gates``' bars; the request's time beside the
+              tower's bf16 bound, the tower and the head alone, the peak
+              memory.  Run at seeds 0 and 1: ``--seed 3`` holds a
+              reference-side near-tie in the pixels gate, PERF.md §7.
 
 Prints each number beside the card's name and power limit, a ``kernels``
 JSON line (the hop kernel's and the training kernels' entries also give
@@ -4627,6 +4637,86 @@ def embed_flip_limit(parent: float) -> float:
     return 1.25 * parent + 1e-4
 
 
+def siglip_phase(seed: int, card: str) -> dict:
+    """Phase 17: ``ours_siglip`` through SigLIP so400m/14 at 384 px by
+    ``answer_pixels`` at B=32; returns the head kernels' launches."""
+    from rau_vqa_tpu_torch.convert import map_tree
+    from rau_vqa_tpu_torch.config import get_preset
+    from rau_vqa_tpu_torch.eval.predict import predict, predict_fused
+    from rau_vqa_tpu_torch.models import pipeline
+    from rau_vqa_tpu_torch.models.backbones import vit
+    from rau_vqa_tpu_torch.models.rau import init_params
+    from rau_vqa_tpu_torch.ops import attention as attn_op
+    from rau_vqa_tpu_torch.ops import embed_image as embed_op
+    from rau_vqa_tpu_torch.ops import fused_resnet, lstm_encoder, rau_hops
+
+    t_phase = time.perf_counter()
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    rs = np.random.RandomState(seed + 50)
+    tower = vit.SIGLIP_SO400M_14_384
+    cfg = get_preset("ours_siglip")
+    params = init_params(cfg, torch.Generator().manual_seed(seed + 51), dev)
+    bb = vit.vit_init(torch.Generator().manual_seed(seed + 52), tower, bf16, dev)
+    B, n_calls = 32, 3
+    data = [(torch.as_tensor(rs.randint(0, 256, (B, tower.image_size, tower.image_size, 3),
+                                        dtype=np.uint8), device=dev),
+             *make_batch(cfg, B, cfg.seq_len, rs, dev)[:2]) for _ in range(n_calls)]
+    counted = {"lstm_encode": lstm_encoder.KERNEL, "rau_hops": rau_hops.KERNEL,
+               "embed_image": embed_op.KERNEL, "fused_identity_stage": fused_resnet.KERNEL,
+               "attention": attn_op.KERNEL}
+    before = {n: k.launches for n, k in counted.items()}
+    outs = [pipeline.answer_pixels(params, bb, cfg, "siglip", *d) for d in data]
+    torch.cuda.synchronize()
+    launched = {n: k.launches - before[n] for n, k in counted.items()}
+    want = {"lstm_encode": n_calls, "rau_hops": n_calls, "embed_image": n_calls,
+            "fused_identity_stage": 0, "attention": n_calls * tower.depth}
+    log(f"siglip answer_pixels launches in {n_calls} calls: {launched} (want {want})")
+    if launched != want:
+        raise SystemExit(f"siglip: launches {launched}, not {want}")
+    failed = []
+    bb_f32 = map_tree(lambda t: t.float(), bb)
+    head_w = pipeline._head_weights(params)
+
+    def f32_feats(images):
+        return torch.cat([pipeline.extract_features("siglip", bb_f32, images[i:i + 8])
+                          for i in range(0, images.shape[0], 8)])
+
+    pooled = {"ids": 0, "plain_f32": 0, "ref_f32": 0}
+    pixels_gates(
+        "siglip", cfg, list(zip(outs, data)),
+        plain=lambda im, t, ln: (pipeline.pixels_forward(params, bb, cfg, "siglip", im, t, ln),
+                                 pipeline.extract_features("siglip", bb, im).float()),
+        head=lambda t, ln, f: predict_fused(params, head_w, cfg, t, ln, f),
+        f32_feats=f32_feats,
+        predict_plain=lambda t, ln, f: predict(params, cfg, t, ln, f),
+        gen=torch.Generator(dev).manual_seed(seed), failed=failed, pooled=pooled)
+    del bb_f32
+    images, tokens, lengths = data[0]
+    ans_ms = time_ms(lambda: pipeline.answer_pixels(params, bb, cfg, "siglip", images, tokens,
+                                                    lengths), iters=10)
+    with torch.no_grad():
+        bb_ms = time_ms(lambda: pipeline.extract_features("siglip", bb, images), iters=10)
+        feats = pipeline.extract_features("siglip", bb, images).float()
+        head_ms = time_ms(lambda: predict_fused(params, head_w, cfg, tokens, lengths, feats),
+                          iters=10)
+    flops = B * vit_flops(tower)
+    b_ms, b_by = bound(nbytes(bb) + images.numel() + feats.numel() * 2, flops, H100_BF16_FLOPS)
+    log(f"siglip_answer_pixels_ms={ans_ms:.4f} B={B} images_per_s={B / ans_ms * 1e3:.1f}; "
+        f"tower alone {bb_ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}: {flops / 1e12:.2f} TFLOP; "
+        f"{flops / bb_ms / 1e9:.1f} TFLOP/s), head alone {head_ms:.4f} ms [{card}]")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pipeline.answer_pixels(params, bb, cfg, "siglip", images, tokens, lengths)
+    torch.cuda.synchronize()
+    log(f"siglip_answer_pixels_peak_mb={(torch.cuda.max_memory_allocated() - held) / 1e6:.1f} "
+        f"B={B} above the {held / 1e6:.1f} MB held [{card}]")
+    if failed:
+        raise SystemExit("siglip: " + "; ".join(failed))
+    log(f"siglip_phase_s={time.perf_counter() - t_phase:.1f} [{card}]")
+    return {n: launched[n] for n in ("lstm_encode", "rau_hops", "embed_image")}
+
+
 def embed_inputs(Dc, S, B, gen, dev):
     """(mult tree of embed_image's weights at uniform(+-0.08), ReLU-normal
     feats [B, S, Dc]), M = 512 and F = 256 as every configuration has them."""
@@ -5858,6 +5948,10 @@ def main() -> int:
     with watchdog(900, "the scripts phase"):
         scripts = scripts_phase(args.seed, card)
     log("phase scripts: ok")
+    # 17. ours_siglip from pixels through SigLIP so400m/14
+    with watchdog(900, "the siglip phase"):
+        siglip_launches = siglip_phase(args.seed, card)
+    log("phase siglip: ok")
 
     s2 = stage_ms[2]
 
@@ -6025,7 +6119,9 @@ def main() -> int:
         k["mesh_launches"] = mesh_launches.get(k["name"], 0)
         k["variants_launches"] = variants["launches"].get(k["name"], 0)
         k["scripts_launches"] = scripts["launches"].get(k["name"], 0)
-        k["launches"] += k["mesh_launches"] + k["variants_launches"] + k["scripts_launches"]
+        k["siglip_launches"] = siglip_launches.get(k["name"], 0)
+        k["launches"] += (k["mesh_launches"] + k["variants_launches"] + k["scripts_launches"]
+                          + k["siglip_launches"])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

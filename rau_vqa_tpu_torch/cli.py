@@ -31,7 +31,7 @@ model config.  ``--fixture`` builds the fixture in memory; ``fixture``,
 port's own reader and writer, ``data/hdf5.py`` (no ``h5py``).  ``train
 --visatt`` dumps attention-map PNGs of the eval sweeps.  ``train`` and
 ``eval`` read raw images with ``--image-root``
-through a frozen ``--backbone`` (vgg16, resnet101 or vit) loaded from
+through a frozen ``--backbone`` (vgg16, resnet101, vit or siglip) loaded from
 ``--backbone-state``; with ``--fixture`` and no ``--image-root``,
 ``--backbone vgg16|resnet101`` writes the fixture's images at 64 px and
 runs a random backbone from a seed.  ``train --train-backbone`` (or
@@ -62,6 +62,9 @@ import dataclasses
 import json
 import os
 import sys
+
+# the backbones a flag names
+BACKBONE_CHOICES = ["vgg16", "resnet101", "vit", "siglip"]
 
 
 def _add_common_data_flags(p: argparse.ArgumentParser) -> None:
@@ -160,14 +163,14 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _add_backbone_flags(p: argparse.ArgumentParser, images: bool) -> None:
-    p.add_argument("--backbone", default=None,
-                   choices=["vgg16", "resnet101", "vit"],
+    p.add_argument("--backbone", default=None, choices=BACKBONE_CHOICES,
                    help="frozen visual backbone on the device (with "
                         "--image-root, or for serve's image_b64 requests)")
     p.add_argument("--backbone-state", default=None,
                    help="the backbone's weights: a torchvision vgg16 or "
-                        "resnet101 state_dict, or a timm ViT-L/14 one (.pth), "
-                        "or a fine-tuned snapshot (.pt or .msgpack)")
+                        "resnet101 state_dict, a timm ViT-L/14 one or a Hugging "
+                        "Face SigLIP vision one (.pth), or a fine-tuned snapshot "
+                        "(.pt or .msgpack)")
     if images:
         p.add_argument("--image-root", default=None,
                        help="train/eval from raw images under this root (paths "
@@ -649,13 +652,14 @@ def cmd_export(args) -> int:
              "backbone_feat_norm": feat_norm}
     if args.backbone:
         import torch
-        if args.backbone == "vit":
-            vcfg = _vit_cfg("vit")
+        if _vit_cfg(args.backbone) is not None:
+            vcfg = _vit_cfg(args.backbone)
             args.image_size = args.image_size or vcfg.image_size
-            _validate_backbone_image_size("vit", args.image_size, "--image-size")
+            _validate_backbone_image_size(args.backbone, args.image_size, "--image-size")
             if vcfg.seq != mcfg.cnn_spat:
-                raise SystemExit(f"ViT-L/14 yields {vcfg.grid}x{vcfg.grid}={vcfg.seq} tokens "
-                                 f"but the snapshot was trained on cnn_spat={mcfg.cnn_spat} "
+                raise SystemExit(f"{_tower_name(args.backbone)} yields {vcfg.grid}x{vcfg.grid}="
+                                 f"{vcfg.seq} tokens but the snapshot was trained on "
+                                 f"cnn_spat={mcfg.cnn_spat} "
                                  f"({mcfg.cnn_w}x{mcfg.cnn_h})")
         else:
             # the conv backbones are stride 32: the feature grid sets the side
@@ -801,7 +805,8 @@ def _load_backbone_state(backbone: str, state_path: str, device, dtype=None):
     serving type) from a local file: a fine-tuned snapshot, the port's
     ``.pt`` or the JAX package's ``.msgpack``, whose backbone group it takes
     (a ResNet folded, ``load_backbone_group``), or else a state dict (.pth)
-    of torchvision's vgg16 or resnet101 (BN folded) or timm's ViT-L/14."""
+    of torchvision's vgg16 or resnet101 (BN folded), timm's ViT-L/14 or
+    Hugging Face's SigLIP vision tower."""
     import torch
 
     from rau_vqa_tpu_torch.convert import map_tree
@@ -821,6 +826,8 @@ def _load_backbone_state(backbone: str, state_path: str, device, dtype=None):
         tree = resnet.fold_batchnorm(resnet.resnet_from_torch_state(state))
     elif backbone == "vit":
         tree = vit_mod.vit_from_timm_state(state, vit_mod.VIT_L14)
+    elif backbone == "siglip":
+        tree = vit_mod.vit_from_hf_siglip_state(state, vit_mod.SIGLIP_SO400M_14_384)
     elif backbone == "vgg16":
         tree = vgg.vgg16_from_torch_state(state)
     else:
@@ -829,20 +836,29 @@ def _load_backbone_state(backbone: str, state_path: str, device, dtype=None):
 
 
 def _vit_cfg(backbone):
-    """The CLI's ViT: ViT-L/14, read when called."""
+    """A transformer backbone's tower (one of ``pipeline.TOWERS``), read from
+    its module when called, so that a tower replaced there is the one run;
+    None for the conv backbones."""
     from rau_vqa_tpu_torch.models.backbones import vit as vit_mod
-    return vit_mod.VIT_L14 if backbone == "vit" else None
+    return {"vit": vit_mod.VIT_L14, "siglip": vit_mod.SIGLIP_SO400M_14_384}.get(backbone)
+
+
+def _tower_name(backbone):
+    from rau_vqa_tpu_torch.models import pipeline
+    return pipeline.TOWER_NAMES[backbone]
 
 
 def _validate_backbone_image_size(backbone, size, flag):
-    """The ViT's position embeddings fix its input side; the stride-32 conv
+    """A tower's position embeddings fix its input side; the stride-32 conv
     backbones take any multiple of 32 (checked against the model's grid in
     ``_make_source_and_backbone``)."""
-    if backbone == "vit":
-        need = _vit_cfg("vit").image_size
+    vcfg = _vit_cfg(backbone)
+    if vcfg is not None:
+        need = vcfg.image_size
         if size != need:
-            raise SystemExit(f"--backbone vit uses the ViT-L/14 config, whose position "
-                             f"embeddings fix the input at {need}px: pass {flag} {need}")
+            raise SystemExit(f"--backbone {backbone} uses the {_tower_name(backbone)} config, "
+                             f"whose position embeddings fix the input at {need}px: pass "
+                             f"{flag} {need}")
 
 
 def _fixture_images(args):
@@ -851,9 +867,9 @@ def _fixture_images(args):
     if not (args.fixture and getattr(args, "backbone", None)
             and not getattr(args, "image_root", None)):
         return None
-    if args.backbone == "vit":
-        raise SystemExit("--fixture --backbone supports the conv backbones (ViT-L/14's "
-                         "position embedding pins 224 px): pass --image-root and "
+    if _vit_cfg(args.backbone) is not None:
+        raise SystemExit("--fixture --backbone supports the conv backbones (a tower's "
+                         "position embedding pins its side): pass --image-root and "
                          "--backbone-state")
     return args.backbone
 
@@ -884,11 +900,12 @@ def _make_source_and_backbone(args, exp, source, workdir, *, adopt_feat_norm=Fal
     _validate_backbone_image_size(args.backbone, args.image_size, "--image-size")
     # the backbone's grid must be the model's attention grid
     mcfg = exp.model
-    if args.backbone == "vit":
-        seq = _vit_cfg("vit").seq
+    vcfg = _vit_cfg(args.backbone)
+    if vcfg is not None:
+        seq = vcfg.seq
         if seq != mcfg.cnn_spat:
-            raise SystemExit(f"ViT-L/14 yields {seq} tokens but the model config "
-                             f"expects cnn_spat={mcfg.cnn_spat} ({mcfg.cnn_w}x{mcfg.cnn_h})")
+            raise SystemExit(f"{_tower_name(args.backbone)} yields {seq} tokens but the model "
+                             f"config expects cnn_spat={mcfg.cnn_spat} ({mcfg.cnn_w}x{mcfg.cnn_h})")
     else:
         # an exact multiple: the strided convs would make a larger grid
         # for any other size (479 px -> 15x15)
@@ -924,9 +941,9 @@ def _make_source_and_backbone(args, exp, source, workdir, *, adopt_feat_norm=Fal
                           f"{exp.train.backbone_feat_norm}: the feature interface "
                           f"will not match the backbone's training")
         return source, args.backbone, bb, exp
-    if args.backbone == "vit":
+    if _vit_cfg(args.backbone) is not None:
         raise SystemExit("--fixture's random backbones are the conv backbones; "
-                         "--backbone vit needs --backbone-state")
+                         f"--backbone {args.backbone} needs --backbone-state")
     from rau_vqa_tpu_torch.models.backbones import resnet, vgg
     print(f"fixture: random-init {args.backbone} backbone (no --backbone-state)")
     gen = torch.Generator().manual_seed(0)
@@ -1010,6 +1027,9 @@ def cmd_precompute_features(args) -> int:
     if not rel:
         raise SystemExit("no images found (empty --image-root scan or empty "
                          "unique_img lists)")
+    if args.size is None:
+        vcfg = _vit_cfg(args.backbone)
+        args.size = vcfg.image_size if vcfg is not None else 448
     _validate_backbone_image_size(args.backbone, args.size, "--size")
     device = pick_device(args.device, "precompute-features")
     bb_params = _load_backbone_state(args.backbone, args.backbone_state, device,
@@ -1362,16 +1382,18 @@ def main(argv=None) -> int:
     p_pre.add_argument("--out", required=True,
                        help="output shard dir (usable as --feat-dir)")
     p_pre.add_argument("--backbone", required=True,
-                       choices=["vgg16", "resnet101", "vit"])
+                       choices=BACKBONE_CHOICES)
     p_pre.add_argument("--backbone-state",
                        help="the backbone's state_dict .pth (torchvision "
-                            "vgg16/resnet101, timm ViT-L/14)")
+                            "vgg16/resnet101, timm ViT-L/14, Hugging Face "
+                            "SigLIP so400m/14-384)")
     p_pre.add_argument("--vqa-dir",
                        help="enumerate images from the prepro json's "
                             "unique_img lists; default: scan --image-root")
-    p_pre.add_argument("--size", type=int, default=448,
-                       help="input resolution (conv backbones: 448 -> 14x14 "
-                            "grid, 224 -> 7x7; vit: its config's, 224)")
+    p_pre.add_argument("--size", type=int, default=None,
+                       help="input resolution (conv backbones: 448, the default, "
+                            "-> 14x14 grid, 224 -> 7x7; vit and siglip: their "
+                            "config's, 224 and 384, the default)")
     p_pre.add_argument("--stall-timeout", type=float, default=900,
                        help="end the run if no batch completes within this "
                             "many seconds; 0 disables")
@@ -1497,7 +1519,7 @@ def main(argv=None) -> int:
     p_exp.add_argument("--no-fused-eval", action="store_true",
                        help="export the plain float32 predict (the JAX artifact's program) "
                             "instead of the serving kernels")
-    p_exp.add_argument("--backbone", default=None, choices=["vgg16", "resnet101", "vit"],
+    p_exp.add_argument("--backbone", default=None, choices=BACKBONE_CHOICES,
                        help="export the from-pixels program (uint8 images + tokens -> "
                             "answers, the backbone baked in)")
     p_exp.add_argument("--backbone-state", default=None,

@@ -156,6 +156,10 @@ TRAIN_PRESETS = {
                                    train_backbone=True, backbone_remat=False)),
     "ours_vit": (ModelConfig(n_hops=8, cnn_dim=1024, cnn_w=16, cnn_h=16),
                  TrainConfig()),
+    # the Ours_MS head over SigLIP so400m/14 at 384 px: its 27x27 patch
+    # tokens of 1152 after the post-LayerNorm
+    "ours_siglip": (ModelConfig(n_hops=8, cnn_dim=1152, cnn_w=27, cnn_h=27),
+                    TrainConfig()),
 }
 PRESETS = {name: pair[0] for name, pair in TRAIN_PRESETS.items()}
 
@@ -265,6 +269,7 @@ _EXPERIMENTS = {
                            feat_dir="./data/vqa_resnet_101_convfeat_448",
                            batch_order="imggroup")),
     "ours_vit": ("RauVitL14Stretch", DataConfig(split="val2014")),
+    "ours_siglip": ("RauSiglipSo400m14x384", DataConfig(split="val2014")),
 }
 
 

@@ -1,8 +1,8 @@
 """From-pixels VQA: the backbone and the RAU head in one call.
 
 Counterpart of ``rau_vqa_tpu/models/pipeline.py`` (:27-92): uint8 images ->
-the backbone's normalization -> VGG16 pool5, ResNet-101 or the ViT ->
-[B, S, D] features -> the RAU head.  ``pixels_forward`` is the plain path
+the backbone's normalization -> VGG16 pool5, ResNet-101, ViT-L/14 or
+SigLIP so400m/14 -> [B, S, D] features -> the RAU head.  ``pixels_forward`` is the plain path
 (no fused stages, the float32 ``rau_forward`` head); ``answer_pixels`` is the
 serving entry point: on the card it sends every ResNet identity run through
 the stage kernel (``ops/fused_resnet.py``) and the head of every backbone
@@ -21,12 +21,15 @@ from rau_vqa_tpu_torch.devices import pick_device
 from rau_vqa_tpu_torch.eval.predict import pack_kernel_weights, predict_fused
 from rau_vqa_tpu_torch.models.backbones.resnet import resnet101_apply
 from rau_vqa_tpu_torch.models.backbones.vgg import vgg16_pool5_apply
-from rau_vqa_tpu_torch.models.backbones.vit import VIT_L14, vit_apply
+from rau_vqa_tpu_torch.models.backbones.vit import SIGLIP_SO400M_14_384, VIT_L14, vit_apply
 from rau_vqa_tpu_torch.models.rau import RAUOutput, rau_forward
 from rau_vqa_tpu_torch.ops import transforms as T
 from rau_vqa_tpu_torch.utils.spans import span
 
-BACKBONES = ("vgg16", "resnet101", "vit")
+BACKBONES = ("vgg16", "resnet101", "vit", "siglip")
+# each transformer backbone's tower when no ``vit_cfg`` is given, and its name
+TOWERS = {"vit": VIT_L14, "siglip": SIGLIP_SO400M_14_384}
+TOWER_NAMES = {"vit": "ViT-L/14", "siglip": "SigLIP so400m/14-384"}
 SERVING_STAGES = (0, 1, 2, 3)
 
 _head_weights = MemoRecent(pack_kernel_weights)
@@ -37,7 +40,9 @@ def extract_features(backbone: str, bb_params: Dict, images_u8: torch.Tensor,
                      remat: bool = False, feat_norm: bool = False) -> torch.Tensor:
     """uint8 [B, H, W, 3] RGB -> [B, S, D] features in the backbone's type,
     normalization included (the two schemes of vqa_prepro_loader.lua:1061-1067;
-    the ViT takes ImageNet mean/std).  ``vit_cfg`` defaults to ViT-L/14.
+    a transformer takes its config's ``mean`` / ``std``: ImageNet's for
+    ViT-L/14, 0.5 for SigLIP).  ``vit_cfg`` defaults to the backbone's
+    ``TOWERS`` entry.
     ``fused_stages`` routes those ResNet stages' identity blocks through the
     stage kernel; the other backbones have no stages to fuse and ignore it,
     as in the JAX package.  ``remat=True`` checkpoints the backbone block by
@@ -51,9 +56,9 @@ def extract_features(backbone: str, bb_params: Dict, images_u8: torch.Tensor,
         feats = resnet101_apply(bb_params, T.color_normalize(x),
                                 fused_stages=tuple(fused_stages),
                                 fused_block_b=fused_block_b, remat=remat)
-    elif backbone == "vit":
-        feats = vit_apply(bb_params, vit_cfg or VIT_L14, T.color_normalize(x),
-                          remat=remat)
+    elif backbone in TOWERS:
+        vc = vit_cfg or TOWERS[backbone]
+        feats = vit_apply(bb_params, vc, T.color_normalize(x, vc.mean, vc.std), remat=remat)
     else:
         raise ValueError(f"unknown backbone {backbone!r}; one of {BACKBONES}")
     if feat_norm:

@@ -71,11 +71,11 @@ class RAUService:
     read by ``data/hdf5.py``) or from ``data``, a ``VQAData`` built in memory.  ``fused``
     runs the serving kernels through ``make_predict_step`` with length
     ``buckets`` ((8, 16) when None); ``fused=False`` the plain float32
-    ``predict``.  ``backbone`` (``"vgg16"``, ``"resnet101"`` or ``"vit"``,
-    with ``vit_cfg``, ViT-L/14 when None) with ``bb_params`` on ``device``
-    (for ResNet-101 a ``fold_batchnorm`` tree) answers image requests,
-    decoded at ``cnn_w`` x 32 px for the conv backbones and ``cnn_w`` x 14
-    for the ViT (``rau_vqa_tpu/serve.py:176-181``).  A fine-tuned snapshot
+    ``predict``.  ``backbone`` (``"vgg16"``, ``"resnet101"``, ``"vit"`` or
+    ``"siglip"``, with ``vit_cfg``, the backbone's tower when None) with
+    ``bb_params`` on ``device`` (for ResNet-101 a ``fold_batchnorm`` tree)
+    answers image requests, decoded at ``cnn_w`` x 32 px for the conv
+    backbones and at a tower's own side (``rau_vqa_tpu/serve.py:176-181``).  A fine-tuned snapshot
     (its sidecar's ``train_backbone``) serves images through its own trained
     backbone group, as stored, unless ``bb_params`` is given
     (``rau_vqa_tpu/serve.py:150-165``).
@@ -168,11 +168,13 @@ class RAUService:
         self.backbone = backbone
         self.bb_params = bb_params
         self.vit_cfg = vit_cfg
-        # the decode size: a pixels artifact's own input side, else the
-        # head's feature grid (the conv backbones are stride 32, ViT-L/14's
-        # patches 14 px)
+        # the decode size: a pixels artifact's own input side, else a
+        # tower's own (its position embedding fixes it), else the head's
+        # feature grid at the conv backbones' stride 32
+        tower = (vit_cfg or pipeline.TOWERS[backbone]) if backbone in pipeline.TOWERS else None
         self.image_size = (int(runner.meta["image_size"]) if self.pixels_artifact
-                           else self.mcfg.cnn_w * (14 if backbone == "vit" else 32))
+                           else tower.image_size if tower is not None
+                           else self.mcfg.cnn_w * 32)
         self.source = (_make_feature_source(",".join(feat_dirs), self.mcfg)
                        if feat_dirs else None)
         if self.source is not None and not self.pixels_artifact:

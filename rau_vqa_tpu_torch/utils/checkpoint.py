@@ -360,9 +360,14 @@ def _lists(raw: Any) -> Any:
     return raw
 
 
-# the top-level keys of each backbone's tree
-_BACKBONE_KEYS = {"vgg16": {"convs"}, "vit": {"patch_embed", "pos_embed", "blocks", "ln_final"},
-                  "resnet101": {"conv1", "stages"}}
+# the top-level keys of each conv backbone's tree, and of every tower's
+_CONV_KEYS = {"vgg16": {"convs"}, "resnet101": {"conv1", "stages"}}
+_TOWER_KEYS = {"patch_embed", "pos_embed", "blocks", "ln_final"}
+
+
+def _backbone_keys() -> Dict:
+    from rau_vqa_tpu_torch.models import pipeline
+    return {**_CONV_KEYS, **{t: _TOWER_KEYS for t in pipeline.TOWERS}}
 
 
 def load_backbone_group(path: str, kind: str, *, fold: bool = True) -> Dict:
@@ -378,7 +383,8 @@ def load_backbone_group(path: str, kind: str, *, fold: bool = True) -> Dict:
 def _backbone_group(params: Dict, kind: str, path: str, *, fold: bool = True) -> Dict:
     """``load_backbone_group`` of a snapshot's params already read from
     ``path``."""
-    if kind not in _BACKBONE_KEYS:
+    kinds = _backbone_keys()
+    if kind not in kinds:
         raise ValueError(f"unknown backbone kind {kind!r}")
     raw = params.get("backbone")
     if raw is None:
@@ -388,7 +394,7 @@ def _backbone_group(params: Dict, kind: str, path: str, *, fold: bool = True) ->
                          f"is read from a .pth)")
     bb = params_from_jax(_lists(raw))
     keys = set(bb) if isinstance(bb, dict) else set()
-    if keys - ({"bn1"} if kind == "resnet101" else set()) != _BACKBONE_KEYS[kind]:
+    if keys - ({"bn1"} if kind == "resnet101" else set()) != kinds[kind]:
         raise ValueError(f"{path}: its backbone group (keys {sorted(keys)}) is not "
                          f"a {kind} tree")
     if kind == "resnet101" and fold and "bn1" in bb:

@@ -235,7 +235,7 @@ def vit_flops(cfg) -> float:
     """A ViT's products an image: the patch embedding, then each block's qkv,
     the two attention products, the projection and the two MLP layers."""
     S, D, P = cfg.seq, cfg.dim, cfg.patch
-    M = int(D * cfg.mlp_ratio)
+    M = cfg.mlp
     block = 2.0 * S * D * (3 * D + D + 2 * M) + 2 * 2.0 * S * S * D
     return 2.0 * S * P * P * 3 * D + cfg.depth * block
 
@@ -245,7 +245,7 @@ def vit_fc2_flops(cfg=None) -> float:
     when None): what block remat does not recompute."""
     from rau_vqa_tpu_torch.models.backbones.vit import VIT_L14
     cfg = cfg or VIT_L14
-    return cfg.depth * 2.0 * cfg.seq * int(cfg.dim * cfg.mlp_ratio) * cfg.dim
+    return cfg.depth * 2.0 * cfg.seq * cfg.mlp * cfg.dim
 
 
 def backbone_stem_flops(backbone: str, size: int, vit_cfg=None) -> float:

@@ -41,7 +41,11 @@ D 1024) against their plain versions at the serving bars, two calls
 bit-equal, the hop kernel's plan the launcher's; ``answer_pixels`` of each
 backbone against ``pixels_forward`` at the pixels phase's bars;
 ``quantize_feats_device`` bit for bit the host writer's, and
-``precompute_features`` on the card against ``extract_features``.
+``precompute_features`` on the card against ``extract_features``.  SigLIP
+so400m/14 at 384 px: both serving kernels and the image embedding at
+``ours_siglip`` widths (S 729, Dc 1152) at the bars above, the fused
+attention at S 729 with 16 heads of 72 against the two bf16 products, and
+``answer_pixels`` through the tower against ``pixels_forward``.
 """
 
 import dataclasses
@@ -77,7 +81,7 @@ from rau_vqa_tpu_torch.eval.predict import (
 )
 from rau_vqa_tpu_torch.models.backbones.resnet import fold_batchnorm, resnet101_init
 from rau_vqa_tpu_torch.models.backbones.vgg import vgg16_pool5_init
-from rau_vqa_tpu_torch.models.backbones.vit import VIT_L14, vit_init
+from rau_vqa_tpu_torch.models.backbones.vit import SIGLIP_SO400M_14_384, VIT_L14, vit_init
 from rau_vqa_tpu_torch.models.pipeline import (
     answer_pixels,
     extract_features,
@@ -85,6 +89,7 @@ from rau_vqa_tpu_torch.models.pipeline import (
 )
 from rau_vqa_tpu_torch.models.rau import embed_image, embed_question, init_params
 from rau_vqa_tpu_torch.ops import (
+    attention as attn_op,
     embed_image as embed_op,
     fused_resnet,
     lstm_encoder,
@@ -346,7 +351,8 @@ def test_predict_step_gives_the_same_bits_from_host_and_card_inputs(cuda_device)
 # ---------------------------------------------------------------------------
 
 EMBED_CASES = [(Dc, S, B) for Dc, S in ((512, 196), (1024, 256), (2048, 196))
-               for B in (1, 16, 120, 512)] + [(2048, 256, 16), (512, 256, 120)]
+               for B in (1, 16, 120, 512)] + [(2048, 256, 16), (512, 256, 120),
+                                              (1152, 729, 1), (1152, 729, 32)]
 
 
 @pytest.mark.parametrize("Dc,S,B", EMBED_CASES)
@@ -1013,19 +1019,83 @@ def test_serving_kernels_at_ours_vit_widths(cuda_device, B):
     assert torch.equal(got, lstm_encoder.lstm_encode(enc, VIT_CFG, emb, lengths))
 
 
+SIGLIP_CFG = get_preset("ours_siglip")
+
+
+@pytest.mark.parametrize("B", [1, 32])
+def test_serving_kernels_at_ours_siglip_widths(cuda_device, B):
+    """Both serving kernels where ours_siglip runs them (S 729 cells of 1152
+    channels, off every tile of the hop kernel's GEMMs and of the row
+    kernel's S loop): the serving bars of test_serving_kernels_at_ours_vit_widths,
+    two calls bit-equal, the hop kernel's plan the launcher's dry run."""
+    hw, q, ifeat, iatt = _hops_inputs(B, cuda_device, seed=5, cfg=SIGLIP_CFG)
+    assert ifeat.shape == (B, 729, SIGLIP_CFG.multfeat_dim)
+    s, d, a = rau_hops.rau_hops(hw, SIGLIP_CFG, q, ifeat, iatt)
+    again = rau_hops.rau_hops(hw, SIGLIP_CFG, q, ifeat, iatt)
+    s_ref, d_ref, a_ref = rau_hops.rau_hops_reference(
+        hw, SIGLIP_CFG, q, ifeat, iatt, dot_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip((s, d, a), again))
+    torch.testing.assert_close(s, s_ref, rtol=0.05, atol=0.01)
+    assert (s.argmax(-1) == s_ref.argmax(-1)).float().mean().item() > 0.97
+    # attention values are ~1/729 here: the same absolute bar as at S 196
+    torch.testing.assert_close(a, a_ref, rtol=0.05, atol=5e-4)
+    torch.testing.assert_close(d, d_ref, rtol=0.05, atol=5e-3)
+    widths = (SIGLIP_CFG.rnnout_dim, SIGLIP_CFG.cnn_spat, SIGLIP_CFG.multfeat_dim,
+              SIGLIP_CFG.attfeat_dim, SIGLIP_CFG.att_rnn_size, SIGLIP_CFG.answer_size)
+    plan = rau_hops.hops_plan(B, SIGLIP_CFG)
+    scratch, launches = rau_hops.hops_launcher_plan(B, *widths)
+    assert scratch > 0 and [x[:3] for x in launches] == [ph.grid for ph in plan.phases]
+
+
+def test_fused_attention_matches_the_two_products_at_siglip_widths(cuda_device):
+    """SigLIP's attention at B 4, S 729, 16 heads of 72, bf16: the fused op
+    (``scaled_dot_product_attention``) against the two bf16 products around
+    a softmax that the CPU path runs, both against the float32 products.
+    The fused op keeps its scores and sums in float32 where the two-product
+    path rounds the scores and the probabilities to bf16, so it may be no
+    further from float32 than that path is, plus one bf16 step (2^-8) of the
+    output's scale for its own rounding of the output.  One count a call;
+    the device runs no softmax kernel (the scores never leave the chip)."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda_device).manual_seed(27)
+    q, k, v = (torch.randn(4, 16, 729, 72, generator=gen, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    before = attn_op.KERNEL.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = attn_op.attention(q, k, v)
+        torch.cuda.synchronize()
+    assert attn_op.KERNEL.launches == before + 1
+    names = [e.key for e in prof.key_averages()]
+    print(f"fused attention kernels: {names}")
+    assert not any("softmax" in n.lower() for n in names)
+    two = attn_op.attention_reference(q, k, v)
+    want = attn_op.attention_reference(q.float(), k.float(), v.float())
+    scale = want.abs().max().item()
+    e_fused = (got.float() - want).abs().max().item()
+    e_two = (two.float() - want).abs().max().item()
+    print(f"against float32: fused {e_fused:.3e}, two bf16 products {e_two:.3e}, "
+          f"output scale {scale:.3e}")
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert e_fused <= e_two + 2.0 ** -8 * scale
+
+
 def _other_backbone(name, dev):
     """(head config, bf16 tree, image side): VGG16 He x0.72 a convolution
-    (pool5 near unit scale) under ours_ms, ViT-L/14 under ours_vit."""
+    (pool5 near unit scale) under ours_ms, ViT-L/14 under ours_vit, SigLIP
+    so400m/14 under ours_siglip."""
     gen = torch.Generator().manual_seed(1)
     if name == "vgg16":
         bb = vgg16_pool5_init(gen, device=dev)
         bb = {"convs": [{"w": (c["w"] * 0.72).to(torch.bfloat16),
                          "b": c["b"].to(torch.bfloat16)} for c in bb["convs"]]}
         return CFG, bb, 448
+    if name == "siglip":
+        return SIGLIP_CFG, vit_init(gen, SIGLIP_SO400M_14_384, torch.bfloat16, dev), 384
     return VIT_CFG, vit_init(gen, VIT_L14, torch.bfloat16, dev), 224
 
 
-@pytest.mark.parametrize("backbone", ["vgg16", "vit"])
+@pytest.mark.parametrize("backbone", ["vgg16", "vit", "siglip"])
 def test_answer_pixels_other_backbones(cuda_device, backbone):
     """One B=8 call: the encoder and hop kernels once each, no stage kernel;
     against pixels_forward on the same bf16 tree with bf16's own effect
